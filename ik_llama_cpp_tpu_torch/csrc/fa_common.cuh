@@ -1,0 +1,176 @@
+// Shared pieces of the prefill and decode flash-attention kernels: the mask,
+// the tile loaders, and one warp's online-softmax step over a KV tile with
+// bf16 tensor-core products (mma.sync.m16n8k16, float accumulate).
+#pragma once
+
+#include "common.cuh"
+
+constexpr float FA_NEG = -1e30f;   // masked logit, as in the JAX kernels
+
+struct FaMask {
+  int kv_len, swa, chunk;
+};
+
+// Query at absolute position qp may see key: causal, inside the cache fill,
+// inside the sliding window and inside its llama4 attention chunk.
+IK_DEV bool fa_allowed(int key, int qp, const FaMask& mk) {
+  bool ok = key <= qp && key < mk.kv_len;
+  if (mk.swa > 0) ok = ok && key > qp - mk.swa;
+  if (mk.chunk > 0) ok = ok && key >= (qp / mk.chunk) * mk.chunk;
+  return ok;
+}
+
+// First key any query at position >= q_first may see.
+IK_DEV int fa_first_key(int q_first, const FaMask& mk) {
+  int start = 0;
+  if (mk.swa > 0) start = max(start, q_first - mk.swa + 1);
+  if (mk.chunk > 0) start = max(start, (q_first / mk.chunk) * mk.chunk);
+  return start;
+}
+
+// Copies keys [key0, key0 + KT) of one kv head into sk (KT x LDK, key-major)
+// and the values transposed into svt (D x LDV, dim-major), so both B
+// fragments are single 32-bit shared loads. Keys at or past key_end and dims
+// past dk/dv are zero. Rows are read as 16-byte vectors (dk, dv % 8 == 0).
+template <int D, int KT, int LDK, int LDV>
+IK_DEV void fa_load_kv(__nv_bfloat16* sk, __nv_bfloat16* svt,
+                       const __nv_bfloat16* kbase, const __nv_bfloat16* vbase,
+                       long long sks, long long svs, int key0, int key_end,
+                       int dk, int dv, int tid, int nthreads) {
+  constexpr int CH = D / 8;
+  const uint4 z = make_uint4(0, 0, 0, 0);
+  for (int c = tid; c < KT * CH; c += nthreads) {
+    const int r = c / CH, d0 = (c % CH) * 8;
+    const int key = key0 + r;
+    uint4 kv = z, vv = z;
+    if (key < key_end) {
+      if (d0 < dk) kv = *reinterpret_cast<const uint4*>(kbase + (size_t)key * sks + d0);
+      if (d0 < dv) vv = *reinterpret_cast<const uint4*>(vbase + (size_t)key * svs + d0);
+    }
+    *reinterpret_cast<uint4*>(sk + r * LDK + d0) = kv;
+    const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) svt[(d0 + i) * LDV + r] = ve[i];
+  }
+}
+
+// One warp's running state for 16 query rows: output accumulator in mma C
+// layout, running max m and this lane's partial row sum l for rows g, g+8.
+template <int D, int KT>
+struct FaWarp {
+  float o[D / 8][4];
+  float m[2], l[2];
+
+  IK_DEV void init() {
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+    m[0] = m[1] = FA_NEG;
+    l[0] = l[1] = 0.f;
+  }
+
+  // sq: the warp's 16 query rows (LDQ); sk/svt: the tile from fa_load_kv.
+  // qp0/qp1: absolute positions of rows g and g+8.
+  template <int LDQ, int LDK, int LDV>
+  IK_DEV void step(const __nv_bfloat16* sq, const __nv_bfloat16* sk,
+                   const __nv_bfloat16* svt, int key0, int qp0, int qp1,
+                   const FaMask& mk, float scale, float softcap, int dk,
+                   int dv) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    float s[KT / 8][4];
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < D; kd += 16) {
+      if (kd >= dk) break;
+      uint32_t a[4];
+      const __nv_bfloat16* pq = sq + g * LDQ + kd + 2 * t;
+      a[0] = ld32(pq);
+      a[1] = ld32(pq + 8 * LDQ);
+      a[2] = ld32(pq + 8);
+      a[3] = ld32(pq + 8 * LDQ + 8);
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j) {
+        uint32_t b[2];
+        const __nv_bfloat16* pk = sk + (j * 8 + g) * LDK + kd + 2 * t;
+        b[0] = ld32(pk);
+        b[1] = ld32(pk + 8);
+        mma_bf16_16816(s[j], a, b);
+      }
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float v = s[j][e] * scale;
+        if (softcap > 0.f) v = softcap * tanhf(v / softcap);
+        const int key = key0 + j * 8 + 2 * t + (e & 1);
+        if (fa_allowed(key, (e < 2) ? qp0 : qp1, mk)) {
+          mx[e >> 1] = fmaxf(mx[e >> 1], v);
+        } else {
+          v = FA_NEG;
+        }
+        s[j][e] = v;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    }
+    const float alpha[2] = {expf(m[0] - mx[0]), expf(m[1] - mx[1])};
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float v = s[j][e];
+        const float p = (v <= 0.1f * FA_NEG) ? 0.f : expf(v - mx[e >> 1]);
+        s[j][e] = p;
+        rs[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] = l[r] * alpha[r] + rs[r];
+      m[r] = mx[r];
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) {
+      uint32_t a[4];
+      a[0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
+      a[1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
+      a[2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      a[3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        if (n * 8 >= dv) break;
+        uint32_t b[2];
+        const __nv_bfloat16* pv = svt + (n * 8 + g) * LDV + kk * 16 + 2 * t;
+        b[0] = ld32(pv);
+        b[1] = ld32(pv + 8);
+        mma_bf16_16816(o[n], a, b);
+      }
+    }
+  }
+
+  // Sums each row's l over the four lanes that hold it.
+  IK_DEV void finish() {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+  }
+};

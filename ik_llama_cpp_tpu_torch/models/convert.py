@@ -1,0 +1,64 @@
+"""Carry parameters over from numpy into the port's layout.
+
+``params_from_numpy`` takes a parameter tree of nested dicts and lists whose
+arrays are numpy and whose linears are dicts tagged with their kind:
+
+    {"type": "QLinearI8", "codes": (K, N) int8, "sw": (K/256, N) f32,
+     "gbias": (K/G, N) | None, "group": G}
+    {"type": "QLinear", "codes": (K, N) int8, "scale": (K/G, N),
+     "bias": (K/G, N) | None, "group": G}
+    {"type": "DenseLinear", "w": (K, N)}
+
+which is the JAX package's parameter pytree with each array fetched to
+numpy, and returns the port's tree: the same nesting, torch tensors on
+``device`` and linear modules, computing what the JAX model computes.
+Scales, group biases, dense weights and the token embedding are stored in
+bf16 as the JAX loaders store them; other float arrays keep float32.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .weights import DenseLinear, QLinear, QLinearI8
+
+_BF16_KEYS = ("tok_embd",)
+
+
+def _tensor(a, device, dtype=None) -> torch.Tensor | None:
+    if a is None:
+        return None
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":       # ml_dtypes bfloat16: exact via f32
+        a, dtype = a.astype(np.float32), dtype or torch.bfloat16
+    t = torch.from_numpy(np.array(a, order="C"))    # a writable copy
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def _linear(d: dict, device):
+    kind = d["type"]
+    bf16 = torch.bfloat16
+    if kind == "QLinearI8":
+        codes_t = _tensor(np.asarray(d["codes"]).T, device, torch.int8)
+        return QLinearI8(codes_t.t(), _tensor(d["sw"], device, torch.float32),
+                         _tensor(d.get("gbias"), device, bf16),
+                         group=int(d["group"]))
+    if kind == "QLinear":
+        return QLinear(_tensor(d["codes"], device, torch.int8),
+                       _tensor(d["scale"], device, bf16),
+                       _tensor(d.get("bias"), device, bf16),
+                       group=int(d["group"]))
+    if kind == "DenseLinear":
+        return DenseLinear(_tensor(d["w"], device, bf16))
+    raise NotImplementedError(f"params_from_numpy: linear kind {kind!r} is "
+                              "not ported yet")
+
+
+def params_from_numpy(tree, device, *, _key: str = ""):
+    if isinstance(tree, dict):
+        if "type" in tree:
+            return _linear(tree, device)
+        return {k: params_from_numpy(v, device, _key=k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_numpy(v, device, _key=_key) for v in tree]
+    return _tensor(tree, device, torch.bfloat16 if _key in _BF16_KEYS else None)
