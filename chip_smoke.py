@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8]
 
 Phases (all by default; any failure exits non-zero):
   1. device: the card's name and power limit; TF32 off for the plain versions
@@ -17,6 +17,12 @@ Phases (all by default; any failure exits non-zero):
   5. parity at depth 2: kernel path against the plain path on the card,
      identical greedy tokens over 16 steps
   6. planar path: int8 path off, depth 2, the planar kernel must launch
+  7. MoE end to end at the full width of Qwen3-30B-A3B (L48 E2048 H32 KV4
+     D128, 128 experts top-8 FF768, V151936; Q4_0 attention and experts,
+     Q8_0 embedding and untied head, random blocks from a seed): load,
+     prefill 512, decode 64, with every kernel launch counted, then the
+     decode profile
+  8. MoE parity at depth 2: kernel path against the plain path on the card
 The line before the last lists every ported kernel as JSON; the last line is
 {"ok": true, "device": {...}}. Without CUDA, or without the package beside
 this file, it exits non-zero and prints no result.
@@ -44,6 +50,9 @@ E, H, HKV, FF, V, NL = 4096, 32, 8, 14336, 32000, 32
 D = E // H
 PREFILL, DECODE = 512, 64
 GGUF_VERSION = "port-1"
+# Qwen3-30B-A3B (the published config.json of Qwen/Qwen3-30B-A3B)
+MOE = dict(L=48, E=2048, H=32, HKV=4, D=128, G=128, TOPK=8, FF=768, V=151936)
+MOE_GGUF_VERSION = "port-2"
 
 
 def log(msg: str) -> None:
@@ -248,6 +257,147 @@ def phase_kernels(torch, timer, results) -> bool:
     return ok
 
 
+def phase_moe_kernels(torch, timer, results, c=MOE, dev="cuda") -> bool:
+    """Kernels 7-10 against their plain versions at the MoE path's shapes
+    (128 experts, E 2048, FF 768). Library yardsticks are bf16 torch.bmm /
+    torch.matmul calls over the same rows and gathered expert weights: a
+    comparable, heavier function, not the same one."""
+    from ik_llama_cpp_tpu_torch.ops import moe_decode as MD
+    from ik_llama_cpp_tpu_torch.ops import moe_qmm as MQ
+    from ik_llama_cpp_tpu_torch.ops.qmatmul import quantize_activations
+    g_, e_, ff, topk = c["G"], c["E"], c["FF"], c["TOPK"]
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rng = np.random.default_rng(1)
+
+    def codes(n, k):          # (G, K, N) view of a contiguous (G, N, K) tensor
+        return torch.randint(-127, 128, (g_, n, k), generator=gen, device=dev,
+                             dtype=torch.int8).transpose(1, 2)
+
+    def scales(k, n):
+        return torch.rand((g_, k // 256, n), generator=gen, device=dev) * 2e-3 + 1e-5
+
+    gate, up, down = codes(ff, e_), codes(ff, e_), codes(e_, ff)
+    gsw, usw, dsw = scales(e_, ff), scales(e_, ff), scales(ff, e_)
+    nsg, nsgf = e_ // 256, ff // 256
+    ok = True
+
+    log("[3] kernels 7/8 (moe_decode_gate_up_i8 / moe_decode_down_i8) vs plain; "
+        "library = bf16 torch.bmm over the gathered pairs' gate|up / down")
+    for t in (1, 8):
+        p = t * topk
+        ids = torch.from_numpy(np.concatenate([rng.permutation(g_)[:topk] for _ in range(t)])
+                               .astype(np.int32)).to(dev)
+        nd = len(set(ids.tolist()))               # distinct experts this run reads
+        x = torch.randn((p, e_), generator=gen, device=dev)
+        xq, xs = quantize_activations(x)
+        a7 = (xq, xs.t(), ids, gate, gsw, up, usw)
+        got, ref = MD.moe_decode_gate_up_i8(*a7), MD.moe_decode_gate_up_i8_ref(*a7)
+        sync(torch)
+        err = float((got.float() - ref.float()).abs().max())
+        # h is bf16: two bf16 ulps at the largest output
+        tol = 2.0 ** -7 * float(ref.float().abs().max())
+        bnd = bound_ms(p * e_ + p * nsg * 4 + p * 4 + nd * (2 * e_ * ff + 2 * nsg * ff * 4)
+                       + p * ff * 2, 4.0 * p * e_ * ff, INT8_OPS)
+        li = ids.long()
+        wb = torch.cat([gate[li], up[li]], dim=2).to(bf16)
+        xb = x.to(bf16)[:, None, :]
+        ok &= _record(results, "moe_decode_gate_up_i8", f"P={p} K={e_} FF={ff} G={g_}",
+                      err, tol, timer(lambda: MD.moe_decode_gate_up_i8(*a7)),
+                      timer(lambda: MD.moe_decode_gate_up_i8_ref(*a7), 3),
+                      timer(lambda: torch.bmm(xb, wb)), bnd)
+        del wb
+        hq, hs = quantize_activations(ref)
+        a8 = (hq, hs.t(), ids, down, dsw)
+        got = MD.moe_decode_down_i8(*a8, top_k=topk)
+        ref = MD.moe_decode_down_i8_ref(*a8, top_k=topk)
+        sync(torch)
+        err = float((got - ref).abs().max())
+        # exact integer dots, corrections added in the same order: only
+        # float32 reassociation may differ
+        tol = 1e-5 * float(ref.abs().max()) + 1e-6
+        bnd = bound_ms(p * ff + p * nsgf * 4 + p * 4 + nd * (ff * e_ + nsgf * e_ * 4)
+                       + t * e_ * 4, 2.0 * p * ff * e_, INT8_OPS)
+        wb = down[li].to(bf16)
+        hb = hq.to(bf16)[:, None, :]
+        ok &= _record(results, "moe_decode_down_i8", f"P={p} FF={ff} E={e_} G={g_}",
+                      err, tol, timer(lambda: MD.moe_decode_down_i8(*a8, top_k=topk)),
+                      timer(lambda: MD.moe_decode_down_i8_ref(*a8, top_k=topk), 3),
+                      timer(lambda: torch.bmm(hb, wb)), bnd)
+        del wb
+
+    r = 40
+    log("[3] kernel 9 (fused_moe_prefill_i8) vs plain; library = bf16 torch.bmm of "
+        "the live buckets against their gate|up")
+    for n_live in (g_, min(37, g_ // 2)):
+        sizes = np.zeros(g_, np.int64)
+        sizes[rng.permutation(g_)[:n_live]] = rng.integers(1, r + 1, n_live)
+        sz = torch.from_numpy(sizes).to(dev)
+        valid = torch.arange(r, device=dev)[None, :] < sz[:, None]
+        xg = torch.randint(-127, 128, (g_, r, e_), generator=gen, device=dev, dtype=torch.int8)
+        xg = torch.where(valid[..., None], xg, 0).to(torch.int8)
+        xs = torch.rand((g_, r, nsg), generator=gen, device=dev) * 1e-2 + 1e-4
+        xst = torch.where(valid[..., None], xs, 0.0).transpose(1, 2)
+        ar = torch.arange(g_, device=dev)
+        eids = torch.argsort(torch.where(sz > 0, ar, 2 * g_)).to(torch.int32)
+        nl = torch.tensor(n_live, dtype=torch.int32, device=dev)
+        a9 = (xg, xst, eids, nl, gate, gsw, up, usw, down, dsw)
+        got = MQ.fused_moe_prefill_i8(*a9, capacity=r)
+        ref = MQ.fused_moe_prefill_i8_ref(*a9, capacity=r)
+        sync(torch)
+        live = eids[:n_live].long()
+        err = float((got[live] - ref[live]).abs().max())
+        # a one-ulp float32 difference in the activation can move an h
+        # across a bf16 boundary and one requantized h by one int8 step
+        tol = 1e-2 * float(ref[live].abs().max())
+        bnd = bound_ms(n_live * (r * e_ + nsg * r * 4) + g_ * 4 + 4
+                       + n_live * (2 * e_ * ff + 2 * nsg * ff * 4 + ff * e_ + nsgf * e_ * 4)
+                       + n_live * r * e_ * 4, n_live * r * (4.0 * e_ * ff + 2.0 * ff * e_),
+                       INT8_OPS)
+        wb = torch.cat([gate[live], up[live]], dim=2).to(bf16)
+        xb = xg[live].to(bf16)
+        ok &= _record(results, "fused_moe_prefill_i8",
+                      f"G={g_} R={r} K={e_} FF={ff} E={e_} n_live={n_live}", err, tol,
+                      timer(lambda: MQ.fused_moe_prefill_i8(*a9, capacity=r)),
+                      timer(lambda: MQ.fused_moe_prefill_i8_ref(*a9, capacity=r), 3),
+                      timer(lambda: torch.bmm(xb, wb)), bnd)
+        del wb, xb
+
+    m = PREFILL * topk                          # the rows of a 512-token chunk
+    log("[3] kernel 10 (ragged_qmatmul_i8) vs plain; library = dense bf16 "
+        "torch.matmul at the same (M, K, N)")
+    skew = rng.multinomial(m, (1.0 / np.arange(1, g_ + 1)) / np.sum(1.0 / np.arange(1, g_ + 1)))
+    size_sets = {"skewed": rng.permutation(skew), "zero": np.zeros(g_, np.int64),
+                 "mid-tile": np.full(g_, m // g_)}    # 32-row groups: every other start is mid-tile
+    for k, n, w, sw in ((e_, ff, gate, gsw), (ff, e_, down, dsw)):
+        xq = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+        xs = torch.rand((m, k // 256), generator=gen, device=dev) * 1e-2 + 1e-4
+        xb = torch.randn((m, k), generator=gen, device=dev).to(bf16)
+        wd = torch.randn((k, n), generator=gen, device=dev).to(bf16)
+        for name, sizes in size_sets.items():
+            gs = torch.from_numpy(sizes.astype(np.int32)).to(dev)
+            total, ne = int(sizes.sum()), int((sizes > 0).sum())
+            a10 = (xq, xs.t(), w, sw, gs)
+            got = MQ.ragged_qmatmul_i8(*a10)
+            ref = MQ.ragged_qmatmul_i8_ref(xq, xs, w, sw, gs)
+            sync(torch)
+            err = float((got[:total] - ref[:total]).abs().max()) if total else 0.0
+            tol = 1e-5 * (float(ref[:total].abs().max()) if total else 0.0) + 1e-6
+            nk = k // 256
+            bnd = bound_ms(total * k + total * nk * 4 + ne * (k * n + nk * n * 4)
+                           + total * n * 4 + g_ * 4, 2.0 * total * k * n, INT8_OPS)
+            ok &= _record(results, "ragged_qmatmul_i8", f"M={m} K={k} N={n} {name}", err, tol,
+                          timer(lambda: MQ.ragged_qmatmul_i8(*a10)),
+                          timer(lambda: MQ.ragged_qmatmul_i8_ref(xq, xs, w, sw, gs), 3),
+                          timer(lambda: torch.matmul(xb, wd)), bnd)
+    return ok
+
+
+def sync(torch) -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
 def build_gguf(path: Path) -> Path:
     """The full-width llama layer as GGUF (one block; Q4_0 planar weights, a
     Q8_0 tied head), random weights from seed 0; cached beside a .meta."""
@@ -297,6 +447,75 @@ def build_gguf(path: Path) -> Path:
     return path
 
 
+def _rand_blocks(rng, rows: int, cols: int, ttype) -> np.ndarray:
+    """Random Q4_0 / Q8_0 blocks of a (rows, cols) weight, written directly
+    (uniform codes, f16 scales sized for weights of about 1/sqrt(cols))
+    so that a 1 GB file takes seconds; loading still runs the planar
+    decode and the supergroup recode."""
+    from ik_llama_cpp_tpu_torch.gguf.constants import GGMLType
+    width, code_std = (16, 4.6) if ttype == GGMLType.Q4_0 else (32, 73.9)
+    nb = rows * cols // 32
+    d = (rng.uniform(0.5, 1.5, nb) / (code_std * np.sqrt(cols))).astype(np.float16)
+    out = np.empty((nb, 2 + width), np.uint8)
+    out[:, :2] = d.view(np.uint8).reshape(nb, 2)
+    out[:, 2:] = rng.integers(0, 256, (nb, width), dtype=np.uint8)
+    return out
+
+
+def build_moe_gguf(path: Path, c=MOE) -> Path:
+    """One qwen3moe layer at the width ``c`` (Q4_0 attention and experts,
+    Q8_0 embedding and untied head, an f32 router, unit norms), random
+    blocks from seed 0; cached beside a .meta."""
+    from ik_llama_cpp_tpu_torch.gguf.constants import GGMLType
+    from ik_llama_cpp_tpu_torch.gguf.writer import GGUFWriter
+    meta = json.dumps(dict(v=MOE_GGUF_VERSION, **c))
+    mpath = path.with_suffix(".meta")
+    if path.exists() and mpath.exists() and mpath.read_text() == meta:
+        return path
+    path.parent.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(0)
+    e, h, hkv, d, g, ff, v = (c[k] for k in ("E", "H", "HKV", "D", "G", "FF", "V"))
+    w = GGUFWriter(str(path), arch="qwen3moe")
+    for key, val in (("block_count", 1), ("context_length", 40960),
+                     ("embedding_length", e), ("feed_forward_length", 6144),
+                     ("expert_feed_forward_length", ff), ("expert_count", g),
+                     ("expert_used_count", c["TOPK"]), ("attention.head_count", h),
+                     ("attention.head_count_kv", hkv), ("attention.key_length", d),
+                     ("attention.value_length", d),
+                     ("attention.layer_norm_rms_epsilon", 1e-6),
+                     ("rope.freq_base", 1000000.0), ("rope.dimension_count", d),
+                     ("vocab_size", v)):
+        w.add(f"qwen3moe.{key}", val)
+    w.add("tokenizer.ggml.model", "gpt2")
+    w.add("tokenizer.ggml.tokens", [f"<t{i}>" for i in range(v)])
+    w.add("tokenizer.ggml.token_type", np.ones(v, np.int32))
+    w.add("tokenizer.ggml.eos_token_id", 2)
+
+    def q(name, rows, cols, ttype=GGMLType.Q4_0, n=1):
+        w.add_tensor(name, _rand_blocks(rng, n * rows, cols, ttype),
+                     shape=(cols, rows) if n == 1 else (cols, rows, n), ggml_type=ttype)
+
+    q("token_embd.weight", v, e, GGMLType.Q8_0)
+    q("output.weight", v, e, GGMLType.Q8_0)
+    w.add_tensor("output_norm.weight", np.ones(e, np.float32))
+    p = "blk.0."
+    for name, width in (("attn_norm", e), ("ffn_norm", e), ("attn_q_norm", d),
+                        ("attn_k_norm", d)):
+        w.add_tensor(p + name + ".weight", np.ones(width, np.float32))
+    q(p + "attn_q.weight", h * d, e)
+    q(p + "attn_k.weight", hkv * d, e)
+    q(p + "attn_v.weight", hkv * d, e)
+    q(p + "attn_output.weight", e, h * d)
+    w.add_tensor(p + "ffn_gate_inp.weight",
+                 rng.standard_normal((g, e), dtype=np.float32) / np.float32(np.sqrt(e)))
+    q(p + "ffn_gate_exps.weight", ff, e, n=g)
+    q(p + "ffn_up_exps.weight", ff, e, n=g)
+    q(p + "ffn_down_exps.weight", e, ff, n=g)
+    w.write()
+    mpath.write_text(meta)
+    return path
+
+
 def clone_layers(rt, n_layer: int):
     """Block 0 cloned into n_layer distinct blocks (no aliasing)."""
     blk0 = rt.params["blocks"][0]
@@ -307,10 +526,16 @@ def clone_layers(rt, n_layer: int):
 
 def counters():
     from ik_llama_cpp_tpu_torch.ops import flash_attention as FA
+    from ik_llama_cpp_tpu_torch.ops import moe_decode as MD
+    from ik_llama_cpp_tpu_torch.ops import moe_qmm as MQ
     from ik_llama_cpp_tpu_torch.ops import qmatmul as QM
     return {"qmatmul_i8": QM.qmatmul_i8, "flash_attention": FA.flash_attention,
             "flash_attention_decode": FA.flash_attention_decode,
-            "qmatmul": QM.qmatmul}
+            "qmatmul": QM.qmatmul,
+            "moe_decode_gate_up_i8": MD.moe_decode_gate_up_i8,
+            "moe_decode_down_i8": MD.moe_decode_down_i8,
+            "fused_moe_prefill_i8": MQ.fused_moe_prefill_i8,
+            "ragged_qmatmul_i8": MQ.ragged_qmatmul_i8}
 
 
 def reset_counts():
@@ -334,32 +559,19 @@ def phase_e2e(torch, gguf: Path, launches: dict) -> bool:
         f"(numpy planar decode + supergroup recode of one layer, then "
         f"{NL} device clones); linears {kinds}")
     rng = np.random.default_rng(1)
-
-    def run(ids):
-        kv = rt.new_cache(1, PREFILL + DECODE + 8)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, kv, n_past = rt.eval_tokens(ids, kv, 0)
-        first = torch.argmax(logits[-1]).reshape(1, 1)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        toks = rt._decode_loop(first, kv, n_past, DECODE)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        return logits, toks, kv, n_past, t1 - t0, t2 - t1
-
-    run([int(x) for x in rng.integers(3, V, PREFILL)])          # warm-up
+    timed_run(torch, rt, [int(x) for x in rng.integers(3, V, PREFILL)])   # warm-up
     torch.cuda.reset_peak_memory_stats()
     ids = [int(x) for x in rng.integers(3, V, PREFILL)]
     reset_counts()
-    logits, toks, kv, n_past, pre_s, dec_s = run(ids)
+    logits, toks, kv, n_past, pre_s, dec_s = timed_run(torch, rt, ids)
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     launches.update({k: counts[k] for k in ("qmatmul_i8", "flash_attention",
                                             "flash_attention_decode")})
     per = 4 * NL + 1
-    want = {"qmatmul_i8": per * (1 + DECODE), "flash_attention": NL,
-            "flash_attention_decode": NL * DECODE, "qmatmul": 0}
+    want = dict.fromkeys(counts, 0)
+    want.update({"qmatmul_i8": per * (1 + DECODE), "flash_attention": NL,
+                 "flash_attention_decode": NL * DECODE})
     log(f"[4] prefill {PREFILL} tokens: {pre_s * 1e3:.1f} ms = "
         f"{PREFILL / pre_s:.1f} tok/s; decode {DECODE} tokens at context "
         f"{PREFILL}: {dec_s * 1e3:.1f} ms = {DECODE / dec_s:.2f} tok/s; "
@@ -378,15 +590,38 @@ def phase_e2e(torch, gguf: Path, launches: dict) -> bool:
     return ok and finite and in_range
 
 
-def profile_decode(torch, rt, kv, n_past: int, tok, steps: int = 8) -> None:
+def timed_run(torch, rt, ids):
+    """Prefill ``ids`` then decode DECODE tokens greedily, each half timed
+    on the host clock around a synchronize."""
+    kv = rt.new_cache(1, len(ids) + DECODE + 8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, kv, n_past = rt.eval_tokens(ids, kv, 0)
+    first = torch.argmax(logits[-1]).reshape(1, 1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    toks = rt._decode_loop(first, kv, n_past, DECODE)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return logits, toks, kv, n_past, t1 - t0, t2 - t1
+
+
+def profile_decode(torch, rt, kv, n_past: int, tok, steps: int = 8, tag: str = "4") -> None:
     """Device time by kernel over a few decode steps (torch.profiler), and
     the share of the wall time the card was busy."""
-    from torch.profiler import ProfilerActivity, profile
     rt._decode_loop(tok, kv, n_past, 2)                  # warm
+    profile_window(torch, lambda: rt._decode_loop(tok, kv, n_past, steps), steps,
+                   f"{steps} decode steps", "step", tag)
+
+
+def profile_window(torch, fn, steps: int, what: str, unit: str, tag: str) -> None:
+    """Run fn once under torch.profiler: device time and launches by
+    kernel per ``unit``, and the share of the wall time the card was busy."""
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rt._decode_loop(tok, kv, n_past, steps)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     from torch.autograd import DeviceType
@@ -395,11 +630,13 @@ def profile_decode(torch, rt, kv, n_past: int, tok, steps: int = 8) -> None:
     rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy = sum(r[1] for r in rows) / 1e6
-    log(f"[4] profile of {steps} decode steps (under the profiler): wall "
-        f"{wall * 1e3:.1f} ms, kernels {busy * 1e3:.1f} ms ({100 * busy / wall:.1f}%"
-        f" busy, {100 * (1 - busy / wall):.1f}% idle), {len(rows)} kernel kinds")
+    calls = sum(r[2] for r in rows)
+    log(f"[{tag}] profile of {what} (under the profiler): wall {wall * 1e3:.1f} ms, "
+        f"kernels {busy * 1e3:.1f} ms ({100 * busy / wall:.1f}% busy, "
+        f"{100 * (1 - busy / wall):.1f}% idle), {len(rows)} kernel kinds, "
+        f"{calls // steps} launches/{unit}")
     for key, us, n in sorted(rows, key=lambda r: -r[1])[:12]:
-        log(f"    {us / 1e3 / steps:9.3f} ms/step  {n // steps:5d} calls/step  {key[:90]}")
+        log(f"    {us / 1e3 / steps:9.3f} ms/{unit}  {n // steps:5d} calls/{unit}  {key[:90]}")
 
 
 @contextmanager
@@ -407,16 +644,26 @@ def plain_path():
     """Route the model through the plain versions on the same tensors."""
     from ik_llama_cpp_tpu_torch.models import llama, weights
     from ik_llama_cpp_tpu_torch.ops import flash_attention as FA
+    from ik_llama_cpp_tpu_torch.ops import moe
+    from ik_llama_cpp_tpu_torch.ops import moe_decode as MD
+    from ik_llama_cpp_tpu_torch.ops import moe_qmm as MQ
     from ik_llama_cpp_tpu_torch.ops import qmatmul as QM
     saved = (weights.qmatmul_i8, weights.qmatmul, llama.flash_attention,
-             llama.flash_attention_decode)
+             llama.flash_attention_decode, MD.moe_decode_gate_up_i8,
+             MD.moe_decode_down_i8, moe.fused_moe_prefill_i8, moe.ragged_qmatmul_i8)
     weights.qmatmul_i8, weights.qmatmul = QM.qmatmul_i8_ref, QM.qmatmul_ref
     llama.flash_attention = llama.flash_attention_decode = FA.attention_ref
+    MD.moe_decode_gate_up_i8 = MD.moe_decode_gate_up_i8_ref
+    MD.moe_decode_down_i8 = MD.moe_decode_down_i8_ref
+    moe.fused_moe_prefill_i8 = MQ.fused_moe_prefill_i8_ref
+    moe.ragged_qmatmul_i8 = (lambda xq, xst, codes, sw, gs:
+                             MQ.ragged_qmatmul_i8_ref(xq, xst.t(), codes, sw, gs))
     try:
         yield
     finally:
         (weights.qmatmul_i8, weights.qmatmul, llama.flash_attention,
-         llama.flash_attention_decode) = saved
+         llama.flash_attention_decode, MD.moe_decode_gate_up_i8,
+         MD.moe_decode_down_i8, moe.fused_moe_prefill_i8, moe.ragged_qmatmul_i8) = saved
 
 
 def greedy(torch, rt, ids, steps):
@@ -485,6 +732,81 @@ def phase_planar(torch, gguf: Path, launches: dict) -> bool:
     return counts["qmatmul"] == 9 * 9 and finite
 
 
+def phase_moe(torch, gguf: Path, launches: dict, c=MOE) -> bool:
+    """Phase 7 (Qwen3-30B-A3B at full width, launch counts, profile) and
+    phase 8 (greedy parity at depth 2, kernel path against plain path) on
+    the same loaded model."""
+    from ik_llama_cpp_tpu_torch.runtime.generate import Runtime
+    nl, v = c["L"], c["V"]
+    t_phase = t0 = time.perf_counter()
+    rt = clone_layers(Runtime.from_gguf(gguf, fuse=True), nl)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    ex = rt.params["blocks"][0]["experts"]
+    log(f"[7] loaded qwen3moe L{nl} E{c['E']} H{c['H']} KV{c['HKV']} D{c['D']} "
+        f"experts {c['G']} top-{c['TOPK']} FF{c['FF']} V{v} in {load_s:.1f} s (numpy "
+        f"planar decode + supergroup recode of one layer, {nl} device clones); "
+        f"expert codes {tuple(ex.gate.shape)} x3, groups {ex.gate_group}; device "
+        f"memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    rng = np.random.default_rng(4)
+    timed_run(torch, rt, [int(x) for x in rng.integers(3, v, PREFILL)])   # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    ids = [int(x) for x in rng.integers(3, v, PREFILL)]
+    reset_counts()
+    logits, toks, kv, n_past, pre_s, dec_s = timed_run(torch, rt, ids)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    moe_kernels = ("moe_decode_gate_up_i8", "moe_decode_down_i8",
+                   "fused_moe_prefill_i8", "ragged_qmatmul_i8")
+    launches.update({k: counts[k] for k in moe_kernels})
+    step = {"qmatmul_i8": 2 * nl + 1, "flash_attention_decode": nl,
+            "moe_decode_gate_up_i8": nl, "moe_decode_down_i8": nl}
+    chunk = {"qmatmul_i8": 2 * nl + 1, "flash_attention": nl,
+             "fused_moe_prefill_i8": nl, "ragged_qmatmul_i8": 3 * nl}
+    want = {k: chunk.get(k, 0) + DECODE * step.get(k, 0) for k in counts}
+    log(f"[7] prefill {PREFILL} tokens: {pre_s * 1e3:.1f} ms = {PREFILL / pre_s:.1f} "
+        f"tok/s; decode {DECODE} tokens at context {PREFILL}: {dec_s * 1e3:.1f} ms = "
+        f"{DECODE / dec_s:.2f} tok/s; peak memory {peak:.2f} GiB; load {load_s:.1f} s")
+    log(f"[7] launches {counts}; expected {want} (per decode step {step}; per "
+        f"{PREFILL}-token chunk {chunk})")
+    ok = counts == want
+    tail = rt.eval_tokens([int(toks[0, -1])], kv, n_past + DECODE)[0]
+    finite = bool(torch.isfinite(logits).all()) and bool(torch.isfinite(tail).all())
+    in_range = bool(((toks >= 0) & (toks < v)).all())
+    log(f"[7] logits finite: {finite}; tokens in vocab: {in_range}; first tokens "
+        f"{toks[0, :8].tolist()}")
+    profile_decode(torch, rt, kv, n_past + DECODE + 1, toks[:, -1:], tag="7")
+    del kv, logits, tail
+    kv = rt.new_cache(1, PREFILL + 8)
+    profile_window(torch, lambda: rt.eval_tokens(ids, kv, 0), 1,
+                   f"one {PREFILL}-token prefill chunk", "chunk", "7")
+    del kv
+    log(f"[7] MoE end to end: {time.perf_counter() - t_phase:.1f} s")
+
+    t0 = time.perf_counter()
+    rt.params["blocks"] = rt.params["blocks"][:2]
+    rt.cfg = replace(rt.cfg, n_layer=2)
+    torch.cuda.empty_cache()
+    ids = [int(x) for x in np.random.default_rng(5).integers(3, v, 128)]
+    tk, lk = greedy(torch, rt, ids, 16)
+    with plain_path():
+        tp, lp = greedy(torch, rt, ids, 16)
+    err = float((lk - lp).abs().max())
+    scale = float(lp.abs().max())
+    tol = 5e-2 * scale
+    same = tk == tp
+    log(f"[8] MoE depth-2 parity, kernel path vs plain path: tokens identical over 16 "
+        f"steps: {same}; logits max_abs_err {err:.3e} (max |logit| {scale:.3f}, tol "
+        f"{tol:.3e} = 5% of it, the dense rule of phase 5: a one-ulp difference can "
+        f"move an activation or a requantized h across an int8 step); "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not same:
+        log(f"    kernel {tk}\n    plain  {tp}")
+    del rt
+    torch.cuda.empty_cache()
+    return ok and finite and in_range and same and err <= tol
+
+
 KERNELS = {
     "qmatmul_i8": ("ik_llama_cpp_tpu_torch/csrc/qmatmul_i8.cu",
                    "ik_llama_cpp_tpu/ops/qmatmul.py:474", "M=1 K=4096 N=28672"),
@@ -496,6 +818,18 @@ KERNELS = {
                                "B=1 T=1 S=1024 q_pos0=[512] kv_len=[513]"),
     "qmatmul": ("ik_llama_cpp_tpu_torch/csrc/qmatmul.cu",
                 "ik_llama_cpp_tpu/ops/qmatmul.py:96", "M=1 K=4096 N=28672"),
+    "moe_decode_gate_up_i8": ("ik_llama_cpp_tpu_torch/csrc/moe_decode_i8.cu",
+                              "ik_llama_cpp_tpu/ops/moe_decode.py:392",
+                              "P=8 K=2048 FF=768 G=128"),
+    "moe_decode_down_i8": ("ik_llama_cpp_tpu_torch/csrc/moe_decode_i8.cu",
+                           "ik_llama_cpp_tpu/ops/moe_decode.py:521",
+                           "P=8 FF=768 E=2048 G=128"),
+    "fused_moe_prefill_i8": ("ik_llama_cpp_tpu_torch/csrc/moe_qmm_i8.cu",
+                             "ik_llama_cpp_tpu/ops/moe_qmm.py:439",
+                             "G=128 R=40 K=2048 FF=768 E=2048 n_live=128"),
+    "ragged_qmatmul_i8": ("ik_llama_cpp_tpu_torch/csrc/moe_qmm_i8.cu",
+                          "ik_llama_cpp_tpu/ops/moe_qmm.py:157",
+                          "M=4096 K=2048 N=768 skewed"),
 }
 
 
@@ -519,7 +853,7 @@ def summary(results, launches) -> list:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
     try:
@@ -540,6 +874,7 @@ def main() -> int:
     timer = Timer(torch, reps=10)
     if 3 in phases:
         ok &= phase_kernels(torch, timer, results)
+        ok &= phase_moe_kernels(torch, timer, results)
     gguf = None
     if phases & {4, 5, 6}:
         t0 = time.perf_counter()
@@ -551,13 +886,18 @@ def main() -> int:
         ok &= phase_parity(torch, gguf)
     if 6 in phases:
         ok &= phase_planar(torch, gguf, launches)
+    if phases & {7, 8}:
+        t0 = time.perf_counter()
+        moe_gguf = build_moe_gguf(ROOT / "build" / "smoke_qwen3moe.gguf")
+        log(f"[7] model file ready in {time.perf_counter() - t0:.1f} s: {moe_gguf}")
+        ok &= phase_moe(torch, moe_gguf, launches)
     kernels = summary(results, launches)
-    if phases >= {3, 4, 6}:
+    if phases >= {3, 4, 6, 7}:
         for k in kernels:
             if k["launches"] <= 0:
                 log(f"chip_smoke: kernel {k['name']} was never launched on its path")
                 ok = False
-    log(f"[7] total {time.perf_counter() - t_start:.1f} s")
+    log(f"[9] total {time.perf_counter() - t_start:.1f} s")
     if not ok:
         fail("a phase failed (see above)")
     print(json.dumps({"kernels": kernels}), flush=True)

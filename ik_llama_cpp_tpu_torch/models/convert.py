@@ -8,18 +8,25 @@ arrays are numpy and whose linears are dicts tagged with their kind:
     {"type": "QLinear", "codes": (K, N) int8, "scale": (K/G, N),
      "bias": (K/G, N) | None, "group": G}
     {"type": "DenseLinear", "w": (K, N)}
+    {"type": "QuantExpertWeights", "gate" | "up" | "down": (G, K, N) int8,
+     "gate_s" | "up_s" | "down_s": (G, K/group, N) f32,
+     "gate_group" | "up_group" | "down_group": int,
+     "gate_b" | "up_b" | "down_b": (G, N) | None}
 
 which is the JAX package's parameter pytree with each array fetched to
 numpy, and returns the port's tree: the same nesting, torch tensors on
 ``device`` and linear modules, computing what the JAX model computes.
 Scales, group biases, dense weights and the token embedding are stored in
-bf16 as the JAX loaders store them; other float arrays keep float32.
+bf16 as the JAX loaders store them; other float arrays keep float32. Expert
+codes are stored (G, N, K) and held as their (G, K, N) view, as the port's
+loader holds them.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..ops.moe import QuantExpertWeights
 from .weights import DenseLinear, QLinear, QLinearI8
 
 _BF16_KEYS = ("tok_embd",)
@@ -50,6 +57,15 @@ def _linear(d: dict, device):
                        group=int(d["group"]))
     if kind == "DenseLinear":
         return DenseLinear(_tensor(d["w"], device, bf16))
+    if kind == "QuantExpertWeights":
+        kw = {}
+        for p in ("gate", "up", "down"):
+            codes_t = _tensor(np.asarray(d[p]).transpose(0, 2, 1), device, torch.int8)
+            kw[p] = codes_t.transpose(1, 2)
+            kw[p + "_s"] = _tensor(d[p + "_s"], device, torch.float32)
+            kw[p + "_group"] = int(d[p + "_group"])
+            kw[p + "_b"] = _tensor(d.get(p + "_b"), device, torch.float32)
+        return QuantExpertWeights(**kw)
     raise NotImplementedError(f"params_from_numpy: linear kind {kind!r} is "
                               "not ported yet")
 

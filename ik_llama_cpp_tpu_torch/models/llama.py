@@ -1,14 +1,18 @@
-"""Dense llama: parameters, bf16 KV cache and the forward pass.
+"""Llama and qwen3moe: parameters, bf16 KV cache and the forward pass.
 
-The torch counterpart of the plain-llama subset of the JAX package's
-``models/llama.py``: one functional forward over a fixed-capacity KV cache
-of shape (L, B, S, Hkv, D). Rows are written into the cache in place; the
-attention of layer i reads the slab ``kv.k[i]``, which is a view, so the
-decode step never copies the capacity-sized cache (the analogue of the JAX
-package's stacked-cache fast path).
+The torch counterpart of the plain-llama and qwen3moe subset of the JAX
+package's ``models/llama.py``: one functional forward over a
+fixed-capacity KV cache of shape (L, B, S, Hkv, D). Rows are written into
+the cache in place; the attention of layer i reads the slab ``kv.k[i]``,
+which is a view, so the decode step never copies the capacity-sized cache
+(the analogue of the JAX package's stacked-cache fast path).
+
+qwen3moe adds per-head RMS QK-norms before RoPE and a routed-expert FFN
+(``ops/moe.py``) over experts re-coded per supergroup of 256 at load.
 
 Weight names follow GGUF conventions (token_embd, blk.N.attn_q, ...).
-Quantized KV, ring (SWA-compressed) caches, MoE, MTP (other
+Quantized KV, ring (SWA-compressed) caches, planar (group-32) or bf16
+experts, shared experts and the other MoE architectures, MTP (other
 architectures), tensor/pipeline/sequence parallelism, LoRA and control
 vectors are later slices of the port: asking for one raises
 NotImplementedError naming the slice (here or in runtime/generate.py).
@@ -24,8 +28,14 @@ from ..gguf.reader import GGUFModel
 from ..ops import layers as L
 from ..ops.flash_attention import (DECODE_MAX_T, flash_attention,
                                    flash_attention_decode)
+from ..ops.moe import QuantExpertWeights, moe_ffn
+from ..ops.qmatmul import SUPERGROUP, requant_supergroup
+from ..quant.planar import PLANAR_FNS, planar_decode
 from .config import ModelConfig
-from .weights import dequant_tensor, fuse_linears, load_dense, load_linear
+from .weights import (_t, dequant_tensor, fuse_linears, i8_enabled, load_dense,
+                      load_linear)
+
+ARCHS = ("llama", "qwen3moe")
 
 
 def _later(what: str, slice_: str):
@@ -59,11 +69,11 @@ def load_llama_params(gg: GGUFModel, cfg: ModelConfig, device, *,
     """GGUF -> nested dict of device tensors and linear modules.
 
     ``fuse`` merges q/k/v and gate/up into single matmuls at load."""
-    if cfg.arch != "llama":
+    if cfg.arch not in ARCHS:
         _later(f"architecture {cfg.arch!r}", "other-architectures")
     t = gg.tensors
-    if any(name.endswith(".ffn_gate_inp.weight") for name in t):
-        _later("MoE (mixtral-style llama)", "MoE")
+    if cfg.arch != "qwen3moe" and any(n.endswith(".ffn_gate_inp.weight") for n in t):
+        _later(f"MoE for architecture {cfg.arch!r} (mixtral-style)", "other-architectures")
     params: dict = {
         "tok_embd": torch.from_numpy(np.ascontiguousarray(
             dequant_tensor(t["token_embd.weight"]))).to(device, torch.bfloat16),
@@ -83,10 +93,21 @@ def load_llama_params(gg: GGUFModel, cfg: ModelConfig, device, *,
             "wq": load_linear(t[p + "attn_q.weight"], device, use_quant=use_quant),
             "wk": load_linear(t[p + "attn_k.weight"], device, use_quant=use_quant),
             "wv": load_linear(t[p + "attn_v.weight"], device, use_quant=use_quant),
-            "ffn_gate": load_linear(t[p + "ffn_gate.weight"], device, use_quant=use_quant),
-            "ffn_up": load_linear(t[p + "ffn_up.weight"], device, use_quant=use_quant),
-            "ffn_down": load_linear(t[p + "ffn_down.weight"], device, use_quant=use_quant),
         }
+        if p + "ffn_gate_inp.weight" in t:       # routed experts (qwen3moe)
+            if p + "ffn_gate_shexp.weight" in t:
+                _later("shared experts (ffn_*_shexp)", "other-architectures")
+            # the router stays a bf16 dense product, as in the JAX package
+            blk["ffn_gate_inp"] = load_linear(t[p + "ffn_gate_inp.weight"], device,
+                                              use_quant=False)
+            blk["experts"] = _load_experts(t, p, device, use_quant=use_quant)
+        else:
+            for name in ("ffn_gate", "ffn_up", "ffn_down"):
+                blk[name] = load_linear(t[p + name + ".weight"], device,
+                                        use_quant=use_quant)
+        for opt in ("attn_q_norm", "attn_k_norm"):
+            if p + opt + ".weight" in t:
+                blk[opt] = load_dense(t[p + opt + ".weight"], device)
         for opt_b in ("attn_q.bias", "attn_k.bias", "attn_v.bias",
                       "attn_output.bias"):
             if p + opt_b in t:
@@ -111,6 +132,51 @@ def _fuse_block(blk: dict) -> None:
         if fused is not None:
             blk["ffn_up"] = fused
             del blk["ffn_gate"]
+
+
+def _planar_stacked(info, device):
+    """A stacked expert tensor (ne = (K, N, G)) -> (codes int8 (G, K, N),
+    the view of a contiguous (G, N, K) tensor; f32 scales (G, K/256, N)),
+    re-coded per supergroup of 256 as the JAX loader does for the int8
+    path. Every column is re-coded on its own, so all experts go through
+    one call. Other forms are a later slice."""
+    k, n, g = info.shape[0], info.shape[1], info.shape[2]
+    if info.ggml_type not in PLANAR_FNS:
+        _later(f"bf16 (dequantized) experts ({info.ggml_type.name})", "planar-MoE")
+    if not (i8_enabled(device) and k % SUPERGROUP == 0):
+        _later(f"planar MoE experts (int8 path off or K={k} not a multiple of "
+               f"{SUPERGROUP})", "planar-MoE")
+    pw = planar_decode(info.data, info.ggml_type, k)       # rows = (expert, column)
+    if pw.bias is not None:
+        _later(f"asymmetric planar experts ({info.ggml_type.name})", "planar-MoE")
+    q8, sw = requant_supergroup(pw.codes.T, pw.scale.T, group=pw.group)
+    codes_t = _t(q8.T.reshape(g, n, k), device)                      # (G, N, K)
+    sw = _t(sw.reshape(k // SUPERGROUP, g, n).transpose(1, 0, 2).copy(), device)
+    return codes_t.transpose(1, 2), sw
+
+
+def _load_experts(t, prefix: str, device, *, use_quant: bool = True):
+    """Stacked gate/up/down experts (ne = (K, N, G)) -> QuantExpertWeights
+    over supergroup-256 int8 codes (qwen3moe experts carry no biases)."""
+    if not use_quant:
+        _later("bf16 (dequantized) experts", "planar-MoE")
+    gc, gs = _planar_stacked(t[prefix + "ffn_gate_exps.weight"], device)
+    uc, us = _planar_stacked(t[prefix + "ffn_up_exps.weight"], device)
+    dc, ds = _planar_stacked(t[prefix + "ffn_down_exps.weight"], device)
+    return QuantExpertWeights(gate=gc, gate_s=gs, up=uc, up_s=us, down=dc, down_s=ds)
+
+
+def _ffn(blk: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Dense or routed-expert feed-forward on (B, T, E) normalized input."""
+    if "experts" not in blk:
+        return _ffn_dense(blk, h, cfg)
+    b, t, e = h.shape
+    x = h.reshape(-1, e)
+    y = moe_ffn(x, blk["ffn_gate_inp"](x), blk["experts"], cfg.n_expert_used,
+                gating=cfg.expert_gating_func,
+                norm_topk=cfg.norm_topk_prob or cfg.expert_weights_norm,
+                scale=cfg.expert_weights_scale, activation=cfg.moe_act)
+    return y.reshape(b, t, e)
 
 
 def _ffn_dense(blk: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -144,8 +210,12 @@ def _attn_block(blk: dict, x: torch.Tensor, cfg: ModelConfig, kv: KVCache,
         k = k + blk["attn_k_bias"]
     if "attn_v_bias" in blk:
         v = v + blk["attn_v_bias"]
-    q = L.apply_rope(q.reshape(b, t, h, d), cos, sin, cfg.rope_type)
-    k = L.apply_rope(k.reshape(b, t, hkv, d), cos, sin, cfg.rope_type)
+    q, k = q.reshape(b, t, h, d), k.reshape(b, t, hkv, d)
+    if "attn_q_norm" in blk:                   # qwen3: per-head RMS norm
+        q = L.rms_norm(q, blk["attn_q_norm"], cfg.rms_eps)
+        k = L.rms_norm(k, blk["attn_k_norm"], cfg.rms_eps)
+    q = L.apply_rope(q, cos, sin, cfg.rope_type)
+    k = L.apply_rope(k, cos, sin, cfg.rope_type)
     v = v.reshape(b, t, hkv, d)
 
     k_slab, v_slab = kv.k[il], kv.v[il]          # views (B, S, Hkv, D)
@@ -203,7 +273,7 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, kv: KVCache,
         attn_out = _attn_block(blk, h, cfg, kv, i, n_past, npv, cos, sin)
         x = x + attn_out.to(x.dtype)
         h = L.rms_norm(x, blk["ffn_norm"], cfg.rms_eps)
-        x = x + _ffn_dense(blk, h, cfg).to(x.dtype)
+        x = x + _ffn(blk, h, cfg).to(x.dtype)
     x = L.rms_norm(x, params.get("output_norm"), cfg.rms_eps)
     if logits_last_only:
         x = x[:, -1:, :]
