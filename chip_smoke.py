@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11]
 
 Phases (all by default; any failure exits non-zero):
   1. device: the card's name and power limit; TF32 off for the plain versions
@@ -23,6 +23,16 @@ Phases (all by default; any failure exits non-zero):
      prefill 512, decode 64, with every kernel launch counted, then the
      decode profile
   8. MoE parity at depth 2: kernel path against the plain path on the card
+  9. quantized KV cache end to end at the full width of phase 4: q8 (prefill
+     512, decode 64, launch counts, decode profile), then q4, q6, nl4, q8
+     with the K/V Hadamard rotation and a per-layer codec dict on the same
+     weights, and one K-shift on the q8 cache followed by more decode steps
+ 10. quantized-KV parity at depth 2: per codec, kernel path against plain
+     path over one token history (the plain path is fed the kernel path's
+     greedy tokens): logits at every step, where the greedy picks differ,
+     and the cache codes the two wrote
+ 11. 4-bit packed weights (set_pack_int4) at full width: every block linear
+     a QLinearI4, prefill 512, decode 64, launch counts, parity at depth 2
 The line before the last lists every ported kernel as JSON; the last line is
 {"ok": true, "device": {...}}. Without CUDA, or without the package beside
 this file, it exits non-zero and prints no result.
@@ -128,12 +138,12 @@ def phase_build(_cuda) -> None:
                 log(f"    {name}: {ln.strip()}")
 
 
-def _record(results, kernel, case, err, tol, ms, plain_ms, lib_ms, bnd):
+def _record(results, kernel, case, err, tol, ms, plain_ms, lib_ms, bnd, note=""):
     ok = err <= tol
     log(f"    {kernel} {case}: max_abs_err {err:.3e} tol {tol:.3e} "
         f"{'ok' if ok else 'FAIL'} | kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
         f"library {('%.4f ms' % lib_ms) if lib_ms is not None else 'n/a'} "
-        f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+        f"bound {bnd[0]:.4f} ms ({bnd[1]}){note}")
     results.setdefault(kernel, []).append(dict(
         case=case, err=err, tol=tol, ok=ok, ms=ms, plain_ms=plain_ms,
         library_ms=lib_ms, bound_ms=bnd[0], bound_by=bnd[1]))
@@ -393,6 +403,119 @@ def phase_moe_kernels(torch, timer, results, c=MOE, dev="cuda") -> bool:
     return ok
 
 
+def phase_kvq_kernels(torch, timer, results) -> bool:
+    """Kernels 5 (decode attention over a quantized slab, four codecs), 6
+    (prefill attention over an int8 cache) and 15 (4-bit packed GEMM)
+    against their plain versions at the dense path's shapes."""
+    from ik_llama_cpp_tpu_torch.ops import flash_attention as FA
+    from ik_llama_cpp_tpu_torch.ops import kv_quant as KQ
+    from ik_llama_cpp_tpu_torch.ops import qmatmul as QM
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    bf16 = torch.bfloat16
+    scale_ = 1.0 / float(np.sqrt(D))
+    ok = True
+
+    def attn_case(kernel, fn, codec, b, t, s, qpos, kvlen, **kw):
+        q = torch.randn((b, t, H, D), generator=gen, device="cuda").to(bf16)
+        # the layer slab is a view of a stacked cache, as on the main path
+        enc = KQ.KV_ENCODERS[codec]
+        kq, ks = enc(torch.randn((2, b, s, HKV, D), generator=gen, device="cuda"))
+        vq, vs = enc(torch.randn((2, b, s, HKV, D), generator=gen, device="cuda"))
+        kq, ks, vq, vs = kq[1], ks[1], vq[1], vs[1]
+        qp = torch.tensor(qpos, dtype=torch.int32, device="cuda")
+        kl = torch.tensor(kvlen, dtype=torch.int32, device="cuda")
+        args = (q, kq, ks, vq, vs, qp, kl)
+        got = fn(*args, scale=scale_, **kw)
+        ref = FA.attention_quant_ref(*args, scale=scale_, **kw)
+        torch.cuda.synchronize()
+        err = float((got.float() - ref.float()).abs().max())
+        # p is rounded to bf16 before the PV product and the output is bf16:
+        # two bf16 ulps at the largest output
+        tol = 2.0 ** -7 * float(ref.float().abs().max())
+        # library: the slab dequantized to bf16, then SDPA with an explicit
+        # mask (mask and GQA repeat not timed); and SDPA alone
+        pos = torch.arange(s, device="cuda")
+        qpos_t = qp[:, None] + torch.arange(t, device="cuda")[None, :]
+        mask = (pos[None, None, :] <= qpos_t[:, :, None]) & (pos[None, None, :] < kl[:, None, None])
+        swa = kw.get("swa_window", 0)
+        if swa:
+            mask &= pos[None, None, :] > qpos_t[:, :, None] - swa
+        m4 = mask[:, None]
+        qt = q.transpose(1, 2)
+        dec = KQ.KV_DECODERS[codec]
+
+        def lib_full():
+            kr = dec(kq, ks).to(bf16).repeat_interleave(H // HKV, dim=2).transpose(1, 2)
+            vr = dec(vq, vs).to(bf16).repeat_interleave(H // HKV, dim=2).transpose(1, 2)
+            return F.scaled_dot_product_attention(qt, kr, vr, attn_mask=m4, scale=scale_)
+
+        kr = dec(kq, ks).to(bf16).repeat_interleave(H // HKV, dim=2).transpose(1, 2)
+        vr = dec(vq, vs).to(bf16).repeat_interleave(H // HKV, dim=2).transpose(1, 2)
+        lib = timer(lib_full)
+        sdpa = timer(lambda: F.scaled_dot_product_attention(qt, kr, vr, attn_mask=m4,
+                                                            scale=scale_))
+        del kr, vr
+        live = int(mask.sum())               # (query, key) pairs this run needs
+        lo = [max(0, qpos[i] - swa + 1) if swa else 0 for i in range(b)]
+        keys = sum(min(kvlen[i], qpos[i] + t) - lo[i] for i in range(b))
+        row_bytes = kq.shape[-1] + vq.shape[-1] + 8          # codes + two f32 scales
+        bnd = bound_ms(2 * (b * t * H * D * 2) + keys * HKV * row_bytes,
+                       4.0 * H * D * live, BF16_FLOPS)
+        extra = "".join(f" {k}" for k in kw)
+        case = f"{codec} B={b} T={t} S={s} q_pos0={qpos} kv_len={kvlen}{extra}"
+        return _record(results, kernel, case, err, tol,
+                       timer(lambda: fn(*args, scale=scale_, **kw)),
+                       timer(lambda: FA.attention_quant_ref(*args, scale=scale_, **kw), 3),
+                       lib, bnd, note=f" | SDPA alone {sdpa:.4f} ms")
+
+    log("[3] kernel 5 (flash_attention_decode_q8, codecs q8/q4/q6/nl4) vs plain; "
+        "library = the slab dequantized to bf16 + SDPA (both timed together)")
+    for codec in ("q8", "q4", "q6", "nl4"):
+        for t in (1, 8):
+            for s, kvl in ((1024, 513), (4096, 4000)):
+                ok &= attn_case("flash_attention_decode_q8", FA.flash_attention_decode_q8,
+                                codec, 1, t, s, [kvl - t], [kvl])
+    sinks = torch.randn(H, generator=gen, device="cuda")
+    ok &= attn_case("flash_attention_decode_q8", FA.flash_attention_decode_q8, "q6",
+                    1, 1, 1024, [512], [513], sinks=sinks, swa_window=256)
+    log("[3] kernel 6 (flash_attention_q8, prefill over int8 KV) vs plain; library as for 5")
+    ok &= attn_case("flash_attention_q8", FA.flash_attention_q8, "q8", 1, 512, 1024, [0], [512])
+    ok &= attn_case("flash_attention_q8", FA.flash_attention_q8, "q8", 1, 512, 1024, [256], [768])
+
+    log("[3] kernel 15 (qmatmul4, 4-bit packed, group 32) vs plain; library = dense "
+        "bf16 torch.matmul at the same (M, K, N), a yardstick, not the same function")
+    shapes = [(E, (H + 2 * HKV) * D), (E, E), (E, 2 * FF), (FF, E), (E, V)]
+    iq4nl = tuple(float(v) for v in KQ.IQ4NL_VALUES)       # a 16-level codebook
+    for k, n in shapes:
+        packed = torch.randint(0, 256, (k // 2, n), generator=gen, device="cuda",
+                               dtype=torch.uint8)
+        scale = (torch.rand((k // 32, n), generator=gen, device="cuda") * 0.02).to(bf16)
+        wb = torch.randn((k, n), generator=gen, device="cuda", dtype=bf16)
+        for lut in (None, iq4nl):
+            sc = scale if lut is None else (scale * 0.1).to(bf16)
+            for m in (1, 8, 512):
+                x = torch.randn((m, k), generator=gen, device="cuda").to(bf16)
+                got = QM.qmatmul4(x, packed, sc, lut16=lut)
+                ref = QM.qmatmul4_ref(x, packed, sc, lut16=lut)
+                absdot = float((x.float().abs() @ QM._dequant4_bf16(
+                    packed, sc, None, 32, lut).float().abs()).max())
+                torch.cuda.synchronize()
+                err = float((got - ref).abs().max())
+                # both sum the same exact bf16 products in float32 in different
+                # orders: 16 sqrt(K) float32 roundings of the largest sum of |x w|
+                tol = 16 * k ** 0.5 * 2.0 ** -24 * absdot
+                bnd = bound_ms(m * k * 2 + k * n // 2 + (k // 32) * n * 2 + m * n * 4,
+                               2.0 * m * n * k, BF16_FLOPS)
+                ok &= _record(results, "qmatmul4", f"M={m} K={k} N={n}"
+                              + (" codebook" if lut is not None else ""), err, tol,
+                              timer(lambda: QM.qmatmul4(x, packed, sc, lut16=lut)),
+                              timer(lambda: QM.qmatmul4_ref(x, packed, sc, lut16=lut), 3),
+                              timer(lambda: torch.matmul(x, wb)), bnd)
+        del packed, wb
+    return ok
+
+
 def sync(torch) -> None:
     if torch.cuda.is_available():
         torch.cuda.synchronize()
@@ -532,6 +655,8 @@ def counters():
     return {"qmatmul_i8": QM.qmatmul_i8, "flash_attention": FA.flash_attention,
             "flash_attention_decode": FA.flash_attention_decode,
             "qmatmul": QM.qmatmul,
+            "flash_attention_decode_q8": FA.flash_attention_decode_q8,
+            "flash_attention_q8": FA.flash_attention_q8, "qmatmul4": QM.qmatmul4,
             "moe_decode_gate_up_i8": MD.moe_decode_gate_up_i8,
             "moe_decode_down_i8": MD.moe_decode_down_i8,
             "fused_moe_prefill_i8": MQ.fused_moe_prefill_i8,
@@ -553,8 +678,7 @@ def phase_e2e(torch, gguf: Path, launches: dict) -> bool:
     rt = clone_layers(Runtime.from_gguf(gguf, fuse=True), NL)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
-    kinds = sorted({type(v).__name__ for b in rt.params["blocks"] for v in b.values()
-                    if hasattr(v, "forward")} | {type(rt.params["output"]).__name__})
+    kinds = sorted(set(_linear_kinds(rt)) | {type(rt.params["output"]).__name__})
     log(f"[4] loaded L{NL} E{E} H{H} KV{HKV} FF{FF} V{V} in {load_s:.1f} s "
         f"(numpy planar decode + supergroup recode of one layer, then "
         f"{NL} device clones); linears {kinds}")
@@ -590,8 +714,8 @@ def phase_e2e(torch, gguf: Path, launches: dict) -> bool:
     return ok and finite and in_range
 
 
-def timed_run(torch, rt, ids):
-    """Prefill ``ids`` then decode DECODE tokens greedily, each half timed
+def timed_run(torch, rt, ids, n_decode: int = DECODE):
+    """Prefill ``ids`` then decode n_decode tokens greedily, each half timed
     on the host clock around a synchronize."""
     kv = rt.new_cache(1, len(ids) + DECODE + 8)
     torch.cuda.synchronize()
@@ -600,21 +724,23 @@ def timed_run(torch, rt, ids):
     first = torch.argmax(logits[-1]).reshape(1, 1)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    toks = rt._decode_loop(first, kv, n_past, DECODE)
+    toks = rt._decode_loop(first, kv, n_past, n_decode)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     return logits, toks, kv, n_past, t1 - t0, t2 - t1
 
 
-def profile_decode(torch, rt, kv, n_past: int, tok, steps: int = 8, tag: str = "4") -> None:
+def profile_decode(torch, rt, kv, n_past: int, tok, steps: int = 8, tag: str = "4",
+                   top: int = 12) -> None:
     """Device time by kernel over a few decode steps (torch.profiler), and
     the share of the wall time the card was busy."""
     rt._decode_loop(tok, kv, n_past, 2)                  # warm
     profile_window(torch, lambda: rt._decode_loop(tok, kv, n_past, steps), steps,
-                   f"{steps} decode steps", "step", tag)
+                   f"{steps} decode steps", "step", tag, top)
 
 
-def profile_window(torch, fn, steps: int, what: str, unit: str, tag: str) -> None:
+def profile_window(torch, fn, steps: int, what: str, unit: str, tag: str,
+                   top: int = 12) -> None:
     """Run fn once under torch.profiler: device time and launches by
     kernel per ``unit``, and the share of the wall time the card was busy."""
     from torch.profiler import ProfilerActivity, profile
@@ -635,7 +761,7 @@ def profile_window(torch, fn, steps: int, what: str, unit: str, tag: str) -> Non
         f"kernels {busy * 1e3:.1f} ms ({100 * busy / wall:.1f}% busy, "
         f"{100 * (1 - busy / wall):.1f}% idle), {len(rows)} kernel kinds, "
         f"{calls // steps} launches/{unit}")
-    for key, us, n in sorted(rows, key=lambda r: -r[1])[:12]:
+    for key, us, n in sorted(rows, key=lambda r: -r[1])[:top]:
         log(f"    {us / 1e3 / steps:9.3f} ms/{unit}  {n // steps:5d} calls/{unit}  {key[:90]}")
 
 
@@ -650,9 +776,12 @@ def plain_path():
     from ik_llama_cpp_tpu_torch.ops import qmatmul as QM
     saved = (weights.qmatmul_i8, weights.qmatmul, llama.flash_attention,
              llama.flash_attention_decode, MD.moe_decode_gate_up_i8,
-             MD.moe_decode_down_i8, moe.fused_moe_prefill_i8, moe.ragged_qmatmul_i8)
+             MD.moe_decode_down_i8, moe.fused_moe_prefill_i8, moe.ragged_qmatmul_i8,
+             weights.qmatmul4, llama.flash_attention_decode_q8, llama.flash_attention_q8)
     weights.qmatmul_i8, weights.qmatmul = QM.qmatmul_i8_ref, QM.qmatmul_ref
+    weights.qmatmul4 = QM.qmatmul4_ref
     llama.flash_attention = llama.flash_attention_decode = FA.attention_ref
+    llama.flash_attention_decode_q8 = llama.flash_attention_q8 = FA.attention_quant_ref
     MD.moe_decode_gate_up_i8 = MD.moe_decode_gate_up_i8_ref
     MD.moe_decode_down_i8 = MD.moe_decode_down_i8_ref
     moe.fused_moe_prefill_i8 = MQ.fused_moe_prefill_i8_ref
@@ -663,14 +792,16 @@ def plain_path():
     finally:
         (weights.qmatmul_i8, weights.qmatmul, llama.flash_attention,
          llama.flash_attention_decode, MD.moe_decode_gate_up_i8,
-         MD.moe_decode_down_i8, moe.fused_moe_prefill_i8, moe.ragged_qmatmul_i8) = saved
+         MD.moe_decode_down_i8, moe.fused_moe_prefill_i8, moe.ragged_qmatmul_i8,
+         weights.qmatmul4, llama.flash_attention_decode_q8,
+         llama.flash_attention_q8) = saved
 
 
-def greedy(torch, rt, ids, steps):
+def greedy_from(torch, rt, kv, n, last_logits, steps):
+    """steps greedy tokens from a filled cache; returns (tokens, the logits
+    each token was picked from plus the last step's)."""
     from ik_llama_cpp_tpu_torch.models import llama
-    kv = rt.new_cache(1, len(ids) + steps + 8)
-    logits, kv, n = rt.eval_tokens(ids, kv, 0)
-    outs, toks = [logits[-1]], []
+    outs, toks = [last_logits], []
     for s in range(steps):
         tok = int(torch.argmax(outs[-1]))
         toks.append(tok)
@@ -679,6 +810,57 @@ def greedy(torch, rt, ids, steps):
                            logits_last_only=True)
         outs.append(lg[0, -1])
     return toks, torch.stack(outs)
+
+
+def greedy(torch, rt, ids, steps, with_cache: bool = False):
+    kv = rt.new_cache(1, len(ids) + steps + 8)
+    logits, kv, n = rt.eval_tokens(ids, kv, 0)
+    toks, outs = greedy_from(torch, rt, kv, n, logits[-1], steps)
+    return (toks, outs, kv, n + steps) if with_cache else (toks, outs)
+
+
+def forced_logits(torch, rt, kv, n, last_logits, toks):
+    """The logits of feeding ``toks`` one by one from a filled cache: the
+    same history for both paths, whatever each would have picked."""
+    outs = [last_logits]
+    for s, tok in enumerate(toks):
+        outs.append(llama_step(torch, rt, torch.tensor([[tok]], device="cuda"), kv, n + s))
+    return torch.stack(outs)
+
+
+def forced_parity(torch, rt, ids, steps: int):
+    """Kernel path: prefill ``ids`` and decode ``steps`` greedy tokens. Plain
+    path: the same prompt and the same tokens fed back (teacher forcing), so
+    every step compares logits over one history. Returns (tokens, kernel
+    logits, plain logits, kernel cache, plain cache, n_past)."""
+    tk, lk, kvk, n = greedy(torch, rt, ids, steps, with_cache=True)
+    with plain_path():
+        kvp = rt.new_cache(1, len(ids) + steps + 8)
+        logits, kvp, n0 = rt.eval_tokens(ids, kvp, 0)
+        lp = forced_logits(torch, rt, kvp, n0, logits[-1], tk)
+    return tk, lk, lp, kvk, kvp, n
+
+
+def parity_verdict(lk, lp):
+    """(ok, text): every step's logits within 5% of the largest logit (the
+    rule of phase 5: the attention kernels round their probabilities to
+    bf16, and a one-ulp bf16 difference can move an activation across an
+    int8 rounding step), and where the two paths' greedy picks differ, the
+    plain path's top-2 gap there, which the logit error must explain."""
+    err = (lk - lp).abs().amax(dim=1)
+    scale = float(lp.abs().max())
+    top2 = lp.topk(2, dim=1).values
+    gap = top2[:, 0] - top2[:, 1]
+    same = lk.argmax(dim=1) == lp.argmax(dim=1)
+    flips = [(i, round(float(gap[i]), 4), round(float(err[i]), 4))
+             for i in range(len(same)) if not bool(same[i])]
+    ok = float(err.max()) <= 5e-2 * scale and all(g <= 2 * e for _, g, e in flips)
+    text = (f"logits max_abs_err {float(err.max()):.3e} over {len(same)} steps of one "
+            f"history (max |logit| {scale:.3f}, tol 5% of it); greedy picks identical at "
+            f"{int(same.sum())} of {len(same)} steps"
+            + (f", the others at near-ties (step, plain top-2 gap, logit error there): {flips}"
+               if flips else ""))
+    return ok, text
 
 
 def phase_parity(torch, gguf: Path) -> bool:
@@ -713,8 +895,7 @@ def phase_planar(torch, gguf: Path, launches: dict) -> bool:
         rt = clone_layers(Runtime.from_gguf(gguf, fuse=True), 2)
     finally:
         weights.set_i8_mxu(None)
-    kinds = sorted({type(v).__name__ for b in rt.params["blocks"] for v in b.values()
-                    if hasattr(v, "forward")})
+    kinds = _linear_kinds(rt)
     ids = [int(x) for x in np.random.default_rng(3).integers(3, V, 64)]
     reset_counts()
     kv = rt.new_cache(1, 64 + 16)
@@ -807,6 +988,228 @@ def phase_moe(torch, gguf: Path, launches: dict, c=MOE) -> bool:
     return ok and finite and in_range and same and err <= tol
 
 
+def _linear_kinds(rt) -> list:
+    return sorted({type(v).__name__ for b in rt.params["blocks"] for v in b.values()
+                   if hasattr(v, "forward")})
+
+
+def _cache_bytes(kv) -> int:
+    """Device bytes of a KVCache or MixedKVCache: every tensor field."""
+    return sum(t.numel() * t.element_size() for t in vars(kv).values()
+               if hasattr(t, "element_size"))
+
+
+def phase_kvq(torch, gguf: Path, launches: dict) -> bool:
+    """Phase 9: the full-width dense model over a quantized KV cache. The
+    weights are loaded once; each configuration gets a new cache."""
+    from ik_llama_cpp_tpu_torch.ops import flash_attention as FA
+    from ik_llama_cpp_tpu_torch.runtime import kshift
+    from ik_llama_cpp_tpu_torch.runtime.generate import Runtime
+    t_phase = time.perf_counter()
+    rt = clone_layers(Runtime.from_gguf(gguf, fuse=True, kv_quant="q8"), NL)
+    torch.cuda.synchronize()
+    log(f"[9] loaded L{NL} E{E} H{H} KV{HKV} FF{FF} V{V} with kv_quant='q8' in "
+        f"{time.perf_counter() - t_phase:.1f} s; linears {_linear_kinds(rt)}")
+    base_cfg = rt.cfg
+    rng = np.random.default_rng(6)
+    per = 4 * NL + 1
+    ok = True
+    mixed = {"type": "q4", "first": "q8", "last": "q8"}
+    runs = [("q8", "q8", False, DECODE), ("q4", "q4", False, DECODE),
+            ("q6", "q6", False, DECODE), ("nl4", "nl4", False, DECODE),
+            ("q8 + khad + vhad", "q8", True, 16), (f"dict {mixed}", mixed, False, 16),
+            ("bf16 (for comparison)", False, False, DECODE)]
+    kv_q8 = None
+    for name, quant, had, n_dec in runs:
+        rt.kv_quant = quant
+        rt.cfg = replace(base_cfg, k_hadamard=had, v_hadamard=had)
+        ids = [int(x) for x in rng.integers(3, V, PREFILL)]
+        timed_run(torch, rt, ids, 4)                                      # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        logits, toks, kv, n_past, pre_s, dec_s = timed_run(torch, rt, ids, n_dec)
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n_q8 = NL if quant == "q8" else (2 if isinstance(quant, dict) else 0)
+        want = dict.fromkeys(counts, 0)
+        want["qmatmul_i8"] = per * (1 + n_dec)
+        if quant:       # prefill: kernel 6 on q8 layers, dequantize + kernel B on the others
+            want.update({"flash_attention_q8": n_q8, "flash_attention": NL - n_q8,
+                         "flash_attention_decode_q8": NL * n_dec})
+        else:
+            want.update({"flash_attention": NL, "flash_attention_decode": NL * n_dec})
+        good = counts == want
+        finite = bool(torch.isfinite(logits).all())
+        in_range = bool(((toks >= 0) & (toks < V)).all())
+        log(f"[9] {name}: prefill {PREFILL} tokens {pre_s * 1e3:.1f} ms = "
+            f"{PREFILL / pre_s:.1f} tok/s; decode {n_dec} tokens at context {PREFILL}: "
+            f"{dec_s * 1e3:.1f} ms = {n_dec / dec_s:.2f} tok/s; peak memory {peak:.2f} GiB; "
+            f"cache {type(kv).__name__} capacity {kv.capacity}: {_cache_bytes(kv)} bytes")
+        log(f"[9] {name}: launches { {k: v for k, v in counts.items() if v} }; "
+            f"as expected: {good}; logits finite: {finite}; tokens in vocab: {in_range}")
+        if not good:
+            log(f"    expected { {k: v for k, v in want.items() if v} }")
+        ok &= good and finite and in_range
+        if quant:
+            for k in ("flash_attention_decode_q8", "flash_attention_q8"):
+                launches[k] = launches.get(k, 0) + counts[k]
+        # the profiled steps write rows past n_past + n_dec, which stay unused
+        profile_decode(torch, rt, kv, n_past + n_dec + 1, toks[:, -1:],
+                       steps=8 if name == "q8" else 2, tag=f"9 {name}",
+                       top=12 if name == "q8" else 0)
+        if name == "q8":
+            kv_q8, n_q8_past, last_tok = kv, n_past + n_dec, toks[:, -1:]
+        else:
+            del kv
+    # K-shift on the q8 cache: drop 128 rows after the first 4, then decode on
+    rt.kv_quant, rt.cfg = "q8", base_cfg
+    if not kshift.can_shift(rt.cfg):
+        fail("the dense llama configuration must be shiftable")
+    kv_plain = copy.deepcopy(kv_q8)
+    n_keep, n_discard, steps = 4, 128, 8
+    before = FA.flash_attention_decode_q8.launches
+    kv_q8, n1 = kshift.k_shift(kv_q8, rt.cfg, n_keep, n_discard, n_q8_past)
+    lg = llama_step(torch, rt, last_tok, kv_q8, n1)
+    tk, lk = greedy_from(torch, rt, kv_q8, n1 + 1, lg, steps)
+    launched = FA.flash_attention_decode_q8.launches - before
+    with plain_path():
+        kv_plain, n2 = kshift.k_shift(kv_plain, rt.cfg, n_keep, n_discard, n_q8_past)
+        lgp = llama_step(torch, rt, last_tok, kv_plain, n2)
+        lp = forced_logits(torch, rt, kv_plain, n2 + 1, lgp, tk)
+    err = float((lk[0] - lp[0]).abs().max())
+    scale = float(lp[0].abs().max())
+    _, text = parity_verdict(lk, lp)
+    shift_ok = (n1 == n2 == n_q8_past - n_discard and launched == NL * (steps + 1)
+                and err <= 5e-2 * scale and bool(torch.isfinite(lk).all()))
+    log(f"[9] k_shift(n_keep {n_keep}, n_discard {n_discard}) on the q8 cache: n_past "
+        f"{n_q8_past} -> {n1}; {steps + 1} more decode steps, kernel 5 launched {launched} "
+        f"times; against the same shift and the same tokens by the plain path: first-step "
+        f"logits max_abs_err {err:.3e} (max |logit| {scale:.3f}, tol 5% of it: the gate at "
+        f"depth {NL}); all steps: {text}: {'ok' if shift_ok else 'FAIL'}")
+    ok &= shift_ok
+    del rt, kv_q8, kv_plain
+    torch.cuda.empty_cache()
+    log(f"[9] quantized KV end to end: {time.perf_counter() - t_phase:.1f} s")
+    return ok
+
+
+def llama_step(torch, rt, tok, kv, n_past):
+    """One decode step of token ``tok`` (1, 1) at n_past: its logits (V,)."""
+    from ik_llama_cpp_tpu_torch.models import llama
+    return llama.forward(rt.params, rt.cfg, tok, kv, n_past, logits_last_only=True)[0, -1]
+
+
+def _differing(torch, a, b, n: int, layer: int | None = None):
+    """Share of the first n rows' K and V code bytes that differ."""
+    bad = tot = 0
+    layers = range(len(a.layer_map)) if hasattr(a, "layer_map") else range(a.k.shape[0])
+    for i in (layers if layer is None else [layer]):
+        for f in ("k", "v"):
+            x, y = getattr(a, f)[i][:, :n], getattr(b, f)[i][:, :n]
+            bad += int((x != y).sum())
+            tot += x.numel()
+    return bad / tot
+
+
+def phase_kvq_parity(torch, gguf: Path) -> bool:
+    """Phase 10: at depth 2, for each codec (and q8 with the Hadamard
+    rotation), the kernel path against the plain path on the card."""
+    from ik_llama_cpp_tpu_torch.runtime import kshift
+    from ik_llama_cpp_tpu_torch.runtime.generate import Runtime
+    t0 = time.perf_counter()
+    rt = clone_layers(Runtime.from_gguf(gguf, fuse=True, kv_quant="q8"), 2)
+    base_cfg = rt.cfg
+    ids = [int(x) for x in np.random.default_rng(7).integers(3, V, 128)]
+    ok = True
+    for name, quant, had in (("q8", "q8", False), ("q4", "q4", False), ("q6", "q6", False),
+                             ("nl4", "nl4", False), ("q8 + khad + vhad", "q8", True)):
+        rt.kv_quant = quant
+        rt.cfg = replace(base_cfg, k_hadamard=had, v_hadamard=had)
+        tk, lk, lp, kvk, kvp, nk = forced_parity(torch, rt, ids, 16)
+        good, text = parity_verdict(lk, lp)
+        d0, d_all = _differing(torch, kvk, kvp, nk, 0), _differing(torch, kvk, kvp, nk)
+        good = good and d0 <= 1e-2
+        log(f"[10] {name}, depth 2, kernel path vs plain path: {text}; cache code bytes "
+            f"that differ over {nk} rows: layer 0 {100 * d0:.3f}% (its inputs differ only "
+            f"by the float32 summation order of kernel A: stray steps, gate 1%), both "
+            f"layers {100 * d_all:.3f}% (layer 1 sees attention outputs that differ by "
+            f"bf16 ulps): {'ok' if good else 'FAIL'}")
+        ok &= good
+        if name == "q8":        # K-shift on both caches, then on over one history
+            kvk, n1 = kshift.k_shift(kvk, rt.cfg, 4, 32, nk)
+            nxt = torch.argmax(lk[-1]).reshape(1, 1)
+            lg = llama_step(torch, rt, nxt, kvk, n1)
+            sk, slk = greedy_from(torch, rt, kvk, n1 + 1, lg, 8)
+            with plain_path():
+                kvp, n2 = kshift.k_shift(kvp, rt.cfg, 4, 32, nk)
+                lg = llama_step(torch, rt, nxt, kvp, n2)
+                slp = forced_logits(torch, rt, kvp, n2 + 1, lg, sk)
+            good, text = parity_verdict(slk, slp)
+            good = good and n1 == n2 == nk - 32
+            log(f"[10] q8 after k_shift(n_keep 4, n_discard 32), n_past {nk} -> {n1}, 8 more "
+                f"steps: {text}: {'ok' if good else 'FAIL'}")
+            ok &= good
+        del kvk, kvp
+    del rt
+    torch.cuda.empty_cache()
+    log(f"[10] quantized-KV parity: {time.perf_counter() - t0:.1f} s")
+    return ok
+
+
+def phase_int4(torch, gguf: Path, launches: dict) -> bool:
+    """Phase 11: 4-bit packed weights at full width, then parity at depth 2."""
+    from ik_llama_cpp_tpu_torch.models import weights
+    from ik_llama_cpp_tpu_torch.runtime.generate import Runtime
+    t_phase = time.perf_counter()
+    weights.set_pack_int4(True)
+    try:
+        rt = clone_layers(Runtime.from_gguf(gguf, fuse=True), NL)
+    finally:
+        weights.set_pack_int4(False)
+    torch.cuda.synchronize()
+    kinds, head = _linear_kinds(rt), type(rt.params["output"]).__name__
+    luts = {v.lut16 for b in rt.params["blocks"] for v in b.values() if hasattr(v, "lut16")}
+    log(f"[11] loaded L{NL} with set_pack_int4(True) in {time.perf_counter() - t_phase:.1f} s: "
+        f"block linears {kinds} (codebooks {luts}: Q4_0 codes are the dense [-8, 7] range), "
+        f"head {head} (Q8_0 has 255 code values: not packable); device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    ok = kinds == ["QLinearI4"] and head == "QLinearI8"
+    rng = np.random.default_rng(8)
+    timed_run(torch, rt, [int(x) for x in rng.integers(3, V, PREFILL)], 4)   # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    ids = [int(x) for x in rng.integers(3, V, PREFILL)]
+    reset_counts()
+    logits, toks, kv, n_past, pre_s, dec_s = timed_run(torch, rt, ids)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches["qmatmul4"] = counts["qmatmul4"]
+    want = dict.fromkeys(counts, 0)
+    want.update({"qmatmul4": 4 * NL * (1 + DECODE), "qmatmul_i8": 1 + DECODE,
+                 "flash_attention": NL, "flash_attention_decode": NL * DECODE})
+    good = counts == want
+    finite = bool(torch.isfinite(logits).all())
+    in_range = bool(((toks >= 0) & (toks < V)).all())
+    log(f"[11] prefill {PREFILL} tokens: {pre_s * 1e3:.1f} ms = {PREFILL / pre_s:.1f} tok/s; "
+        f"decode {DECODE} tokens at context {PREFILL}: {dec_s * 1e3:.1f} ms = "
+        f"{DECODE / dec_s:.2f} tok/s; peak memory {peak:.2f} GiB")
+    log(f"[11] launches { {k: v for k, v in counts.items() if v} }; as expected (kernel 15 "
+        f"x {4 * NL} and kernel A x 1 a step and a chunk): {good}; logits finite: {finite}; "
+        f"tokens in vocab: {in_range}")
+    ok &= good and finite and in_range
+    del kv, logits
+    rt.params["blocks"] = rt.params["blocks"][:2]
+    rt.cfg = replace(rt.cfg, n_layer=2)
+    torch.cuda.empty_cache()
+    ids = [int(x) for x in np.random.default_rng(9).integers(3, V, 128)]
+    _, lk, lp, _, _, _ = forced_parity(torch, rt, ids, 16)
+    good, text = parity_verdict(lk, lp)
+    log(f"[11] depth-2 parity, kernel path vs plain path: {text}: "
+        f"{'ok' if good else 'FAIL'}; {time.perf_counter() - t_phase:.1f} s in all")
+    del rt
+    torch.cuda.empty_cache()
+    return ok and good
+
+
 KERNELS = {
     "qmatmul_i8": ("ik_llama_cpp_tpu_torch/csrc/qmatmul_i8.cu",
                    "ik_llama_cpp_tpu/ops/qmatmul.py:474", "M=1 K=4096 N=28672"),
@@ -830,6 +1233,14 @@ KERNELS = {
     "ragged_qmatmul_i8": ("ik_llama_cpp_tpu_torch/csrc/moe_qmm_i8.cu",
                           "ik_llama_cpp_tpu/ops/moe_qmm.py:157",
                           "M=4096 K=2048 N=768 skewed"),
+    "flash_attention_decode_q8": ("ik_llama_cpp_tpu_torch/csrc/flash_attention_decode_q.cu",
+                                  "ik_llama_cpp_tpu/ops/flash_attention.py:795",
+                                  "q8 B=1 T=1 S=1024 q_pos0=[512] kv_len=[513]"),
+    "flash_attention_q8": ("ik_llama_cpp_tpu_torch/csrc/flash_attention_q8.cu",
+                           "ik_llama_cpp_tpu/ops/flash_attention.py:313",
+                           "q8 B=1 T=512 S=1024 q_pos0=[0] kv_len=[512]"),
+    "qmatmul4": ("ik_llama_cpp_tpu_torch/csrc/qmatmul4.cu",
+                 "ik_llama_cpp_tpu/ops/qmatmul.py:243", "M=1 K=4096 N=28672"),
 }
 
 
@@ -853,7 +1264,7 @@ def summary(results, launches) -> list:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
     try:
@@ -875,8 +1286,9 @@ def main() -> int:
     if 3 in phases:
         ok &= phase_kernels(torch, timer, results)
         ok &= phase_moe_kernels(torch, timer, results)
+        ok &= phase_kvq_kernels(torch, timer, results)
     gguf = None
-    if phases & {4, 5, 6}:
+    if phases & {4, 5, 6, 9, 10, 11}:
         t0 = time.perf_counter()
         gguf = build_gguf(ROOT / "build" / "smoke8b.gguf")
         log(f"[4] model file ready in {time.perf_counter() - t0:.1f} s: {gguf}")
@@ -891,13 +1303,19 @@ def main() -> int:
         moe_gguf = build_moe_gguf(ROOT / "build" / "smoke_qwen3moe.gguf")
         log(f"[7] model file ready in {time.perf_counter() - t0:.1f} s: {moe_gguf}")
         ok &= phase_moe(torch, moe_gguf, launches)
+    if 9 in phases:
+        ok &= phase_kvq(torch, gguf, launches)
+    if 10 in phases:
+        ok &= phase_kvq_parity(torch, gguf)
+    if 11 in phases:
+        ok &= phase_int4(torch, gguf, launches)
     kernels = summary(results, launches)
-    if phases >= {3, 4, 6, 7}:
+    if phases >= {3, 4, 6, 7, 9, 11}:
         for k in kernels:
             if k["launches"] <= 0:
                 log(f"chip_smoke: kernel {k['name']} was never launched on its path")
                 ok = False
-    log(f"[9] total {time.perf_counter() - t_start:.1f} s")
+    log(f"[12] total {time.perf_counter() - t_start:.1f} s")
     if not ok:
         fail("a phase failed (see above)")
     print(json.dumps({"kernels": kernels}), flush=True)

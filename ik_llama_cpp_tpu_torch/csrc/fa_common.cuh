@@ -71,12 +71,14 @@ struct FaWarp {
   }
 
   // sq: the warp's 16 query rows (LDQ); sk/svt: the tile from fa_load_kv.
-  // qp0/qp1: absolute positions of rows g and g+8.
+  // qp0/qp1: absolute positions of rows g and g+8. ksc: null, or one
+  // float32 factor per key of the tile (the row scales of a quantized K
+  // tile that holds raw codes), applied to the score before ``scale``.
   template <int LDQ, int LDK, int LDV>
   IK_DEV void step(const __nv_bfloat16* sq, const __nv_bfloat16* sk,
                    const __nv_bfloat16* svt, int key0, int qp0, int qp1,
                    const FaMask& mk, float scale, float softcap, int dk,
-                   int dv) {
+                   int dv, const float* ksc = nullptr) {
     const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
     float s[KT / 8][4];
 #pragma unroll
@@ -106,7 +108,9 @@ struct FaWarp {
     for (int j = 0; j < KT / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float v = s[j][e] * scale;
+        float v = s[j][e];
+        if (ksc != nullptr) v = __fmul_rn(v, ksc[j * 8 + 2 * t + (e & 1)]);
+        v *= scale;
         if (softcap > 0.f) v = softcap * tanhf(v / softcap);
         const int key = key0 + j * 8 + 2 * t + (e & 1);
         if (fa_allowed(key, (e < 2) ? qp0 : qp1, mk)) {

@@ -7,6 +7,8 @@ arrays are numpy and whose linears are dicts tagged with their kind:
      "gbias": (K/G, N) | None, "group": G}
     {"type": "QLinear", "codes": (K, N) int8, "scale": (K/G, N),
      "bias": (K/G, N) | None, "group": G}
+    {"type": "QLinearI4", "packed": (K/2, N) uint8, "scale": (K/G, N),
+     "bias": (K/G, N) | None, "group": G, "lut16": 16 floats | None}
     {"type": "DenseLinear", "w": (K, N)}
     {"type": "QuantExpertWeights", "gate" | "up" | "down": (G, K, N) int8,
      "gate_s" | "up_s" | "down_s": (G, K/group, N) f32,
@@ -27,7 +29,8 @@ import numpy as np
 import torch
 
 from ..ops.moe import QuantExpertWeights
-from .weights import DenseLinear, QLinear, QLinearI8
+from .llama import KVCache
+from .weights import DenseLinear, QLinear, QLinearI4, QLinearI8
 
 _BF16_KEYS = ("tok_embd",)
 
@@ -55,6 +58,13 @@ def _linear(d: dict, device):
                        _tensor(d["scale"], device, bf16),
                        _tensor(d.get("bias"), device, bf16),
                        group=int(d["group"]))
+    if kind == "QLinearI4":
+        lut = d.get("lut16")
+        return QLinearI4(_tensor(d["packed"], device, torch.uint8),
+                         _tensor(d["scale"], device, bf16),
+                         _tensor(d.get("bias"), device, bf16),
+                         group=int(d["group"]),
+                         lut16=None if lut is None else tuple(float(v) for v in lut))
     if kind == "DenseLinear":
         return DenseLinear(_tensor(d["w"], device, bf16))
     if kind == "QuantExpertWeights":
@@ -78,3 +88,16 @@ def params_from_numpy(tree, device, *, _key: str = ""):
     if isinstance(tree, (list, tuple)):
         return [params_from_numpy(v, device, _key=_key) for v in tree]
     return _tensor(tree, device, torch.bfloat16 if _key in _BF16_KEYS else None)
+
+
+def kv_from_numpy(k, v, k_scale=None, v_scale=None, device="cpu") -> KVCache:
+    """A KV cache of the JAX package, fetched to numpy, as the port's: bf16
+    k/v (L, B, S, Hkv, D), or codes (int8 / uint8, any of the four codecs)
+    with their float32 scale stacks (L, B, S, Hkv). The arrays are copied,
+    so the port's in-place row writes do not touch the caller's."""
+    if k_scale is None:
+        return KVCache(_tensor(k, device, torch.bfloat16),
+                       _tensor(v, device, torch.bfloat16))
+    return KVCache(_tensor(k, device), _tensor(v, device),
+                   _tensor(k_scale, device, torch.float32),
+                   _tensor(v_scale, device, torch.float32))

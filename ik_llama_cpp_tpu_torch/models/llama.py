@@ -1,4 +1,4 @@
-"""Llama and qwen3moe: parameters, bf16 KV cache and the forward pass.
+"""Llama and qwen3moe: parameters, the KV caches and the forward pass.
 
 The torch counterpart of the plain-llama and qwen3moe subset of the JAX
 package's ``models/llama.py``: one functional forward over a
@@ -7,11 +7,17 @@ the cache in place; the attention of layer i reads the slab ``kv.k[i]``,
 which is a view, so the decode step never copies the capacity-sized cache
 (the analogue of the JAX package's stacked-cache fast path).
 
+The cache is bf16, or quantized on write with one of the row codecs of
+``ops/kv_quant.py`` (codes plus a float32 scale per (row, kv head)), with
+an optional Hadamard rotation of K (and q) and of V before the write;
+``MixedKVCache`` gives the first and last layers another codec than the
+bulk.
+
 qwen3moe adds per-head RMS QK-norms before RoPE and a routed-expert FFN
 (``ops/moe.py``) over experts re-coded per supergroup of 256 at load.
 
 Weight names follow GGUF conventions (token_embd, blk.N.attn_q, ...).
-Quantized KV, ring (SWA-compressed) caches, planar (group-32) or bf16
+Ring (SWA-compressed) caches, planar (group-32) or bf16
 experts, shared experts and the other MoE architectures, MTP (other
 architectures), tensor/pipeline/sequence parallelism, LoRA and control
 vectors are later slices of the port: asking for one raises
@@ -27,7 +33,11 @@ import torch
 from ..gguf.reader import GGUFModel
 from ..ops import layers as L
 from ..ops.flash_attention import (DECODE_MAX_T, flash_attention,
-                                   flash_attention_decode)
+                                   flash_attention_decode,
+                                   flash_attention_decode_q8,
+                                   flash_attention_q8)
+from ..ops.kv_quant import (KV_CODEC_DTYPE, KV_CODEC_WIDTH, KV_DECODERS,
+                            KV_ENCODERS, hadamard_rotate, kv_codec_of)
 from ..ops.moe import QuantExpertWeights, moe_ffn
 from ..ops.qmatmul import SUPERGROUP, requant_supergroup
 from ..quant.planar import PLANAR_FNS, planar_decode
@@ -43,25 +53,141 @@ def _later(what: str, slice_: str):
                               "of the PyTorch port)")
 
 
+def _codec_name(quant) -> str:
+    """True / 'q8' / 'q4' / 'q6' / 'nl4' / 'iq4_nl' -> the codec's name."""
+    name = "q8" if quant is True else ("nl4" if quant == "iq4_nl" else quant)
+    if name not in KV_ENCODERS:
+        raise ValueError(f"unknown KV cache type {quant!r}: one of "
+                         f"{sorted(KV_ENCODERS)} or 'iq4_nl'")
+    return name
+
+
+def _codec_stacks(codec: str, n: int, batch: int, capacity: int, hkv: int,
+                  d: int, device):
+    """Zeroed (k codes, v codes, k scales, v scales) of n layers."""
+    qshape = (n, batch, capacity, hkv, KV_CODEC_WIDTH[codec](d))
+    dt = KV_CODEC_DTYPE[codec]
+    return (torch.zeros(qshape, dtype=dt, device=device),
+            torch.zeros(qshape, dtype=dt, device=device),
+            torch.zeros(qshape[:-1], dtype=torch.float32, device=device),
+            torch.zeros(qshape[:-1], dtype=torch.float32, device=device))
+
+
 @dataclass
 class KVCache:
-    """Fixed-capacity bf16 KV cache, k/v: (L, B, S, Hkv, D)."""
+    """Fixed-capacity KV cache, k/v: (L, B, S, Hkv, D) bf16; or quantized
+    on write, k/v: codes (L, B, S, Hkv, W) in the codec's dtype and stored
+    width with k_scale/v_scale: float32 (L, B, S, Hkv)."""
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
 
     @classmethod
     def create(cls, cfg: ModelConfig, batch: int, capacity: int, device,
                quant=False):
+        """quant: False (bf16), True / 'q8' (int8 rows), 'q4' / 'q6' / 'nl4'
+        ('iq4_nl') packed rows: the -ctk/-ctv q8_0 / q4_0 / q6_0 / iq4_nl
+        cache types."""
         if quant:
-            _later("quantized KV cache", "quantized-KV")
+            return cls(*_codec_stacks(_codec_name(quant), cfg.n_layer, batch,
+                                      capacity, cfg.n_head_kv, cfg.head_dim,
+                                      device))
         shape = (cfg.n_layer, batch, capacity, cfg.n_head_kv, cfg.head_dim)
         return cls(torch.zeros(shape, dtype=torch.bfloat16, device=device),
                    torch.zeros(shape, dtype=torch.bfloat16, device=device))
 
     @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    @property
     def capacity(self) -> int:
         return self.k.shape[2]
+
+    @property
+    def device(self) -> torch.device:
+        return self.k.device
+
+
+class _MixedLayerView:
+    """kv.k[i]-style per-layer access over the override and bulk stacks."""
+
+    def __init__(self, cache: "MixedKVCache", field: str):
+        self._c = cache
+        self._f = field
+
+    def __getitem__(self, i: int) -> torch.Tensor:
+        m = self._c.layer_map[i]
+        if m >= 0:
+            return getattr(self._c, self._f + "_ovr")[m]
+        return getattr(self._c, self._f + "_mid")[-m - 1]
+
+
+@dataclass
+class MixedKVCache:
+    """Per-layer KV codec overrides: the first n_first and last n_last
+    layers ('ovr') use the override codec, the bulk ('mid') the base codec
+    (e.g. the sensitive outer layers at q8, the rest at q4). Two stacks; a
+    layer's codec is read off its slab's dtype and width, so the write and
+    attention paths take no flag. Rows are written in place."""
+
+    k_ovr: torch.Tensor
+    v_ovr: torch.Tensor
+    ks_ovr: torch.Tensor
+    vs_ovr: torch.Tensor
+    k_mid: torch.Tensor
+    v_mid: torch.Tensor
+    ks_mid: torch.Tensor
+    vs_mid: torch.Tensor
+    layer_map: tuple = ()   # m >= 0 -> ovr[m]; m < 0 -> mid[-m-1]
+
+    @property
+    def k(self):
+        return _MixedLayerView(self, "k")
+
+    @property
+    def v(self):
+        return _MixedLayerView(self, "v")
+
+    @property
+    def k_scale(self):
+        return _MixedLayerView(self, "ks")
+
+    @property
+    def v_scale(self):
+        return _MixedLayerView(self, "vs")
+
+    @property
+    def quantized(self) -> bool:
+        return True
+
+    @property
+    def capacity(self) -> int:
+        return self.k_mid.shape[2]
+
+    @property
+    def device(self) -> torch.device:
+        return self.k_mid.device
+
+    @classmethod
+    def create(cls, cfg: ModelConfig, batch: int, capacity: int, device,
+               mid: str = "q4", override: str = "q8", n_first: int = 1,
+               n_last: int = 1):
+        lm, no, nm = [], 0, 0
+        for i in range(cfg.n_layer):
+            if i < n_first or i >= cfg.n_layer - n_last:
+                lm.append(no)
+                no += 1
+            else:
+                lm.append(-nm - 1)
+                nm += 1
+        assert no and nm, (n_first, n_last, cfg.n_layer)
+        hkv, d = cfg.n_head_kv, cfg.head_dim
+        return cls(*_codec_stacks(_codec_name(override), no, batch, capacity, hkv, d, device),
+                   *_codec_stacks(_codec_name(mid), nm, batch, capacity, hkv, d, device),
+                   tuple(lm))
 
 
 def load_llama_params(gg: GGUFModel, cfg: ModelConfig, device, *,
@@ -189,12 +315,13 @@ def _ffn_dense(blk: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return blk["ffn_down"](act)
 
 
-def _attn_block(blk: dict, x: torch.Tensor, cfg: ModelConfig, kv: KVCache,
+def _attn_block(blk: dict, x: torch.Tensor, cfg: ModelConfig, kv,
                 il: int, n_past: list[int], npv: torch.Tensor,
                 cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """One attention sublayer over (B, T, E). Writes this chunk's K/V rows
-    into layer ``il`` of the cache in place, then attends over that layer's
-    slab: the decode kernel for T <= 16, the prefill kernel otherwise."""
+    into layer ``il`` of the cache in place (quantized with the layer's
+    codec when the cache is), then attends over that layer's slab: a decode
+    kernel for T <= 16, a prefill kernel otherwise."""
     b, t, _ = x.shape
     h, hkv, d = cfg.n_head, cfg.n_head_kv, cfg.head_dim
     if "wqkv" in blk:
@@ -217,18 +344,51 @@ def _attn_block(blk: dict, x: torch.Tensor, cfg: ModelConfig, kv: KVCache,
     q = L.apply_rope(q, cos, sin, cfg.rope_type)
     k = L.apply_rope(k, cos, sin, cfg.rope_type)
     v = v.reshape(b, t, hkv, d)
+    # -khad / -vhad: rotate K and q (scores unchanged) and/or V by a head-dim
+    # Hadamard before the cache write; V is un-rotated after attention
+    if cfg.k_hadamard:
+        k, q = hadamard_rotate(k), hadamard_rotate(q)
+    if cfg.v_hadamard:
+        v = hadamard_rotate(v)
 
-    k_slab, v_slab = kv.k[il], kv.v[il]          # views (B, S, Hkv, D)
-    for bb in range(b):
-        n = n_past[bb]
-        k_slab[bb, n:n + t] = k[bb].to(k_slab.dtype)
-        v_slab[bb, n:n + t] = v[bb].to(v_slab.dtype)
-
-    attn_fn = flash_attention_decode if t <= DECODE_MAX_T else flash_attention
-    attn = attn_fn(q.to(torch.bfloat16), k_slab, v_slab, npv, npv + t,
-                   scale=cfg.f_attention_scale or (1.0 / float(np.sqrt(d))),
-                   softcap=cfg.attn_softcap, swa_window=cfg.swa_window,
-                   attn_chunk=cfg.attn_chunk)
+    k_slab, v_slab = kv.k[il], kv.v[il]          # views (B, S, Hkv, W)
+    kw = dict(scale=cfg.f_attention_scale or (1.0 / float(np.sqrt(d))),
+              softcap=cfg.attn_softcap, swa_window=cfg.swa_window,
+              attn_chunk=cfg.attn_chunk)
+    qb = q.to(torch.bfloat16)
+    if not kv.quantized:
+        for bb in range(b):
+            n = n_past[bb]
+            k_slab[bb, n:n + t] = k[bb].to(k_slab.dtype)
+            v_slab[bb, n:n + t] = v[bb].to(v_slab.dtype)
+        attn_fn = flash_attention_decode if t <= DECODE_MAX_T else flash_attention
+        attn = attn_fn(qb, k_slab, v_slab, npv, npv + t, **kw)
+    else:
+        ks_slab, vs_slab = kv.k_scale[il], kv.v_scale[il]     # (B, S, Hkv)
+        codec = kv_codec_of(k_slab, d)
+        kq, ks = KV_ENCODERS[codec](k)            # quantize on write
+        vq, vs = KV_ENCODERS[codec](v)
+        for bb in range(b):
+            n = n_past[bb]
+            k_slab[bb, n:n + t], ks_slab[bb, n:n + t] = kq[bb], ks[bb]
+            v_slab[bb, n:n + t], vs_slab[bb, n:n + t] = vq[bb], vs[bb]
+        if t <= DECODE_MAX_T:
+            attn = flash_attention_decode_q8(qb, k_slab, ks_slab, v_slab, vs_slab,
+                                             npv, npv + t, **kw)
+        elif codec == "q8":
+            attn = flash_attention_q8(qb, k_slab, ks_slab, v_slab, vs_slab,
+                                      npv, npv + t, **kw)
+        else:
+            # the packed codecs have no fused prefill kernel: the filled
+            # rows are decoded to bf16 for the bf16 prefill kernel
+            fill = max(n_past) + t
+            dec = KV_DECODERS[codec]
+            attn = flash_attention(
+                qb, dec(k_slab[:, :fill], ks_slab[:, :fill]).to(torch.bfloat16),
+                dec(v_slab[:, :fill], vs_slab[:, :fill]).to(torch.bfloat16),
+                npv, npv + t, **kw)
+    if cfg.v_hadamard:
+        attn = hadamard_rotate(attn)   # attn = A @ (V H), so attn @ H = A @ V
     out = blk["wo"](attn.reshape(b, t, h * d))
     if "attn_output_bias" in blk:
         out = out + blk["attn_output_bias"]
@@ -242,7 +402,7 @@ def _check_cfg(cfg: ModelConfig) -> None:
         _later(f"the {cfg.arch} graph variant", "other-architectures")
 
 
-def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, kv: KVCache,
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, kv,
             n_past, *, npv: torch.Tensor | None = None,
             logits_last_only: bool = False) -> torch.Tensor:
     """tokens: (B, T) on the cache's device; n_past: int or per-row list of
@@ -253,7 +413,7 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, kv: KVCache,
     if "cvec" in params:
         _later("control vectors", "LoRA")
     b, t = tokens.shape
-    dev = kv.k.device
+    dev = kv.device
     n_past = [int(n_past)] * b if np.ndim(n_past) == 0 else [int(n) for n in n_past]
     if npv is None:
         npv = torch.tensor(n_past, dtype=torch.int32, device=dev)

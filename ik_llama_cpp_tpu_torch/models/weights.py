@@ -4,7 +4,9 @@ The torch counterpart of the JAX package's ``models/weights.py``: matmul
 weights are planar-decoded (``quant/planar.py``, numpy) into int8 codes and
 group scales; 4-bit-class tensors whose K is a multiple of 256 are re-coded
 once more to int8 per supergroup of 256 (``QLinearI8``), which is the
-default on the card. Embeddings and norms are dequantized to dense tensors.
+default on the card; with ``set_pack_int4(True)`` tensors of at most 16
+distinct code values are packed two a byte instead (``QLinearI4``).
+Embeddings and norms are dequantized to dense tensors.
 
 A linear is an ``nn.Module`` holding its tensors as buffers; its forward
 routes through the kernel wrappers of ``ops/qmatmul.py``, which pick the
@@ -21,7 +23,7 @@ from torch import nn
 from ..gguf.reader import GGUFTensorInfo
 from ..quant.dequant import dequantize
 from ..quant.planar import PLANAR_FNS, planar_decode
-from ..ops.qmatmul import (SUPERGROUP, qmatmul, qmatmul_i8,
+from ..ops.qmatmul import (SUPERGROUP, pack_int4, qmatmul, qmatmul4, qmatmul_i8,
                            quantize_activations, requant_supergroup)
 
 
@@ -41,6 +43,28 @@ class QLinear(nn.Module):
         y = qmatmul(x.reshape(-1, x.shape[-1]), self.codes, self.scale,
                     self.bias, group=self.group)
         return y.reshape(*lead, self.codes.shape[1])
+
+
+class QLinearI4(nn.Module):
+    """4-bit packed planar linear: two code indices a byte along K and an
+    optional static 16-entry codebook, half the weight bytes of QLinear for
+    4-bit-class formats."""
+
+    def __init__(self, packed: torch.Tensor, scale: torch.Tensor,
+                 bias: torch.Tensor | None, group: int = 32,
+                 lut16: tuple | None = None):
+        super().__init__()
+        self.register_buffer("packed", packed)   # uint8 (K/2, N)
+        self.register_buffer("scale", scale)     # bf16 (K/G, N)
+        self.register_buffer("bias", bias)       # bf16 (K/G, N) | None
+        self.group = group
+        self.lut16 = lut16                       # static codebook; None = idx - 8
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead = x.shape[:-1]
+        y = qmatmul4(x.reshape(-1, x.shape[-1]), self.packed, self.scale,
+                     self.bias, group=self.group, lut16=self.lut16)
+        return y.reshape(*lead, self.packed.shape[1])
 
 
 class QLinearI8(nn.Module):
@@ -88,6 +112,17 @@ class DenseLinear(nn.Module):
         return x.to(torch.bfloat16).float() @ self.w.float()
 
 
+# 4-bit weight packing at load (QLinearI4), off by default; it takes
+# precedence over the int8 path for the tensors it can pack.
+_PACK_INT4 = False
+
+
+def set_pack_int4(flag: bool) -> None:
+    """Toggle 4-bit weight packing at load."""
+    global _PACK_INT4
+    _PACK_INT4 = flag
+
+
 # int8 x int8 path at load: None = by device (on for cuda, off for cpu, which
 # lines the CPU tests up with the JAX package's CPU defaults); env IK_I8_MXU
 # overrides both.
@@ -131,6 +166,11 @@ def load_linear(info: GGUFTensorInfo, device, *, use_quant: bool = True):
         pw = planar_decode(info.data, info.ggml_type, k)
         # scales/biases in bf16: the kernels round them to bf16 anyway
         bias = None if pw.bias is None else _t(pw.bias.T, device, torch.bfloat16)
+        p4 = pack_int4(np.ascontiguousarray(pw.codes.T)) if _PACK_INT4 else None
+        if p4 is not None:
+            packed, lut = p4
+            return QLinearI4(_t(packed, device), _t(pw.scale.T, device, torch.bfloat16),
+                             bias, group=pw.group, lut16=lut)
         if i8_enabled(device) and k % SUPERGROUP == 0:
             q8, sw = requant_supergroup(pw.codes.T, pw.scale.T, group=pw.group)
             codes_t = _t(q8.T, device)                           # (N, K)
@@ -157,6 +197,18 @@ def fuse_linears(linears: list):
         if any(l.w.shape[0] != first.w.shape[0] for l in linears):
             return None
         return DenseLinear(torch.cat([l.w for l in linears], dim=1))
+    if isinstance(first, QLinearI4):
+        k2, g, lut = first.packed.shape[0], first.group, first.lut16
+        if any(l.packed.shape[0] != k2 or l.group != g or l.lut16 != lut
+               for l in linears):
+            return None
+        has_b = [l.bias is not None for l in linears]
+        if any(has_b) and not all(has_b):
+            return None
+        return QLinearI4(torch.cat([l.packed for l in linears], dim=1),
+                         torch.cat([l.scale for l in linears], dim=1),
+                         torch.cat([l.bias for l in linears], dim=1)
+                         if all(has_b) else None, group=g, lut16=lut)
     k, g = first.codes.shape[0], first.group
     if any(l.codes.shape[0] != k or l.group != g for l in linears):
         return None

@@ -23,8 +23,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("qmatmul_i8", "qmatmul", "flash_attention",
-           "flash_attention_decode", "moe_decode_i8", "moe_qmm_i8")
+SOURCES = ("qmatmul_i8", "qmatmul", "qmatmul4", "flash_attention",
+           "flash_attention_decode", "flash_attention_decode_q",
+           "flash_attention_q8", "moe_decode_i8", "moe_qmm_i8")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 

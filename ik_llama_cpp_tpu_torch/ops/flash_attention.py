@@ -9,6 +9,13 @@ chunks and per-head sinks; the result is (B, T, H, Dv) in q's dtype.
 A CPU tensor takes the plain version (``ops/attention.attend``); a CUDA
 tensor launches the kernel (``csrc/flash_attention.cu`` for prefill,
 ``csrc/flash_attention_decode.cu`` for T <= 16) or raises.
+
+Two more wrappers take a quantized cache (``ops/kv_quant.py``): codes
+k_q/v_q (B, S, Hkv, W) with float32 row scales k_s/v_s (B, S, Hkv).
+``flash_attention_decode_q8`` (T <= 16, all four codecs,
+``csrc/flash_attention_decode_q.cu``) and ``flash_attention_q8`` (any T,
+int8 codes, ``csrc/flash_attention_q8.cu``); their plain version is
+``attention_quant_ref``.
 """
 from __future__ import annotations
 
@@ -16,8 +23,10 @@ import torch
 
 from . import _cuda
 from .attention import attend
+from .kv_quant import KV_DECODERS, kv_codec_of
 
 DECODE_MAX_T = 16
+_CODEC_ID = {"q8": 0, "q4": 1, "q6": 2, "nl4": 3}      # csrc/fa_quant.cuh
 
 
 def _vec(x, b: int, device) -> torch.Tensor:
@@ -123,3 +132,136 @@ def flash_attention_decode(q, k, v, q_pos0, kv_len, *, scale: float,
 
 
 flash_attention_decode.launches = 0
+
+
+# --------------------------------------------------------------------------
+# quantized KV cache
+# --------------------------------------------------------------------------
+
+def attention_quant_ref(q, k_q, k_s, v_q, v_s, q_pos0, kv_len, *, scale: float,
+                        softcap: float = 0.0, swa_window: int = 0,
+                        attn_chunk: int = 0, sinks=None):
+    """Plain version of both quantized-cache kernels: decode the cache with
+    its codec, then ``attend``. K stays float32 (code * k_scale, as the
+    kernels' float32 scores); V is rounded to bf16 as the kernels round it
+    before the PV product."""
+    codec = kv_codec_of(k_q, q.shape[-1])
+    k = KV_DECODERS[codec](k_q, k_s)
+    v = KV_DECODERS[codec](v_q, v_s).to(torch.bfloat16)
+    return attention_ref(q, k, v, q_pos0, kv_len, scale=scale, softcap=softcap,
+                         swa_window=swa_window, attn_chunk=attn_chunk,
+                         sinks=sinks)
+
+
+def _launch_quant(symbol, lib, codec, q, k_q, k_s, v_q, v_s, q_pos0, kv_len,
+                  scale, softcap, swa_window, attn_chunk, sinks):
+    b, t, h, dk = q.shape
+    _, s, hkv, wk = k_q.shape
+    wv = v_q.shape[3]
+    _cuda.require(k_q.shape[0] == b and v_q.shape[:3] == k_q.shape[:3]
+                  and k_s.shape == k_q.shape[:3] and v_s.shape == k_q.shape[:3],
+                  f"{lib}: shapes q {tuple(q.shape)} k {tuple(k_q.shape)} "
+                  f"v {tuple(v_q.shape)} scales {tuple(k_s.shape)} {tuple(v_s.shape)}")
+    _cuda.require(h % hkv == 0, f"{lib}: {h} heads over {hkv} kv heads")
+    _cuda.require(v_q.dtype == k_q.dtype,
+                  f"{lib}: k and v must use the same codec")
+    if codec == "q8":
+        dv = wv
+        _cuda.require(wk == dk and dk % 8 == 0 and dv % 8 == 0 and max(dk, dv) <= 256,
+                      f"{lib}: head dims ({dk}, {dv}) must be multiples of 8 up to 256")
+    else:
+        # packed rows: 8-byte loads per bit plane need D % 32 == 0
+        dv = {"q4": 2 * wv, "nl4": 2 * wv, "q6": 4 * wv // 3}[codec]
+        _cuda.require(dk == dv and dk % 32 == 0 and dk <= 256,
+                      f"{lib}: the {codec} codec needs equal k and v head dims that "
+                      f"are multiples of 32 up to 256, got ({dk}, {dv})")
+    _cuda.require(q.dtype == torch.bfloat16 and q.stride(3) == 1
+                  and all(st % 8 == 0 for st in q.stride()[:3])
+                  and q.data_ptr() % 16 == 0,
+                  f"{lib}: q must be bf16 with a unit last stride and 16-byte aligned rows")
+    for name, x in (("k", k_q), ("v", v_q)):
+        _cuda.require(x.device == q.device, f"{lib}: {name} on another device")
+        _cuda.require(x.stride(3) == 1 and all(st % 8 == 0 for st in x.stride()[:3])
+                      and x.data_ptr() % 8 == 0,
+                      f"{lib}: {name} codes need a unit last stride and 8-byte aligned rows")
+    for name, x in (("k_s", k_s), ("v_s", v_s)):
+        _cuda.require(x.dtype == torch.float32 and x.stride(2) == 1
+                      and x.device == q.device,
+                      f"{lib}: {name} must be float32 with a unit last stride")
+    qp = _vec(q_pos0, b, q.device)
+    kl = _vec(kv_len, b, q.device)
+    sk = None
+    if sinks is not None:
+        sk = sinks.to(device=q.device, dtype=torch.float32).reshape(h).contiguous()
+    out = torch.empty((b, t, h, dv), dtype=torch.bfloat16, device=q.device)
+    fn = _cuda.function(lib, symbol, [_cuda.P] * 9 + [_cuda.I] * 7
+                        + [_cuda.L] * 13 + [_cuda.F] * 2 + [_cuda.I] * 2
+                        + [_cuda.P])
+    rc = fn(q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
+            v_s.data_ptr(), qp.data_ptr(), kl.data_ptr(),
+            None if sk is None else sk.data_ptr(), out.data_ptr(),
+            _CODEC_ID[codec], b, t, h, hkv, dk, dv,
+            *q.stride()[:3], *k_q.stride()[:3], *v_q.stride()[:3],
+            *k_s.stride()[:2], *v_s.stride()[:2],
+            float(scale), float(softcap), int(swa_window), int(attn_chunk),
+            _cuda.stream_ptr(q))
+    return rc, out
+
+
+def flash_attention_decode_q8(q, k_q, k_s, v_q, v_s, q_pos0, kv_len, *,
+                              scale: float, softcap: float = 0.0,
+                              swa_window: int = 0, attn_chunk: int = 0,
+                              sinks=None):
+    """Decode / short-chunk attention (T <= 16) over a quantized layer slab
+    in any of the four codecs, told apart by the codes' dtype and width.
+    CUDA kernel ``csrc/flash_attention_decode_q.cu``, which replaces the
+    Pallas kernel flash_attention.py:flash_attention_decode_q8 of the JAX
+    package. It is bound by the stored bytes of the filled rows; the block
+    layout is ``flash_attention_decode``'s, with a tile loader that unpacks
+    the codes. It raises where the TPU kernel returned None (packed codecs
+    need equal k and v head dims that are multiples of 32)."""
+    if q.device.type == "cpu":
+        return attention_quant_ref(q, k_q, k_s, v_q, v_s, q_pos0, kv_len,
+                                   scale=scale, softcap=softcap,
+                                   swa_window=swa_window,
+                                   attn_chunk=attn_chunk, sinks=sinks)
+    _cuda.require(q.shape[1] <= DECODE_MAX_T,
+                  f"flash_attention_decode_q8: T={q.shape[1]} > {DECODE_MAX_T}")
+    rc, out = _launch_quant("ik_flash_attention_decode_q", "flash_attention_decode_q",
+                            kv_codec_of(k_q, q.shape[-1]), q, k_q, k_s, v_q, v_s,
+                            q_pos0, kv_len, scale, softcap, swa_window, attn_chunk,
+                            sinks)
+    flash_attention_decode_q8.launches += 1
+    _cuda.check(rc, "flash_attention_decode_q8")
+    return out
+
+
+flash_attention_decode_q8.launches = 0
+
+
+def flash_attention_q8(q, k_q, k_s, v_q, v_s, q_pos0, kv_len, *, scale: float,
+                       softcap: float = 0.0, swa_window: int = 0,
+                       attn_chunk: int = 0, sinks=None):
+    """Prefill attention (any T) over an int8 cache with per-(row, head)
+    scales. CUDA kernel ``csrc/flash_attention_q8.cu``, which replaces the
+    Pallas kernel flash_attention.py:flash_attention_q8 of the JAX package.
+    Bound by bf16 tensor-core work on the live part of the causal score
+    matrix; ``flash_attention``'s block layout with an int8 tile loader."""
+    if q.device.type == "cpu":
+        return attention_quant_ref(q, k_q, k_s, v_q, v_s, q_pos0, kv_len,
+                                   scale=scale, softcap=softcap,
+                                   swa_window=swa_window,
+                                   attn_chunk=attn_chunk, sinks=sinks)
+    codec = kv_codec_of(k_q, q.shape[-1])
+    _cuda.require(codec == "q8" and k_q.dtype == torch.int8,
+                  f"flash_attention_q8: int8 (q8) codes only, got {codec} "
+                  f"{k_q.dtype}")
+    rc, out = _launch_quant("ik_flash_attention_q8", "flash_attention_q8", codec,
+                            q, k_q, k_s, v_q, v_s, q_pos0, kv_len, scale, softcap,
+                            swa_window, attn_chunk, sinks)
+    flash_attention_q8.launches += 1
+    _cuda.check(rc, "flash_attention_q8")
+    return out
+
+
+flash_attention_q8.launches = 0

@@ -1,12 +1,16 @@
-"""Quantized matmuls: the int8 supergroup GEMM and the planar dequant GEMM.
+"""Quantized matmuls: the int8 supergroup GEMM, the planar dequant GEMM and
+its 4-bit packed form.
 
 Each wrapper takes its plain torch version for tensors on the CPU and
 launches its CUDA kernel (``csrc/``) for tensors on the card; there is no
 fallback from one to the other. ``qmatmul_ref``, ``qmatmul_i8_ref`` and
 ``quantize_activations`` carry the numerics contracts of the JAX package's
-``ops/qmatmul.py``; ``requant_supergroup`` is its numpy load-time recode.
+``ops/qmatmul.py``; ``requant_supergroup`` and ``pack_int4`` are its numpy
+load-time recodes.
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -71,6 +75,108 @@ def qmatmul(x, codes, scale, bias=None, *, group: int = 32):
 
 
 qmatmul.launches = 0      # kernel launches, counted where they happen
+
+
+# --------------------------------------------------------------------------
+# 4-bit packed planar form: 4-bit-class formats whose planar codes take at
+# most 16 distinct values are re-packed at load into indices, two a byte
+# along K: packed (K/2, N) uint8 = idx[2i] | idx[2i+1] << 4, half the weight
+# bytes of the int8 planar layout. A static 16-entry codebook maps an index
+# to its code value; without one the value is idx - 8.
+# --------------------------------------------------------------------------
+
+def pack_int4(codes: np.ndarray):
+    """Planar int8 codes (K, N) -> (packed (K/2, N) uint8, lut16 | None), or
+    None when the tensor is not packable (more than 16 distinct values, or
+    odd K). A dense [-8, 7] range (more than 12 of its values present) is
+    stored as idx = code + 8 with no codebook; anything else gets a sorted
+    codebook padded with its largest value."""
+    k = codes.shape[0]
+    if k % 2:
+        return None
+    vals = np.unique(codes)
+    if vals.size > 16:
+        return None
+    if vals.min() >= -8 and vals.max() <= 7 and vals.size > 12:
+        idx = (codes.astype(np.int16) + 8).astype(np.uint8)
+        lut = None
+    else:
+        lut16 = np.full(16, float(vals[-1]), np.float32)
+        lut16[:vals.size] = vals.astype(np.float32)
+        idx = np.searchsorted(vals, codes).astype(np.uint8)
+        lut = tuple(float(v) for v in lut16)
+    packed = (idx[0::2] | (idx[1::2] << 4)).astype(np.uint8)
+    return packed, lut
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """(K/2, N) uint8 -> the (K, N) indices in [0, 16) as int64."""
+    k2, n = packed.shape
+    p = packed.to(torch.int64)
+    return torch.stack([p & 0x0F, p >> 4], dim=1).reshape(2 * k2, n)
+
+
+def _dequant4_bf16(packed, scale, bias, group, lut16):
+    idx = unpack_int4(packed)
+    if lut16 is None:
+        w = (idx - 8).to(torch.bfloat16)
+    else:
+        w = torch.tensor(lut16, dtype=torch.float32,
+                         device=packed.device)[idx].to(torch.bfloat16)
+    w = w * torch.repeat_interleave(scale.to(torch.bfloat16), group, dim=0)
+    if bias is not None:
+        w = w + torch.repeat_interleave(bias.to(torch.bfloat16), group, dim=0)
+    return w
+
+
+def qmatmul4_ref(x, packed, scale, bias=None, *, group: int = 32, lut16=None):
+    """Plain version: x (M, K) @ dequant(packed (K/2, N)) -> f32, with
+    ``qmatmul_ref``'s numerics: bf16(value) * bf16(scale) rounded to bf16,
+    + bf16(bias) rounded to bf16, bf16 x, float32 sums."""
+    w = _dequant4_bf16(packed, scale, bias, group, lut16)
+    return x.to(torch.bfloat16).float() @ w.float()
+
+
+def qmatmul4(x, packed, scale, bias=None, *, group: int = 32, lut16=None):
+    """(M, K) x 4-bit packed (K/2, N) -> f32 (M, N); scale/bias bf16
+    (K/G, N); lut16: 16 codebook values or None for idx - 8.
+
+    CUDA kernel ``csrc/qmatmul4.cu``, which replaces the Pallas kernel
+    ops/qmatmul.py:qmatmul4 of the JAX package. Bound by the weight bytes
+    (half a byte a weight) at small M and by bf16 tensor-core work at large
+    M; ``qmatmul``'s design with the nibble unpack in front, both nibbles of
+    a byte into neighbouring K positions, so x is taken whole."""
+    if x.device.type == "cpu":
+        return qmatmul4_ref(x, packed, scale, bias, group=group, lut16=lut16)
+    m, k = x.shape
+    k2, n = packed.shape
+    _cuda.require(k == 2 * k2 and k % group == 0 and group % 2 == 0,
+                  f"qmatmul4: shapes {tuple(x.shape)} {tuple(packed.shape)} group {group}")
+    _cuda.require(scale.shape == (k // group, n), f"qmatmul4: scale {tuple(scale.shape)}")
+    _cuda.require(packed.dtype == torch.uint8 and packed.is_contiguous(),
+                  "qmatmul4: packed must be contiguous uint8")
+    _cuda.require(scale.dtype == torch.bfloat16 and scale.is_contiguous(),
+                  "qmatmul4: scale must be contiguous bf16")
+    if bias is not None:
+        _cuda.require(bias.dtype == torch.bfloat16 and bias.is_contiguous()
+                      and bias.shape == scale.shape, "qmatmul4: bias must match scale")
+    for t in (packed, scale, bias):
+        _cuda.require(t is None or t.device == x.device, "qmatmul4: operands on different devices")
+    _cuda.require(lut16 is None or len(lut16) == 16, "qmatmul4: lut16 must hold 16 values")
+    xb = x.to(torch.bfloat16).contiguous()
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    lut = None if lut16 is None else (ctypes.c_float * 16)(*lut16)
+    fn = _cuda.function("qmatmul4", "ik_qmatmul4",
+                        [_cuda.P] * 5 + [_cuda.I] * 4 + [ctypes.POINTER(ctypes.c_float), _cuda.P])
+    rc = fn(xb.data_ptr(), packed.data_ptr(), scale.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(),
+            m, n, k, group, lut, _cuda.stream_ptr(x))
+    qmatmul4.launches += 1
+    _cuda.check(rc, "qmatmul4")
+    return out
+
+
+qmatmul4.launches = 0
 
 
 # --------------------------------------------------------------------------

@@ -1,16 +1,17 @@
 """Model runtime: load a GGUF, prefill in bucketed chunks, greedy decode.
 
 The torch counterpart of the JAX package's ``runtime/generate.py:Runtime``
-for the dense llama path. PyTorch runs eagerly, so there are no compiled
-step functions; the prefill buckets and the chunk limit are kept so that
-cache rows and chunking match the JAX runtime exactly.
+for the llama and qwen3moe paths, with a bf16 or quantized KV cache.
+PyTorch runs eagerly, so there are no compiled step functions; the prefill
+buckets and the chunk limit are kept so that cache rows and chunking match
+the JAX runtime exactly.
 
 The runtime runs on ``cuda`` unless the caller passes ``device="cpu"``; it
 never falls back to the CPU on its own.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -18,7 +19,7 @@ import torch
 from ..gguf.reader import load_gguf
 from ..models import llama as llama_mod
 from ..models.config import ModelConfig, config_from_gguf
-from ..models.llama import KVCache
+from ..models.llama import KVCache, MixedKVCache
 
 PREFILL_BUCKETS = (8, 16, 32, 64, 128, 256, 512)
 
@@ -30,7 +31,7 @@ def _bucket(n: int) -> int:
     return PREFILL_BUCKETS[-1]
 
 
-def _chunk_limit(kv: KVCache, n_past: int) -> int:
+def _chunk_limit(kv, n_past: int) -> int:
     """Largest token chunk whose bucket-padded cache write still fits:
     a write at n_past touches rows [n_past, n_past + bucket)."""
     room = kv.capacity - n_past
@@ -62,34 +63,55 @@ class Runtime:
     params: dict
     device: torch.device
     eos_id: int = -1
+    # KV cache type: False (bf16) | True / 'q8' | 'q4' | 'q6' | 'nl4' /
+    # 'iq4_nl' | a per-layer dict {"type", "first", "n_first", "last", "n_last"}
+    kv_quant: "bool | str | dict" = False
 
     @classmethod
     def from_gguf(cls, path, device=None, *, use_quant: bool = True,
                   fuse: bool = True, kv_quant=False, swa_compress: bool = False,
-                  tensor_parallel: int = 0, layer_split: int = 0):
+                  tensor_parallel: int = 0, layer_split: int = 0,
+                  k_hadamard: bool = False, v_hadamard: bool = False):
+        """``kv_quant`` picks the cache type of ``new_cache``; ``k_hadamard``
+        / ``v_hadamard`` (-khad / -vhad) rotate K (with q) and V by a
+        head-dim Hadamard before the cache write."""
         dev = resolve_device(device)
-        if kv_quant:
-            llama_mod._later("quantized KV cache", "quantized-KV")
         if swa_compress:
             llama_mod._later("SWA ring caches (--swa-compress)", "other-architectures")
         if tensor_parallel > 1 or layer_split > 1:
             llama_mod._later("tensor / pipeline parallel serving", "multi-GPU")
         gg = load_gguf(path)
         cfg = config_from_gguf(gg.metadata)
+        if k_hadamard or v_hadamard:
+            cfg = replace(cfg, k_hadamard=k_hadamard, v_hadamard=v_hadamard)
         params = llama_mod.load_llama_params(gg, cfg, dev, use_quant=use_quant,
                                              fuse=fuse)
         eos = int(gg.metadata.get("tokenizer.ggml.eos_token_id", -1))
-        return cls(cfg=cfg, params=params, device=dev, eos_id=eos)
+        return cls(cfg=cfg, params=params, device=dev, eos_id=eos,
+                   kv_quant=kv_quant)
 
-    def new_cache(self, batch: int = 1, capacity: int = 512) -> KVCache:
+    def new_cache(self, batch: int = 1, capacity: int = 512):
         # room for a bucket-padded write at the last row, rounded to 256
         # rows as the JAX runtime does (its decode kernel's tile rule), so
         # both runtimes hold the same cache rows
         b0 = max(PREFILL_BUCKETS[0], 256)
         capacity = -(-(capacity + PREFILL_BUCKETS[0] - 1) // b0) * b0
-        return KVCache.create(self.cfg, batch, capacity, self.device)
+        quant = self.kv_quant
+        if isinstance(quant, dict):
+            # per-layer first/last codec overrides, e.g. {"type": "q4",
+            # "first": "q8", "n_first": 1, "last": "q8", "n_last": 1}
+            ovr = quant.get("first", quant.get("last", "q8"))
+            n_first = int(quant.get("n_first", 1 if "first" in quant else 0))
+            n_last = int(quant.get("n_last", 1 if "last" in quant else 0))
+            if n_first + n_last < self.cfg.n_layer:
+                return MixedKVCache.create(
+                    self.cfg, batch, capacity, self.device,
+                    mid=quant.get("type", "q4"), override=ovr,
+                    n_first=n_first, n_last=n_last)
+            quant = ovr      # every layer overridden: a plain cache of that codec
+        return KVCache.create(self.cfg, batch, capacity, self.device, quant=quant)
 
-    def eval_tokens(self, ids: list[int], kv: KVCache, n_past: int = 0, *,
+    def eval_tokens(self, ids: list[int], kv, n_past: int = 0, *,
                     all_logits: bool = False):
         """Evaluate ids in bucket-padded chunks; returns (logits, kv, n_past)
         with the logits of every position (all_logits) or of the last one,
@@ -131,7 +153,7 @@ class Runtime:
             logits, kv, n_past = self.eval_tokens([tok], kv, n_past)
         return ids, out
 
-    def _decode_loop(self, tok0: torch.Tensor, kv: KVCache, n_past: int,
+    def _decode_loop(self, tok0: torch.Tensor, kv, n_past: int,
                      n_steps: int) -> torch.Tensor:
         """Greedy decode of n_steps tokens after tok0 (B, 1): a Python loop
         over device steps. The argmax stays on the device and nothing is

@@ -34,8 +34,9 @@ def test_no_jax_imports(path):
 
 def test_port_has_kernel_sources():
     srcs = {p.stem for p in (PORT / "csrc").glob("*.cu")}
-    assert srcs == {"qmatmul_i8", "qmatmul", "flash_attention",
-                    "flash_attention_decode", "moe_decode_i8", "moe_qmm_i8"}
+    assert srcs == {"qmatmul_i8", "qmatmul", "qmatmul4", "flash_attention",
+                    "flash_attention_decode", "flash_attention_decode_q",
+                    "flash_attention_q8", "moe_decode_i8", "moe_qmm_i8"}
     from ik_llama_cpp_tpu_torch.ops import _cuda
     assert set(_cuda.SOURCES) == srcs
 

@@ -146,8 +146,8 @@ def test_kv_cache_rows_land_in_place(tiny):
 
 def test_later_slices_raise(tiny, tmp_path):
     tr = TRuntime.from_gguf(tiny, device="cpu")
-    with pytest.raises(NotImplementedError, match="quantized-KV"):
-        TLM.KVCache.create(tr.cfg, 1, 64, "cpu", quant="q8")
+    with pytest.raises(NotImplementedError, match="other-architectures"):
+        TRuntime.from_gguf(tiny, device="cpu", swa_compress=True)
     with pytest.raises(NotImplementedError, match="tokenizer"):
         tr.generate("hello", 2)
     moe = make_tiny_llama_gguf(tmp_path / "g.gguf", arch="gemma", n_layer=1)
