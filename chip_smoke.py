@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13,14,15]
 
 Phases (all by default; any failure exits non-zero):
   1. device: the card's name and power limit; TF32 off for the plain versions
@@ -33,6 +33,23 @@ Phases (all by default; any failure exits non-zero):
      and the cache codes the two wrote
  11. 4-bit packed weights (set_pack_int4) at full width: every block linear
      a QLinearI4, prefill 512, decode 64, launch counts, parity at depth 2
+ 12. planar / mixed-format MoE end to end at the full width of
+     Qwen1.5-MoE-A2.7B (qwen2moe: L24 E2048 H16 KV16 D128, q/k/v biases, 60
+     experts top-4 FF1408, a shared expert of FF5632 with a sigmoid gate,
+     V151936; Q4_0 attention, experts and shared expert, Q8_0 embedding and
+     untied head, random blocks from a seed): gate/up experts re-coded per
+     supergroup of 256, down experts planar group 32 (1408 % 256 != 0);
+     load, prefill 512, decode 64, launch counts, decode and prefill profiles
+ 13. parity at depth 2, kernel path against plain path over one token
+     history, for (a) the phase-12 model, (b) the Qwen3-30B-A3B shape with
+     the int8 path off (every expert projection planar) and (c) the same
+     shape with the single-kernel decode (IK_MOE_FUSED_TG=1)
+ 14. the single-kernel MoE decode at the full width of Qwen3-30B-A3B
+     (IK_MOE_FUSED_TG=1 on phase 7's loaded model): decode 64, launch
+     counts, the kernel time a step beside phase 7's two-kernel step
+ 15. the dequant microbenchmark tool (tools/perf_dequant) at its default
+     shape: the planar GEMM with f32 and bf16 scales, its pair form, and a
+     bf16 torch.matmul
 The line before the last lists every ported kernel as JSON; the last line is
 {"ok": true, "device": {...}}. Without CUDA, or without the package beside
 this file, it exits non-zero and prints no result.
@@ -42,6 +59,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -61,8 +79,13 @@ D = E // H
 PREFILL, DECODE = 512, 64
 GGUF_VERSION = "port-1"
 # Qwen3-30B-A3B (the published config.json of Qwen/Qwen3-30B-A3B)
-MOE = dict(L=48, E=2048, H=32, HKV=4, D=128, G=128, TOPK=8, FF=768, V=151936)
-MOE_GGUF_VERSION = "port-2"
+MOE = dict(ARCH="qwen3moe", L=48, E=2048, H=32, HKV=4, D=128, G=128, TOPK=8, FF=768,
+           V=151936)
+MOE_GGUF_VERSION = "port-4"
+# Qwen1.5-MoE-A2.7B (the published config.json of Qwen/Qwen1.5-MoE-A2.7B):
+# 1408 % 256 != 0, so its down experts stay planar beside supergroup gate/up
+Q2MOE = dict(ARCH="qwen2moe", L=24, E=2048, H=16, HKV=16, D=128, G=60, TOPK=4, FF=1408,
+             FFS=5632, V=151936)
 
 
 def log(msg: str) -> None:
@@ -217,7 +240,7 @@ def phase_kernels(torch, timer, results) -> bool:
 
     scale_ = 1.0 / float(np.sqrt(D))
 
-    def attn_case(kernel, fn, b, t, s, qpos, kvlen):
+    def attn_case(kernel, fn, b, t, s, qpos, kvlen, H=H, HKV=HKV):
         q = torch.randn((b, t, H, D), generator=gen, device="cuda").to(torch.bfloat16)
         kc = torch.randn((b, s, HKV, D), generator=gen, device="cuda").to(torch.bfloat16)
         vc = torch.randn((b, s, HKV, D), generator=gen, device="cuda").to(torch.bfloat16)
@@ -246,7 +269,8 @@ def phase_kernels(torch, timer, results) -> bool:
         keys = sum(min(kvlen[i], qpos[i] + t) for i in range(b))
         bnd = bound_ms(2 * (b * t * H * D * 2) + 2 * keys * HKV * D * 2,
                        4.0 * H * D * live, BF16_FLOPS)
-        case = f"B={b} T={t} S={s} q_pos0={qpos} kv_len={kvlen}"
+        case = (f"B={b} T={t} S={s} q_pos0={qpos} kv_len={kvlen}"
+                + ("" if (H, HKV) == (32, 8) else f" H={H} HKV={HKV}"))
         return _record(results, kernel, case, err, tol,
                        timer(lambda: fn(q, kc, vc, qp, kl, scale=scale_)),
                        timer(lambda: FA.attention_ref(q, kc, vc, qp, kl,
@@ -264,6 +288,9 @@ def phase_kernels(torch, timer, results) -> bool:
                                 1, t, s, [max(kvl - t, 0)], [kvl])
         ok &= attn_case("flash_attention_decode", FA.flash_attention_decode,
                         2, t, 1024, [513 - t, 1000 - t], [513, 1000])
+    # no grouped queries (Qwen1.5-MoE-A2.7B): one query row per KV head
+    ok &= attn_case("flash_attention_decode", FA.flash_attention_decode, 1, 1, 1024,
+                    [512], [513], H=Q2MOE["H"], HKV=Q2MOE["HKV"])
     return ok
 
 
@@ -401,6 +428,236 @@ def phase_moe_kernels(torch, timer, results, c=MOE, dev="cuda") -> bool:
                           timer(lambda: MQ.ragged_qmatmul_i8_ref(xq, xs, w, sw, gs), 3),
                           timer(lambda: torch.matmul(xb, wd)), bnd)
     return ok
+
+
+def phase_planar_moe_kernels(torch, timer, results, dev="cuda") -> bool:
+    """Kernels 12-14 (planar MoE decode and prefill), 11 (the single-kernel
+    int8 decode) and 16 (the pair form of the planar GEMM) against their
+    plain versions, at the shapes of Qwen1.5-MoE-A2.7B (60 experts, E 2048,
+    FF 1408: gate/up supergroup with f32 scales, down group 32 with bf16
+    scales) and of Qwen3-30B-A3B (128 experts, FF 768). Library yardsticks
+    are bf16 torch.bmm / torch.matmul calls over the same rows and the
+    gathered, dequantized experts: a comparable function, not the same."""
+    from ik_llama_cpp_tpu_torch.ops import moe_decode as MD
+    from ik_llama_cpp_tpu_torch.ops import moe_qmm as MQ
+    from ik_llama_cpp_tpu_torch.ops import qmatmul as QM
+    from ik_llama_cpp_tpu_torch.ops.qmatmul import quantize_activations
+    from ik_llama_cpp_tpu_torch.tools import perf_dequant as PD
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rng = np.random.default_rng(3)
+    ok = True
+
+    def planar(g_, k, n, group, sdtype):
+        """(codes (G, K, N) as the view of (G, N, K), scales (G, K/group, N))."""
+        lim = 127 if group == 256 else 8
+        codes = torch.randint(-lim, lim + 1, (g_, n, k), generator=gen, device=dev,
+                              dtype=torch.int8).transpose(1, 2)
+        sc = (torch.rand((g_, k // group, n), generator=gen, device=dev) + 0.5) \
+            * (0.3 / lim / k ** 0.5)
+        return codes, sc.to(sdtype)
+
+    def routed(g_, t, topk):
+        return torch.from_numpy(np.concatenate(
+            [rng.permutation(g_)[:topk] for _ in range(t)]).astype(np.int32)).to(dev)
+
+    def sum_tol(k, absdot):
+        # both sum the same exact bf16 products in float32 in different
+        # orders: 16 sqrt(K) float32 roundings of the largest sum of |x w|
+        return 16 * k ** 0.5 * 2.0 ** -24 * absdot
+
+    log("[3] kernel 12 (moe_decode_gate_up, planar) vs plain; library = bf16 torch.bmm "
+        "over the gathered pairs' dequantized gate|up")
+    q2, q3 = Q2MOE, MOE
+    for c, t, group, sdt in ((q2, 1, 256, torch.float32), (q3, 1, 32, bf16),
+                             (q2, 8, 256, torch.float32)):
+        g_, k, ff, topk = c["G"], c["E"], c["FF"], c["TOPK"]
+        p = t * topk
+        gate, gs = planar(g_, k, ff, group, sdt)
+        up, us = planar(g_, k, ff, group, sdt)
+        ids = routed(g_, t, topk)
+        nd = len(set(ids.tolist()))
+        x = torch.randn((p, k), generator=gen, device=dev).to(bf16)
+        a12 = (x, ids, gate, gs, up, us)
+        got = MD.moe_decode_gate_up(*a12, group=group)
+        ref = MD.moe_decode_gate_up_ref(*a12, group=group)
+        sync(torch)
+        err = float((got.float() - ref.float()).abs().max())
+        tol = 2.0 ** -7 * float(ref.float().abs().max())   # h is bf16: two ulps of the largest
+        sb = gs.element_size()
+        bnd = bound_ms(p * k * 2 + p * 4 + nd * 2 * (k * ff + (k // group) * ff * sb)
+                       + p * ff * 2, 4.0 * p * k * ff, BF16_FLOPS)
+        li = ids.long()
+        wb = torch.cat([MD.dequant_experts(gate[li], gs[li], group),
+                        MD.dequant_experts(up[li], us[li], group)], dim=2)
+        xb = x[:, None, :]
+        ok &= _record(results, "moe_decode_gate_up",
+                      f"P={p} K={k} FF={ff} G={g_} group={group} "
+                      f"{'f32' if sdt == torch.float32 else 'bf16'} scales", err, tol,
+                      timer(lambda: MD.moe_decode_gate_up(*a12, group=group)),
+                      timer(lambda: MD.moe_decode_gate_up_ref(*a12, group=group), 3),
+                      timer(lambda: torch.bmm(xb, wb)), bnd)
+        del wb, gate, up
+
+    log("[3] kernel 13 (moe_decode_down, planar) vs plain; library = bf16 torch.bmm over "
+        "the gathered pairs' dequantized down")
+    for c, t in ((q2, 1), (q3, 1), (q2, 8)):
+        g_, e_, ff, topk = c["G"], c["E"], c["FF"], c["TOPK"]
+        p = t * topk
+        down, ds = planar(g_, ff, e_, 32, bf16)
+        ids = routed(g_, t, topk)
+        nd = len(set(ids.tolist()))
+        hw = torch.randn((p, ff), generator=gen, device=dev).to(bf16)
+        got = MD.moe_decode_down(hw, ids, down, ds, top_k=topk, group=32)
+        ref = MD.moe_decode_down_ref(hw, ids, down, ds, top_k=topk, group=32)
+        li = ids.long()
+        wb = MD.dequant_experts(down[li], ds[li], 32)
+        absdot = float(torch.bmm(hw.float().abs()[:, None], wb.float().abs())
+                       .reshape(t, topk, e_).sum(1).max())
+        sync(torch)
+        err = float((got - ref).abs().max())
+        bnd = bound_ms(p * ff * 2 + p * 4 + nd * (ff * e_ + (ff // 32) * e_ * 2) + t * e_ * 4,
+                       2.0 * p * ff * e_, BF16_FLOPS)
+        hb = hw[:, None, :]
+        ok &= _record(results, "moe_decode_down",
+                      f"P={p} FF={ff} E={e_} G={g_} group=32 bf16 scales", err,
+                      sum_tol(ff * topk, absdot),
+                      timer(lambda: MD.moe_decode_down(hw, ids, down, ds, top_k=topk, group=32)),
+                      timer(lambda: MD.moe_decode_down_ref(hw, ids, down, ds, top_k=topk,
+                                                           group=32), 3),
+                      timer(lambda: torch.bmm(hb, wb)), bnd)
+        del wb, down
+
+    log("[3] kernel 14 (ragged_qmatmul, planar) vs plain; library = dense bf16 "
+        "torch.matmul at the same (M, K, N)")
+    for c, k, n in ((q2, q2["FF"], q2["E"]), (q3, q3["E"], q3["FF"])):
+        g_ = c["G"]
+        m = PREFILL * c["TOPK"]
+        codes, sc = planar(g_, k, n, 32, bf16)
+        x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
+        wd = torch.randn((k, n), generator=gen, device=dev).to(bf16)
+        harm = 1.0 / np.arange(1, g_ + 1)
+        size_sets = {"random": rng.multinomial(m, np.full(g_, 1.0 / g_)),
+                     "skewed": rng.permutation(rng.multinomial(m, harm / harm.sum())),
+                     "zero": np.zeros(g_, np.int64)}
+        for name, sizes in size_sets.items():
+            if c is q3 and name != "skewed":
+                continue
+            gsz = torch.from_numpy(sizes.astype(np.int32)).to(dev)
+            total, ne = int(sizes.sum()), int((sizes > 0).sum())
+            got = MQ.ragged_qmatmul(x, codes, sc, gsz, group=32)
+            ref = MQ.ragged_qmatmul_ref(x, codes, sc, gsz, group=32)
+            sync(torch)
+            err = float((got[:total] - ref[:total]).abs().max()) if total else 0.0
+            # the largest sum of |x w| over the live rows, from their own experts
+            absdot = float(MQ.ragged_qmatmul_ref(x.abs(), codes.abs(), sc, gsz, group=32)
+                           [:total].max()) if total else 0.0
+            bnd = bound_ms(total * k * 2 + ne * (k * n + (k // 32) * n * 2) + total * n * 4
+                           + g_ * 4, 2.0 * total * k * n, BF16_FLOPS)
+            ok &= _record(results, "ragged_qmatmul",
+                          f"M={m} K={k} N={n} G={g_} group=32 {name}", err,
+                          sum_tol(k, absdot) + 1e-12,
+                          timer(lambda: MQ.ragged_qmatmul(x, codes, sc, gsz, group=32)),
+                          timer(lambda: MQ.ragged_qmatmul_ref(x, codes, sc, gsz, group=32), 3),
+                          timer(lambda: torch.matmul(x, wd)), bnd)
+        del codes, wd
+
+    log("[3] kernel 11 (moe_decode_fused_i8, one launch) vs plain, beside kernels 7 + 8 "
+        "on the same inputs; library = bf16 torch.bmm over the gathered gate|up, then down")
+    g_, e_, ff, topk = q3["G"], q3["E"], q3["FF"], q3["TOPK"]
+    gate, gsw = planar(g_, e_, ff, 256, torch.float32)
+    up, usw = planar(g_, e_, ff, 256, torch.float32)
+    down, dsw = planar(g_, ff, e_, 256, torch.float32)
+    nsg, nsgf = e_ // 256, ff // 256
+    for t in (1, 8):
+        p = t * topk
+        ids = routed(g_, t, topk)
+        nd = len(set(ids.tolist()))
+        x = torch.randn((p, e_), generator=gen, device=dev)
+        wts = torch.rand(p, generator=gen, device=dev) * 0.5 + 0.05
+        xq, xs = quantize_activations(x)
+        a11 = (xq, xs.t(), ids, wts, gate, gsw, up, usw, down, dsw)
+        got = MD.moe_decode_fused_i8(*a11, top_k=topk)
+        ref = MD.moe_decode_fused_i8_ref(*a11, top_k=topk)
+        sync(torch)
+        err = float((got - ref).abs().max())
+        # the same exact integer dots, corrections, bf16 roundings and
+        # requantization in the same order as the plain version: only a
+        # float32 reassociation may differ
+        tol = 1e-5 * float(ref.abs().max()) + 1e-6
+
+        def two_kernels():
+            h = MD.moe_decode_gate_up_i8(xq, xs.t(), ids, gate, gsw, up, usw)
+            h = (h.float() * wts[:, None]).to(bf16)
+            hq, hs = quantize_activations(h)
+            return MD.moe_decode_down_i8(hq, hs.t(), ids, down, dsw, top_k=topk)
+
+        ms78 = timer(two_kernels)
+        bnd = bound_ms(p * e_ + p * nsg * 4 + 2 * p * 4
+                       + nd * (2 * e_ * ff + 2 * nsg * ff * 4 + ff * e_ + nsgf * e_ * 4)
+                       + t * e_ * 4, p * (4.0 * e_ * ff + 2.0 * ff * e_), INT8_OPS)
+        li = ids.long()
+        wgu = torch.cat([gate[li], up[li]], dim=2).to(bf16)
+        wdn = down[li].to(bf16)
+        xb = x.to(bf16)[:, None, :]
+        hb = torch.randn((p, 1, ff), generator=gen, device=dev).to(bf16)
+        ok &= _record(results, "moe_decode_fused_i8",
+                      f"P={p} K={e_} FF={ff} E={e_} G={g_}", err, tol,
+                      timer(lambda: MD.moe_decode_fused_i8(*a11, top_k=topk)),
+                      timer(lambda: MD.moe_decode_fused_i8_ref(*a11, top_k=topk), 3),
+                      timer(lambda: (torch.bmm(xb, wgu), torch.bmm(hb, wdn))), bnd,
+                      note=f" | kernels 7 + 8 with the glue between them {ms78:.4f} ms; "
+                           f"bit-identical to plain: {bool(torch.equal(got, ref))}")
+        del wgu, wdn
+    del gate, up, down
+
+    log("[3] kernel 16 (qmatmul_pair, two codes a 16-bit lane) vs plain, beside kernel D "
+        "on the same codes; library = dense bf16 torch.matmul at the same (M, K, N)")
+    m, k, n = 16, E, FF
+    codes_np = rng.integers(-8, 8, (k, n), dtype=np.int8)
+    codes = torch.from_numpy(codes_np).to(dev)
+    packed = torch.from_numpy(PD.pack_pairs(codes_np)).to(dev)
+    scale = (torch.rand((k // 32, n), generator=gen, device=dev) * 0.02).to(bf16)
+    x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
+    wb = torch.randn((k, n), generator=gen, device=dev).to(bf16)
+    got = PD.qmatmul_pair(x, packed, scale)
+    ref = PD.qmatmul_pair_ref(x, packed, scale)
+    same_as_d = bool(torch.equal(got, QM.qmatmul(x, codes, scale)))
+    absdot = float((x.float().abs() @ QM._dequant_bf16(codes, scale, None, 32).float().abs()).max())
+    sync(torch)
+    err = float((got - ref).abs().max())
+    ms_d = timer(lambda: QM.qmatmul(x, codes, scale))
+    bnd = bound_ms(m * k * 2 + k * n + (k // 32) * n * 2 + m * n * 4, 2.0 * m * n * k, BF16_FLOPS)
+    ok &= _record(results, "qmatmul_pair", f"M={m} K={k} N={n}", err, sum_tol(k, absdot),
+                  timer(lambda: PD.qmatmul_pair(x, packed, scale)),
+                  timer(lambda: PD.qmatmul_pair_ref(x, packed, scale), 3),
+                  timer(lambda: torch.matmul(x, wb)), bnd,
+                  note=f" | kernel D on the unpacked codes {ms_d:.4f} ms; "
+                       f"bit-identical to kernel D: {same_as_d}")
+    return ok
+
+
+def phase_quantizers(torch) -> bool:
+    """The eager quantizers around the kernels (activations per supergroup,
+    the requantization of h, the four KV encoders) give the CPU's bits on
+    the card: scales are true float32 divisions there too."""
+    from ik_llama_cpp_tpu_torch.ops.kv_quant import KV_ENCODERS
+    from ik_llama_cpp_tpu_torch.ops.moe_decode import requant_by_inverse
+    from ik_llama_cpp_tpu_torch.ops.qmatmul import quantize_activations
+    x = torch.from_numpy((np.random.default_rng(4).standard_normal((256, 2048)) * 3)
+                         .astype(np.float32))
+    fns = {"quantize_activations": (quantize_activations, x),
+           "requant_by_inverse": (requant_by_inverse, x)}
+    fns.update({f"kv encoder {k}": (enc, x.reshape(4, 64, 16, 128))
+                for k, enc in KV_ENCODERS.items()})
+    bad = []
+    for name, (fn, arg) in fns.items():
+        (qc, sc), (qg, sg) = fn(arg), fn(arg.cuda())
+        if not (torch.equal(sc, sg.cpu()) and torch.equal(qc, qg.cpu())):
+            bad.append(name)
+    log(f"[3] quantizers on the card against the CPU, codes and scales bit for bit "
+        f"({', '.join(fns)}): {'ok' if not bad else 'FAIL ' + str(bad)}")
+    return not bad
 
 
 def phase_kvq_kernels(torch, timer, results) -> bool:
@@ -586,8 +843,10 @@ def _rand_blocks(rng, rows: int, cols: int, ttype) -> np.ndarray:
 
 
 def build_moe_gguf(path: Path, c=MOE) -> Path:
-    """One qwen3moe layer at the width ``c`` (Q4_0 attention and experts,
-    Q8_0 embedding and untied head, an f32 router, unit norms), random
+    """One MoE layer of architecture c["ARCH"] at the width ``c`` (Q4_0
+    attention and experts, Q8_0 embedding and untied head, an f32 router,
+    unit norms; qwen3moe: QK-norms; qwen2moe: q/k/v biases and a Q4_0
+    shared expert of width c["FFS"] with an f32 sigmoid gate), random
     blocks from seed 0; cached beside a .meta."""
     from ik_llama_cpp_tpu_torch.gguf.constants import GGMLType
     from ik_llama_cpp_tpu_torch.gguf.writer import GGUFWriter
@@ -598,7 +857,10 @@ def build_moe_gguf(path: Path, c=MOE) -> Path:
     path.parent.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(0)
     e, h, hkv, d, g, ff, v = (c[k] for k in ("E", "H", "HKV", "D", "G", "FF", "V"))
-    w = GGUFWriter(str(path), arch="qwen3moe")
+    arch = c["ARCH"]
+    w = GGUFWriter(str(path), arch=arch)
+    if "FFS" in c:
+        w.add(f"{arch}.expert_shared_feed_forward_length", c["FFS"])
     for key, val in (("block_count", 1), ("context_length", 40960),
                      ("embedding_length", e), ("feed_forward_length", 6144),
                      ("expert_feed_forward_length", ff), ("expert_count", g),
@@ -608,7 +870,7 @@ def build_moe_gguf(path: Path, c=MOE) -> Path:
                      ("attention.layer_norm_rms_epsilon", 1e-6),
                      ("rope.freq_base", 1000000.0), ("rope.dimension_count", d),
                      ("vocab_size", v)):
-        w.add(f"qwen3moe.{key}", val)
+        w.add(f"{arch}.{key}", val)
     w.add("tokenizer.ggml.model", "gpt2")
     w.add("tokenizer.ggml.tokens", [f"<t{i}>" for i in range(v)])
     w.add("tokenizer.ggml.token_type", np.ones(v, np.int32))
@@ -622,8 +884,10 @@ def build_moe_gguf(path: Path, c=MOE) -> Path:
     q("output.weight", v, e, GGMLType.Q8_0)
     w.add_tensor("output_norm.weight", np.ones(e, np.float32))
     p = "blk.0."
-    for name, width in (("attn_norm", e), ("ffn_norm", e), ("attn_q_norm", d),
-                        ("attn_k_norm", d)):
+    norms = [("attn_norm", e), ("ffn_norm", e)]
+    if arch == "qwen3moe":
+        norms += [("attn_q_norm", d), ("attn_k_norm", d)]
+    for name, width in norms:
         w.add_tensor(p + name + ".weight", np.ones(width, np.float32))
     q(p + "attn_q.weight", h * d, e)
     q(p + "attn_k.weight", hkv * d, e)
@@ -634,6 +898,15 @@ def build_moe_gguf(path: Path, c=MOE) -> Path:
     q(p + "ffn_gate_exps.weight", ff, e, n=g)
     q(p + "ffn_up_exps.weight", ff, e, n=g)
     q(p + "ffn_down_exps.weight", e, ff, n=g)
+    if arch == "qwen2moe":
+        for name, width in (("attn_q", h * d), ("attn_k", hkv * d), ("attn_v", hkv * d)):
+            w.add_tensor(p + name + ".bias",
+                         (rng.standard_normal(width) * 0.1).astype(np.float32))
+        q(p + "ffn_gate_shexp.weight", c["FFS"], e)
+        q(p + "ffn_up_shexp.weight", c["FFS"], e)
+        q(p + "ffn_down_shexp.weight", e, c["FFS"])
+        w.add_tensor(p + "ffn_gate_inp_shexp.weight",
+                     rng.standard_normal((1, e), dtype=np.float32) / np.float32(np.sqrt(e)))
     w.write()
     mpath.write_text(meta)
     return path
@@ -652,6 +925,7 @@ def counters():
     from ik_llama_cpp_tpu_torch.ops import moe_decode as MD
     from ik_llama_cpp_tpu_torch.ops import moe_qmm as MQ
     from ik_llama_cpp_tpu_torch.ops import qmatmul as QM
+    from ik_llama_cpp_tpu_torch.tools import perf_dequant as PD
     return {"qmatmul_i8": QM.qmatmul_i8, "flash_attention": FA.flash_attention,
             "flash_attention_decode": FA.flash_attention_decode,
             "qmatmul": QM.qmatmul,
@@ -660,7 +934,11 @@ def counters():
             "moe_decode_gate_up_i8": MD.moe_decode_gate_up_i8,
             "moe_decode_down_i8": MD.moe_decode_down_i8,
             "fused_moe_prefill_i8": MQ.fused_moe_prefill_i8,
-            "ragged_qmatmul_i8": MQ.ragged_qmatmul_i8}
+            "ragged_qmatmul_i8": MQ.ragged_qmatmul_i8,
+            "moe_decode_fused_i8": MD.moe_decode_fused_i8,
+            "moe_decode_gate_up": MD.moe_decode_gate_up,
+            "moe_decode_down": MD.moe_decode_down,
+            "ragged_qmatmul": MQ.ragged_qmatmul, "qmatmul_pair": PD.qmatmul_pair}
 
 
 def reset_counts():
@@ -731,18 +1009,19 @@ def timed_run(torch, rt, ids, n_decode: int = DECODE):
 
 
 def profile_decode(torch, rt, kv, n_past: int, tok, steps: int = 8, tag: str = "4",
-                   top: int = 12) -> None:
+                   top: int = 12) -> dict:
     """Device time by kernel over a few decode steps (torch.profiler), and
     the share of the wall time the card was busy."""
     rt._decode_loop(tok, kv, n_past, 2)                  # warm
-    profile_window(torch, lambda: rt._decode_loop(tok, kv, n_past, steps), steps,
-                   f"{steps} decode steps", "step", tag, top)
+    return profile_window(torch, lambda: rt._decode_loop(tok, kv, n_past, steps), steps,
+                          f"{steps} decode steps", "step", tag, top)
 
 
 def profile_window(torch, fn, steps: int, what: str, unit: str, tag: str,
-                   top: int = 12) -> None:
+                   top: int = 12) -> dict:
     """Run fn once under torch.profiler: device time and launches by
-    kernel per ``unit``, and the share of the wall time the card was busy."""
+    kernel per ``unit``, and the share of the wall time the card was busy.
+    Returns {kernel name: ms per unit}."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -763,6 +1042,12 @@ def profile_window(torch, fn, steps: int, what: str, unit: str, tag: str,
         f"{calls // steps} launches/{unit}")
     for key, us, n in sorted(rows, key=lambda r: -r[1])[:top]:
         log(f"    {us / 1e3 / steps:9.3f} ms/{unit}  {n // steps:5d} calls/{unit}  {key[:90]}")
+    return {key: us / 1e3 / steps for key, us, _ in rows}
+
+
+def kernel_ms(prof: dict, *names: str) -> float:
+    """ms per unit of the profiled kernels whose name holds one of ``names``."""
+    return sum(ms for key, ms in prof.items() if any(n in key for n in names))
 
 
 @contextmanager
@@ -777,7 +1062,9 @@ def plain_path():
     saved = (weights.qmatmul_i8, weights.qmatmul, llama.flash_attention,
              llama.flash_attention_decode, MD.moe_decode_gate_up_i8,
              MD.moe_decode_down_i8, moe.fused_moe_prefill_i8, moe.ragged_qmatmul_i8,
-             weights.qmatmul4, llama.flash_attention_decode_q8, llama.flash_attention_q8)
+             weights.qmatmul4, llama.flash_attention_decode_q8, llama.flash_attention_q8,
+             MD.moe_decode_gate_up, MD.moe_decode_down, MD.moe_decode_fused_i8,
+             moe.ragged_qmatmul)
     weights.qmatmul_i8, weights.qmatmul = QM.qmatmul_i8_ref, QM.qmatmul_ref
     weights.qmatmul4 = QM.qmatmul4_ref
     llama.flash_attention = llama.flash_attention_decode = FA.attention_ref
@@ -785,6 +1072,8 @@ def plain_path():
     MD.moe_decode_gate_up_i8 = MD.moe_decode_gate_up_i8_ref
     MD.moe_decode_down_i8 = MD.moe_decode_down_i8_ref
     moe.fused_moe_prefill_i8 = MQ.fused_moe_prefill_i8_ref
+    MD.moe_decode_gate_up, MD.moe_decode_down = MD.moe_decode_gate_up_ref, MD.moe_decode_down_ref
+    MD.moe_decode_fused_i8, moe.ragged_qmatmul = MD.moe_decode_fused_i8_ref, MQ.ragged_qmatmul_ref
     moe.ragged_qmatmul_i8 = (lambda xq, xst, codes, sw, gs:
                              MQ.ragged_qmatmul_i8_ref(xq, xst.t(), codes, sw, gs))
     try:
@@ -794,7 +1083,8 @@ def plain_path():
          llama.flash_attention_decode, MD.moe_decode_gate_up_i8,
          MD.moe_decode_down_i8, moe.fused_moe_prefill_i8, moe.ragged_qmatmul_i8,
          weights.qmatmul4, llama.flash_attention_decode_q8,
-         llama.flash_attention_q8) = saved
+         llama.flash_attention_q8, MD.moe_decode_gate_up, MD.moe_decode_down,
+         MD.moe_decode_fused_i8, moe.ragged_qmatmul) = saved
 
 
 def greedy_from(torch, rt, kv, n, last_logits, steps):
@@ -913,10 +1203,61 @@ def phase_planar(torch, gguf: Path, launches: dict) -> bool:
     return counts["qmatmul"] == 9 * 9 and finite
 
 
-def phase_moe(torch, gguf: Path, launches: dict, c=MOE) -> bool:
-    """Phase 7 (Qwen3-30B-A3B at full width, launch counts, profile) and
-    phase 8 (greedy parity at depth 2, kernel path against plain path) on
-    the same loaded model."""
+def moe_run(torch, rt, c, seed: int, tag: str, step: dict, chunk: dict, load_s: float):
+    """Warm up, then prefill 512 and decode 64 with the launch counts set to
+    0 just before and read just after. Returns (ok, counts, ids, toks, kv,
+    n_past)."""
+    v = c["V"]
+    rng = np.random.default_rng(seed)
+    timed_run(torch, rt, [int(x) for x in rng.integers(3, v, PREFILL)])   # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    ids = [int(x) for x in rng.integers(3, v, PREFILL)]
+    reset_counts()
+    logits, toks, kv, n_past, pre_s, dec_s = timed_run(torch, rt, ids)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {k: chunk.get(k, 0) + DECODE * step.get(k, 0) for k in counts}
+    log(f"[{tag}] prefill {PREFILL} tokens: {pre_s * 1e3:.1f} ms = {PREFILL / pre_s:.1f} "
+        f"tok/s; decode {DECODE} tokens at context {PREFILL}: {dec_s * 1e3:.1f} ms = "
+        f"{DECODE / dec_s:.2f} tok/s; peak memory {peak:.2f} GiB; load {load_s:.1f} s")
+    log(f"[{tag}] launches { {k: n for k, n in counts.items() if n} }; as expected: "
+        f"{counts == want} (per decode step {step}; per {PREFILL}-token chunk {chunk}; "
+        f"every other kernel 0)")
+    if counts != want:
+        log(f"    expected { {k: n for k, n in want.items() if n} }")
+    tail = rt.eval_tokens([int(toks[0, -1])], kv, n_past + DECODE)[0]
+    finite = bool(torch.isfinite(logits).all()) and bool(torch.isfinite(tail).all())
+    in_range = bool(((toks >= 0) & (toks < v)).all())
+    log(f"[{tag}] logits finite: {finite}; tokens in vocab: {in_range}; first tokens "
+        f"{toks[0, :8].tolist()}")
+    return counts == want and finite and in_range, counts, ids, toks, kv, n_past
+
+
+def depth2(torch, rt):
+    rt.params["blocks"] = rt.params["blocks"][:2]
+    rt.cfg = replace(rt.cfg, n_layer=2)
+    torch.cuda.empty_cache()
+
+
+@contextmanager
+def fused_decode_env():
+    """IK_MOE_FUSED_TG=1 (read at call time by moe_ffn), restored after."""
+    old = os.environ.get("IK_MOE_FUSED_TG")
+    os.environ["IK_MOE_FUSED_TG"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["IK_MOE_FUSED_TG"]
+        else:
+            os.environ["IK_MOE_FUSED_TG"] = old
+
+
+def phase_moe(torch, gguf: Path, launches: dict, phases: set, c=MOE) -> bool:
+    """On one loaded Qwen3-30B-A3B model: phase 7 (full width, launch
+    counts, profiles), phase 14 (the single-kernel decode at full width),
+    then at depth 2 phase 8 (greedy parity, kernel path against plain path)
+    and phase 13c (parity of the single-kernel decode over one history)."""
     from ik_llama_cpp_tpu_torch.runtime.generate import Runtime
     nl, v = c["L"], c["V"]
     t_phase = t0 = time.perf_counter()
@@ -929,63 +1270,186 @@ def phase_moe(torch, gguf: Path, launches: dict, c=MOE) -> bool:
         f"planar decode + supergroup recode of one layer, {nl} device clones); "
         f"expert codes {tuple(ex.gate.shape)} x3, groups {ex.gate_group}; device "
         f"memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    rng = np.random.default_rng(4)
-    timed_run(torch, rt, [int(x) for x in rng.integers(3, v, PREFILL)])   # warm-up
-    torch.cuda.reset_peak_memory_stats()
-    ids = [int(x) for x in rng.integers(3, v, PREFILL)]
-    reset_counts()
-    logits, toks, kv, n_past, pre_s, dec_s = timed_run(torch, rt, ids)
-    counts = read_counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    moe_kernels = ("moe_decode_gate_up_i8", "moe_decode_down_i8",
-                   "fused_moe_prefill_i8", "ragged_qmatmul_i8")
-    launches.update({k: counts[k] for k in moe_kernels})
-    step = {"qmatmul_i8": 2 * nl + 1, "flash_attention_decode": nl,
-            "moe_decode_gate_up_i8": nl, "moe_decode_down_i8": nl}
+    ok = True
     chunk = {"qmatmul_i8": 2 * nl + 1, "flash_attention": nl,
              "fused_moe_prefill_i8": nl, "ragged_qmatmul_i8": 3 * nl}
-    want = {k: chunk.get(k, 0) + DECODE * step.get(k, 0) for k in counts}
-    log(f"[7] prefill {PREFILL} tokens: {pre_s * 1e3:.1f} ms = {PREFILL / pre_s:.1f} "
-        f"tok/s; decode {DECODE} tokens at context {PREFILL}: {dec_s * 1e3:.1f} ms = "
-        f"{DECODE / dec_s:.2f} tok/s; peak memory {peak:.2f} GiB; load {load_s:.1f} s")
-    log(f"[7] launches {counts}; expected {want} (per decode step {step}; per "
-        f"{PREFILL}-token chunk {chunk})")
-    ok = counts == want
-    tail = rt.eval_tokens([int(toks[0, -1])], kv, n_past + DECODE)[0]
-    finite = bool(torch.isfinite(logits).all()) and bool(torch.isfinite(tail).all())
-    in_range = bool(((toks >= 0) & (toks < v)).all())
-    log(f"[7] logits finite: {finite}; tokens in vocab: {in_range}; first tokens "
-        f"{toks[0, :8].tolist()}")
-    profile_decode(torch, rt, kv, n_past + DECODE + 1, toks[:, -1:], tag="7")
-    del kv, logits, tail
-    kv = rt.new_cache(1, PREFILL + 8)
-    profile_window(torch, lambda: rt.eval_tokens(ids, kv, 0), 1,
-                   f"one {PREFILL}-token prefill chunk", "chunk", "7")
-    del kv
-    log(f"[7] MoE end to end: {time.perf_counter() - t_phase:.1f} s")
+    two_kernel_ms = step_ms = None
+    if 7 in phases:
+        step = {"qmatmul_i8": 2 * nl + 1, "flash_attention_decode": nl,
+                "moe_decode_gate_up_i8": nl, "moe_decode_down_i8": nl}
+        good, counts, ids, toks, kv, n_past = moe_run(torch, rt, c, 4, "7", step, chunk, load_s)
+        ok &= good
+        launches.update({k: counts[k] for k in ("moe_decode_gate_up_i8", "moe_decode_down_i8",
+                                                "fused_moe_prefill_i8", "ragged_qmatmul_i8")})
+        prof = profile_decode(torch, rt, kv, n_past + DECODE + 1, toks[:, -1:], tag="7")
+        two_kernel_ms = kernel_ms(prof, "gate_up_kernel", "down_kernel")
+        step_ms = sum(prof.values())
+        del kv
+        kv = rt.new_cache(1, PREFILL + 8)
+        profile_window(torch, lambda: rt.eval_tokens(ids, kv, 0), 1,
+                       f"one {PREFILL}-token prefill chunk", "chunk", "7")
+        del kv
+        log(f"[7] MoE end to end: {time.perf_counter() - t_phase:.1f} s")
+    if 14 in phases:
+        t0 = time.perf_counter()
+        step = {"qmatmul_i8": 2 * nl + 1, "flash_attention_decode": nl,
+                "moe_decode_fused_i8": nl}
+        with fused_decode_env():
+            good, counts, ids, toks, kv, n_past = moe_run(torch, rt, c, 14, "14", step, chunk, load_s)
+            prof = profile_decode(torch, rt, kv, n_past + DECODE + 1, toks[:, -1:], tag="14")
+        ok &= good
+        launches["moe_decode_fused_i8"] = counts["moe_decode_fused_i8"]
+        fused_ms = kernel_ms(prof, "fused_kernel")
+        log(f"[14] single-kernel decode (IK_MOE_FUSED_TG=1) at L{nl}: kernel 11 "
+            f"{fused_ms:.3f} ms a step ({nl} launches), every kernel of a step "
+            f"{sum(prof.values()):.3f} ms; the two-kernel step of phase 7: kernels 7 + 8 "
+            + (f"{two_kernel_ms:.3f} ms, every kernel {step_ms:.3f} ms"
+               if two_kernel_ms is not None else "not run")
+            + f"; {time.perf_counter() - t0:.1f} s")
+        del kv
 
-    t0 = time.perf_counter()
-    rt.params["blocks"] = rt.params["blocks"][:2]
-    rt.cfg = replace(rt.cfg, n_layer=2)
-    torch.cuda.empty_cache()
+    depth2(torch, rt)
     ids = [int(x) for x in np.random.default_rng(5).integers(3, v, 128)]
-    tk, lk = greedy(torch, rt, ids, 16)
-    with plain_path():
-        tp, lp = greedy(torch, rt, ids, 16)
-    err = float((lk - lp).abs().max())
-    scale = float(lp.abs().max())
-    tol = 5e-2 * scale
-    same = tk == tp
-    log(f"[8] MoE depth-2 parity, kernel path vs plain path: tokens identical over 16 "
-        f"steps: {same}; logits max_abs_err {err:.3e} (max |logit| {scale:.3f}, tol "
-        f"{tol:.3e} = 5% of it, the dense rule of phase 5: a one-ulp difference can "
-        f"move an activation or a requantized h across an int8 step); "
-        f"{time.perf_counter() - t0:.1f} s")
-    if not same:
-        log(f"    kernel {tk}\n    plain  {tp}")
+    if 8 in phases:
+        t0 = time.perf_counter()
+        tk, lk = greedy(torch, rt, ids, 16)
+        with plain_path():
+            tp, lp = greedy(torch, rt, ids, 16)
+        err = float((lk - lp).abs().max())
+        scale = float(lp.abs().max())
+        tol = 5e-2 * scale
+        same = tk == tp
+        log(f"[8] MoE depth-2 parity, kernel path vs plain path: tokens identical over 16 "
+            f"steps: {same}; logits max_abs_err {err:.3e} (max |logit| {scale:.3f}, tol "
+            f"{tol:.3e} = 5% of it, the dense rule of phase 5: a one-ulp difference can "
+            f"move an activation or a requantized h across an int8 step); "
+            f"{time.perf_counter() - t0:.1f} s")
+        if not same:
+            log(f"    kernel {tk}\n    plain  {tp}")
+        ok &= same and err <= tol
+    if 13 in phases:
+        t0 = time.perf_counter()
+        reset_counts()
+        with fused_decode_env():
+            _, lk, lp, _, _, _ = forced_parity(torch, rt, ids, 16)
+        counts = read_counts()
+        good, text = parity_verdict(lk, lp)
+        good &= (counts["moe_decode_fused_i8"] == 2 * 16
+                 and counts["moe_decode_gate_up_i8"] == counts["moe_decode_down_i8"] == 0)
+        log(f"[13c] Qwen3-30B-A3B shape, single-kernel decode, depth 2, kernel path vs plain "
+            f"path: {text}; kernel 11 launched {counts['moe_decode_fused_i8']} times, 7 and "
+            f"8 never: {'ok' if good else 'FAIL'}; {time.perf_counter() - t0:.1f} s")
+        ok &= good
     del rt
     torch.cuda.empty_cache()
-    return ok and finite and in_range and same and err <= tol
+    return ok
+
+
+def phase_q2moe(torch, gguf: Path, launches: dict, phases: set, c=Q2MOE) -> bool:
+    """Phase 12 (Qwen1.5-MoE-A2.7B at full width: mixed-format experts, a
+    shared expert, attention biases) and phase 13a (its parity at depth 2)
+    on one loaded model."""
+    from ik_llama_cpp_tpu_torch.ops.moe import QuantExpertWeights
+    from ik_llama_cpp_tpu_torch.runtime.generate import Runtime
+    nl, v = c["L"], c["V"]
+    t_phase = t0 = time.perf_counter()
+    rt = clone_layers(Runtime.from_gguf(gguf, fuse=True), nl)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    blk = rt.params["blocks"][0]
+    ex = blk["experts"]
+    forms = isinstance(ex, QuantExpertWeights) and (
+        (ex.gate_group, ex.up_group, ex.down_group, ex.gate_s.dtype, ex.up_s.dtype,
+         ex.down_s.dtype) == (256, 256, 32, torch.float32, torch.float32, torch.bfloat16)
+        and tuple(ex.gate_s.shape) == (c["G"], c["E"] // 256, c["FF"])
+        and tuple(ex.down_s.shape) == (c["G"], c["FF"] // 32, c["E"]))
+    shared = {n: type(blk[n]).__name__ for n in ("ffn_gate_shexp", "ffn_up_shexp",
+                                                 "ffn_down_shexp", "ffn_gate_inp_shexp")}
+    log(f"[12] loaded {rt.cfg.arch} L{nl} E{c['E']} H{c['H']} KV{c['HKV']} D{c['D']} experts "
+        f"{c['G']} top-{c['TOPK']} FF{c['FF']} shared FF{c['FFS']} V{v} in {load_s:.1f} s; "
+        f"gate/up experts {tuple(ex.gate.shape)} group {ex.gate_group} scales "
+        f"{tuple(ex.gate_s.shape)} {ex.gate_s.dtype}, down experts {tuple(ex.down.shape)} "
+        f"group {ex.down_group} scales {tuple(ex.down_s.shape)} {ex.down_s.dtype}: as "
+        f"expected {forms}; linears {_linear_kinds(rt)}, shared expert {shared}, q/k/v "
+        f"unfused (biases): {'wq' in blk and 'attn_q_bias' in blk}; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    ok = forms and "wq" in blk
+    if 12 in phases:
+        per = 7 * nl + 1        # q, k, v, o, the shared expert's three, and the head
+        step = {"qmatmul_i8": per, "flash_attention_decode": nl,
+                "moe_decode_gate_up": nl, "moe_decode_down": nl}
+        chunk = {"qmatmul_i8": per, "flash_attention": nl,
+                 "ragged_qmatmul_i8": 2 * nl, "ragged_qmatmul": nl}
+        good, counts, ids, toks, kv, n_past = moe_run(torch, rt, c, 12, "12", step, chunk, load_s)
+        ok &= good
+        launches.update({k: counts[k] for k in ("moe_decode_gate_up", "moe_decode_down",
+                                                "ragged_qmatmul")})
+        profile_decode(torch, rt, kv, n_past + DECODE + 1, toks[:, -1:], tag="12")
+        del kv
+        kv = rt.new_cache(1, PREFILL + 8)
+        profile_window(torch, lambda: rt.eval_tokens(ids, kv, 0), 1,
+                       f"one {PREFILL}-token prefill chunk", "chunk", "12")
+        del kv
+        log(f"[12] mixed-format MoE end to end: {time.perf_counter() - t_phase:.1f} s")
+    if 13 in phases:
+        t0 = time.perf_counter()
+        depth2(torch, rt)
+        ids = [int(x) for x in np.random.default_rng(13).integers(3, v, 128)]
+        _, lk, lp, _, _, _ = forced_parity(torch, rt, ids, 16)
+        good, text = parity_verdict(lk, lp)
+        log(f"[13a] Qwen1.5-MoE-A2.7B shape (gate/up supergroup, down planar), depth 2, kernel "
+            f"path vs plain path: {text}: {'ok' if good else 'FAIL'}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        ok &= good
+    del rt
+    torch.cuda.empty_cache()
+    return ok
+
+
+def phase_planar_moe_parity(torch, gguf: Path, c=MOE) -> bool:
+    """Phase 13b: the Qwen3-30B-A3B shape loaded with the int8 path off, so
+    that all three expert projections stay planar (kernels 12 and 13 every
+    decode step, kernel 14 three times a prefill chunk and layer), at depth 2."""
+    from ik_llama_cpp_tpu_torch.models import weights
+    from ik_llama_cpp_tpu_torch.runtime.generate import Runtime
+    t0 = time.perf_counter()
+    weights.set_i8_mxu(False)
+    try:
+        rt = clone_layers(Runtime.from_gguf(gguf, fuse=True), 2)
+    finally:
+        weights.set_i8_mxu(None)
+    ex = rt.params["blocks"][0]["experts"]
+    groups = (ex.gate_group, ex.up_group, ex.down_group)
+    ids = [int(x) for x in np.random.default_rng(15).integers(3, c["V"], 128)]
+    reset_counts()
+    _, lk, lp, _, _, _ = forced_parity(torch, rt, ids, 16)
+    counts = read_counts()
+    good, text = parity_verdict(lk, lp)
+    want = {"moe_decode_gate_up": 2 * 16, "moe_decode_down": 2 * 16, "ragged_qmatmul": 3 * 2,
+            "qmatmul": (2 * 2 + 1) * 17, "flash_attention": 2, "flash_attention_decode": 2 * 16}
+    got = {k: n for k, n in counts.items() if n}
+    good &= groups == (32, 32, 32) and got == want
+    log(f"[13b] Qwen3-30B-A3B shape with the int8 path off (expert groups {groups}, linears "
+        f"{_linear_kinds(rt)}), depth 2, kernel path vs plain path: {text}; launches {got}, "
+        f"expected {want}: {'ok' if good else 'FAIL'}; {time.perf_counter() - t0:.1f} s")
+    del rt
+    torch.cuda.empty_cache()
+    return good
+
+
+def phase_perf_dequant(torch, launches: dict) -> bool:
+    """Phase 15: the microbenchmark tool through its entry point."""
+    from ik_llama_cpp_tpu_torch.tools import perf_dequant
+    reset_counts()
+    res = perf_dequant.main(["--reps", "10"])
+    counts = read_counts()
+    launches["qmatmul_pair"] = counts["qmatmul_pair"]
+    ok = (set(res) == {"int8-f32s", "int8-bf16s", "int16-pair", "torch-bf16"}
+          and all(us > 0 and np.isfinite(gbs) for us, gbs in res.values())
+          and counts["qmatmul_pair"] > 0 and counts["qmatmul"] > 0)
+    log(f"[15] tools/perf_dequant: {len(res)} variants timed; launches kernel 16 "
+        f"{counts['qmatmul_pair']}, kernel D {counts['qmatmul']}: {'ok' if ok else 'FAIL'}")
+    return ok
 
 
 def _linear_kinds(rt) -> list:
@@ -1241,6 +1705,20 @@ KERNELS = {
                            "q8 B=1 T=512 S=1024 q_pos0=[0] kv_len=[512]"),
     "qmatmul4": ("ik_llama_cpp_tpu_torch/csrc/qmatmul4.cu",
                  "ik_llama_cpp_tpu/ops/qmatmul.py:243", "M=1 K=4096 N=28672"),
+    "moe_decode_fused_i8": ("ik_llama_cpp_tpu_torch/csrc/moe_decode_fused_i8.cu",
+                            "ik_llama_cpp_tpu/ops/moe_decode.py:686",
+                            "P=8 K=2048 FF=768 E=2048 G=128"),
+    "moe_decode_gate_up": ("ik_llama_cpp_tpu_torch/csrc/moe_decode.cu",
+                           "ik_llama_cpp_tpu/ops/moe_decode.py:112",
+                           "P=4 K=2048 FF=1408 G=60 group=256 f32 scales"),
+    "moe_decode_down": ("ik_llama_cpp_tpu_torch/csrc/moe_decode.cu",
+                        "ik_llama_cpp_tpu/ops/moe_decode.py:246",
+                        "P=4 FF=1408 E=2048 G=60 group=32 bf16 scales"),
+    "ragged_qmatmul": ("ik_llama_cpp_tpu_torch/csrc/moe_qmm.cu",
+                       "ik_llama_cpp_tpu/ops/moe_qmm.py:286",
+                       "M=2048 K=1408 N=2048 G=60 group=32 random"),
+    "qmatmul_pair": ("ik_llama_cpp_tpu_torch/csrc/qmatmul.cu",
+                     "ik_llama_cpp_tpu/tools/perf_dequant.py:69", "M=16 K=4096 N=14336"),
 }
 
 
@@ -1264,7 +1742,7 @@ def summary(results, launches) -> list:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
     try:
@@ -1284,9 +1762,11 @@ def main() -> int:
     results, launches, ok = {}, {}, True
     timer = Timer(torch, reps=10)
     if 3 in phases:
+        ok &= phase_quantizers(torch)
         ok &= phase_kernels(torch, timer, results)
         ok &= phase_moe_kernels(torch, timer, results)
         ok &= phase_kvq_kernels(torch, timer, results)
+        ok &= phase_planar_moe_kernels(torch, timer, results)
     gguf = None
     if phases & {4, 5, 6, 9, 10, 11}:
         t0 = time.perf_counter()
@@ -1298,24 +1778,33 @@ def main() -> int:
         ok &= phase_parity(torch, gguf)
     if 6 in phases:
         ok &= phase_planar(torch, gguf, launches)
-    if phases & {7, 8}:
+    if phases & {7, 8, 13, 14}:
         t0 = time.perf_counter()
         moe_gguf = build_moe_gguf(ROOT / "build" / "smoke_qwen3moe.gguf")
         log(f"[7] model file ready in {time.perf_counter() - t0:.1f} s: {moe_gguf}")
-        ok &= phase_moe(torch, moe_gguf, launches)
+        ok &= phase_moe(torch, moe_gguf, launches, phases)
+        if 13 in phases:
+            ok &= phase_planar_moe_parity(torch, moe_gguf)
     if 9 in phases:
         ok &= phase_kvq(torch, gguf, launches)
     if 10 in phases:
         ok &= phase_kvq_parity(torch, gguf)
     if 11 in phases:
         ok &= phase_int4(torch, gguf, launches)
+    if phases & {12, 13}:
+        t0 = time.perf_counter()
+        q2_gguf = build_moe_gguf(ROOT / "build" / "smoke_qwen2moe.gguf", Q2MOE)
+        log(f"[12] model file ready in {time.perf_counter() - t0:.1f} s: {q2_gguf}")
+        ok &= phase_q2moe(torch, q2_gguf, launches, phases)
+    if 15 in phases:
+        ok &= phase_perf_dequant(torch, launches)
     kernels = summary(results, launches)
-    if phases >= {3, 4, 6, 7, 9, 11}:
+    if phases >= {3, 4, 6, 7, 9, 11, 12, 14, 15}:
         for k in kernels:
             if k["launches"] <= 0:
                 log(f"chip_smoke: kernel {k['name']} was never launched on its path")
                 ok = False
-    log(f"[12] total {time.perf_counter() - t_start:.1f} s")
+    log(f"[16] total {time.perf_counter() - t_start:.1f} s")
     if not ok:
         fail("a phase failed (see above)")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -18,6 +18,13 @@ IK_DEV float sg_corr(float acc, int part, float sa, float sb) {
   return fadd(acc, fmul(static_cast<float>(part), fmul(sa, sb)));
 }
 
+IK_DEV float bf16_round(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+
+// A group scale of planar codes as the kernels use it: rounded to bf16,
+// whether it is stored as float32 or as bf16.
+IK_DEV float load_scale(const float* p) { return bf16_round(__ldg(p)); }
+IK_DEV float load_scale(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
 IK_DEV float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
 
 // act(g) * u as the JAX package's _act: silu (clamped when limit > 0),

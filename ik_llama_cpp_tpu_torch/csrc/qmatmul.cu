@@ -1,12 +1,19 @@
-// Planar dequant x matmul.
+// Planar dequant x matmul, and its form over codes packed two to a 16-bit
+// lane.
 //
-// Replaces ik_llama_cpp_tpu/ops/qmatmul.py:qmatmul (Pallas, _make_kernel).
+// Replaces ik_llama_cpp_tpu/ops/qmatmul.py:qmatmul (Pallas, _make_kernel)
+// and ik_llama_cpp_tpu/tools/perf_dequant.py:qmatmul_pair (Pallas,
+// _pair_kernel: the same arithmetic behind another loader).
 //
 //   out = x @ W,   W[k, n] = bf16(bf16(codes[k, n]) * scale[k/G, n]) (+ bias[k/G, n] in bf16)
 //
-// x: bf16 (M, K) row-major; codes: int8 (K, N); scale, bias: bf16 (K/G, N);
-// out: f32 (M, N). Any M, N, K with K % G == 0. The dequant chain runs in
-// bf16 with float sums, which is qmatmul_ref's numerics contract.
+// x: bf16 (M, K) row-major; codes: int8 (K, N); scale, bias: bf16 or float32
+// (K/G, N), float32 rounded to bf16 here; out: f32 (M, N). Any M, N, K with
+// K % G == 0. The dequant chain runs in bf16 with float sums, which is
+// qmatmul_ref's numerics contract. In the pair form codes are int16
+// (K, N/2): the low byte of packed column j is the code of column j, the
+// high byte that of column j + N/2; a block's 64 columns are 32 packed
+// columns, both halves.
 //
 // Bound on the H100: weight bytes (1 per weight plus 2/G per weight for
 // scales) at small M, bf16 tensor-core operations at large M. Design: a
@@ -21,12 +28,26 @@ namespace {
 
 constexpr int BN = 64, BK = 32, LDK = BK + 8;  // padded smem row (bf16)
 
-template <int BM, int WM, int WN>
+IK_DEV float as_bf16(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+IK_DEV float as_bf16(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// The output column of a block's local column. Pair form: local columns
+// 0-31 are the low bytes of packed columns n0/2 .. n0/2 + 31, 32-63 the
+// high bytes (N/2 further on); -1 past the edge.
+template <bool PAIR>
+IK_DEV int out_col(int n0, int local, int N) {
+  if (!PAIR) return n0 + local < N ? n0 + local : -1;
+  const int j = (n0 >> 1) + (local & 31);
+  return j < N / 2 ? (local >> 5) * (N / 2) + j : -1;
+}
+
+template <int BM, int WM, int WN, typename S, bool PAIR>
 __global__ void __launch_bounds__((BM / WM) * (BN / WN) * 32)
-qmatmul_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ codes,
-               const __nv_bfloat16* __restrict__ scale,
-               const __nv_bfloat16* __restrict__ bias, float* __restrict__ out,
-               int M, int N, int K, int G) {
+qmatmul_kernel(const __nv_bfloat16* __restrict__ x, const void* __restrict__ codes_,
+               const S* __restrict__ scale, const S* __restrict__ bias,
+               float* __restrict__ out, int M, int N, int K, int G) {
+  const int8_t* codes = static_cast<const int8_t*>(codes_);
+  const int16_t* codes16 = static_cast<const int16_t*>(codes_);
   constexpr int WARPS_N = BN / WN;
   constexpr int NT = (BM / WM) * (BN / WN) * 32;
   constexpr int MI = WM / 16, NI = WN / 8;
@@ -57,14 +78,20 @@ qmatmul_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ c
     }
     for (int c = tid; c < BN * BK; c += NT) {
       const int kk = c / BN, nn = c % BN;      // neighbouring threads: neighbouring columns
-      const int gk = k0 + kk, gn = n0 + nn;
+      const int gk = k0 + kk, gn = out_col<PAIR>(n0, nn, N);
       __nv_bfloat16 w = zero;
-      if (gk < K && gn < N) {
+      if (gk < K && gn >= 0) {
         const size_t sidx = (size_t)(gk / G) * N + gn;
-        const float cf = (float)codes[(size_t)gk * N + gn];
-        w = __float2bfloat16_rn(cf * __bfloat162float(scale[sidx]));
+        float cf;
+        if (PAIR) {
+          const int v = codes16[(size_t)gk * (N / 2) + (gn % (N / 2))];
+          cf = (float)static_cast<int8_t>(nn < 32 ? v : v >> 8);
+        } else {
+          cf = (float)codes[(size_t)gk * N + gn];
+        }
+        w = __float2bfloat16_rn(cf * as_bf16(scale[sidx]));
         if (bias != nullptr)
-          w = __float2bfloat16_rn(__bfloat162float(w) + __bfloat162float(bias[sidx]));
+          w = __float2bfloat16_rn(__bfloat162float(w) + as_bf16(bias[sidx]));
       }
       sb[nn * LDK + kk] = w;
     }
@@ -98,40 +125,56 @@ qmatmul_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ c
   for (int i = 0; i < MI; ++i) {
 #pragma unroll
     for (int j = 0; j < NI; ++j) {
-      const int c = n0 + wn + j * 8 + t * 2;
+      const int c0 = out_col<PAIR>(n0, wn + j * 8 + t * 2, N);
+      const int c1 = out_col<PAIR>(n0, wn + j * 8 + t * 2 + 1, N);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = m0 + wm + i * 16 + g + h * 8;
         if (r >= M) continue;
-        if (c < N) out[(size_t)r * N + c] = acc[i][j][2 * h];
-        if (c + 1 < N) out[(size_t)r * N + c + 1] = acc[i][j][2 * h + 1];
+        if (c0 >= 0) out[(size_t)r * N + c0] = acc[i][j][2 * h];
+        if (c1 >= 0) out[(size_t)r * N + c1] = acc[i][j][2 * h + 1];
       }
     }
   }
 }
 
-template <int BM, int WM, int WN>
-cudaError_t launch(const __nv_bfloat16* x, const int8_t* codes,
-                   const __nv_bfloat16* scale, const __nv_bfloat16* bias,
-                   float* out, int M, int N, int K, int G, cudaStream_t s) {
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  qmatmul_kernel<BM, WM, WN><<<grid, (BM / WM) * (BN / WN) * 32, 0, s>>>(
-      x, codes, scale, bias, out, M, N, K, G);
+template <int BM, int WM, int WN, typename S, bool PAIR>
+cudaError_t launch(const void* x, const void* codes, const void* scale, const void* bias,
+                   void* out, int M, int N, int K, int G, cudaStream_t s) {
+  const int cols = PAIR ? N / 2 : N, bn = PAIR ? BN / 2 : BN;
+  dim3 grid((cols + bn - 1) / bn, (M + BM - 1) / BM);
+  qmatmul_kernel<BM, WM, WN, S, PAIR><<<grid, (BM / WM) * (BN / WN) * 32, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(x), codes, static_cast<const S*>(scale),
+      static_cast<const S*>(bias), static_cast<float*>(out), M, N, K, G);
   return cudaGetLastError();
+}
+
+template <typename S, bool PAIR>
+cudaError_t by_rows(const void* x, const void* codes, const void* scale, const void* bias,
+                    void* out, int M, int N, int K, int G, cudaStream_t s) {
+  return (M <= 16) ? launch<16, 16, 16, S, PAIR>(x, codes, scale, bias, out, M, N, K, G, s)
+                   : launch<64, 32, 32, S, PAIR>(x, codes, scale, bias, out, M, N, K, G, s);
 }
 
 }  // namespace
 
+// scale_bf16: scale (and bias) are bf16, else float32.
 extern "C" int ik_qmatmul(const void* x, const void* codes, const void* scale,
-                          const void* bias, void* out, int M, int N, int K,
+                          const void* bias, int scale_bf16, void* out, int M, int N, int K,
                           int G, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  auto xb = static_cast<const __nv_bfloat16*>(x);
-  auto c = static_cast<const int8_t*>(codes);
-  auto sc = static_cast<const __nv_bfloat16*>(scale);
-  auto bi = static_cast<const __nv_bfloat16*>(bias);
-  auto o = static_cast<float*>(out);
-  cudaError_t e = (M <= 16) ? launch<16, 16, 16>(xb, c, sc, bi, o, M, N, K, G, s)
-                            : launch<64, 32, 32>(xb, c, sc, bi, o, M, N, K, G, s);
-  return static_cast<int>(e);
+  return static_cast<int>(
+      scale_bf16 ? by_rows<__nv_bfloat16, false>(x, codes, scale, bias, out, M, N, K, G, s)
+                 : by_rows<float, false>(x, codes, scale, bias, out, M, N, K, G, s));
+}
+
+// codes16: int16 (K, N/2), two int8 codes a lane; N even; no bias.
+extern "C" int ik_qmatmul_pair(const void* x, const void* codes16, const void* scale,
+                               int scale_bf16, void* out, int M, int N, int K, int G,
+                               void* stream) {
+  if (N % 2) return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      scale_bf16 ? by_rows<__nv_bfloat16, true>(x, codes16, scale, nullptr, out, M, N, K, G, s)
+                 : by_rows<float, true>(x, codes16, scale, nullptr, out, M, N, K, G, s));
 }

@@ -11,8 +11,10 @@ arrays are numpy and whose linears are dicts tagged with their kind:
      "bias": (K/G, N) | None, "group": G, "lut16": 16 floats | None}
     {"type": "DenseLinear", "w": (K, N)}
     {"type": "QuantExpertWeights", "gate" | "up" | "down": (G, K, N) int8,
-     "gate_s" | "up_s" | "down_s": (G, K/group, N) f32,
+     "gate_s" | "up_s" | "down_s": (G, K/group, N) f32 or bf16,
      "gate_group" | "up_group" | "down_group": int,
+     "gate_b" | "up_b" | "down_b": (G, N) | None}
+    {"type": "ExpertWeights", "gate" | "up" | "down": (G, K, N) bf16,
      "gate_b" | "up_b" | "down_b": (G, N) | None}
 
 which is the JAX package's parameter pytree with each array fetched to
@@ -21,14 +23,15 @@ numpy, and returns the port's tree: the same nesting, torch tensors on
 Scales, group biases, dense weights and the token embedding are stored in
 bf16 as the JAX loaders store them; other float arrays keep float32. Expert
 codes are stored (G, N, K) and held as their (G, K, N) view, as the port's
-loader holds them.
+loader holds them; expert scales keep the dtype they come in (f32 for
+supergroup codes, bf16 for planar ones).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..ops.moe import QuantExpertWeights
+from ..ops.moe import ExpertWeights, QuantExpertWeights
 from .llama import KVCache
 from .weights import DenseLinear, QLinear, QLinearI4, QLinearI8
 
@@ -72,10 +75,16 @@ def _linear(d: dict, device):
         for p in ("gate", "up", "down"):
             codes_t = _tensor(np.asarray(d[p]).transpose(0, 2, 1), device, torch.int8)
             kw[p] = codes_t.transpose(1, 2)
-            kw[p + "_s"] = _tensor(d[p + "_s"], device, torch.float32)
+            kw[p + "_s"] = _tensor(d[p + "_s"], device)
             kw[p + "_group"] = int(d[p + "_group"])
             kw[p + "_b"] = _tensor(d.get(p + "_b"), device, torch.float32)
         return QuantExpertWeights(**kw)
+    if kind == "ExpertWeights":
+        kw = {}
+        for p in ("gate", "up", "down"):
+            kw[p] = _tensor(d[p], device, bf16)
+            kw[p + "_b"] = _tensor(d.get(p + "_b"), device, torch.float32)
+        return ExpertWeights(**kw)
     raise NotImplementedError(f"params_from_numpy: linear kind {kind!r} is "
                               "not ported yet")
 

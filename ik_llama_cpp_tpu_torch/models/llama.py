@@ -1,7 +1,8 @@
-"""Llama and qwen3moe: parameters, the KV caches and the forward pass.
+"""Llama, qwen3moe and qwen2moe: parameters, the KV caches and the forward
+pass.
 
-The torch counterpart of the plain-llama and qwen3moe subset of the JAX
-package's ``models/llama.py``: one functional forward over a
+The torch counterpart of the plain-llama, qwen3moe and qwen2moe subset of
+the JAX package's ``models/llama.py``: one functional forward over a
 fixed-capacity KV cache of shape (L, B, S, Hkv, D). Rows are written into
 the cache in place; the attention of layer i reads the slab ``kv.k[i]``,
 which is a view, so the decode step never copies the capacity-sized cache
@@ -14,14 +15,19 @@ an optional Hadamard rotation of K (and q) and of V before the write;
 bulk.
 
 qwen3moe adds per-head RMS QK-norms before RoPE and a routed-expert FFN
-(``ops/moe.py``) over experts re-coded per supergroup of 256 at load.
+(``ops/moe.py``); qwen2moe has q/k/v biases and adds a shared expert with a
+sigmoid gate to the routed ones. A stacked expert tensor is re-coded per
+supergroup of 256 at load where the int8 path is on and 256 divides its K,
+stays planar (its format's group, bf16 scales) otherwise, and the three
+become bf16 ``ExpertWeights`` when one of them has no symmetric planar form
+(float tensors, asymmetric formats) or ``use_quant`` is off.
 
 Weight names follow GGUF conventions (token_embd, blk.N.attn_q, ...).
-Ring (SWA-compressed) caches, planar (group-32) or bf16
-experts, shared experts and the other MoE architectures, MTP (other
-architectures), tensor/pipeline/sequence parallelism, LoRA and control
-vectors are later slices of the port: asking for one raises
-NotImplementedError naming the slice (here or in runtime/generate.py).
+Ring (SWA-compressed) caches, the other MoE architectures (mixtral-style
+llama, deepseek2, gpt-oss, ...), MTP (other architectures),
+tensor/pipeline/sequence/expert parallelism, LoRA and control vectors are
+later slices of the port: asking for one raises NotImplementedError naming
+the slice (here or in runtime/generate.py).
 """
 from __future__ import annotations
 
@@ -38,14 +44,15 @@ from ..ops.flash_attention import (DECODE_MAX_T, flash_attention,
                                    flash_attention_q8)
 from ..ops.kv_quant import (KV_CODEC_DTYPE, KV_CODEC_WIDTH, KV_DECODERS,
                             KV_ENCODERS, hadamard_rotate, kv_codec_of)
-from ..ops.moe import QuantExpertWeights, moe_ffn
+from ..ops.moe import ExpertWeights, QuantExpertWeights, moe_ffn
 from ..ops.qmatmul import SUPERGROUP, requant_supergroup
 from ..quant.planar import PLANAR_FNS, planar_decode
 from .config import ModelConfig
 from .weights import (_t, dequant_tensor, fuse_linears, i8_enabled, load_dense,
                       load_linear)
 
-ARCHS = ("llama", "qwen3moe")
+ARCHS = ("llama", "qwen3moe", "qwen2moe")
+MOE_ARCHS = ("qwen3moe", "qwen2moe")
 
 
 def _later(what: str, slice_: str):
@@ -198,7 +205,7 @@ def load_llama_params(gg: GGUFModel, cfg: ModelConfig, device, *,
     if cfg.arch not in ARCHS:
         _later(f"architecture {cfg.arch!r}", "other-architectures")
     t = gg.tensors
-    if cfg.arch != "qwen3moe" and any(n.endswith(".ffn_gate_inp.weight") for n in t):
+    if cfg.arch not in MOE_ARCHS and any(n.endswith(".ffn_gate_inp.weight") for n in t):
         _later(f"MoE for architecture {cfg.arch!r} (mixtral-style)", "other-architectures")
     params: dict = {
         "tok_embd": torch.from_numpy(np.ascontiguousarray(
@@ -220,13 +227,22 @@ def load_llama_params(gg: GGUFModel, cfg: ModelConfig, device, *,
             "wk": load_linear(t[p + "attn_k.weight"], device, use_quant=use_quant),
             "wv": load_linear(t[p + "attn_v.weight"], device, use_quant=use_quant),
         }
-        if p + "ffn_gate_inp.weight" in t:       # routed experts (qwen3moe)
-            if p + "ffn_gate_shexp.weight" in t:
-                _later("shared experts (ffn_*_shexp)", "other-architectures")
+        if p + "ffn_gate_inp.weight" in t:       # routed experts
             # the router stays a bf16 dense product, as in the JAX package
             blk["ffn_gate_inp"] = load_linear(t[p + "ffn_gate_inp.weight"], device,
                                               use_quant=False)
+            if p + "ffn_gate_inp.bias" in t:
+                blk["ffn_gate_inp_b"] = load_dense(t[p + "ffn_gate_inp.bias"], device)
+            if p + "exp_probs_b.bias" in t:      # expert selection bias
+                blk["ffn_exp_probs_b"] = load_dense(t[p + "exp_probs_b.bias"], device)
             blk["experts"] = _load_experts(t, p, device, use_quant=use_quant)
+            if p + "ffn_gate_shexp.weight" in t:  # shared expert (qwen2moe)
+                for name in ("ffn_gate_shexp", "ffn_up_shexp", "ffn_down_shexp"):
+                    blk[name] = load_linear(t[p + name + ".weight"], device,
+                                            use_quant=use_quant)
+                if p + "ffn_gate_inp_shexp.weight" in t:
+                    blk["ffn_gate_inp_shexp"] = load_linear(
+                        t[p + "ffn_gate_inp_shexp.weight"], device, use_quant=False)
         else:
             for name in ("ffn_gate", "ffn_up", "ffn_down"):
                 blk[name] = load_linear(t[p + name + ".weight"], device,
@@ -262,47 +278,90 @@ def _fuse_block(blk: dict) -> None:
 
 def _planar_stacked(info, device):
     """A stacked expert tensor (ne = (K, N, G)) -> (codes int8 (G, K, N),
-    the view of a contiguous (G, N, K) tensor; f32 scales (G, K/256, N)),
-    re-coded per supergroup of 256 as the JAX loader does for the int8
-    path. Every column is re-coded on its own, so all experts go through
-    one call. Other forms are a later slice."""
+    the view of a contiguous (G, N, K) tensor; scales (G, K/group, N);
+    group), or None when the format has no symmetric planar form (float
+    tensors, asymmetric formats with a per-group bias). With the int8 path
+    on and K a multiple of 256 the codes are re-coded per supergroup of
+    256 with f32 scales, as the JAX loader does (every column on its own,
+    so all experts go through one call); otherwise they stay planar with
+    bf16 scales, which the kernels round to anyway."""
     k, n, g = info.shape[0], info.shape[1], info.shape[2]
     if info.ggml_type not in PLANAR_FNS:
-        _later(f"bf16 (dequantized) experts ({info.ggml_type.name})", "planar-MoE")
-    if not (i8_enabled(device) and k % SUPERGROUP == 0):
-        _later(f"planar MoE experts (int8 path off or K={k} not a multiple of "
-               f"{SUPERGROUP})", "planar-MoE")
+        return None
     pw = planar_decode(info.data, info.ggml_type, k)       # rows = (expert, column)
     if pw.bias is not None:
-        _later(f"asymmetric planar experts ({info.ggml_type.name})", "planar-MoE")
-    q8, sw = requant_supergroup(pw.codes.T, pw.scale.T, group=pw.group)
-    codes_t = _t(q8.T.reshape(g, n, k), device)                      # (G, N, K)
-    sw = _t(sw.reshape(k // SUPERGROUP, g, n).transpose(1, 0, 2).copy(), device)
-    return codes_t.transpose(1, 2), sw
+        return None
+    if i8_enabled(device) and k % SUPERGROUP == 0:
+        q8, sw = requant_supergroup(pw.codes.T, pw.scale.T, group=pw.group)
+        codes_t = _t(q8.T.reshape(g, n, k), device)                  # (G, N, K)
+        sw = _t(sw.reshape(k // SUPERGROUP, g, n).transpose(1, 0, 2).copy(), device)
+        return codes_t.transpose(1, 2), sw, SUPERGROUP
+    codes_t = _t(pw.codes.reshape(g, n, k), device)
+    scale = _t(pw.scale.reshape(g, n, k // pw.group).transpose(0, 2, 1), device,
+               torch.bfloat16)
+    return codes_t.transpose(1, 2), scale, pw.group
 
 
 def _load_experts(t, prefix: str, device, *, use_quant: bool = True):
-    """Stacked gate/up/down experts (ne = (K, N, G)) -> QuantExpertWeights
-    over supergroup-256 int8 codes (qwen3moe experts carry no biases)."""
-    if not use_quant:
-        _later("bf16 (dequantized) experts", "planar-MoE")
-    gc, gs = _planar_stacked(t[prefix + "ffn_gate_exps.weight"], device)
-    uc, us = _planar_stacked(t[prefix + "ffn_up_exps.weight"], device)
-    dc, ds = _planar_stacked(t[prefix + "ffn_down_exps.weight"], device)
-    return QuantExpertWeights(gate=gc, gate_s=gs, up=uc, up_s=us, down=dc, down_s=ds)
+    """Stacked gate/up/down experts (ne = (K, N, G)) with their optional
+    per-expert biases -> QuantExpertWeights, each projection in the form
+    ``_planar_stacked`` gives it; bf16 ExpertWeights when a projection has
+    no symmetric planar form or ``use_quant`` is off."""
+    def bias(name):
+        if prefix + name not in t:
+            return None
+        return _t(dequant_tensor(t[prefix + name]), device, torch.float32)
+
+    names = ("ffn_gate_exps.weight", "ffn_up_exps.weight", "ffn_down_exps.weight")
+    biases = dict(gate_b=bias("ffn_gate_exps.bias"), up_b=bias("ffn_up_exps.bias"),
+                  down_b=bias("ffn_down_exps.bias"))
+    if use_quant:
+        planar = [_planar_stacked(t[prefix + nm], device) for nm in names]
+        if all(pl is not None for pl in planar):
+            (gc, gs, gg), (uc, us, ug), (dc, ds, dg) = planar
+            return QuantExpertWeights(gate=gc, gate_s=gs, up=uc, up_s=us, down=dc,
+                                      down_s=ds, gate_group=gg, up_group=ug,
+                                      down_group=dg, **biases)
+
+    def stacked(name):          # logical (G, N, K) -> (G, K, N) bf16
+        return _t(dequant_tensor(t[prefix + name]).transpose(0, 2, 1), device,
+                  torch.bfloat16)
+
+    return ExpertWeights(gate=stacked(names[0]), up=stacked(names[1]),
+                         down=stacked(names[2]), **biases)
 
 
-def _ffn(blk: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Dense or routed-expert feed-forward on (B, T, E) normalized input."""
+def _act_limit(cfg: ModelConfig, il: int, shared: bool = False) -> float:
+    lims = (cfg.extra or {}).get("swiglu_limits_shared" if shared else "swiglu_limits")
+    return float(lims[il]) if lims else 0.0
+
+
+def _ffn(blk: dict, h: torch.Tensor, cfg: ModelConfig, il: int = 0) -> torch.Tensor:
+    """Dense or routed-expert feed-forward on (B, T, E) normalized input;
+    a shared expert (qwen2moe), gated by a sigmoid where the model has the
+    gate, adds to the routed ones."""
     if "experts" not in blk:
         return _ffn_dense(blk, h, cfg)
     b, t, e = h.shape
     x = h.reshape(-1, e)
-    y = moe_ffn(x, blk["ffn_gate_inp"](x), blk["experts"], cfg.n_expert_used,
+    router = blk["ffn_gate_inp"](x)
+    if "ffn_gate_inp_b" in blk:
+        router = router + blk["ffn_gate_inp_b"]
+    y = moe_ffn(x, router, blk["experts"], cfg.n_expert_used,
                 gating=cfg.expert_gating_func,
                 norm_topk=cfg.norm_topk_prob or cfg.expert_weights_norm,
-                scale=cfg.expert_weights_scale, activation=cfg.moe_act)
-    return y.reshape(b, t, e)
+                scale=cfg.expert_weights_scale,
+                selection_bias=blk.get("ffn_exp_probs_b"), activation=cfg.moe_act,
+                weight_before_ffn=cfg.moe_weight_before,
+                act_limit=_act_limit(cfg, il)).reshape(b, t, e)
+    if "ffn_gate_shexp" in blk:
+        act = L.glu(blk["ffn_gate_shexp"](h), blk["ffn_up_shexp"](h), cfg.moe_act,
+                    limit=_act_limit(cfg, il, shared=True))
+        sh = blk["ffn_down_shexp"](act.to(torch.bfloat16))
+        if "ffn_gate_inp_shexp" in blk:
+            sh = sh * torch.sigmoid(blk["ffn_gate_inp_shexp"](h))
+        y = y + sh
+    return y
 
 
 def _ffn_dense(blk: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -433,7 +492,7 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, kv,
         attn_out = _attn_block(blk, h, cfg, kv, i, n_past, npv, cos, sin)
         x = x + attn_out.to(x.dtype)
         h = L.rms_norm(x, blk["ffn_norm"], cfg.rms_eps)
-        x = x + _ffn(blk, h, cfg).to(x.dtype)
+        x = x + _ffn(blk, h, cfg, i).to(x.dtype)
     x = L.rms_norm(x, params.get("output_norm"), cfg.rms_eps)
     if logits_last_only:
         x = x[:, -1:, :]

@@ -31,6 +31,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .qmatmul import true_div
+
 # the IQ4_NL level table (GGUF format constant) and the midpoints between
 # neighbouring levels, the decision boundaries of nearest-level rounding
 IQ4NL_VALUES = (-127, -104, -83, -65, -49, -35, -22, -10,
@@ -53,7 +55,7 @@ def _const(name: str, values, device) -> torch.Tensor:
 
 def _row_scale(xf: torch.Tensor, levels: float):
     """(scale, 1/scale or 0) per row from the row's absmax."""
-    scale = torch.amax(torch.abs(xf), dim=-1) / levels
+    scale = true_div(torch.amax(torch.abs(xf), dim=-1), levels)
     pos = scale > 0
     inv = torch.where(pos, 1.0 / torch.where(pos, scale, torch.ones_like(scale)),
                       torch.zeros_like(scale))
@@ -131,7 +133,7 @@ def quantize_kv_rows_nl4(x: torch.Tensor):
     d = xf.shape[-1]
     pos, neg = torch.amax(xf, dim=-1), torch.amin(xf, dim=-1)
     m = torch.where(pos >= -neg, pos, neg)
-    scale = m / -127.0
+    scale = true_div(m, -127.0)
     nz = scale != 0
     inv = torch.where(nz, 1.0 / torch.where(nz, scale, torch.ones_like(scale)),
                       torch.zeros_like(scale))

@@ -1,21 +1,25 @@
-"""MoE routing and the routed-expert FFN over int8 supergroup experts.
+"""MoE routing and the routed-expert FFN.
 
-The torch counterpart of the JAX package's ``ops/moe.py`` for
-``QuantExpertWeights`` whose three projections are re-coded per
-supergroup of 256 (the accelerator default at load):
+The torch counterpart of the JAX package's ``ops/moe.py``. Experts are
+``QuantExpertWeights`` (int8 codes, each projection with its own group:
+re-coded per supergroup of 256 with f32 scales where its K allows, which is
+the accelerator default at load, else planar with bf16 group scales) or
+bf16 ``ExpertWeights`` (float GGUF tensors, asymmetric formats).
 
-* decode (T <= 8): the two-kernel chain of ``ops/moe_decode.py``;
-* prefill: rows sorted by expert, the capacity-bucketed fused kernel of
-  ``ops/moe_qmm.py`` with a ragged overflow pass, or the ragged chain when
-  the fused kernel does not take the shapes.
+* decode (T <= 8, quantized, gate and up of one group): the int8 chain of
+  ``ops/moe_decode.py`` when gate and down are both supergroup (two
+  kernels, or one with ``IK_MOE_FUSED_TG=1`` where its shape rule holds),
+  else the planar chain;
+* prefill: rows sorted by expert; all-supergroup experts take the
+  capacity-bucketed fused kernel of ``ops/moe_qmm.py`` with a ragged
+  overflow pass; otherwise three grouped GEMMs, each projection on the
+  int8 or the planar kernel by its own group; bf16 experts take plain
+  products (the JAX package leaves them to ``lax.ragged_dot``).
 
 The glue never reads the device back: group sizes come from
 ``scatter_add_``, row maps from ``searchsorted``, and the live expert count
 stays a device scalar, so the eager decode loop is not stalled per layer.
-Planar (group-32) and bf16 experts and the opt-in single-kernel decode
-(``IK_MOE_FUSED_TG=1``) are a later slice of the port and raise
-``NotImplementedError``; so are expert parallelism and the llama4 / gemma4
-weight placements, whose options ``moe_ffn`` does not take yet.
+Expert parallelism (``ep_axis``) waits for the multi-GPU slice.
 """
 from __future__ import annotations
 
@@ -24,9 +28,10 @@ from dataclasses import dataclass
 
 import torch
 
-from .moe_decode import SUPERGROUP, moe_decode_i8
+from .moe_decode import SUPERGROUP, fused_decode_fits, moe_decode, moe_decode_i8
 from .moe_decode import _act as _apply_moe_act
-from .moe_qmm import fused_moe_prefill_i8, fused_prefill_fits, ragged_qmatmul_i8
+from .moe_qmm import (fused_moe_prefill_i8, fused_prefill_fits, ragged_qmatmul,
+                      ragged_qmatmul_i8)
 from .qmatmul import quantize_activations
 
 GATING_SOFTMAX = 1
@@ -34,11 +39,6 @@ GATING_SIGMOID = 2
 GATING_SOFTMAX_WEIGHT = 3   # softmax over the selected top-k only
 GATING_SQRT_SOFTPLUS = 4    # deepseek4: sqrt(softplus(x))
 DECODE_MAX_T = 8
-
-
-def _later(what: str, slice_: str):
-    raise NotImplementedError(f"{what} is not ported yet (the {slice_} slice "
-                              "of the PyTorch port)")
 
 
 def route(router_logits, n_expert_used: int, *, gating: int = GATING_SOFTMAX,
@@ -72,12 +72,28 @@ def route(router_logits, n_expert_used: int, *, gating: int = GATING_SOFTMAX,
 
 
 @dataclass
+class ExpertWeights:
+    """Stacked bf16 experts (dequantized at load): gate, up (G, E, FF) and
+    down (G, FF, E); optional f32 per-expert biases gate_b / up_b (G, FF)
+    and down_b (G, E)."""
+
+    gate: torch.Tensor
+    up: torch.Tensor
+    down: torch.Tensor
+    gate_b: torch.Tensor | None = None
+    up_b: torch.Tensor | None = None
+    down_b: torch.Tensor | None = None
+
+
+@dataclass
 class QuantExpertWeights:
-    """Stacked int8 experts: codes (G, K, N) with f32 scales (G, K/group, N)
-    for gate, up (K = E, N = FF) and down (K = FF, N = E); optional f32
-    per-expert biases gate_b / up_b (G, FF) and down_b (G, E). The loaders
-    store each code tensor as a contiguous (G, N, K) tensor and hold its
-    (G, K, N) transposed view here, the layout the kernels read."""
+    """Stacked int8 experts: codes (G, K, N) with scales (G, K/group, N) for
+    gate, up (K = E, N = FF) and down (K = FF, N = E), each projection with
+    its own group: 256 with f32 scales (re-coded per supergroup) or the
+    format's planar group with bf16 scales. Optional f32 per-expert biases
+    gate_b / up_b (G, FF) and down_b (G, E). The loaders store each code
+    tensor as a contiguous (G, N, K) tensor and hold its (G, K, N)
+    transposed view here, the layout the kernels read."""
 
     gate: torch.Tensor
     gate_s: torch.Tensor
@@ -97,19 +113,25 @@ class QuantExpertWeights:
         return self.gate_group == self.up_group == self.down_group == SUPERGROUP
 
 
+def _fused_tg_enabled() -> bool:
+    """IK_MOE_FUSED_TG=1 opts into the single-kernel decode (kernel 11);
+    read at call time, off by default as in the JAX package."""
+    return os.environ.get("IK_MOE_FUSED_TG", "0") not in ("0", "false", "")
+
+
 def _fused_prefill_try(xs, group_sizes, experts: QuantExpertWeights,
                        activation: str, act_limit: float):
     """Capacity-bucketed whole-FFN prefill (kernel 9) with the ragged
     overflow pass (kernel 10, three launches). Returns y f32 (M, E) for the
-    sorted rows, or None when the fused kernel does not take the shapes or
-    the experts carry gate/up biases; the caller then runs the ragged
-    chain. The same routing by shape as the JAX package's, with the
-    kernel's own shape rule."""
+    sorted rows, or None when a projection is not supergroup, the fused
+    kernel does not take the shapes or the experts carry gate/up biases;
+    the caller then runs the ragged chain. The same routing by shape as the
+    JAX package's, with the kernel's own shape rule."""
     m, k = xs.shape
     g, _, f = experts.gate.shape
     # capacity ~1.25x the mean rows per expert, 8-aligned
     r = min(512, max(8, (-(-(m * 5) // (g * 4)) + 7) // 8 * 8))
-    if (experts.gate_b is not None or experts.up_b is not None
+    if (not experts.supergroup or experts.gate_b is not None or experts.up_b is not None
             or not fused_prefill_fits(r, k, f)):
         return None
     dev = xs.device
@@ -156,55 +178,100 @@ def _fused_prefill_try(xs, group_sizes, experts: QuantExpertWeights,
     return torch.where(from_p1[:, None], y, y2[pos2])
 
 
+def _ragged_qmm(xs, codes, scale, group_sizes, group: int):
+    """One grouped GEMM of the sorted bf16 rows: supergroup codes take the
+    int8 kernel 10 (rows quantized per (row, supergroup) here), any other
+    group the planar kernel 14."""
+    if group == SUPERGROUP:
+        xq, xsc = quantize_activations(xs)
+        return ragged_qmatmul_i8(xq, xsc.t(), codes, scale, group_sizes)
+    return ragged_qmatmul(xs, codes, scale, group_sizes, group=group)
+
+
 def _ragged_chain(xs, group_sizes, sorted_ids, experts: QuantExpertWeights,
                   activation: str, act_limit: float):
-    """The three-GEMM ragged prefill (kernel 10 three times)."""
+    """The three-GEMM ragged prefill, each projection by its own group."""
     gs = group_sizes.to(torch.int32)
-    xq, xsc = quantize_activations(xs)
-    g = ragged_qmatmul_i8(xq, xsc.t(), experts.gate, experts.gate_s, gs)
-    u = ragged_qmatmul_i8(xq, xsc.t(), experts.up, experts.up_s, gs)
+    g = _ragged_qmm(xs, experts.gate, experts.gate_s, gs, experts.gate_group)
+    u = _ragged_qmm(xs, experts.up, experts.up_s, gs, experts.up_group)
+    if experts.gate_b is not None:
+        g = g + experts.gate_b[sorted_ids]
+    if experts.up_b is not None:
+        u = u + experts.up_b[sorted_ids]
+    h = _apply_moe_act(g, u, activation, act_limit).to(torch.bfloat16)
+    return _ragged_qmm(h, experts.down, experts.down_s, gs, experts.down_group)
+
+
+def _grouped_dense(xs, w, sorted_ids):
+    """Sorted rows xs (M, K) against bf16 experts w (G, K, N), each row with
+    its own expert: f32 (M, N). One masked product per expert (a zero row
+    adds exactly nothing), so nothing is read back from the device; bf16
+    operands, float32 sums."""
+    xf = xs.to(w.dtype).float()
+    out = torch.zeros((xs.shape[0], w.shape[2]), dtype=torch.float32, device=xs.device)
+    for g in range(w.shape[0]):
+        out += torch.where((sorted_ids == g)[:, None], xf, 0.0) @ w[g].float()
+    return out
+
+
+def _dense_chain(xs, sorted_ids, experts: ExpertWeights, activation: str, act_limit: float):
+    """The sorted prefill and decode path of bf16 experts."""
+    g = _grouped_dense(xs, experts.gate, sorted_ids)
+    u = _grouped_dense(xs, experts.up, sorted_ids)
     if experts.gate_b is not None:
         g = g + experts.gate_b[sorted_ids]
     if experts.up_b is not None:
         u = u + experts.up_b[sorted_ids]
     h = _apply_moe_act(g, u, activation, act_limit)
-    hq, hs = quantize_activations(h.to(torch.bfloat16))
-    return ragged_qmatmul_i8(hq, hs.t(), experts.down, experts.down_s, gs)
+    return _grouped_dense(h, experts.down, sorted_ids)
 
 
-def moe_ffn(x, router_logits, experts: QuantExpertWeights, n_expert_used: int, *,
+def moe_ffn(x, router_logits, experts, n_expert_used: int, *,
             gating: int = GATING_SOFTMAX, norm_topk: bool = False,
             scale: float = 1.0, selection_bias=None, activation: str = "silu",
-            act_limit: float = 0.0):
-    """x (T, E) -> f32 (T, E): route, then the decode chain for T <= 8 or
-    the sorted prefill path."""
-    if not isinstance(experts, QuantExpertWeights):
-        _later("bf16 (dequantized) experts", "planar-MoE")
-    if not experts.supergroup:
-        _later(f"planar MoE experts (groups {experts.gate_group}/{experts.up_group}/"
-               f"{experts.down_group})", "planar-MoE")
+            weight_before_ffn: bool = False, act_limit: float = 0.0,
+            expert_out_scale=None):
+    """x (T, E) -> f32 (T, E): route, then a decode chain for T <= 8 over
+    quantized experts or the sorted path. ``weight_before_ffn`` scales each
+    expert's input by its routing weight and sums the outputs unweighted
+    (llama4); ``expert_out_scale`` (G,) folds a per-expert scalar into the
+    routing weight of each selected expert (gemma4)."""
     t, e = x.shape
     k = n_expert_used
     n_expert = experts.gate.shape[0]
     w, idx = route(router_logits, k, gating=gating, norm_topk=norm_topk,
                    scale=scale, selection_bias=selection_bias)
-    if t <= DECODE_MAX_T:
-        if os.environ.get("IK_MOE_FUSED_TG", "0") not in ("0", "false", ""):
-            _later("the single-kernel MoE decode (IK_MOE_FUSED_TG=1)", "planar-MoE")
-        return moe_decode_i8(x, w, idx, experts, activation=activation,
-                             act_limit=act_limit)
+    if expert_out_scale is not None:
+        w = w * expert_out_scale.to(w.dtype)[idx]
+    quant = isinstance(experts, QuantExpertWeights)
+    if quant and t <= DECODE_MAX_T and experts.gate_group == experts.up_group:
+        kw = dict(activation=activation, act_limit=act_limit,
+                  weight_before_ffn=weight_before_ffn)
+        if experts.gate_group == SUPERGROUP and experts.down_group == SUPERGROUP:
+            fused = _fused_tg_enabled() and fused_decode_fits(
+                e, experts.gate.shape[2], k)
+            return moe_decode_i8(x, w, idx, experts, fused=fused, **kw)
+        return moe_decode(x, w, idx, experts, **kw)
 
     flat_ids = idx.reshape(-1)                        # (T*k,)
     order = torch.argsort(flat_ids, stable=True)
     inv_order = torch.argsort(order)
-    xs = x.repeat_interleave(k, dim=0)[order].to(torch.bfloat16)
-    group_sizes = torch.zeros(n_expert, dtype=torch.int32, device=x.device)
-    group_sizes.scatter_add_(0, flat_ids, torch.ones_like(flat_ids, dtype=torch.int32))
+    xs = x.repeat_interleave(k, dim=0)[order]
+    if weight_before_ffn:
+        xs = xs * w.reshape(-1)[order][:, None]
     sorted_ids = flat_ids[order]
-    y = _fused_prefill_try(xs, group_sizes, experts, activation, act_limit)
-    if y is None:
-        y = _ragged_chain(xs, group_sizes, sorted_ids, experts, activation, act_limit)
+    if quant:
+        xs = xs.to(torch.bfloat16)
+        group_sizes = torch.zeros(n_expert, dtype=torch.int32, device=x.device)
+        group_sizes.scatter_add_(0, flat_ids, torch.ones_like(flat_ids, dtype=torch.int32))
+        y = _fused_prefill_try(xs, group_sizes, experts, activation, act_limit)
+        if y is None:
+            y = _ragged_chain(xs, group_sizes, sorted_ids, experts, activation, act_limit)
+    else:
+        y = _dense_chain(xs, sorted_ids, experts, activation, act_limit)
     if experts.down_b is not None:
         y = y + experts.down_b[sorted_ids]
     y = y[inv_order].reshape(t, k, e)
+    if weight_before_ffn:
+        return torch.sum(y, dim=1)
     return torch.sum(y * w[:, :, None], dim=1)

@@ -1,17 +1,18 @@
-"""MoE prefill over supergroup experts: the grouped int8 GEMM and the
-capacity-bucketed whole-FFN kernel.
+"""MoE prefill: the grouped GEMMs over sorted rows (int8 supergroup and
+planar) and the capacity-bucketed whole-FFN kernel.
 
-The torch counterpart of the int8 part of the JAX package's
-``ops/moe_qmm.py``:
+The torch counterpart of the JAX package's ``ops/moe_qmm.py``:
 
 * ``ragged_qmatmul_i8``: rows sorted by expert (``group_sizes`` (G,) rows
   each), int8 (M, K) against int8 (G, K, N) with supergroup corrections.
+* ``ragged_qmatmul``: the same rows in bf16 against planar int8 codes with
+  group scales (any group, f32 or bf16 scales), dequantized in bf16.
 * ``fused_moe_prefill_i8``: the rows gathered into (G, R, K) capacity
   buckets; per live expert the whole FFN (gate/up, activation, bf16 round,
   per-(row, 256) requantization of h, down) in one block.
 
 Layouts at the public functions are the JAX package's: codes (G, K, N),
-scales (G, K/256, N), activation scales transposed. On the card the codes
+scales (G, K/group, N), activation scales transposed. On the card the codes
 must be the (G, K, N) view of a contiguous (G, N, K) tensor, as
 ``QuantExpertWeights`` stores them.
 """
@@ -20,14 +21,15 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .moe_decode import ACTIVATIONS, SUPERGROUP, _act, _check_codes, sg_accumulate
+from .moe_decode import (ACTIVATIONS, SMEM_LIMIT, SUPERGROUP, _act, _check_codes,
+                         _check_planar, dequant_experts, requant_by_inverse,
+                         sg_accumulate)
 
 # Shared-memory plan of csrc/moe_qmm_i8.cu's fused kernel (64-row blocks,
 # 64-column tiles, 2 stages of 256-deep x / gate / up tiles padded to 272
 # bytes a row, one 256-column bf16 staging slab of h, the int8 h of the
 # block's rows padded to FF + 16 bytes, and its per-(row, 256) scales).
 FUSED_ROWS = 64
-SMEM_LIMIT = 232448           # bytes of shared memory a block may use on sm_90
 
 
 def _i8_rows(q, qs, codes, sw):
@@ -100,6 +102,68 @@ def ragged_qmatmul_i8(xq, xst, codes, sw, group_sizes):
 ragged_qmatmul_i8.launches = 0      # kernel launches, counted where they happen
 
 
+def ragged_qmatmul_ref(x, codes, scale, group_sizes, *, group: int = 32):
+    """Plain version of kernel 14 (the JAX package's ``ragged_qmatmul_ref``):
+    x (M, K) rounded to bf16, codes int8 (G, K, N), scale f32 or bf16
+    (G, K/group, N), group_sizes (G,); per group, its rows against the
+    weight dequantized in bf16, float32 sums. Rows past sum(group_sizes)
+    are computed with the last expert (undefined in the JAX package). Reads
+    group_sizes back to the host (a plain version may)."""
+    m = x.shape[0]
+    xf = x.to(torch.bfloat16).float()
+    out = torch.empty((m, codes.shape[2]), dtype=torch.float32, device=x.device)
+    start = 0
+    sizes = group_sizes.tolist()
+    for g, n in enumerate(sizes):
+        end = m if g == len(sizes) - 1 else min(start + int(n), m)
+        if end > start:
+            out[start:end] = xf[start:end] @ dequant_experts(codes[g], scale[g], group).float()
+        start = end
+    return out
+
+
+def ragged_qmatmul(x, codes, scale, group_sizes, *, group: int = 32):
+    """Grouped planar GEMM: x bf16 (M, K) sorted by group, codes int8
+    (G, K, N), scale f32 or bf16 (G, K/group, N), group_sizes int32 (G,)
+    with sum <= M -> f32 (M, N). On the card rows at or past
+    sum(group_sizes) are left unwritten (whatever ``torch.empty`` held); no
+    caller reads them.
+
+    CUDA kernel ``csrc/moe_qmm.cu``, which replaces the Pallas kernel
+    ops/moe_qmm.py:ragged_qmatmul of the JAX package. Bound by the expert
+    bytes when the groups are short and by bf16 tensor-core work when they
+    are long: kernel 10's grid of (N tiles, row tiles) and its row map read
+    from the group sizes on the device (no host sync, no step table)
+    around the planar GEMM's inner loop, a 64-deep slice dequantized to
+    bf16 in shared memory for mma.sync, the next slice's loads in flight
+    meanwhile."""
+    if x.device.type == "cpu":
+        return ragged_qmatmul_ref(x, codes, scale, group_sizes, group=group)
+    name = "ragged_qmatmul"
+    m, k = x.shape
+    g, _, n = codes.shape
+    _cuda.require(x.dtype == torch.bfloat16 and x.is_contiguous() and _cuda.aligned16(x),
+                  f"{name}: x must be contiguous, 16-byte aligned bf16")
+    _check_planar(name, codes, scale, k, group)
+    _cuda.require(group_sizes.dtype == torch.int32 and group_sizes.is_contiguous()
+                  and group_sizes.shape == (g,) and g <= 1024,
+                  f"{name}: group_sizes must be contiguous int32 (G,), G <= 1024")
+    for t in (codes, scale, group_sizes):
+        _cuda.require(t.device == x.device, f"{name}: operands on different devices")
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    fn = _cuda.function("moe_qmm", "ik_ragged_qmatmul",
+                        [_cuda.P] * 3 + [_cuda.I] + [_cuda.P] * 2 + [_cuda.I] * 5 + [_cuda.P])
+    rc = fn(x.data_ptr(), codes.data_ptr(), scale.data_ptr(),
+            int(scale.dtype == torch.bfloat16), group_sizes.data_ptr(), out.data_ptr(),
+            m, n, k, g, group, _cuda.stream_ptr(x))
+    ragged_qmatmul.launches += 1
+    _cuda.check(rc, name)
+    return out
+
+
+ragged_qmatmul.launches = 0
+
+
 def fused_smem_bytes(ff: int) -> int:
     stages = 2 * 3 * FUSED_ROWS * (SUPERGROUP + 16)
     h_slab = FUSED_ROWS * SUPERGROUP * 2
@@ -134,17 +198,11 @@ def fused_moe_prefill_i8_ref(xg, xst, eids, n_live, gate_c, gate_sw, up_c, up_sw
     for s in range(xg.shape[2] // SUPERGROUP):
         g = sg_accumulate(g, xg, qs, gate_c, gate_sw, s)
         u = sg_accumulate(u, xg, qs, up_c, up_sw, s)
-    h = _act(g, u, activation, act_limit).to(torch.bfloat16).float()
+    hq, hs = requant_by_inverse(_act(g, u, activation, act_limit).to(torch.bfloat16))
     acc = torch.zeros(xg.shape[:2] + (down_c.shape[2],), dtype=torch.float32,
                       device=xg.device)
-    for s in range(h.shape[2] // SUPERGROUP):
-        hg = h[..., s * SUPERGROUP:(s + 1) * SUPERGROUP]
-        sc = torch.amax(torch.abs(hg), dim=2, keepdim=True) / 127.0
-        inv = torch.where(sc > 0, 1.0 / torch.where(sc > 0, sc, torch.ones_like(sc)),
-                          torch.zeros_like(sc))
-        hq = torch.clamp(torch.round(hg * inv), -127, 127)
-        part = torch.matmul(hq, down_c[:, s * SUPERGROUP:(s + 1) * SUPERGROUP].float())
-        acc = acc + part * (sc * down_sw[:, s:s + 1, :])
+    for s in range(hq.shape[2] // SUPERGROUP):
+        acc = sg_accumulate(acc, hq, hs, down_c, down_sw, s)
     return acc
 
 

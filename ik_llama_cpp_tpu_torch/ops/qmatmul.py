@@ -42,7 +42,8 @@ def qmatmul_ref(x, codes, scale, bias=None, group: int = 32):
 
 
 def qmatmul(x, codes, scale, bias=None, *, group: int = 32):
-    """(M, K) x int8 (K, N) -> f32 (M, N); scale/bias bf16 (K/G, N).
+    """(M, K) x int8 (K, N) -> f32 (M, N); scale/bias (K/G, N), bf16 (as the
+    loaders store them) or float32, which the kernel rounds to bf16.
 
     CUDA kernel ``csrc/qmatmul.cu``, which replaces the Pallas kernel
     ops/qmatmul.py:qmatmul of the JAX package. It is bound by the weight
@@ -56,18 +57,20 @@ def qmatmul(x, codes, scale, bias=None, *, group: int = 32):
     _cuda.require(k == k2 and k % group == 0, f"qmatmul: shapes {x.shape} {codes.shape} group {group}")
     _cuda.require(scale.shape == (k // group, n), f"qmatmul: scale {tuple(scale.shape)}")
     _cuda.require(codes.dtype == torch.int8 and codes.is_contiguous(), "qmatmul: codes must be contiguous int8")
-    _cuda.require(scale.dtype == torch.bfloat16 and scale.is_contiguous(), "qmatmul: scale must be contiguous bf16")
+    _cuda.require(scale.dtype in (torch.bfloat16, torch.float32) and scale.is_contiguous(),
+                  "qmatmul: scale must be contiguous bf16 or float32")
     if bias is not None:
-        _cuda.require(bias.dtype == torch.bfloat16 and bias.is_contiguous()
+        _cuda.require(bias.dtype == scale.dtype and bias.is_contiguous()
                       and bias.shape == scale.shape, "qmatmul: bias must match scale")
     for t in (codes, scale, bias):
         _cuda.require(t is None or t.device == x.device, "qmatmul: operands on different devices")
     xb = x.to(torch.bfloat16).contiguous()
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     fn = _cuda.function("qmatmul", "ik_qmatmul",
-                        [_cuda.P] * 5 + [_cuda.I] * 4 + [_cuda.P])
+                        [_cuda.P] * 4 + [_cuda.I, _cuda.P] + [_cuda.I] * 4 + [_cuda.P])
     rc = fn(xb.data_ptr(), codes.data_ptr(), scale.data_ptr(),
-            None if bias is None else bias.data_ptr(), out.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            int(scale.dtype == torch.bfloat16), out.data_ptr(),
             m, n, k, group, _cuda.stream_ptr(x))
     qmatmul.launches += 1
     _cuda.check(rc, "qmatmul")
@@ -200,6 +203,21 @@ def requant_supergroup(codes: np.ndarray, scale: np.ndarray,
     return q8, s.astype(np.float32)
 
 
+_DIVISORS: dict = {}
+
+
+def true_div(x, c: float):
+    """x / c as a float32 division on every device. On the card torch turns
+    a division by a Python scalar into a multiplication by its rounded
+    reciprocal, one float32 ulp apart at times; a tensor divisor (made once
+    per value and device) divides."""
+    key = (c, str(x.device))
+    d = _DIVISORS.get(key)
+    if d is None:
+        d = _DIVISORS[key] = torch.tensor(c, dtype=torch.float32, device=x.device)
+    return x / d
+
+
 def quantize_activations(x, sg: int = SUPERGROUP):
     """x (M, K) -> (int8 (M, K), f32 (M, K/sg)) per (row, supergroup).
 
@@ -207,7 +225,7 @@ def quantize_activations(x, sg: int = SUPERGROUP):
     float32 division, round half to even, clip to [-127, 127]."""
     m, k = x.shape
     xf = x.float().reshape(m, k // sg, sg)
-    s = torch.amax(torch.abs(xf), dim=2) / 127.0
+    s = true_div(torch.amax(torch.abs(xf), dim=2), 127.0)
     s_safe = torch.where(s > 0, s, torch.ones_like(s))
     q = torch.clamp(torch.round(xf / s_safe[:, :, None]), -127, 127)
     return q.to(torch.int8).reshape(m, k), s

@@ -1,7 +1,9 @@
 """Model runtime: load a GGUF, prefill in bucketed chunks, greedy decode.
 
 The torch counterpart of the JAX package's ``runtime/generate.py:Runtime``
-for the llama and qwen3moe paths, with a bf16 or quantized KV cache.
+for the llama, qwen3moe and qwen2moe paths (MoE experts in any of their
+loaded forms: int8 per supergroup, planar, mixed or bf16; shared experts),
+with a bf16 or quantized KV cache.
 PyTorch runs eagerly, so there are no compiled step functions; the prefill
 buckets and the chunk limit are kept so that cache rows and chunking match
 the JAX runtime exactly.

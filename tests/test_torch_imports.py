@@ -36,9 +36,18 @@ def test_port_has_kernel_sources():
     srcs = {p.stem for p in (PORT / "csrc").glob("*.cu")}
     assert srcs == {"qmatmul_i8", "qmatmul", "qmatmul4", "flash_attention",
                     "flash_attention_decode", "flash_attention_decode_q",
-                    "flash_attention_q8", "moe_decode_i8", "moe_qmm_i8"}
+                    "flash_attention_q8", "moe_decode_i8", "moe_qmm_i8", "moe_decode",
+                    "moe_decode_fused_i8", "moe_qmm"}
     from ik_llama_cpp_tpu_torch.ops import _cuda
     assert set(_cuda.SOURCES) == srcs
+
+
+def test_port_files_cover_every_subpackage():
+    """The scan above reaches every sub-package of the port, the tools too."""
+    subs = {p.relative_to(PORT).parts[0] for p in _port_files()[:-1]
+            if len(p.relative_to(PORT).parts) > 1}
+    assert subs == {"gguf", "models", "ops", "quant", "runtime", "tools"}
+    assert PORT / "tools" / "perf_dequant.py" in _port_files()
 
 
 def test_runtime_defaults_to_cuda(tmp_path):

@@ -124,13 +124,14 @@ def test_greedy_tokens_match_jax_runtime(tiny_moe, i8_on):
 
 
 def _tree(p):
-    """_numpy_tree plus the JAX package's QuantExpertWeights."""
-    if isinstance(p, JM.QuantExpertWeights):
-        d = {"type": "QuantExpertWeights"}
+    """_numpy_tree plus the JAX package's QuantExpertWeights and ExpertWeights."""
+    if isinstance(p, (JM.QuantExpertWeights, JM.ExpertWeights)):
+        d = {"type": type(p).__name__}
         for n in ("gate", "up", "down"):
             d[n] = np.asarray(getattr(p, n))
-            d[n + "_s"] = np.asarray(getattr(p, n + "_s"))
-            d[n + "_group"] = getattr(p, n + "_group")
+            if isinstance(p, JM.QuantExpertWeights):
+                d[n + "_s"] = np.asarray(getattr(p, n + "_s"))
+                d[n + "_group"] = getattr(p, n + "_group")
             b = getattr(p, n + "_b")
             d[n + "_b"] = None if b is None else np.asarray(b)
         return d
@@ -139,6 +140,11 @@ def _tree(p):
     if isinstance(p, list):
         return [_tree(v) for v in p]
     return _numpy_tree(p)
+
+
+def _strides(t):
+    """The strides that address something: those of dims longer than 1."""
+    return tuple(st for st, n in zip(t.stride(), t.shape) if n > 1)
 
 
 def _assert_same(a, b, where="params"):
@@ -150,14 +156,14 @@ def _assert_same(a, b, where="params"):
     elif isinstance(a, list):
         for i, (x, y) in enumerate(zip(a, b, strict=True)):
             _assert_same(x, y, f"{where}[{i}]")
-    elif isinstance(a, TM.QuantExpertWeights):
+    elif isinstance(a, (TM.QuantExpertWeights, TM.ExpertWeights)):
         for f in a.__dataclass_fields__:
             _assert_same(getattr(a, f), getattr(b, f), f"{where}.{f}")
     elif isinstance(a, nn.Module):
         assert getattr(a, "group", None) == getattr(b, "group", None), where
         _assert_same(dict(a.named_buffers()), dict(b.named_buffers()), where)
     elif isinstance(a, torch.Tensor):
-        assert a.dtype == b.dtype and a.shape == b.shape and a.stride() == b.stride(), where
+        assert a.dtype == b.dtype and a.shape == b.shape and _strides(a) == _strides(b), where
         assert torch.equal(a, b), where
     else:
         assert a == b, where
@@ -185,21 +191,64 @@ def test_qwen3moe_config(tiny_moe):
         assert getattr(tc, f) == getattr(jc, f), f
 
 
-def test_later_moe_slices_raise(tiny_moe, tmp_path, monkeypatch):
-    # int8 path off on the CPU: the experts stay planar (group 32)
-    with pytest.raises(NotImplementedError, match="planar-MoE"):
-        TRuntime.from_gguf(tiny_moe, device="cpu")
+def test_planar_experts_load_and_run(tiny_moe):
+    """int8 path off on the CPU: the experts stay planar (group 32, bf16
+    scales) and the model runs the planar chain, tokens as the JAX runtime's."""
+    tr = TRuntime.from_gguf(tiny_moe, device="cpu")
+    ex = tr.params["blocks"][0]["experts"]
+    assert isinstance(ex, TM.QuantExpertWeights) and not ex.supergroup
+    assert (ex.gate_group, ex.down_group, ex.down_s.dtype) == (32, 32, torch.bfloat16)
+    _, tt = tr.generate_greedy_on_device(PROMPT, 4, stop_at_eos=False)
+    _, jt = JRuntime.from_gguf(tiny_moe).generate_greedy_on_device(PROMPT, 4, stop_at_eos=False)
+    assert tt == jt
+
+
+def test_float_experts_load_as_bf16_and_run(tmp_path, i8_on):
+    """An F16 expert file has no planar form: bf16 ExpertWeights, int8 path
+    on or not."""
     f16 = make_tiny_moe_gguf(tmp_path / "f16.gguf", n_layer=1, n_embd=256, n_ff_exp=256)
-    TW.set_i8_mxu(True)
-    try:
-        with pytest.raises(NotImplementedError, match="planar-MoE"):
-            TRuntime.from_gguf(f16, device="cpu")
-        tr = TRuntime.from_gguf(tiny_moe, device="cpu")
-    finally:
-        TW.set_i8_mxu(None)
+    tr = TRuntime.from_gguf(f16, device="cpu")
+    assert isinstance(tr.params["blocks"][0]["experts"], TM.ExpertWeights)
+    _, tt = tr.generate_greedy_on_device(PROMPT, 4, stop_at_eos=False)
+    _, jt = JRuntime.from_gguf(f16).generate_greedy_on_device(PROMPT, 4, stop_at_eos=False)
+    assert tt == jt
+
+
+def test_fused_decode_env_runs(tiny_moe, i8_on, monkeypatch):
+    """IK_MOE_FUSED_TG=1 takes the single-kernel decode (its plain version
+    here) and gives the two-kernel chain's tokens."""
+    tr = TRuntime.from_gguf(tiny_moe, device="cpu")
+    _, base = tr.generate_greedy_on_device(PROMPT, 6, stop_at_eos=False)
     monkeypatch.setenv("IK_MOE_FUSED_TG", "1")
-    with pytest.raises(NotImplementedError, match="IK_MOE_FUSED_TG"):
-        tr.generate_greedy_on_device(PROMPT[:3], 2)
+    seen = []
+    real = TM.moe_decode_i8
+    monkeypatch.setattr(TM, "moe_decode_i8",
+                        lambda *a, **kw: (seen.append(kw["fused"]), real(*a, **kw))[1])
+    _, got = tr.generate_greedy_on_device(PROMPT, 6, stop_at_eos=False)
+    assert got == base and seen and all(seen)
+
+
+def test_later_moe_slices_raise(tmp_path, monkeypatch):
+    """What still waits: MoE architectures other than qwen3moe / qwen2moe
+    (here a mixtral-style llama file) and expert parallelism."""
+    import fixtures
+    from ik_llama_cpp_tpu.gguf.writer import GGUFWriter
+
+    class LlamaArchWriter(GGUFWriter):      # the tiny MoE file under another architecture
+        def __init__(self, path, arch):
+            super().__init__(path, arch="llama")
+
+        def add(self, key, val):
+            super().add(key.replace("qwen3moe.", "llama."), val)
+
+    path = tmp_path / "mixtral.gguf"
+    monkeypatch.setattr(fixtures, "GGUFWriter", LlamaArchWriter)
+    make_tiny_moe_gguf(path, n_layer=1)
+    with pytest.raises(NotImplementedError, match="mixtral-style"):
+        TRuntime.from_gguf(path, device="cpu")
+    d = experts_np(g=8, k=512, f=256)
+    with pytest.raises(TypeError, match="ep_axis"):
+        TM.moe_ffn(torch.zeros(2, 512), torch.zeros(2, 8), to_torch(d), 2, ep_axis="e")
 
 
 # ------------------------------------------------------------------ card --

@@ -129,3 +129,34 @@ def test_qmatmul_kernel_matches_plain(m, k, n, bias):
     b = (torch.randn(k // 32, n, generator=g) * 0.01).to(torch.bfloat16).cuda() if bias else None
     torch.testing.assert_close(TQ.qmatmul(x, codes, scale, b),
                                TQ.qmatmul_ref(x, codes, scale, b), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("c", [127.0, 7.0, 31.0, -127.0])
+def test_true_div_is_a_float32_division(c):
+    """The scale of every quantizer is amax / c as a float32 division, what
+    numpy and the JAX functions give; multiplying by the rounded reciprocal
+    would differ on some of these values."""
+    from ik_llama_cpp_tpu_torch.ops.qmatmul import true_div
+    x = np.abs(np.random.default_rng(0).standard_normal(4096)).astype(np.float32) * 3
+    got = true_div(torch.from_numpy(x), c).numpy()
+    np.testing.assert_array_equal(got, x / np.float32(c))
+    assert (got != x * (np.float32(1.0) / np.float32(c))).any()
+    assert true_div(torch.from_numpy(x), c).dtype == torch.float32
+
+
+@needs_cuda
+def test_quantizers_give_the_cpu_bits_on_the_card():
+    """Scales and codes of the activation quantizer, the h requantization
+    and the four KV encoders on the card equal the CPU's bit for bit (a
+    division by a Python scalar would be a reciprocal multiplication there)."""
+    from ik_llama_cpp_tpu_torch.ops.kv_quant import KV_ENCODERS
+    from ik_llama_cpp_tpu_torch.ops.moe_decode import requant_by_inverse
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy((rng.standard_normal((64, 1024)) * 3).astype(np.float32))
+    for fn in (TQ.quantize_activations, requant_by_inverse):
+        (qc, sc), (qg, sg) = fn(x), fn(x.cuda())
+        assert torch.equal(sc, sg.cpu()) and torch.equal(qc, qg.cpu()), fn.__name__
+    kv = x.reshape(2, 32, 8, 128)
+    for name, enc in KV_ENCODERS.items():
+        (qc, sc), (qg, sg) = enc(kv), enc(kv.cuda())
+        assert torch.equal(sc, sg.cpu()) and torch.equal(qc, qg.cpu()), name
