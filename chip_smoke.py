@@ -16,7 +16,11 @@ Phases (all by default; any failure exits non-zero):
      more decode steps (device time by kernel, busy share)
   5. parity at depth 2: kernel path against the plain path on the card,
      identical greedy tokens over 16 steps
-  6. planar path: int8 path off, depth 2, the planar kernel must launch
+  6. planar path (int8 path off: every linear a QLinear, kernel D): at
+     depth 2 the launch check; then the same file cloned to the full width
+     of phase 4 (L32): prefill 512, decode 64, launch counts, a decode
+     profile (the M <= 16 kernel a step, the idle share) and a prefill
+     profile (the tiled kernel)
   7. MoE end to end at the full width of Qwen3-30B-A3B (L48 E2048 H32 KV4
      D128, 128 experts top-8 FF768, V151936; Q4_0 attention and experts,
      Q8_0 embedding and untied head, random blocks from a seed): load,
@@ -161,6 +165,12 @@ def phase_build(_cuda) -> None:
                 log(f"    {name}: {ln.strip()}")
 
 
+def sum_tol(k, absdot):
+    """Two sums of the same exact bf16 products in float32, in different
+    orders: 16 sqrt(K) float32 roundings of the largest sum of |x w|."""
+    return 16 * k ** 0.5 * 2.0 ** -24 * absdot
+
+
 def _record(results, kernel, case, err, tol, ms, plain_ms, lib_ms, bnd, note=""):
     ok = err <= tol
     log(f"    {kernel} {case}: max_abs_err {err:.3e} tol {tol:.3e} "
@@ -171,6 +181,17 @@ def _record(results, kernel, case, err, tol, ms, plain_ms, lib_ms, bnd, note="")
         case=case, err=err, tol=tol, ok=ok, ms=ms, plain_ms=plain_ms,
         library_ms=lib_ms, bound_ms=bnd[0], bound_by=bnd[1]))
     return ok
+
+
+@contextmanager
+def forced_splits(QM, splits: int):
+    """Kernel D's M <= 16 launches with ``splits`` blocks a cluster."""
+    plan = QM.gemv_plan
+    QM.gemv_plan = lambda *shape: dict(plan(*shape), splits=splits)
+    try:
+        yield
+    finally:
+        QM.gemv_plan = plan
 
 
 def phase_kernels(torch, timer, results) -> bool:
@@ -206,37 +227,64 @@ def phase_kernels(torch, timer, results) -> bool:
                           timer(lambda: torch.matmul(xb, wb)), bnd)
         del codes_t, wb
 
-    log("[3] kernel D (qmatmul, planar group 32) vs plain; library as for A")
-    for i, (k, n) in enumerate(shapes):
-        codes = torch.randint(-8, 8, (k, n), generator=gen, device="cuda",
-                              dtype=torch.int8)
-        scale = (torch.rand((k // 32, n), generator=gen, device="cuda") * 0.02
-                 ).to(torch.bfloat16)
+    log("[3] kernel D (qmatmul, planar group 32) vs plain; library as for A. M <= 16 "
+        "runs qmatmul_gemv_kernel (K split over a cluster of `splits` blocks), M > 16 "
+        "the tiled qmatmul_kernel; bound = the bytes read once (codes, scales, x, out)")
+    # the planar dense shapes (fused qkv, wo, fused gate/up, down, the head),
+    # K % 256 != 0 (Qwen1.5-MoE-A2.7B's 1408), a partial column tile (4000)
+    # and rows that are not 16-byte aligned (1000)
+    d_cases = [(k, n, (1, 4, 16, 17, 64, 512), torch.bfloat16, i == 0)
+               for i, (k, n) in enumerate(shapes)]
+    d_cases += [(E, 2 * FF, (1, 16), torch.float32, False),
+                (1408, 2048, (1, 4, 16), torch.bfloat16, False),
+                (E, 4000, (1, 16), torch.bfloat16, False),
+                (1408, 1000, (1, 16), torch.float32, True)]
+    for k, n, ms, sdt, with_bias in d_cases:
+        codes = torch.randint(-128, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+        scale = (torch.rand((k // 32, n), generator=gen, device="cuda") * 0.02).to(sdt)
         bias = None
-        if i == 0:
-            bias = (torch.randn((k // 32, n), generator=gen, device="cuda") * 0.01
-                    ).to(torch.bfloat16)
+        if with_bias:
+            bias = (torch.randn((k // 32, n), generator=gen, device="cuda") * 0.01).to(sdt)
         wb = torch.randn((k, n), generator=gen, device="cuda", dtype=torch.bfloat16)
-        for m in (1, 8, 512):
+        absw = QM._dequant_bf16(codes, scale, bias, 32).float().abs()
+        for m in ms:
             x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
             got = QM.qmatmul(x, codes, scale, bias)
             ref = QM.qmatmul_ref(x, codes, scale, bias)
-            absdot = float((x.float().abs() @ QM._dequant_bf16(
-                codes, scale, bias, 32).float().abs()).max())
+            again = QM.qmatmul(x, codes, scale, bias)
+            absdot = float((x.float().abs() @ absw).max())
             torch.cuda.synchronize()
             err = float((got - ref).abs().max())
-            # both sum the same exact bf16 products in float32 in different
-            # orders: 16 sqrt(K) float32 roundings of the largest sum of |x w|
-            tol = 16 * k ** 0.5 * 2.0 ** -24 * absdot
-            nb = 2 if bias is not None else 1
-            bnd = bound_ms(m * k * 2 + k * n + nb * (k // 32) * n * 2 + m * n * 4,
+            tol = sum_tol(k, absdot)
+            sb = scale.element_size() * (2 if bias is not None else 1)
+            bnd = bound_ms(m * k * 2 + k * n + sb * (k // 32) * n + m * n * 4,
                            2.0 * m * n * k, BF16_FLOPS)
+            note = (f" | gemv splits {QM.gemv_plan(m, n, k, 32)['splits']}" if m <= 16
+                    else " | tiled") + f"; repeats bit for bit: {bool(torch.equal(got, again))}"
+            ok &= bool(torch.equal(got, again))
             ok &= _record(results, "qmatmul", f"M={m} K={k} N={n}"
-                          + (" bias" if bias is not None else ""), err, tol,
+                          + (" bias" if bias is not None else "")
+                          + (" f32 scales" if sdt == torch.float32 else ""), err, tol,
                           timer(lambda: QM.qmatmul(x, codes, scale, bias)),
                           timer(lambda: QM.qmatmul_ref(x, codes, scale, bias), 3),
-                          timer(lambda: torch.matmul(x, wb)), bnd)
-        del codes, wb
+                          timer(lambda: torch.matmul(x, wb)), bnd, note=note)
+        del codes, wb, absw
+
+    log("[3] kernel D's K split against its time at M <= 16 (ms a call by the number "
+        "of blocks in a cluster; * = gemv_plan's choice)")
+    for m, k, n in ((1, E, 2 * FF), (16, E, 2 * FF), (1, E, 6144), (16, E, 6144), (1, E, E),
+                    (16, E, E), (1, FF, E), (16, FF, E), (16, E, FF)):
+        codes = torch.randint(-128, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+        scale = (torch.rand((k // 32, n), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+        x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        plan = QM.gemv_plan(m, n, k, 32)["splits"]
+        row = []
+        for sp in range(1, QM.GEMV_MAX_SPLITS + 1):
+            with forced_splits(QM, sp):
+                row.append(f"{sp}{'*' if sp == plan else ''} "
+                           f"{timer(lambda: QM.qmatmul(x, codes, scale), 5):.4f}")
+        log(f"    M={m} K={k} N={n}: " + ", ".join(row))
+        del codes
 
     scale_ = 1.0 / float(np.sqrt(D))
 
@@ -461,11 +509,6 @@ def phase_planar_moe_kernels(torch, timer, results, dev="cuda") -> bool:
         return torch.from_numpy(np.concatenate(
             [rng.permutation(g_)[:topk] for _ in range(t)]).astype(np.int32)).to(dev)
 
-    def sum_tol(k, absdot):
-        # both sum the same exact bf16 products in float32 in different
-        # orders: 16 sqrt(K) float32 roundings of the largest sum of |x w|
-        return 16 * k ** 0.5 * 2.0 ** -24 * absdot
-
     log("[3] kernel 12 (moe_decode_gate_up, planar) vs plain; library = bf16 torch.bmm "
         "over the gathered pairs' dequantized gate|up")
     q2, q3 = Q2MOE, MOE
@@ -613,27 +656,33 @@ def phase_planar_moe_kernels(torch, timer, results, dev="cuda") -> bool:
 
     log("[3] kernel 16 (qmatmul_pair, two codes a 16-bit lane) vs plain, beside kernel D "
         "on the same codes; library = dense bf16 torch.matmul at the same (M, K, N)")
-    m, k, n = 16, E, FF
-    codes_np = rng.integers(-8, 8, (k, n), dtype=np.int8)
+    k, n = E, FF
+    codes_np = rng.integers(-128, 128, (k, n), dtype=np.int8)
     codes = torch.from_numpy(codes_np).to(dev)
     packed = torch.from_numpy(PD.pack_pairs(codes_np)).to(dev)
     scale = (torch.rand((k // 32, n), generator=gen, device=dev) * 0.02).to(bf16)
-    x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
     wb = torch.randn((k, n), generator=gen, device=dev).to(bf16)
-    got = PD.qmatmul_pair(x, packed, scale)
-    ref = PD.qmatmul_pair_ref(x, packed, scale)
-    same_as_d = bool(torch.equal(got, QM.qmatmul(x, codes, scale)))
-    absdot = float((x.float().abs() @ QM._dequant_bf16(codes, scale, None, 32).float().abs()).max())
-    sync(torch)
-    err = float((got - ref).abs().max())
-    ms_d = timer(lambda: QM.qmatmul(x, codes, scale))
-    bnd = bound_ms(m * k * 2 + k * n + (k // 32) * n * 2 + m * n * 4, 2.0 * m * n * k, BF16_FLOPS)
-    ok &= _record(results, "qmatmul_pair", f"M={m} K={k} N={n}", err, sum_tol(k, absdot),
-                  timer(lambda: PD.qmatmul_pair(x, packed, scale)),
-                  timer(lambda: PD.qmatmul_pair_ref(x, packed, scale), 3),
-                  timer(lambda: torch.matmul(x, wb)), bnd,
-                  note=f" | kernel D on the unpacked codes {ms_d:.4f} ms; "
-                       f"bit-identical to kernel D: {same_as_d}")
+    absw = QM._dequant_bf16(codes, scale, None, 32).float().abs()
+    for m in (1, 16, 64):
+        x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
+        got = PD.qmatmul_pair(x, packed, scale)
+        ref = PD.qmatmul_pair_ref(x, packed, scale)
+        same_as_d = bool(torch.equal(got, QM.qmatmul(x, codes, scale)))
+        again = bool(torch.equal(got, PD.qmatmul_pair(x, packed, scale)))
+        absdot = float((x.float().abs() @ absw).max())
+        sync(torch)
+        err = float((got - ref).abs().max())
+        ms_d = timer(lambda: QM.qmatmul(x, codes, scale))
+        bnd = bound_ms(m * k * 2 + k * n + (k // 32) * n * 2 + m * n * 4, 2.0 * m * n * k,
+                       BF16_FLOPS)
+        ok &= same_as_d and again
+        ok &= _record(results, "qmatmul_pair", f"M={m} K={k} N={n}", err, sum_tol(k, absdot),
+                      timer(lambda: PD.qmatmul_pair(x, packed, scale)),
+                      timer(lambda: PD.qmatmul_pair_ref(x, packed, scale), 3),
+                      timer(lambda: torch.matmul(x, wb)), bnd,
+                      note=f" | kernel D on the unpacked codes {ms_d:.4f} ms; "
+                           f"bit-identical to kernel D: {same_as_d}; repeats bit for bit: {again}")
+    del codes, packed, wb, absw
     return ok
 
 
@@ -1178,13 +1227,21 @@ def phase_parity(torch, gguf: Path) -> bool:
 
 
 def phase_planar(torch, gguf: Path, launches: dict) -> bool:
+    """Phase 6: the exact planar path (int8 path off: every linear a
+    QLinear, kernel D). At depth 2, the launch check; then on the same file
+    at the full width of phase 4 (L32): prefill 512 and decode 64 with the
+    launch counts, a decode profile (the M <= 16 kernel a step) and a
+    prefill profile (the tiled kernel)."""
     from ik_llama_cpp_tpu_torch.models import weights
     from ik_llama_cpp_tpu_torch.runtime.generate import Runtime
+    t_phase = t0 = time.perf_counter()
     weights.set_i8_mxu(False)
     try:
-        rt = clone_layers(Runtime.from_gguf(gguf, fuse=True), 2)
+        rt = Runtime.from_gguf(gguf, fuse=True)
     finally:
         weights.set_i8_mxu(None)
+    load_s = time.perf_counter() - t0
+    rt = clone_layers(rt, 2)
     kinds = _linear_kinds(rt)
     ids = [int(x) for x in np.random.default_rng(3).integers(3, V, 64)]
     reset_counts()
@@ -1193,14 +1250,52 @@ def phase_planar(torch, gguf: Path, launches: dict) -> bool:
     toks = rt._decode_loop(torch.argmax(logits[-1]).reshape(1, 1), kv, n, 8)
     torch.cuda.synchronize()
     counts = read_counts()
-    launches["qmatmul"] = counts["qmatmul"]
     finite = bool(torch.isfinite(logits).all())
     log(f"[6] planar path (int8 path off, depth 2, linears {kinds}): prefill 64 "
         f"+ 8 decode steps; launches {counts}; logits finite {finite}; tokens "
         f"{toks[0].tolist()}")
+    ok = counts["qmatmul"] == 9 * 9 and finite
+    del kv
+
+    rt = clone_layers(rt, NL)           # block 0 again, into NL blocks
+    torch.cuda.synchronize()
+    log(f"[6] planar path at full width: L{NL} (loaded in {load_s:.1f} s, cloned in "
+        f"{time.perf_counter() - t0 - load_s:.1f} s); device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    rng = np.random.default_rng(6)
+    timed_run(torch, rt, [int(x) for x in rng.integers(3, V, PREFILL)])   # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    ids = [int(x) for x in rng.integers(3, V, PREFILL)]
+    reset_counts()
+    logits, toks, kv, n_past, pre_s, dec_s = timed_run(torch, rt, ids)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches["qmatmul"] = counts["qmatmul"]
+    per = 4 * NL + 1
+    want = dict.fromkeys(counts, 0)
+    want.update({"qmatmul": per * (1 + DECODE), "flash_attention": NL,
+                 "flash_attention_decode": NL * DECODE})
+    finite = bool(torch.isfinite(logits).all()) and bool(((toks >= 0) & (toks < V)).all())
+    log(f"[6] prefill {PREFILL} tokens: {pre_s * 1e3:.1f} ms = {PREFILL / pre_s:.1f} tok/s; "
+        f"decode {DECODE} tokens at context {PREFILL}: {dec_s * 1e3:.1f} ms = "
+        f"{DECODE / dec_s:.2f} tok/s; peak memory {peak:.2f} GiB")
+    log(f"[6] launches {counts}; expected {want} (D = 4*{NL}+1 = {per} a decode step and "
+        f"a prefill chunk); logits finite, tokens in vocab: {finite}")
+    ok &= counts == want and finite
+    prof = profile_decode(torch, rt, kv, n_past + DECODE + 1, toks[:, -1:], tag="6")
+    log(f"[6] decode step: qmatmul_gemv_kernel {kernel_ms(prof, 'qmatmul_gemv_kernel'):.3f} ms, "
+        f"the tiled qmatmul_kernel {kernel_ms(prof, 'qmatmul_kernel<'):.3f} ms")
+    ok &= kernel_ms(prof, "qmatmul_gemv_kernel") > 0
+    del kv
+    kv = rt.new_cache(1, PREFILL + 8)
+    prof = profile_window(torch, lambda: rt.eval_tokens(ids, kv, 0), 1,
+                          f"one {PREFILL}-token prefill chunk", "chunk", "6")
+    log(f"[6] prefill chunk: the tiled qmatmul_kernel {kernel_ms(prof, 'qmatmul_kernel<'):.3f} ms, "
+        f"qmatmul_gemv_kernel {kernel_ms(prof, 'qmatmul_gemv_kernel'):.3f} ms")
     del rt, kv
     torch.cuda.empty_cache()
-    return counts["qmatmul"] == 9 * 9 and finite
+    log(f"[6] planar path: {time.perf_counter() - t_phase:.1f} s")
+    return ok
 
 
 def moe_run(torch, rt, c, seed: int, tag: str, step: dict, chunk: dict, load_s: float):

@@ -201,7 +201,9 @@ def load_llama_params(gg: GGUFModel, cfg: ModelConfig, device, *,
                       use_quant: bool = True, fuse: bool = False) -> dict:
     """GGUF -> nested dict of device tensors and linear modules.
 
-    ``fuse`` merges q/k/v and gate/up into single matmuls at load."""
+    ``fuse`` merges q/k/v and gate/up into single matmuls at load. Every
+    ``blk.N.*`` tensor is consumed or refused: one that this port does not
+    apply raises, so a model never runs with a tensor silently dropped."""
     if cfg.arch not in ARCHS:
         _later(f"architecture {cfg.arch!r}", "other-architectures")
     t = gg.tensors
@@ -215,61 +217,87 @@ def load_llama_params(gg: GGUFModel, cfg: ModelConfig, device, *,
         params["output_norm"] = load_dense(t["output_norm.weight"], device)
     out_name = "output.weight" if "output.weight" in t else "token_embd.weight"
     params["output"] = load_linear(t[out_name], device, use_quant=use_quant)
+    if "output.bias" in t:                       # lm-head bias
+        params["output_b"] = load_dense(t["output.bias"], device)
+
+    used: set = set()
+
+    def take(name: str):
+        used.add(name)
+        return t[name]
+
+    def linear(name: str, quant: bool = use_quant):
+        return load_linear(take(name), device, use_quant=quant)
+
+    def dense(name: str):
+        return load_dense(take(name), device)
 
     blocks = []
     for i in range(cfg.n_layer):
         p = f"blk.{i}."
         blk = {
-            "attn_norm": load_dense(t[p + "attn_norm.weight"], device),
-            "ffn_norm": load_dense(t[p + "ffn_norm.weight"], device),
-            "wo": load_linear(t[p + "attn_output.weight"], device, use_quant=use_quant),
-            "wq": load_linear(t[p + "attn_q.weight"], device, use_quant=use_quant),
-            "wk": load_linear(t[p + "attn_k.weight"], device, use_quant=use_quant),
-            "wv": load_linear(t[p + "attn_v.weight"], device, use_quant=use_quant),
+            "attn_norm": dense(p + "attn_norm.weight"),
+            "ffn_norm": dense(p + "ffn_norm.weight"),
+            "wo": linear(p + "attn_output.weight"),
+            "wq": linear(p + "attn_q.weight"),
+            "wk": linear(p + "attn_k.weight"),
+            "wv": linear(p + "attn_v.weight"),
         }
         if p + "ffn_gate_inp.weight" in t:       # routed experts
             # the router stays a bf16 dense product, as in the JAX package
-            blk["ffn_gate_inp"] = load_linear(t[p + "ffn_gate_inp.weight"], device,
-                                              use_quant=False)
+            blk["ffn_gate_inp"] = linear(p + "ffn_gate_inp.weight", False)
             if p + "ffn_gate_inp.bias" in t:
-                blk["ffn_gate_inp_b"] = load_dense(t[p + "ffn_gate_inp.bias"], device)
+                blk["ffn_gate_inp_b"] = dense(p + "ffn_gate_inp.bias")
             if p + "exp_probs_b.bias" in t:      # expert selection bias
-                blk["ffn_exp_probs_b"] = load_dense(t[p + "exp_probs_b.bias"], device)
+                blk["ffn_exp_probs_b"] = dense(p + "exp_probs_b.bias")
+            used.update(p + nm for nm in _EXPERT_TENSORS if p + nm in t)
             blk["experts"] = _load_experts(t, p, device, use_quant=use_quant)
             if p + "ffn_gate_shexp.weight" in t:  # shared expert (qwen2moe)
                 for name in ("ffn_gate_shexp", "ffn_up_shexp", "ffn_down_shexp"):
-                    blk[name] = load_linear(t[p + name + ".weight"], device,
-                                            use_quant=use_quant)
+                    blk[name] = linear(p + name + ".weight")
                 if p + "ffn_gate_inp_shexp.weight" in t:
-                    blk["ffn_gate_inp_shexp"] = load_linear(
-                        t[p + "ffn_gate_inp_shexp.weight"], device, use_quant=False)
+                    blk["ffn_gate_inp_shexp"] = linear(p + "ffn_gate_inp_shexp.weight", False)
         else:
             for name in ("ffn_gate", "ffn_up", "ffn_down"):
-                blk[name] = load_linear(t[p + name + ".weight"], device,
-                                        use_quant=use_quant)
+                blk[name] = linear(p + name + ".weight")
         for opt in ("attn_q_norm", "attn_k_norm"):
             if p + opt + ".weight" in t:
-                blk[opt] = load_dense(t[p + opt + ".weight"], device)
+                blk[opt] = dense(p + opt + ".weight")
+        # sandwich norms on the attention and FFN branches
+        for key, name in (("attn_post_norm", "post_attention_norm"),
+                          ("ffn_post_norm", "post_ffw_norm")):
+            if p + name + ".weight" in t:
+                blk[key] = dense(p + name + ".weight")
         for opt_b in ("attn_q.bias", "attn_k.bias", "attn_v.bias",
-                      "attn_output.bias"):
+                      "attn_output.bias", "ffn_gate.bias", "ffn_up.bias",
+                      "ffn_down.bias"):
             if p + opt_b in t:
-                blk[opt_b.replace(".", "_")] = load_dense(t[p + opt_b], device)
+                blk[opt_b.replace(".", "_")] = dense(p + opt_b)
         if fuse:
             _fuse_block(blk)
         blocks.append(blk)
+    for name in t:
+        if name.startswith("blk.") and name not in used:
+            _later(f"tensor {name!r} (this port does not apply it)", "other-architectures")
     params["blocks"] = blocks
     return params
 
 
+_EXPERT_TENSORS = ("ffn_gate_exps.weight", "ffn_up_exps.weight", "ffn_down_exps.weight",
+                   "ffn_gate_exps.bias", "ffn_up_exps.bias", "ffn_down_exps.bias")
+
+
 def _fuse_block(blk: dict) -> None:
-    """Merge separate q/k/v (and gate/up) into fused linears in place."""
+    """Merge separate q/k/v (and gate/up) into fused linears in place; never
+    where they carry biases."""
     if all(k in blk for k in ("wq", "wk", "wv")) and not any(
             k in blk for k in ("attn_q_bias", "attn_k_bias", "attn_v_bias")):
         fused = fuse_linears([blk["wq"], blk["wk"], blk["wv"]])
         if fused is not None:
             blk["wqkv"] = fused
             del blk["wq"], blk["wk"], blk["wv"]
-    if "ffn_gate" in blk and "ffn_up" in blk:
+    if "ffn_gate" in blk and "ffn_up" in blk and not any(
+            k in blk for k in ("ffn_gate_bias", "ffn_up_bias")):
         fused = fuse_linears([blk["ffn_gate"], blk["ffn_up"]])
         if fused is not None:
             blk["ffn_up"] = fused
@@ -368,19 +396,29 @@ def _ffn_dense(blk: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if "ffn_gate" in blk:
         gate = blk["ffn_gate"](h)
         up = blk["ffn_up"](h)
-    else:  # fused gate+up in one matmul
+        if "ffn_gate_bias" in blk:
+            gate = gate + blk["ffn_gate_bias"]
+        if "ffn_up_bias" in blk:
+            up = up + blk["ffn_up_bias"]
+    else:  # fused gate+up in one matmul (never with biases)
         gate, up = torch.chunk(blk["ffn_up"](h), 2, dim=-1)
     act = L.glu(gate, up, cfg.act).to(torch.bfloat16)
-    return blk["ffn_down"](act)
+    y = blk["ffn_down"](act)
+    if "ffn_down_bias" in blk:
+        y = y + blk["ffn_down_bias"]
+    return y
 
 
 def _attn_block(blk: dict, x: torch.Tensor, cfg: ModelConfig, kv,
                 il: int, n_past: list[int], npv: torch.Tensor,
-                cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+                cos: torch.Tensor, sin: torch.Tensor,
+                swa_window: int = 0) -> torch.Tensor:
     """One attention sublayer over (B, T, E). Writes this chunk's K/V rows
     into layer ``il`` of the cache in place (quantized with the layer's
     codec when the cache is), then attends over that layer's slab: a decode
-    kernel for T <= 16, a prefill kernel otherwise."""
+    kernel for T <= 16, a prefill kernel otherwise. ``swa_window`` > 0
+    limits each query to that many most recent keys (a sliding-window
+    layer)."""
     b, t, _ = x.shape
     h, hkv, d = cfg.n_head, cfg.n_head_kv, cfg.head_dim
     if "wqkv" in blk:
@@ -412,7 +450,7 @@ def _attn_block(blk: dict, x: torch.Tensor, cfg: ModelConfig, kv,
 
     k_slab, v_slab = kv.k[il], kv.v[il]          # views (B, S, Hkv, W)
     kw = dict(scale=cfg.f_attention_scale or (1.0 / float(np.sqrt(d))),
-              softcap=cfg.attn_softcap, swa_window=cfg.swa_window,
+              softcap=cfg.attn_softcap, swa_window=swa_window,
               attn_chunk=cfg.attn_chunk)
     qb = q.to(torch.bfloat16)
     if not kv.quantized:
@@ -487,16 +525,33 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, kv,
                             ext_factor=ext_factor,
                             attn_factor=cfg.rope_attn_factor or 1.0,
                             n_ctx_orig=cfg.rope_orig_ctx or cfg.n_ctx_train)
+    if cfg.rope_freq_base_swa > 0 and cfg.swa_layer_mask:
+        # sliding-window layers rope at their own base, unscaled
+        cos_swa, sin_swa = L.rope_cache(q_pos, cfg.rope_dim or cfg.head_dim,
+                                        cfg.rope_freq_base_swa)
+    else:
+        cos_swa, sin_swa = cos, sin
     for i, blk in enumerate(params["blocks"]):
+        # the window applies only on the layers cfg.swa_layer_mask selects
+        is_swa = cfg.layer_is_swa(i)
         h = L.rms_norm(x, blk["attn_norm"], cfg.rms_eps)
-        attn_out = _attn_block(blk, h, cfg, kv, i, n_past, npv, cos, sin)
+        attn_out = _attn_block(blk, h, cfg, kv, i, n_past, npv,
+                               cos_swa if is_swa else cos, sin_swa if is_swa else sin,
+                               swa_window=cfg.swa_window if is_swa else 0)
+        if "attn_post_norm" in blk:            # sandwich norm on the branch
+            attn_out = L.rms_norm(attn_out, blk["attn_post_norm"], cfg.rms_eps)
         x = x + attn_out.to(x.dtype)
         h = L.rms_norm(x, blk["ffn_norm"], cfg.rms_eps)
-        x = x + _ffn(blk, h, cfg, i).to(x.dtype)
+        ff = _ffn(blk, h, cfg, i)
+        if "ffn_post_norm" in blk:
+            ff = L.rms_norm(ff, blk["ffn_post_norm"], cfg.rms_eps)
+        x = x + ff.to(x.dtype)
     x = L.rms_norm(x, params.get("output_norm"), cfg.rms_eps)
     if logits_last_only:
         x = x[:, -1:, :]
     logits = params["output"](x).float()
+    if "output_b" in params:                   # lm-head bias
+        logits = logits + params["output_b"]
     if cfg.f_logit_scale > 0:
         logits = (logits * cfg.f_logit_scale if cfg.logit_scale_mul
                   else logits / cfg.f_logit_scale)

@@ -41,15 +41,59 @@ def qmatmul_ref(x, codes, scale, bias=None, group: int = 32):
     return x.to(torch.bfloat16).float() @ w.float()
 
 
+# The M <= 16 kernel (qmatmul_gemv_kernel): a block's 4 warps share 128
+# output columns, each with its own range of whole groups of K; the blocks
+# of a cluster (the K split) take further ranges.
+GEMV_MAX_M = 16
+GEMV_WARPS = 4
+GEMV_COLS = 128
+GEMV_MAX_SPLITS = 8        # the portable thread-block cluster size
+GEMV_BLOCKS = 224          # blocks a launch aims at: ~1.7 per H100 SM (see gemv_plan)
+SMEM_LIMIT = 48 * 1024     # static shared memory a block may use
+
+
+def gemv_plan(m: int, n: int, k: int, group: int) -> dict:
+    """The launch of the M <= 16 kernel for an (m, k) x (k, n) product:
+    column tiles of 128, the K split (blocks of a cluster: as many as keep
+    the launch at or under GEMV_BLOCKS, at most 8, and no more than leave
+    each warp a group), and the shared memory of the block's fixed-order sum
+    of its warps' (m tiles x 8, 128) float partials. ~1.7 blocks an SM is
+    where chip_smoke.py's split sweep (phase 3) is fastest on the H100: more
+    blocks add partial sums to add and shorter K ranges, fewer leave SMs
+    idle. A pure function of the shapes: the planar and the pair form of
+    one product get one plan, so they add their partial sums in one order."""
+    if not (1 <= m <= GEMV_MAX_M and group % 16 == 0 and k % group == 0):
+        raise ValueError(f"qmatmul: M <= {GEMV_MAX_M} needs group % 16 == 0 and "
+                         f"K % group == 0 (M {m}, K {k}, group {group})")
+    tiles = -(-n // GEMV_COLS)
+    groups = k // group
+    splits = max(1, min(GEMV_MAX_SPLITS, GEMV_BLOCKS // tiles, groups // GEMV_WARPS))
+    m_tiles = 1 if m <= 8 else 2
+    return {"tiles": tiles, "splits": splits, "m_tiles": m_tiles,
+            "smem": GEMV_WARPS * m_tiles * 8 * GEMV_COLS * 4}
+
+
+def gemv_k_ranges(k: int, group: int, splits: int) -> list[tuple[int, int]]:
+    """The rows [lo, hi) of K that warp i of a cluster (block i // 4, warp
+    i % 4) sums, as the kernel computes them: whole groups, in order."""
+    ng, nw = k // group, splits * GEMV_WARPS
+    return [(i * ng // nw * group, (i + 1) * ng // nw * group) for i in range(nw)]
+
+
 def qmatmul(x, codes, scale, bias=None, *, group: int = 32):
     """(M, K) x int8 (K, N) -> f32 (M, N); scale/bias (K/G, N), bf16 (as the
     loaders store them) or float32, which the kernel rounds to bf16.
 
-    CUDA kernel ``csrc/qmatmul.cu``, which replaces the Pallas kernel
-    ops/qmatmul.py:qmatmul of the JAX package. It is bound by the weight
-    bytes at small M and by bf16 tensor-core work at large M; it dequantizes
-    one 32-deep slice of 64 columns into shared memory per step and runs
-    mma.sync on it (no copy/compute overlap yet)."""
+    CUDA kernels in ``csrc/qmatmul.cu``, which replace the Pallas kernel
+    ops/qmatmul.py:qmatmul of the JAX package. At M <= 16 (decode) the
+    product is bound by the weight bytes (~1.06 a weight): a GEMV-shaped
+    kernel reads every code once in 16-byte loads with several K steps in
+    flight and no barrier in the K sweep, splits K over the warps of a
+    block and the blocks of a cluster (``gemv_plan``) and adds the partial
+    sums in a fixed order, so a call repeats bit for bit. It needs
+    group % 16 == 0. Above 16 rows a tiled kernel dequantizes 32-deep slices
+    into shared memory and runs mma.sync on them (no copy/compute overlap
+    yet); it is bound by bf16 tensor-core work at large M."""
     if x.device.type == "cpu":
         return qmatmul_ref(x, codes, scale, bias, group=group)
     m, k = x.shape
@@ -64,17 +108,27 @@ def qmatmul(x, codes, scale, bias=None, *, group: int = 32):
                       and bias.shape == scale.shape, "qmatmul: bias must match scale")
     for t in (codes, scale, bias):
         _cuda.require(t is None or t.device == x.device, "qmatmul: operands on different devices")
-    xb = x.to(torch.bfloat16).contiguous()
+    splits = gemv_plan(m, n, k, group)["splits"] if m <= GEMV_MAX_M else 1
+    xb = _gemv_operand(x, codes, scale, bias)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     fn = _cuda.function("qmatmul", "ik_qmatmul",
-                        [_cuda.P] * 4 + [_cuda.I, _cuda.P] + [_cuda.I] * 4 + [_cuda.P])
+                        [_cuda.P] * 4 + [_cuda.I, _cuda.P] + [_cuda.I] * 5 + [_cuda.P])
     rc = fn(xb.data_ptr(), codes.data_ptr(), scale.data_ptr(),
             None if bias is None else bias.data_ptr(),
             int(scale.dtype == torch.bfloat16), out.data_ptr(),
-            m, n, k, group, _cuda.stream_ptr(x))
+            m, n, k, group, splits, _cuda.stream_ptr(x))
     qmatmul.launches += 1
     _cuda.check(rc, "qmatmul")
     return out
+
+
+def _gemv_operand(x, *weights):
+    """x as contiguous bf16 at a 16-byte aligned address (a copy of a view
+    that starts elsewhere); the weights must be aligned already: the M <= 16
+    kernel reads them in 16-byte loads."""
+    _cuda.require(_cuda.aligned16(*weights), "qmatmul: weights must be 16-byte aligned")
+    xb = x.to(torch.bfloat16).contiguous()
+    return xb if _cuda.aligned16(xb) else xb.clone()
 
 
 qmatmul.launches = 0      # kernel launches, counted where they happen

@@ -26,7 +26,8 @@ import numpy as np
 import torch
 
 from ..ops import _cuda
-from ..ops.qmatmul import _dequant_bf16, qmatmul, qmatmul_ref
+from ..ops.qmatmul import (GEMV_MAX_M, _dequant_bf16, _gemv_operand, gemv_plan, qmatmul,
+                           qmatmul_ref)
 
 
 def pack_pairs(codes: np.ndarray) -> np.ndarray:
@@ -55,11 +56,12 @@ def qmatmul_pair(x, codes16, scale, *, group: int = 32):
     bf16 (K/group, N). Output column j comes from the low byte of packed
     column j, column j + N/2 from its high byte.
 
-    CUDA kernel ``csrc/qmatmul.cu`` (its pair form), which replaces the
-    Pallas kernel tools/perf_dequant.py:qmatmul_pair of the JAX package:
-    the planar kernel's arithmetic and tiles behind a loader that splits
-    each 16-bit lane into the two halves of a block's 64 columns. Bound by
-    the weight bytes at the decode shape."""
+    CUDA kernels of ``csrc/qmatmul.cu`` (their pair form), which replace
+    the Pallas kernel tools/perf_dequant.py:qmatmul_pair of the JAX
+    package: the planar kernels' arithmetic, split plan and order of sums
+    behind a loader whose 16-byte load is 8 packed columns, both halves, so
+    the result equals ``qmatmul`` on the unpacked codes bit for bit. Bound
+    by the weight bytes at the decode shape (M <= 16)."""
     if x.device.type == "cpu":
         return qmatmul_pair_ref(x, codes16, scale, group=group)
     m, k = x.shape
@@ -74,12 +76,13 @@ def qmatmul_pair(x, codes16, scale, *, group: int = 32):
                   "qmatmul_pair: scale must be contiguous bf16 or float32 (K/group, N)")
     for t in (codes16, scale):
         _cuda.require(t.device == x.device, "qmatmul_pair: operands on different devices")
-    xb = x.to(torch.bfloat16).contiguous()
+    splits = gemv_plan(m, n, k, group)["splits"] if m <= GEMV_MAX_M else 1
+    xb = _gemv_operand(x, codes16, scale)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     fn = _cuda.function("qmatmul", "ik_qmatmul_pair",
-                        [_cuda.P] * 3 + [_cuda.I, _cuda.P] + [_cuda.I] * 4 + [_cuda.P])
+                        [_cuda.P] * 3 + [_cuda.I, _cuda.P] + [_cuda.I] * 5 + [_cuda.P])
     rc = fn(xb.data_ptr(), codes16.data_ptr(), scale.data_ptr(),
-            int(scale.dtype == torch.bfloat16), out.data_ptr(), m, n, k, group,
+            int(scale.dtype == torch.bfloat16), out.data_ptr(), m, n, k, group, splits,
             _cuda.stream_ptr(x))
     qmatmul_pair.launches += 1
     _cuda.check(rc, "qmatmul_pair")

@@ -81,3 +81,23 @@ def test_pair_kernel_matches_plain_and_planar_kernel(m, sdt):
     got = TP.qmatmul_pair(xc, packed, sc)
     torch.testing.assert_close(got, TP.qmatmul_pair_ref(xc, packed, sc), rtol=1e-5, atol=1e-4)
     assert torch.equal(got, qmatmul(xc, torch.from_numpy(codes).cuda(), sc))
+
+
+@needs_cuda
+@pytest.mark.parametrize("m", [1, 2, 5, 16, 17])
+@pytest.mark.parametrize("k,n", [(1408, 2000), (4096, 1000), (4096, 14336)])
+@pytest.mark.parametrize("sdt", [torch.float32, torch.bfloat16])
+def test_pair_decode_kernel_matches_plain_and_planar_kernel(m, k, n, sdt):
+    """The pair form of the M <= 16 kernel: the plain version within the
+    planar tolerance, and the planar kernel on the unpacked codes bit for
+    bit (one split plan, one order of sums); N/2 = 500 leaves rows that are
+    not 16-byte aligned. Two runs agree bit for bit."""
+    x, codes, scale = _case(m, k, n, seed=m + k)
+    scale = scale / 16          # weights of test_pair_kernel_matches_plain's size
+    xc = torch.from_numpy(x).cuda().to(torch.bfloat16)
+    packed = torch.from_numpy(TP.pack_pairs(codes)).cuda()
+    sc = torch.from_numpy(scale).cuda().to(sdt)
+    got = TP.qmatmul_pair(xc, packed, sc)
+    torch.testing.assert_close(got, TP.qmatmul_pair_ref(xc, packed, sc), rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, qmatmul(xc, torch.from_numpy(codes).cuda(), sc))
+    assert torch.equal(got, TP.qmatmul_pair(xc, packed, sc))

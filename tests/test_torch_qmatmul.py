@@ -160,3 +160,88 @@ def test_quantizers_give_the_cpu_bits_on_the_card():
     for name, enc in KV_ENCODERS.items():
         (qc, sc), (qg, sg) = enc(kv), enc(kv.cuda())
         assert torch.equal(sc, sg.cpu()) and torch.equal(qc, qg.cpu()), name
+
+
+# ------------------------------------------------ the M <= 16 split plan --
+PLAN_SHAPES = [(1, 6144, 4096, 32), (1, 4096, 4096, 32), (1, 28672, 4096, 32),
+               (16, 4096, 14336, 32), (16, 14336, 4096, 32), (5, 2048, 1408, 32),
+               (1, 4000, 4096, 16), (2, 1000, 1408, 32), (8, 151936, 2048, 32),
+               (1, 4096, 4096, 256), (16, 64, 32, 32)]
+
+
+@pytest.mark.parametrize("m,n,k,group", PLAN_SHAPES)
+def test_gemv_plan_covers_every_group_once(m, n, k, group):
+    """The K ranges of a cluster's warps are whole groups, in order, and
+    together cover K exactly once; the tiles cover N; the block's sum of its
+    warps' partials fits in static shared memory."""
+    plan = TQ.gemv_plan(m, n, k, group)
+    assert 1 <= plan["splits"] <= TQ.GEMV_MAX_SPLITS
+    assert plan["tiles"] * TQ.GEMV_COLS >= n > (plan["tiles"] - 1) * TQ.GEMV_COLS
+    assert plan["m_tiles"] * 8 >= m
+    assert plan["smem"] <= TQ.SMEM_LIMIT
+    ranges = TQ.gemv_k_ranges(k, group, plan["splits"])
+    assert len(ranges) == plan["splits"] * TQ.GEMV_WARPS
+    assert ranges[0][0] == 0 and ranges[-1][1] == k
+    for (lo, hi), (lo2, _) in zip(ranges, ranges[1:] + [(k, k)]):
+        assert lo % group == 0 and hi % group == 0 and lo <= hi == lo2
+    covered = np.zeros(k // group, np.int64)
+    for lo, hi in ranges:
+        covered[lo // group: hi // group] += 1
+    assert (covered == 1).all()
+
+
+@pytest.mark.parametrize("n,k,want", [(4096, 4096, 7), (6144, 4096, 4), (28672, 4096, 1),
+                                      (14336, 4096, 2), (151936, 4096, 1), (2048, 1408, 8),
+                                      (4096, 256, 2)])
+def test_gemv_plan_fills_the_card(n, k, want):
+    """The K split keeps a launch at about 1.7 blocks a streaming
+    multiprocessor (224), at most a cluster of 8, and never leaves a warp
+    without a group."""
+    plan = TQ.gemv_plan(1, n, k, 32)
+    assert plan["splits"] == want
+    assert plan["splits"] * TQ.GEMV_WARPS <= k // 32
+    assert plan["tiles"] * plan["splits"] <= TQ.GEMV_BLOCKS or plan["splits"] == 1
+
+
+@pytest.mark.parametrize("m,group", [(17, 32), (0, 32), (4, 8), (1, 24)])
+def test_gemv_plan_refuses_what_the_kernel_does_not_take(m, group):
+    with pytest.raises(ValueError, match="group % 16"):
+        TQ.gemv_plan(m, 4096, 96 * group, group)
+
+
+GEMV_CASES = [(2000, torch.bfloat16, False), (2000, torch.float32, True),
+              (1000, torch.bfloat16, True), (4096, torch.float32, False)]
+
+
+def _planar_case(m, k, n, sdt, bias, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(m, k, generator=g).to(torch.bfloat16)
+    codes = torch.randint(-128, 128, (k, n), generator=g, dtype=torch.int8)
+    # weights of the size test_qmatmul_kernel_matches_plain uses (codes in
+    # -8 .. 7, scales up to 0.02), for its tolerance
+    scale = (torch.rand(k // 32, n, generator=g) * 0.02 / 16).to(sdt)
+    b = (torch.randn(k // 32, n, generator=g) * 0.01).to(sdt) if bias else None
+    return [t if t is None else t.cuda() for t in (x, codes, scale, b)]
+
+
+@needs_cuda
+@pytest.mark.parametrize("n,sdt,bias", GEMV_CASES)
+@pytest.mark.parametrize("k", [1408, 4096])
+@pytest.mark.parametrize("m", [1, 2, 5, 16, 17])
+def test_qmatmul_decode_kernel_matches_plain(m, k, n, sdt, bias):
+    """M <= 16 runs the GEMV kernel (M 17 the tiled one): every code byte
+    (-128 .. 127), a ragged N (2000: a partial tile; 1000: rows not 16-byte
+    aligned), f32 and bf16 scales, a group bias."""
+    x, codes, scale, b = _planar_case(m, k, n, sdt, bias, m * k + n)
+    torch.testing.assert_close(TQ.qmatmul(x, codes, scale, b),
+                               TQ.qmatmul_ref(x, codes, scale, b), rtol=1e-4, atol=1e-4)
+
+
+@needs_cuda
+@pytest.mark.parametrize("m", [1, 16])
+def test_qmatmul_decode_kernel_repeats_bit_for_bit(m):
+    """The K split adds its partial sums in a fixed order: no atomics."""
+    x, codes, scale, b = _planar_case(m, 4096, 4096, torch.bfloat16, True, 9)
+    first = TQ.qmatmul(x, codes, scale, b)
+    for _ in range(3):
+        assert torch.equal(TQ.qmatmul(x, codes, scale, b), first)
