@@ -36,7 +36,9 @@ Phases (all by default; any failure exits non-zero):
      greedy tokens): logits at every step, where the greedy picks differ,
      and the cache codes the two wrote
  11. 4-bit packed weights (set_pack_int4) at full width: every block linear
-     a QLinearI4, prefill 512, decode 64, launch counts, parity at depth 2
+     a QLinearI4, prefill 512, decode 64, launch counts, a decode profile
+     (kernel 15's M <= 16 kernel a step), a prefill profile (its tiled
+     kernel's share), parity at depth 2
  12. planar / mixed-format MoE end to end at the full width of
      Qwen1.5-MoE-A2.7B (qwen2moe: L24 E2048 H16 KV16 D128, q/k/v biases, 60
      experts top-4 FF1408, a shared expert of FF5632 with a sigmoid gate,
@@ -184,14 +186,43 @@ def _record(results, kernel, case, err, tol, ms, plain_ms, lib_ms, bnd, note="")
 
 
 @contextmanager
-def forced_splits(QM, splits: int):
-    """Kernel D's M <= 16 launches with ``splits`` blocks a cluster."""
-    plan = QM.gemv_plan
-    QM.gemv_plan = lambda *shape: dict(plan(*shape), splits=splits)
+def forced_splits(QM, splits: int, plan_name: str = "gemv_plan"):
+    """The M <= 16 launches of kernel D (``gemv_plan``) or kernel 15
+    (``gemv4_plan``) with ``splits`` blocks a cluster."""
+    plan = getattr(QM, plan_name)
+    setattr(QM, plan_name, lambda *shape: dict(plan(*shape), splits=splits))
     try:
         yield
     finally:
-        QM.gemv_plan = plan
+        setattr(QM, plan_name, plan)
+
+
+def grouped_library(x, w_bf16, group_sizes):
+    """The library yardstick of kernels 10 and 14: one bf16 grouped product
+    (``torch._grouped_mm``) of x's rows, sorted by group, against their
+    groups' dequantized weights ``w_bf16`` (G, K, N), in group order; the
+    output is bf16 and rows past sum(group_sizes) are left undefined. The
+    port never calls it."""
+    import torch
+    offs = torch.cumsum(group_sizes.to(torch.int64), 0).to(torch.int32)
+    return torch._grouped_mm(x, w_bf16, offs=offs)
+
+
+def k_major(w):
+    """(G, K, N) -> the same values as the (G, K, N) view of a contiguous
+    (G, N, K) tensor: the layout the card's grouped product reads."""
+    return w.transpose(1, 2).contiguous().transpose(1, 2)
+
+
+def time_grouped(timer, x, w_bf16, gs, what: str):
+    """``grouped_library``'s time, or None (logged with the reason) where
+    the card's build refuses the shape."""
+    try:
+        return timer(lambda: grouped_library(x, w_bf16, gs))
+    except RuntimeError as e:
+        log(f"    library n/a for {what}: torch._grouped_mm refused it: "
+            f"{str(e).splitlines()[0][:160]}")
+        return None
 
 
 def phase_kernels(torch, timer, results) -> bool:
@@ -344,9 +375,10 @@ def phase_kernels(torch, timer, results) -> bool:
 
 def phase_moe_kernels(torch, timer, results, c=MOE, dev="cuda") -> bool:
     """Kernels 7-10 against their plain versions at the MoE path's shapes
-    (128 experts, E 2048, FF 768). Library yardsticks are bf16 torch.bmm /
-    torch.matmul calls over the same rows and gathered expert weights: a
-    comparable, heavier function, not the same one."""
+    (128 experts, E 2048, FF 768). Library yardsticks are bf16 torch.bmm
+    calls over the same rows and gathered expert weights (7-9: a comparable,
+    heavier function, not the same one) and, for 10, one bf16 grouped
+    product over the same rows, group sizes and dequantized experts."""
     from ik_llama_cpp_tpu_torch.ops import moe_decode as MD
     from ik_llama_cpp_tpu_torch.ops import moe_qmm as MQ
     from ik_llama_cpp_tpu_torch.ops.qmatmul import quantize_activations
@@ -449,16 +481,17 @@ def phase_moe_kernels(torch, timer, results, c=MOE, dev="cuda") -> bool:
         del wb, xb
 
     m = PREFILL * topk                          # the rows of a 512-token chunk
-    log("[3] kernel 10 (ragged_qmatmul_i8) vs plain; library = dense bf16 "
-        "torch.matmul at the same (M, K, N)")
+    log("[3] kernel 10 (ragged_qmatmul_i8) vs plain; library = bf16 grouped product over "
+        "the live experts (torch._grouped_mm of the dequantized rows and experts)")
     skew = rng.multinomial(m, (1.0 / np.arange(1, g_ + 1)) / np.sum(1.0 / np.arange(1, g_ + 1)))
     size_sets = {"skewed": rng.permutation(skew), "zero": np.zeros(g_, np.int64),
                  "mid-tile": np.full(g_, m // g_)}    # 32-row groups: every other start is mid-tile
     for k, n, w, sw in ((e_, ff, gate, gsw), (ff, e_, down, dsw)):
         xq = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
         xs = torch.rand((m, k // 256), generator=gen, device=dev) * 1e-2 + 1e-4
-        xb = torch.randn((m, k), generator=gen, device=dev).to(bf16)
-        wd = torch.randn((k, n), generator=gen, device=dev).to(bf16)
+        # the yardstick's operands, dequantized once outside the timed call
+        xb = (xq.float() * torch.repeat_interleave(xs, 256, dim=1)).to(bf16)
+        wg = k_major((w.float() * torch.repeat_interleave(sw, 256, dim=1)).to(bf16))
         for name, sizes in size_sets.items():
             gs = torch.from_numpy(sizes.astype(np.int32)).to(dev)
             total, ne = int(sizes.sum()), int((sizes > 0).sum())
@@ -474,7 +507,8 @@ def phase_moe_kernels(torch, timer, results, c=MOE, dev="cuda") -> bool:
             ok &= _record(results, "ragged_qmatmul_i8", f"M={m} K={k} N={n} {name}", err, tol,
                           timer(lambda: MQ.ragged_qmatmul_i8(*a10)),
                           timer(lambda: MQ.ragged_qmatmul_i8_ref(xq, xs, w, sw, gs), 3),
-                          timer(lambda: torch.matmul(xb, wd)), bnd)
+                          time_grouped(timer, xb, wg, gs, f"kernel 10 K={k} N={n} {name}"), bnd)
+        del wg
     return ok
 
 
@@ -484,8 +518,10 @@ def phase_planar_moe_kernels(torch, timer, results, dev="cuda") -> bool:
     plain versions, at the shapes of Qwen1.5-MoE-A2.7B (60 experts, E 2048,
     FF 1408: gate/up supergroup with f32 scales, down group 32 with bf16
     scales) and of Qwen3-30B-A3B (128 experts, FF 768). Library yardsticks
-    are bf16 torch.bmm / torch.matmul calls over the same rows and the
-    gathered, dequantized experts: a comparable function, not the same."""
+    are bf16 torch.bmm calls over the same rows and the gathered,
+    dequantized experts (11-13: a comparable function, not the same), one
+    bf16 grouped product over the same rows, group sizes and dequantized
+    experts (14), and a dense bf16 torch.matmul (16)."""
     from ik_llama_cpp_tpu_torch.ops import moe_decode as MD
     from ik_llama_cpp_tpu_torch.ops import moe_qmm as MQ
     from ik_llama_cpp_tpu_torch.ops import qmatmul as QM
@@ -571,14 +607,14 @@ def phase_planar_moe_kernels(torch, timer, results, dev="cuda") -> bool:
                       timer(lambda: torch.bmm(hb, wb)), bnd)
         del wb, down
 
-    log("[3] kernel 14 (ragged_qmatmul, planar) vs plain; library = dense bf16 "
-        "torch.matmul at the same (M, K, N)")
+    log("[3] kernel 14 (ragged_qmatmul, planar) vs plain; library = bf16 grouped product "
+        "over the live experts (torch._grouped_mm of the rows and the dequantized experts)")
     for c, k, n in ((q2, q2["FF"], q2["E"]), (q3, q3["E"], q3["FF"])):
         g_ = c["G"]
         m = PREFILL * c["TOPK"]
         codes, sc = planar(g_, k, n, 32, bf16)
         x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
-        wd = torch.randn((k, n), generator=gen, device=dev).to(bf16)
+        wg = k_major(MD.dequant_experts(codes, sc, 32))      # dequantized once, not timed
         harm = 1.0 / np.arange(1, g_ + 1)
         size_sets = {"random": rng.multinomial(m, np.full(g_, 1.0 / g_)),
                      "skewed": rng.permutation(rng.multinomial(m, harm / harm.sum())),
@@ -602,8 +638,8 @@ def phase_planar_moe_kernels(torch, timer, results, dev="cuda") -> bool:
                           sum_tol(k, absdot) + 1e-12,
                           timer(lambda: MQ.ragged_qmatmul(x, codes, sc, gsz, group=32)),
                           timer(lambda: MQ.ragged_qmatmul_ref(x, codes, sc, gsz, group=32), 3),
-                          timer(lambda: torch.matmul(x, wd)), bnd)
-        del codes, wd
+                          time_grouped(timer, x, wg, gsz, f"kernel 14 K={k} N={n} {name}"), bnd)
+        del codes, wg
 
     log("[3] kernel 11 (moe_decode_fused_i8, one launch) vs plain, beside kernels 7 + 8 "
         "on the same inputs; library = bf16 torch.bmm over the gathered gate|up, then down")
@@ -715,7 +751,6 @@ def phase_kvq_kernels(torch, timer, results) -> bool:
     against their plain versions at the dense path's shapes."""
     from ik_llama_cpp_tpu_torch.ops import flash_attention as FA
     from ik_llama_cpp_tpu_torch.ops import kv_quant as KQ
-    from ik_llama_cpp_tpu_torch.ops import qmatmul as QM
     F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(2)
     bf16 = torch.bfloat16
@@ -789,37 +824,131 @@ def phase_kvq_kernels(torch, timer, results) -> bool:
     ok &= attn_case("flash_attention_q8", FA.flash_attention_q8, "q8", 1, 512, 1024, [0], [512])
     ok &= attn_case("flash_attention_q8", FA.flash_attention_q8, "q8", 1, 512, 1024, [256], [768])
 
-    log("[3] kernel 15 (qmatmul4, 4-bit packed, group 32) vs plain; library = dense "
-        "bf16 torch.matmul at the same (M, K, N), a yardstick, not the same function")
-    shapes = [(E, (H + 2 * HKV) * D), (E, E), (E, 2 * FF), (FF, E), (E, V)]
+    ok &= phase_qmatmul4(torch, timer, results, gen)
+    return ok
+
+
+# the dense 8B model's decode linears: fused qkv, wo, fused gate/up, down
+DECODE_SHAPES = [(E, (H + 2 * HKV) * D), (E, E), (E, 2 * FF), (FF, E)]
+
+
+def phase_qmatmul4(torch, timer, results, gen) -> bool:
+    """Kernel 15 against its plain version: the four decode shapes at M 1, 8
+    and 16 (the GEMV kernel) and 512 (the tiled one), with and without a
+    codebook, a bias, the head; two calls bit for bit; then the K split
+    against the time at M <= 16, and the GEMV kernel's instructions a
+    weight from its SASS."""
+    from ik_llama_cpp_tpu_torch.ops import kv_quant as KQ
+    from ik_llama_cpp_tpu_torch.ops import qmatmul as QM
+    from ik_llama_cpp_tpu_torch.ops import _cuda
+    bf16 = torch.bfloat16
+    ok = True
+    log("[3] kernel 15 (qmatmul4, 4-bit packed, group 32) vs plain; library = dense bf16 "
+        "torch.matmul at the same (M, K, N) with the weights already in bf16. M <= 16 runs "
+        "qmatmul4_gemv_kernel (K split over a cluster of `splits` blocks), M > 16 the tiled "
+        "qmatmul4_kernel; bound = the bytes read once (packed, scales, x, out)")
     iq4nl = tuple(float(v) for v in KQ.IQ4NL_VALUES)       # a 16-level codebook
-    for k, n in shapes:
+    cases = [(k, n, (1, 8, 16, 512), lut, False) for k, n in DECODE_SHAPES
+             for lut in (None, iq4nl)]
+    cases += [(E, E, (1, 16), None, True), (E, V, (1, 16), None, False)]
+    for k, n, ms, lut, with_bias in cases:
         packed = torch.randint(0, 256, (k // 2, n), generator=gen, device="cuda",
                                dtype=torch.uint8)
-        scale = (torch.rand((k // 32, n), generator=gen, device="cuda") * 0.02).to(bf16)
+        sc = (torch.rand((k // 32, n), generator=gen, device="cuda")
+              * (0.02 if lut is None else 0.002)).to(bf16)
+        bias = None
+        if with_bias:
+            bias = (torch.randn((k // 32, n), generator=gen, device="cuda") * 0.01).to(bf16)
         wb = torch.randn((k, n), generator=gen, device="cuda", dtype=bf16)
-        for lut in (None, iq4nl):
-            sc = scale if lut is None else (scale * 0.1).to(bf16)
-            for m in (1, 8, 512):
-                x = torch.randn((m, k), generator=gen, device="cuda").to(bf16)
-                got = QM.qmatmul4(x, packed, sc, lut16=lut)
-                ref = QM.qmatmul4_ref(x, packed, sc, lut16=lut)
-                absdot = float((x.float().abs() @ QM._dequant4_bf16(
-                    packed, sc, None, 32, lut).float().abs()).max())
-                torch.cuda.synchronize()
-                err = float((got - ref).abs().max())
-                # both sum the same exact bf16 products in float32 in different
-                # orders: 16 sqrt(K) float32 roundings of the largest sum of |x w|
-                tol = 16 * k ** 0.5 * 2.0 ** -24 * absdot
-                bnd = bound_ms(m * k * 2 + k * n // 2 + (k // 32) * n * 2 + m * n * 4,
-                               2.0 * m * n * k, BF16_FLOPS)
-                ok &= _record(results, "qmatmul4", f"M={m} K={k} N={n}"
-                              + (" codebook" if lut is not None else ""), err, tol,
-                              timer(lambda: QM.qmatmul4(x, packed, sc, lut16=lut)),
-                              timer(lambda: QM.qmatmul4_ref(x, packed, sc, lut16=lut), 3),
-                              timer(lambda: torch.matmul(x, wb)), bnd)
-        del packed, wb
+        absw = QM._dequant4_bf16(packed, sc, bias, 32, lut).float().abs()
+        for m in ms:
+            x = torch.randn((m, k), generator=gen, device="cuda").to(bf16)
+            got = QM.qmatmul4(x, packed, sc, bias, lut16=lut)
+            ref = QM.qmatmul4_ref(x, packed, sc, bias, lut16=lut)
+            again = bool(torch.equal(got, QM.qmatmul4(x, packed, sc, bias, lut16=lut)))
+            absdot = float((x.float().abs() @ absw).max())
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            sb = 2 * (2 if bias is not None else 1)
+            bnd = bound_ms(m * k * 2 + k * n // 2 + sb * (k // 32) * n + m * n * 4,
+                           2.0 * m * n * k, BF16_FLOPS)
+            plan = QM.gemv4_plan(m, n, k, 32)
+            note = (f" | gemv splits {plan['splits']}" if plan["kernel"] == "gemv"
+                    else " | tiled") + f"; repeats bit for bit: {again}"
+            ok &= again
+            # both sum the same exact bf16 products in float32 in different
+            # orders: 16 sqrt(K) float32 roundings of the largest sum of |x w|
+            ok &= _record(results, "qmatmul4", f"M={m} K={k} N={n}"
+                          + (" codebook" if lut is not None else "")
+                          + (" bias" if bias is not None else ""), err, sum_tol(k, absdot),
+                          timer(lambda: QM.qmatmul4(x, packed, sc, bias, lut16=lut)),
+                          timer(lambda: QM.qmatmul4_ref(x, packed, sc, bias, lut16=lut), 3),
+                          timer(lambda: torch.matmul(x, wb)), bnd, note=note)
+        del packed, wb, absw
+
+    log("[3] kernel 15's K split against its time at M <= 16 (ms a call by the number of "
+        "blocks in a cluster; * = gemv4_plan's choice)")
+    for k, n in DECODE_SHAPES:
+        packed = torch.randint(0, 256, (k // 2, n), generator=gen, device="cuda",
+                               dtype=torch.uint8)
+        sc = (torch.rand((k // 32, n), generator=gen, device="cuda") * 0.02).to(bf16)
+        for m in (1, 16):
+            x = torch.randn((m, k), generator=gen, device="cuda").to(bf16)
+            plan = QM.gemv4_plan(m, n, k, 32)["splits"]
+            row = []
+            for sp in range(1, QM.GEMV_MAX_SPLITS + 1):
+                with forced_splits(QM, sp, "gemv4_plan"):
+                    row.append(f"{sp}{'*' if sp == plan else ''} "
+                               f"{timer(lambda: QM.qmatmul4(x, packed, sc), 5):.4f}")
+            log(f"    M={m} K={k} N={n}: " + ", ".join(row))
+        del packed
+    log("[3] " + sass_per_weight(_cuda._lib_path("qmatmul4"),
+                                 "qmatmul4_gemv_kernelILi1ELi2ELb0ELb0ELb1E", 8))
     return ok
+
+
+def sass_per_weight(lib: Path, kernel: str, weights_per_mma: int) -> str:
+    """Instructions a weight in the K loop of ``kernel`` (a mangled-name
+    fragment) in the SASS of ``lib`` (cuobjdump -sass): the backward branch
+    whose body holds the most HMMA is the K loop; a lane's share of an HMMA
+    is ``weights_per_mma`` weights. Counts by opcode beside the total."""
+    import re
+    import shutil
+    tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
+    tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
+    if tool is None:
+        return f"SASS of {kernel}: not measured (no cuobjdump)"
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300).stdout
+    funcs = re.split(r"\n\s*Function : ", text)
+    body = next((f for f in funcs if f.startswith("_") and kernel in f.split("\n", 1)[0]), None)
+    if body is None:
+        return f"SASS of {kernel}: not measured (function not found)"
+    ins = [(int(a, 16), op.strip()) for a, op in
+           re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+
+    def opcode(o):                          # without its predicate and modifiers
+        return re.sub(r"^@!?U?P\w+\s+", "", o).split()[0].split(".")[0]
+
+    best = None
+    for addr, op in ins:
+        mt = re.search(r"BRA\s+(0x[0-9a-f]+)", op)
+        if mt and int(mt.group(1), 16) < addr:
+            lo = int(mt.group(1), 16)
+            loop = [o for a, o in ins if lo <= a <= addr]
+            n_mma = sum(opcode(o) == "HMMA" for o in loop)
+            if n_mma and (best is None or n_mma > best[1]):
+                best = (loop, n_mma)
+    if best is None:
+        return f"SASS of {kernel}: not measured (no loop with HMMA found)"
+    loop, n_mma = best
+    kinds: dict = {}
+    for o in loop:
+        kinds[opcode(o)] = kinds.get(opcode(o), 0) + 1
+    top = ", ".join(f"{k} {v}" for k, v in sorted(kinds.items(), key=lambda kv: -kv[1])[:10])
+    return (f"SASS of {kernel}: K loop {len(loop)} instructions, {n_mma} HMMA = "
+            f"{n_mma * weights_per_mma} weights a lane: "
+            f"{len(loop) / (n_mma * weights_per_mma):.3f} instructions a weight ({top})")
 
 
 def sync(torch) -> None:
@@ -1755,6 +1884,19 @@ def phase_int4(torch, gguf: Path, launches: dict) -> bool:
         f"x {4 * NL} and kernel A x 1 a step and a chunk): {good}; logits finite: {finite}; "
         f"tokens in vocab: {in_range}")
     ok &= good and finite and in_range
+    prof = profile_decode(torch, rt, kv, n_past + DECODE + 1, toks[:, -1:], tag="11")
+    gemv_ms, tiled_ms = kernel_ms(prof, "qmatmul4_gemv_kernel"), kernel_ms(prof, "qmatmul4_kernel<")
+    log(f"[11] decode step: qmatmul4_gemv_kernel {gemv_ms:.3f} ms ({4 * NL} launches), the "
+        f"tiled qmatmul4_kernel {tiled_ms:.3f} ms, every kernel {sum(prof.values()):.3f} ms")
+    ok &= gemv_ms > 0 and tiled_ms == 0
+    del kv
+    kv = rt.new_cache(1, PREFILL + 8)
+    prof = profile_window(torch, lambda: rt.eval_tokens(ids, kv, 0), 1,
+                          f"one {PREFILL}-token prefill chunk", "chunk", "11")
+    tiled_ms, every = kernel_ms(prof, "qmatmul4_kernel<"), sum(prof.values())
+    log(f"[11] prefill chunk: the tiled qmatmul4_kernel {tiled_ms:.3f} ms of {every:.3f} ms of "
+        f"kernels ({100 * tiled_ms / every:.1f}%), qmatmul4_gemv_kernel "
+        f"{kernel_ms(prof, 'qmatmul4_gemv_kernel'):.3f} ms")
     del kv, logits
     rt.params["blocks"] = rt.params["blocks"][:2]
     rt.cfg = replace(rt.cfg, n_layer=2)

@@ -11,6 +11,7 @@ load-time recodes.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -194,15 +195,60 @@ def qmatmul4_ref(x, packed, scale, bias=None, *, group: int = 32, lut16=None):
     return x.to(torch.bfloat16).float() @ w.float()
 
 
+# The M <= 16 kernel of the packed form (qmatmul4_gemv_kernel) has kernel
+# D's shape (4 warps on 128 columns, a cluster of 1-8 blocks splitting K)
+# and steps of 32 K rows (16 packed rows, 4 a lane): a warp's K range is a
+# whole number of lcm(group, 32)-row units, whole groups and whole steps.
+GEMV4_STEP = 32
+GEMV4_BLOCKS = 224         # blocks a launch aims at, as for kernel D (see gemv4_plan)
+GEMV4_WAVE = 4 * 132       # blocks of one wave at M <= 8: 4 an H100 SM (127 registers)
+
+
+def gemv4_plan(m: int, n: int, k: int, group: int) -> dict:
+    """The launch of kernel 15 for an (m, k) x (k, n) product, a pure
+    function of the shapes, chosen before the launch. {"kernel": "tiled"}
+    where the M <= 16 kernel does not apply (M > 16, a group that is not a
+    multiple of 16, or K not a whole number of units); else {"kernel":
+    "gemv"} with the unit of K a warp's range is made of (lcm(group, 32)
+    rows), the column tiles of 128, the K split (blocks of a cluster: as
+    many as keep the launch at or under GEMV4_BLOCKS, at most 8, and no more
+    than leave each warp a unit: ``gemv_plan``'s rule for kernel D, on
+    units), the m tiles and the static shared memory (the warps' partials,
+    and the 1 KB codebook table, which is counted always).
+
+    One exception, from chip_smoke.py's split sweep on the H100: at M <= 8,
+    where that rule leaves one block a tile (N > 14336), two blocks a tile
+    ran faster (M=1 K=4096 N=28672) as long as the launch stays within one
+    wave of four blocks an SM; at M > 8 (164 registers, three blocks an SM)
+    they ran slower."""
+    unit = math.lcm(group, GEMV4_STEP)
+    if not (1 <= m <= GEMV_MAX_M and group % 16 == 0 and k % unit == 0):
+        return {"kernel": "tiled"}
+    tiles = -(-n // GEMV_COLS)
+    units = k // unit
+    splits = max(1, min(GEMV_MAX_SPLITS, GEMV4_BLOCKS // tiles, units // GEMV_WARPS))
+    m_tiles = 1 if m <= 8 else 2
+    if m_tiles == 1 and splits == 1 and 2 * tiles <= GEMV4_WAVE and units >= 2 * GEMV_WARPS:
+        splits = 2
+    return {"kernel": "gemv", "unit": unit, "tiles": tiles, "splits": splits,
+            "m_tiles": m_tiles, "smem": GEMV_WARPS * m_tiles * 8 * GEMV_COLS * 4 + 1024}
+
+
 def qmatmul4(x, packed, scale, bias=None, *, group: int = 32, lut16=None):
     """(M, K) x 4-bit packed (K/2, N) -> f32 (M, N); scale/bias bf16
     (K/G, N); lut16: 16 codebook values or None for idx - 8.
 
-    CUDA kernel ``csrc/qmatmul4.cu``, which replaces the Pallas kernel
-    ops/qmatmul.py:qmatmul4 of the JAX package. Bound by the weight bytes
-    (half a byte a weight) at small M and by bf16 tensor-core work at large
-    M; ``qmatmul``'s design with the nibble unpack in front, both nibbles of
-    a byte into neighbouring K positions, so x is taken whole."""
+    CUDA kernels in ``csrc/qmatmul4.cu``, which replace the Pallas kernel
+    ops/qmatmul.py:qmatmul4 of the JAX package; ``gemv4_plan`` picks one
+    before the launch. At M <= 16 (decode) the product is bound by the
+    weight bytes (half a byte a weight): kernel D's GEMV shape (16-byte
+    loads, steps in flight in registers, K split over the warps of a block
+    and the blocks of a cluster, partial sums added in a fixed order, so a
+    call repeats bit for bit) with the nibble unpack in registers. It needs
+    group % 16 == 0 and K a whole number of lcm(group, 32) rows. Other
+    shapes take the tiled kernel, bound by bf16 tensor-core work at large M:
+    ``qmatmul``'s tiled design with the unpack in front, both nibbles of a
+    byte into neighbouring K positions, so x is taken whole."""
     if x.device.type == "cpu":
         return qmatmul4_ref(x, packed, scale, bias, group=group, lut16=lut16)
     m, k = x.shape
@@ -220,14 +266,21 @@ def qmatmul4(x, packed, scale, bias=None, *, group: int = 32, lut16=None):
     for t in (packed, scale, bias):
         _cuda.require(t is None or t.device == x.device, "qmatmul4: operands on different devices")
     _cuda.require(lut16 is None or len(lut16) == 16, "qmatmul4: lut16 must hold 16 values")
-    xb = x.to(torch.bfloat16).contiguous()
+    plan = gemv4_plan(m, n, k, group)
+    if plan["kernel"] == "gemv":
+        splits, unit = plan["splits"], plan["unit"]
+        xb = _gemv_operand(x, packed, scale, bias)
+    else:
+        splits, unit = 0, 0
+        xb = x.to(torch.bfloat16).contiguous()
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     lut = None if lut16 is None else (ctypes.c_float * 16)(*lut16)
     fn = _cuda.function("qmatmul4", "ik_qmatmul4",
-                        [_cuda.P] * 5 + [_cuda.I] * 4 + [ctypes.POINTER(ctypes.c_float), _cuda.P])
+                        [_cuda.P] * 5 + [_cuda.I] * 4
+                        + [ctypes.POINTER(ctypes.c_float), _cuda.I, _cuda.I, _cuda.P])
     rc = fn(xb.data_ptr(), packed.data_ptr(), scale.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(),
-            m, n, k, group, lut, _cuda.stream_ptr(x))
+            m, n, k, group, lut, splits, unit, _cuda.stream_ptr(x))
     qmatmul4.launches += 1
     _cuda.check(rc, "qmatmul4")
     return out
