@@ -8,7 +8,10 @@ Phases (all by default; any failure exits non-zero):
   2. build: every kernel under ik_llama_cpp_tpu_torch/csrc with nvcc
   3. kernels: each kernel against its plain PyTorch version on the card at
      the main path's shapes, with its error, tolerance, time, the plain
-     version's time, a library call's time and the card's bound
+     version's time, a library call's time and the card's bound (times
+     after a flush that leaves the L2 clean; kernels A, 8, 10 and 13 and
+     their library calls also under the older zero_() flush), the launch
+     plan of kernels 8 and 13 and their time by columns a block
   4. end to end at full width (L32 E4096 H32 KV8 FF14336 V32000, Q4_0
      planar weights, Q8_0 tied head, random weights from a seed): load
      through Runtime.from_gguf, prefill 512 tokens, decode 64 greedily,
@@ -25,7 +28,7 @@ Phases (all by default; any failure exits non-zero):
      D128, 128 experts top-8 FF768, V151936; Q4_0 attention and experts,
      Q8_0 embedding and untied head, random blocks from a seed): load,
      prefill 512, decode 64, with every kernel launch counted, then the
-     decode profile
+     decode profile (kernel 8's share of a step)
   8. MoE parity at depth 2: kernel path against the plain path on the card
   9. quantized KV cache end to end at the full width of phase 4: q8 (prefill
      512, decode 64, launch counts, decode profile), then q4, q6, nl4, q8
@@ -46,6 +49,7 @@ Phases (all by default; any failure exits non-zero):
      untied head, random blocks from a seed): gate/up experts re-coded per
      supergroup of 256, down experts planar group 32 (1408 % 256 != 0);
      load, prefill 512, decode 64, launch counts, decode and prefill profiles
+     (kernel 13's share of a decode step)
  13. parity at depth 2, kernel path against plain path over one token
      history, for (a) the phase-12 model, (b) the Qwen3-30B-A3B shape with
      the int8 path off (every expert projection planar) and (c) the same
@@ -110,19 +114,26 @@ class Timer:
     the card is kept busy for about half a millisecond while the host
     enqueues the timed call, so that host launch overhead stays out of a
     kernel's time (a plain version whose many launches outlast that still
-    shows its host gaps)."""
+    shows its host gaps). The flush writes a 128 MB buffer and then reads a
+    second one, which leaves the L2 clean; ``dirty`` skips the read, so that
+    the timed call first writes back the dirty lines the write left (up to
+    the L2's 50 MB): the older flush, kept for ``flush_check``."""
 
     def __init__(self, torch, reps: int):
         self.torch = torch
         self.reps = reps
+        self.checks = []        # (row, call, ms with dirty lines, ms with a clean L2)
         self.flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+        self.sweep = torch.zeros(128 << 20, dtype=torch.uint8, device="cuda")
 
-    def __call__(self, fn, reps: int | None = None) -> float:
+    def __call__(self, fn, reps: int | None = None, dirty: bool = False) -> float:
         torch = self.torch
         fn()                                    # warm (and first-launch) run
         ts = []
         for _ in range(reps or self.reps):
             self.flush.zero_()
+            if not dirty:
+                self.sweep.sum()
             torch.cuda._sleep(1_000_000)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
@@ -132,6 +143,27 @@ class Timer:
             e.synchronize()
             ts.append(s.elapsed_time(e))
         return statistics.median(ts)
+
+
+def flush_check(timer, row: str, **calls) -> None:
+    """Times each call of a kernel-table row after the write alone ("zero")
+    and after the whole flush ("clean") and logs the two times: how much the
+    dirty L2 lines left by the write inflate a small call."""
+    parts = []
+    for what, fn in calls.items():
+        z, c = timer(fn, dirty=True), timer(fn)
+        timer.checks.append((row, what, z, c))
+        parts.append(f"{what} zero {z:.4f} clean {c:.4f} ms ({100 * (c / z - 1):+.1f}%)")
+    log(f"    flush check, {row}: " + "; ".join(parts))
+
+
+def flush_verdict(timer) -> None:
+    if not timer.checks:
+        return
+    row, what, z, c = max(timer.checks, key=lambda r: abs(r[3] / r[2] - 1))
+    log(f"[3] flush check: the largest move from the zero_() flush to the clean one is "
+        f"{100 * (c / z - 1):+.1f}% ({row}, {what}: {z:.4f} -> {c:.4f} ms) over "
+        f"{len(timer.checks)} calls; the table is timed under the clean flush")
 
 
 def bound_ms(nbytes: float, ops: float, peak_ops: float):
@@ -197,6 +229,34 @@ def forced_splits(QM, splits: int, plan_name: str = "gemv_plan"):
         setattr(QM, plan_name, plan)
 
 
+@contextmanager
+def forced_cols(MD, cols: int):
+    """The launches of kernels 8 and 13 with ``cols`` columns a block
+    (``down_plan`` then picks the lanes a row for that)."""
+    plan = MD.down_plan
+    MD.down_plan = lambda *shape: plan(*shape, cols=cols)
+    try:
+        yield
+    finally:
+        MD.down_plan = plan
+
+
+def plan_text(plan: dict) -> str:
+    return (f"plan: {plan['cols']} columns a block, {plan['lanes']} lanes a row, "
+            f"{plan['blocks']} blocks, {plan['chunks']} chunks a lane, "
+            f"{plan['passes']} pass(es)")
+
+
+def cols_sweep(timer, MD, what: str, t, top_k, f, e, group, fn) -> None:
+    """ms a call of a down kernel by the columns a block (* = down_plan's)."""
+    want = MD.down_plan(t, top_k, f, e, group)["cols"]
+    row = []
+    for cols in (2, 4, 8, 16, 32):
+        with forced_cols(MD, cols):
+            row.append(f"{cols}{'*' if cols == want else ''} {timer(fn, 5):.4f}")
+    log(f"    {what}: ms by columns a block: " + ", ".join(row))
+
+
 def grouped_library(x, w_bf16, group_sizes):
     """The library yardstick of kernels 10 and 14: one bf16 grouped product
     (``torch._grouped_mm``) of x's rows, sorted by group, against their
@@ -256,6 +316,10 @@ def phase_kernels(torch, timer, results) -> bool:
                           timer(lambda: QM.qmatmul_i8(xq, xs, codes_t.t(), sw)),
                           timer(lambda: QM.qmatmul_i8_ref(xq, xs, codes_t.t(), sw), 3),
                           timer(lambda: torch.matmul(xb, wb)), bnd)
+            if (m, k, n) == (1, E, 2 * FF):
+                flush_check(timer, f"A M={m} K={k} N={n}",
+                            kernel=lambda: QM.qmatmul_i8(xq, xs, codes_t.t(), sw),
+                            library=lambda: torch.matmul(xb, wb))
         del codes_t, wb
 
     log("[3] kernel D (qmatmul, planar group 32) vs plain; library as for A. M <= 16 "
@@ -428,11 +492,16 @@ def phase_moe_kernels(torch, timer, results, c=MOE, dev="cuda") -> bool:
         a8 = (hq, hs.t(), ids, down, dsw)
         got = MD.moe_decode_down_i8(*a8, top_k=topk)
         ref = MD.moe_decode_down_i8_ref(*a8, top_k=topk)
+        again = MD.moe_decode_down_i8(*a8, top_k=topk)
         sync(torch)
         err = float((got - ref).abs().max())
-        # exact integer dots, corrections added in the same order: only
-        # float32 reassociation may differ
+        # exact integer dots, corrections added in the same order and
+        # rounded at the same steps: the kernel must give the plain version's
+        # bits; the tolerance is the float32 reassociation bound kept from
+        # before the redesign
         tol = 1e-5 * float(ref.abs().max()) + 1e-6
+        same, rep = bool(torch.equal(got, ref)), bool(torch.equal(got, again))
+        ok &= same and rep
         bnd = bound_ms(p * ff + p * nsgf * 4 + p * 4 + nd * (ff * e_ + nsgf * e_ * 4)
                        + t * e_ * 4, 2.0 * p * ff * e_, INT8_OPS)
         wb = down[li].to(bf16)
@@ -440,7 +509,15 @@ def phase_moe_kernels(torch, timer, results, c=MOE, dev="cuda") -> bool:
         ok &= _record(results, "moe_decode_down_i8", f"P={p} FF={ff} E={e_} G={g_}",
                       err, tol, timer(lambda: MD.moe_decode_down_i8(*a8, top_k=topk)),
                       timer(lambda: MD.moe_decode_down_i8_ref(*a8, top_k=topk), 3),
-                      timer(lambda: torch.bmm(hb, wb)), bnd)
+                      timer(lambda: torch.bmm(hb, wb)), bnd,
+                      note=f" | {plan_text(MD.down_plan(t, topk, ff, e_))}; "
+                           f"bit-identical to plain: {same}; repeats bit for bit: {rep}")
+        cols_sweep(timer, MD, f"kernel 8 P={p}", t, topk, ff, e_, None,
+                   lambda: MD.moe_decode_down_i8(*a8, top_k=topk))
+        if t == 1:
+            flush_check(timer, f"8 P={p} FF={ff} E={e_}",
+                        kernel=lambda: MD.moe_decode_down_i8(*a8, top_k=topk),
+                        library=lambda: torch.bmm(hb, wb))
         del wb
 
     r = 40
@@ -508,6 +585,10 @@ def phase_moe_kernels(torch, timer, results, c=MOE, dev="cuda") -> bool:
                           timer(lambda: MQ.ragged_qmatmul_i8(*a10)),
                           timer(lambda: MQ.ragged_qmatmul_i8_ref(xq, xs, w, sw, gs), 3),
                           time_grouped(timer, xb, wg, gs, f"kernel 10 K={k} N={n} {name}"), bnd)
+            if (k, name) == (e_, "skewed"):
+                flush_check(timer, f"10 M={m} K={k} N={n} {name}",
+                            kernel=lambda: MQ.ragged_qmatmul_i8(*a10),
+                            library=lambda: grouped_library(xb, wg, gs))
         del wg
     return ok
 
@@ -598,13 +679,25 @@ def phase_planar_moe_kernels(torch, timer, results, dev="cuda") -> bool:
         bnd = bound_ms(p * ff * 2 + p * 4 + nd * (ff * e_ + (ff // 32) * e_ * 2) + t * e_ * 4,
                        2.0 * p * ff * e_, BF16_FLOPS)
         hb = hw[:, None, :]
+        again = MD.moe_decode_down(hw, ids, down, ds, top_k=topk, group=32)
+        rep = bool(torch.equal(got, again))
+        ok &= rep
         ok &= _record(results, "moe_decode_down",
                       f"P={p} FF={ff} E={e_} G={g_} group=32 bf16 scales", err,
                       sum_tol(ff * topk, absdot),
                       timer(lambda: MD.moe_decode_down(hw, ids, down, ds, top_k=topk, group=32)),
                       timer(lambda: MD.moe_decode_down_ref(hw, ids, down, ds, top_k=topk,
                                                            group=32), 3),
-                      timer(lambda: torch.bmm(hb, wb)), bnd)
+                      timer(lambda: torch.bmm(hb, wb)), bnd,
+                      note=f" | {plan_text(MD.down_plan(t, topk, ff, e_, 32))}; "
+                           f"repeats bit for bit: {rep}")
+        cols_sweep(timer, MD, f"kernel 13 P={p} FF={ff}", t, topk, ff, e_, 32,
+                   lambda: MD.moe_decode_down(hw, ids, down, ds, top_k=topk, group=32))
+        if (c, t) == (q2, 1):
+            flush_check(timer, f"13 P={p} FF={ff} E={e_}",
+                        kernel=lambda: MD.moe_decode_down(hw, ids, down, ds, top_k=topk,
+                                                          group=32),
+                        library=lambda: torch.bmm(hb, wb))
         del wb, down
 
     log("[3] kernel 14 (ragged_qmatmul, planar) vs plain; library = bf16 grouped product "
@@ -1506,8 +1599,12 @@ def phase_moe(torch, gguf: Path, launches: dict, phases: set, c=MOE) -> bool:
         launches.update({k: counts[k] for k in ("moe_decode_gate_up_i8", "moe_decode_down_i8",
                                                 "fused_moe_prefill_i8", "ragged_qmatmul_i8")})
         prof = profile_decode(torch, rt, kv, n_past + DECODE + 1, toks[:, -1:], tag="7")
-        two_kernel_ms = kernel_ms(prof, "gate_up_kernel", "down_kernel")
+        two_kernel_ms = kernel_ms(prof, "gate_up_kernel", "down_i8_kernel")
         step_ms = sum(prof.values())
+        k8 = kernel_ms(prof, "down_i8_kernel")
+        log(f"[7] kernel 8 (moe_decode_down_i8, down_i8_kernel): {k8:.3f} ms a decode step "
+            f"of {step_ms:.3f} ms of kernels ({100 * k8 / step_ms:.1f}%), "
+            f"{counts['moe_decode_down_i8'] / DECODE:g} launches a token")
         del kv
         kv = rt.new_cache(1, PREFILL + 8)
         profile_window(torch, lambda: rt.eval_tokens(ids, kv, 0), 1,
@@ -1608,7 +1705,11 @@ def phase_q2moe(torch, gguf: Path, launches: dict, phases: set, c=Q2MOE) -> bool
         ok &= good
         launches.update({k: counts[k] for k in ("moe_decode_gate_up", "moe_decode_down",
                                                 "ragged_qmatmul")})
-        profile_decode(torch, rt, kv, n_past + DECODE + 1, toks[:, -1:], tag="12")
+        prof = profile_decode(torch, rt, kv, n_past + DECODE + 1, toks[:, -1:], tag="12")
+        k13, step_ms = kernel_ms(prof, "down_planar_kernel"), sum(prof.values())
+        log(f"[12] kernel 13 (moe_decode_down, down_planar_kernel): {k13:.3f} ms a decode "
+            f"step of {step_ms:.3f} ms of kernels ({100 * k13 / step_ms:.1f}%), "
+            f"{counts['moe_decode_down'] / DECODE:g} launches a token")
         del kv
         kv = rt.new_cache(1, PREFILL + 8)
         profile_window(torch, lambda: rt.eval_tokens(ids, kv, 0), 1,
@@ -2004,6 +2105,7 @@ def main() -> int:
         ok &= phase_moe_kernels(torch, timer, results)
         ok &= phase_kvq_kernels(torch, timer, results)
         ok &= phase_planar_moe_kernels(torch, timer, results)
+        flush_verdict(timer)
     gguf = None
     if phases & {4, 5, 6, 9, 10, 11}:
         t0 = time.perf_counter()

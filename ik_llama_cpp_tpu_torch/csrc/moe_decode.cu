@@ -18,12 +18,21 @@
 // multiple of 16 that divides K; K is any multiple of 16 (no 256-deep step).
 //
 // Bound on the H100: the routed experts' code bytes (one byte a weight plus
-// the scales), read once per pair. Design: kernels 7 and 8's layout. One
-// warp per output column; a lane takes 16 codes with one 16-byte load (they
-// share one scale), dequantizes each to bf16 and multiplies it with the
-// activation row held in shared memory as bf16; a shuffle reduction sums the
-// lanes. Each block reads its own ids[p]. The down sum adds a token's pairs
-// in pair order in one thread's loop: no atomics, deterministic.
+// the scales), read once per pair. Each block reads its own ids[p]; no
+// atomics, so both kernels are deterministic.
+//
+// Kernel 12: one warp per output column; a lane takes 16 codes with one
+// 16-byte load (they share one scale), dequantizes each to bf16 and
+// multiplies it with the activation row held in shared memory as bf16; a
+// shuffle reduction sums the lanes.
+//
+// Kernel 13: a block puts all of a token's pairs in flight at once, top_k *
+// cols rows (launch plan ops/moe_decode.py:down_plan: 8 columns and 8 lanes
+// a row at top_k 4, F 1408), 11-12 16-byte chunks a lane, some 45 KB a
+// block; the dequantization needs no conversion instruction (dequant4), so
+// that the arithmetic left after the last load is short; each pair's column
+// dot is formed on its own and the pairs are added in pair order in one
+// thread a column.
 #include "moe_common.cuh"
 
 namespace {
@@ -97,30 +106,109 @@ gate_up_kernel(const __nv_bfloat16* __restrict__ xp, const int* __restrict__ ids
   }
 }
 
+// {bf16(b0 s), bf16(b1 s)} and {bf16(b2 s), bf16(b3 s)} for the four int8
+// codes b of w, without a conversion instruction: the byte b + 128 placed
+// in the mantissa of 2^23 gives float(b) after one subtraction, its upper
+// half is bf16(b) exactly, and one bf16x2 multiply rounds each product once
+// to nearest even, as bf16(bf16(code) * bf16(scale)) does.
+IK_DEV void dequant4(int w, __nv_bfloat162 s2, uint32_t& w01, uint32_t& w23) {
+  const uint32_t u = static_cast<uint32_t>(w) ^ 0x80808080u;
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - 8388736.0f;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - 8388736.0f;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - 8388736.0f;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - 8388736.0f;
+  uint32_t c01 = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  uint32_t c23 = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+  __nv_bfloat162 p01 = __hmul2_rn(*reinterpret_cast<__nv_bfloat162*>(&c01), s2);
+  __nv_bfloat162 p23 = __hmul2_rn(*reinterpret_cast<__nv_bfloat162*>(&c23), s2);
+  w01 = *reinterpret_cast<uint32_t*>(&p01);
+  w23 = *reinterpret_cast<uint32_t*>(&p23);
+}
+
+// mac4 with the weights from dequant4: the same products, added in the same
+// order.
+IK_DEV float mac4_x2(float acc, int w, __nv_bfloat162 s2, uint32_t x01, uint32_t x23) {
+  uint32_t w01, w23;
+  dequant4(w, s2, w01, w23);
+  acc = fmaf(__uint_as_float(x01 << 16), __uint_as_float(w01 << 16), acc);
+  acc = fmaf(__uint_as_float(x01 & 0xffff0000u), __uint_as_float(w01 & 0xffff0000u), acc);
+  acc = fmaf(__uint_as_float(x23 << 16), __uint_as_float(w23 << 16), acc);
+  return fmaf(__uint_as_float(x23 & 0xffff0000u), __uint_as_float(w23 & 0xffff0000u), acc);
+}
+
+IK_DEV __nv_bfloat162 load_scale2(const float* p) { return __float2bfloat162_rn(__ldg(p)); }
+IK_DEV __nv_bfloat162 load_scale2(const __nv_bfloat16* p) { return __bfloat162bfloat162(*p); }
+
+// Kernel 13. A block takes token t's top_k pairs over `cols` adjacent
+// columns from n0: top_k * cols rows of F codes (pair j, column c; a pair's
+// rows are one contiguous span), `lanes` lanes a row. Lane l loads the
+// row's 16-byte chunks l, l + lanes, ... and the scale of each beside it
+// (adjacent columns share a scale sector), in batches of DOWN_BATCH, each
+// load unconditional (clamped to the row) so that the compiler keeps them
+// all in flight and waits for them in order. The token's bf16 rows [top_k][F]
+// sit in shared memory. A shuffle over the row's lanes forms the pair's
+// column dot; the dots go to shared memory [top_k][cols] and one thread a
+// column adds them in pair order, as the plain version and the Pallas
+// kernel do.
 template <typename S>
-__global__ void __launch_bounds__(WARPS * 32)
-down_kernel(const __nv_bfloat16* __restrict__ hw, const int* __restrict__ ids,
-            const int8_t* __restrict__ down, const S* __restrict__ ds,
-            float* __restrict__ out, int top_k, int F, int E, int group) {
-  extern __shared__ __align__(16) uint8_t smem[];     // the token's rows: [top_k][F] bf16
-  const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(smem);
-  const int t = blockIdx.y, nch = F / 16, ngrp = F / group;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int p0 = t * top_k;
-  for (int c = tid; c < top_k * (F / 8); c += blockDim.x)
-    reinterpret_cast<uint4*>(smem)[c] = reinterpret_cast<const uint4*>(hw + (size_t)p0 * F)[c];
+__global__ void __launch_bounds__(DOWN_THREADS)
+down_planar_kernel(const __nv_bfloat16* __restrict__ hw, const int* __restrict__ ids,
+                   const int8_t* __restrict__ down, const S* __restrict__ ds,
+                   float* __restrict__ out, int top_k, int F, int E, int group, int cols,
+                   int lanes) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int t = blockIdx.y, n0 = blockIdx.x * cols, nch = F / 16, ngrp = F / group;
+  const int tid = threadIdx.x, p0 = t * top_k;
+  const uint4* x = reinterpret_cast<const uint4*>(smem);
+  float* part = reinterpret_cast<float*>(smem + (size_t)top_k * F * 2);
+  int* eid = reinterpret_cast<int*>(part + top_k * cols);
+  stage16(smem, hw + (size_t)p0 * F, top_k * F / 8, tid);
+  for (int j = tid; j < top_k; j += DOWN_THREADS) eid[j] = ids[p0 + j];
   __syncthreads();
 
-  for (int c = warp; c < COLS; c += WARPS) {
-    const int n = blockIdx.x * COLS + c;
-    if (n >= E) break;
+  const int rows = top_k * cols, lr = tid % lanes, cpl = (nch + lanes - 1) / lanes;
+  // int((q + 0.5f) * inv) = q / (group / 16) for every group and every chunk
+  // q of a row that fits the shared memory (tests/test_torch_moe_down.py)
+  const float inv = 1.0f / static_cast<float>(group / 16);
+  for (int r = tid / lanes; r - tid / lanes < rows; r += DOWN_THREADS / lanes) {
+    const bool live = r < rows;
+    const int j = (live ? r : rows - 1) / cols, c = (live ? r : rows - 1) % cols;
+    const int e = eid[j], n = min(n0 + c, E - 1);
+    const int4* row = reinterpret_cast<const int4*>(down + ((size_t)e * E + n) * F);
+    const S* sc = ds + (size_t)e * ngrp * E + n;
+    const uint4* xr = x + (size_t)j * (F / 8);
     float acc = 0.0f;
-    for (int j = 0; j < top_k; ++j) {
-      const int e = ids[p0 + j];
-      acc = fadd(acc, col_dot(x + (size_t)j * F, down + ((size_t)e * E + n) * F,
-                              ds + (size_t)e * ngrp * E + n, E, nch, group, lane));
+    for (int b0 = 0; b0 < cpl; b0 += DOWN_BATCH) {
+      int4 w[DOWN_BATCH];
+      __nv_bfloat162 s2[DOWN_BATCH];
+#pragma unroll
+      for (int i = 0; i < DOWN_BATCH; ++i) {
+        const int q = min(lr + lanes * (b0 + i), nch - 1);
+        w[i] = __ldg(row + q);
+        s2[i] = load_scale2(sc + (size_t)static_cast<int>((q + 0.5f) * inv) * E);
+      }
+#pragma unroll
+      for (int i = 0; i < DOWN_BATCH; ++i) {
+        const int q = lr + lanes * (b0 + i);
+        if (b0 + i >= cpl) break;               // warp-uniform
+        if (q < nch) {
+          const uint4 xa = xr[2 * q], xb = xr[2 * q + 1];
+          acc = mac4_x2(acc, w[i].x, s2[i], xa.x, xa.y);
+          acc = mac4_x2(acc, w[i].y, s2[i], xa.z, xa.w);
+          acc = mac4_x2(acc, w[i].z, s2[i], xb.x, xb.y);
+          acc = mac4_x2(acc, w[i].w, s2[i], xb.z, xb.w);
+        }
+      }
     }
-    if (lane == 0) out[(size_t)t * E + n] = acc;
+    for (int o = lanes / 2; o; o >>= 1) acc += __shfl_xor_sync(FULL, acc, o);
+    if (live && lr == 0) part[j * cols + c] = acc;
+  }
+  __syncthreads();
+
+  for (int c = tid; c < cols && n0 + c < E; c += DOWN_THREADS) {
+    float acc = 0.0f;
+    for (int j = 0; j < top_k; ++j) acc = fadd(acc, part[j * cols + c]);
+    out[(size_t)t * E + n0 + c] = acc;
   }
 }
 
@@ -144,16 +232,16 @@ cudaError_t launch_gate_up(const void* xp, const void* ids, const void* gate, co
 
 template <typename S>
 cudaError_t launch_down(const void* hw, const void* ids, const void* down, const void* ds,
-                        void* out, int T, int top_k, int F, int E, int group,
-                        cudaStream_t stream) {
+                        void* out, int T, int top_k, int F, int E, int group, int cols,
+                        int lanes, int smem, cudaStream_t stream) {
   static bool smem_set = false;
-  cudaError_t e = set_smem(down_kernel<S>, MOE_SMEM_MAX, smem_set);
+  cudaError_t e = set_smem(down_planar_kernel<S>, MOE_SMEM_MAX, smem_set);
   if (e != cudaSuccess) return e;
-  dim3 grid((E + COLS - 1) / COLS, T);
-  down_kernel<S><<<grid, WARPS * 32, top_k * F * 2, stream>>>(
+  dim3 grid((E + cols - 1) / cols, T);
+  down_planar_kernel<S><<<grid, DOWN_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(hw), static_cast<const int*>(ids),
       static_cast<const int8_t*>(down), static_cast<const S*>(ds),
-      static_cast<float*>(out), top_k, F, E, group);
+      static_cast<float*>(out), top_k, F, E, group, cols, lanes);
   return cudaGetLastError();
 }
 
@@ -176,13 +264,21 @@ extern "C" int ik_moe_decode_gate_up(const void* xp, const void* ids, const void
                                          group, act, limit, s));
 }
 
+// cols and lanes: the launch plan (ops/moe_decode.py:down_plan); lanes a
+// power of two up to 32. The block's shared memory is sized here: a shape
+// whose rows do not fit is refused.
 extern "C" int ik_moe_decode_down(const void* hw, const void* ids, const void* down,
                                   const void* ds, int scale_bf16, void* out, int T, int top_k,
-                                  int F, int E, int group, void* stream) {
-  if (F % 16 || group % 16 || F % group || top_k * F * 2 > MOE_SMEM_MAX)
+                                  int F, int E, int group, int cols, int lanes, void* stream) {
+  if (F % 16 || group % 16 || group < 16 || F % group || cols < 1 || lanes < 1 ||
+      lanes > 32 || lanes & (lanes - 1))
     return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = 2 * top_k * F + 4 * top_k * (cols + 1);
+  if (smem > MOE_SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      scale_bf16 ? launch_down<__nv_bfloat16>(hw, ids, down, ds, out, T, top_k, F, E, group, s)
-                 : launch_down<float>(hw, ids, down, ds, out, T, top_k, F, E, group, s));
+      scale_bf16 ? launch_down<__nv_bfloat16>(hw, ids, down, ds, out, T, top_k, F, E, group,
+                                              cols, lanes, smem, s)
+                 : launch_down<float>(hw, ids, down, ds, out, T, top_k, F, E, group, cols,
+                                      lanes, smem, s));
 }

@@ -14,15 +14,24 @@
 //
 // Bound on the H100: the routed experts' code bytes (one byte a weight plus
 // 4/256 of scales), read once per pair; the arithmetic is a few dp4a a
-// byte. Design: one warp per output column, each lane streams 16-byte
-// chunks of the column's row (up to 8 in flight a lane) into __dp4a; the
-// 16 lanes of a half-warp cover one 256-deep supergroup, whose exact int32
-// sum a shuffle reduction forms before the float correction is added in
-// supergroup order (the order of the plain version). Each block reads its
-// own ids[p]: the GPU has no scalar prefetch. The pair's activation row sits
-// in shared memory. Tiles of 16 columns keep hundreds of blocks in flight
-// at batch 1. No atomics: the down sum over a token's pairs is one thread's
-// sequential loop, so it is deterministic.
+// byte. Each block reads its own ids[p]: the GPU has no scalar prefetch. No
+// atomics: every sum has one fixed order, so the kernels are deterministic.
+//
+// Kernel 7: one warp per output column, each lane streams 16-byte chunks of
+// the column's row (up to 8 in flight a lane) into __dp4a; the 16 lanes of
+// a half-warp cover one 256-deep supergroup, whose exact int32 sum a
+// shuffle reduction forms before the float correction is added in
+// supergroup order (the order of the plain version). The pair's activation
+// row sits in shared memory; tiles of 16 columns.
+//
+// Kernel 8: a block puts all of a token's pairs in flight at once. Its
+// top_k * cols rows (launch plan ops/moe_decode.py:down_plan: 8 columns and
+// 4 lanes a row at top_k 8, F 768) are loaded 12 chunks a lane, unconditional
+// loads that stay in flight together, some 48 KB a block, so that ~2 blocks
+// an SM keep more than the ~25 KB an SM in flight that the card's memory rate
+// needs; the int32 supergroup sums
+// go to shared memory and one thread a column adds their corrections pair
+// by pair, supergroup by supergroup, the order of the plain version.
 #include "moe_matvec_i8.cuh"
 
 namespace {
@@ -60,35 +69,82 @@ gate_up_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xst,
   }
 }
 
-__global__ void __launch_bounds__(WARPS * 32)
-down_kernel(const int8_t* __restrict__ hq, const float* __restrict__ hst,
-            int s_sg, int s_p, const int* __restrict__ ids,
-            const int8_t* __restrict__ down, const float* __restrict__ dsw,
-            float* __restrict__ out, int top_k, int F, int E) {
-  extern __shared__ __align__(16) int8_t smem[];   // [top_k][F] rows, then [top_k][nsg] scales
-  const int t = blockIdx.y, nsg = F / MOE_SG, nch = F / 16;
+// Kernel 8. A block takes token t's top_k pairs over `cols` adjacent
+// columns from n0: top_k * cols rows of F codes (pair j, column c; an
+// expert's adjacent columns are adjacent rows, so a pair's rows are one
+// contiguous span), `lanes` lanes a row. Lane l loads the row's 16-byte
+// chunks l, l + lanes, ... in batches of DOWN_BATCH, each load unconditional
+// (clamped to the row) so that the compiler keeps them all in flight and
+// waits for them in order; it holds 16 / lanes
+// chunks of each supergroup, whose exact int32 sum a shuffle over the row's
+// lanes forms. The sums go to shared memory, and one thread a column adds
+// the float corrections pair by pair, supergroup by supergroup: the order of
+// the plain version and of the Pallas kernel. Shared memory: the token's
+// rows [top_k][F] int8, their scales [top_k][nsg], the weight scales and
+// the sums [top_k][nsg][cols] each, the expert ids [top_k].
+__global__ void __launch_bounds__(DOWN_THREADS)
+down_i8_kernel(const int8_t* __restrict__ hq, const float* __restrict__ hst,
+               int s_sg, int s_p, const int* __restrict__ ids,
+               const int8_t* __restrict__ down, const float* __restrict__ dsw,
+               float* __restrict__ out, int top_k, int F, int E, int cols, int lanes) {
+  extern __shared__ __align__(16) int8_t smem[];
+  const int t = blockIdx.y, n0 = blockIdx.x * cols, nsg = F / MOE_SG, nch = F / 16;
+  const int tid = threadIdx.x, p0 = t * top_k, nws = top_k * nsg * cols;
   float* shs = reinterpret_cast<float*>(smem + (size_t)top_k * F);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int p0 = t * top_k;
-  for (int c = tid; c < top_k * nch; c += blockDim.x)
-    reinterpret_cast<int4*>(smem)[c] = ldg16(hq + (size_t)p0 * F + 16 * c);
-  for (int i = tid; i < top_k * nsg; i += blockDim.x) {
-    const int j = i / nsg, g = i % nsg;
-    shs[i] = hst[(size_t)g * s_sg + (size_t)(p0 + j) * s_p];
-  }
+  float* sws = shs + top_k * nsg;
+  int* part = reinterpret_cast<int*>(sws + nws);
+  int* eid = part + nws;
+  stage16(smem, hq + (size_t)p0 * F, top_k * nch, tid);
+  for (int i = tid; i < top_k * nsg; i += DOWN_THREADS)
+    shs[i] = hst[(size_t)(i % nsg) * s_sg + (size_t)(p0 + i / nsg) * s_p];
+  for (int j = tid; j < top_k; j += DOWN_THREADS) eid[j] = ids[p0 + j];
   __syncthreads();
 
-  for (int c = warp; c < COLS; c += WARPS) {
-    const int n = blockIdx.x * COLS + c;
-    if (n >= E) break;
-    float acc = 0.0f;
-    for (int j = 0; j < top_k; ++j) {
-      const int e = ids[p0 + j];
-      const float* ds = dsw + (size_t)e * nsg * E + n;
-      acc = row_dot(smem + (size_t)j * F, down + ((size_t)e * E + n) * F, shs + j * nsg,
-                    [&](int s) { return ds[(size_t)s * E]; }, nch, nsg, acc, lane);
+  // sws[(j * nsg + g) * cols + c] = dsw[e_j, g, n0 + c]: one load a thread
+  // issued here, stored after the sums (adjacent columns, one sector)
+  auto ws = [&](int i) {
+    const int c = i % cols, jg = i / cols;
+    return __ldg(dsw + ((size_t)eid[jg / nsg] * nsg + jg % nsg) * E + min(n0 + c, E - 1));
+  };
+  const float ws0 = tid < nws ? ws(tid) : 0.0f;
+
+  const int rows = top_k * cols, lr = tid % lanes, per = 16 / lanes, cpl = nch / lanes;
+  for (int r = tid / lanes; r - tid / lanes < rows; r += DOWN_THREADS / lanes) {
+    const bool live = r < rows;
+    const int j = (live ? r : rows - 1) / cols, c = (live ? r : rows - 1) % cols;
+    const int8_t* row = down + ((size_t)eid[j] * E + min(n0 + c, E - 1)) * F + 16 * lr;
+    const int4* x = reinterpret_cast<const int4*>(smem + (size_t)j * F) + lr;
+    int s = 0;
+    for (int b0 = 0; b0 < cpl; b0 += DOWN_BATCH) {
+      int4 w[DOWN_BATCH];
+#pragma unroll
+      for (int i = 0; i < DOWN_BATCH; ++i)     // clamped: every load unconditional, in order
+        w[i] = ldg16(row + (size_t)16 * lanes * min(b0 + i, cpl - 1));
+#pragma unroll
+      for (int i = 0; i < DOWN_BATCH; ++i) {
+        const int q = b0 + i;                       // warp-uniform
+        if (q >= cpl) break;
+        s += dot16(x[lanes * q], w[i]);
+        if (((q + 1) & (per - 1)) == 0) {           // the lane's last chunk of a supergroup
+          for (int o = lanes / 2; o; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
+          if (live && lr == 0) part[(j * nsg + q / per) * cols + c] = s;
+          s = 0;
+        }
+      }
     }
-    if (lane == 0) out[(size_t)t * E + n] = acc;
+  }
+  if (tid < nws) sws[tid] = ws0;
+  for (int i = tid + DOWN_THREADS; i < nws; i += DOWN_THREADS) sws[i] = ws(i);
+  __syncthreads();
+
+  for (int c = tid; c < cols && n0 + c < E; c += DOWN_THREADS) {
+    float acc = 0.0f;
+    for (int j = 0; j < top_k; ++j)
+      for (int g = 0; g < nsg; ++g) {
+        const int i = (j * nsg + g) * cols + c;
+        acc = sg_corr(acc, part[i], shs[j * nsg + g], sws[i]);
+      }
+    out[(size_t)t * E + n0 + c] = acc;
   }
 }
 
@@ -113,17 +169,25 @@ extern "C" int ik_moe_decode_gate_up_i8(const void* xq, const void* xst, int s_s
   return static_cast<int>(cudaGetLastError());
 }
 
+// cols and lanes: the launch plan (ops/moe_decode.py:down_plan); lanes a
+// power of two that divides 16. The block's shared memory is sized here: a
+// shape whose rows do not fit is refused.
 extern "C" int ik_moe_decode_down_i8(const void* hq, const void* hst, int s_sg, int s_p,
                                      const void* ids, const void* down, const void* dsw,
-                                     void* out, int T, int top_k, int F, int E, void* stream) {
-  const int smem = top_k * F + top_k * (F / MOE_SG) * 4;
+                                     void* out, int T, int top_k, int F, int E, int cols,
+                                     int lanes, void* stream) {
+  const int nsg = F / MOE_SG;
+  const int smem = top_k * F + 4 * top_k * (nsg + 2 * nsg * cols + 1);
+  if (F % MOE_SG || cols < 1 || lanes < 1 || 16 % lanes || lanes & (lanes - 1) ||
+      smem > MOE_SMEM_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
   static bool smem_set = false;
-  cudaError_t e = set_smem(down_kernel, MOE_SMEM_MAX, smem_set);
+  cudaError_t e = set_smem(down_i8_kernel, MOE_SMEM_MAX, smem_set);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((E + COLS - 1) / COLS, T);
-  down_kernel<<<grid, WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+  dim3 grid((E + cols - 1) / cols, T);
+  down_i8_kernel<<<grid, DOWN_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(hq), static_cast<const float*>(hst), s_sg, s_p,
       static_cast<const int*>(ids), static_cast<const int8_t*>(down),
-      static_cast<const float*>(dsw), static_cast<float*>(out), top_k, F, E);
+      static_cast<const float*>(dsw), static_cast<float*>(out), top_k, F, E, cols, lanes);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,9 +1,10 @@
-// The int8 supergroup matvec shared by the MoE decode kernels (7, 8 and
-// the single-kernel decode 11): one warp per output column, each lane
-// streams 16-byte chunks of the column's K-contiguous row into __dp4a, the
-// 16 lanes of a half-warp cover one 256-deep supergroup, and each
-// supergroup's exact int32 sum gets its float correction in supergroup
-// order (the order of the plain versions).
+// The int8 supergroup matvec shared by the MoE decode kernels 7 and 11
+// (the single-kernel decode; kernel 8 takes only dot16 and ldg16 from
+// here): one warp per output column, each lane streams 16-byte chunks of
+// the column's K-contiguous row into __dp4a, the 16 lanes of a half-warp
+// cover one 256-deep supergroup, and each supergroup's exact int32 sum gets
+// its float correction in supergroup order (the order of the plain
+// versions).
 #pragma once
 
 #include "moe_common.cuh"

@@ -139,6 +139,42 @@ def _check_act(name, q, qst, ids):
                   f"{name}: ids must be contiguous int32 (P,)")
 
 
+DOWN_THREADS = 256        # threads of a down-kernel block (8 warps)
+DOWN_COLS = 8             # adjacent output columns a down-kernel block takes at least
+
+
+def down_plan(t: int, top_k: int, f: int, e: int, group: int | None = None,
+              cols: int | None = None) -> dict:
+    """Launch shape of the down kernels, 8 (``group`` None: int8 rows of
+    supergroup codes) and 13 (planar rows of ``group``-wide scales).
+
+    A block takes one token's top_k pairs over ``cols`` adjacent output
+    columns: top_k * cols rows of f codes, one expert column each, which its
+    DOWN_THREADS threads split ``lanes`` lanes a row. Lane l of a row loads
+    the row's 16-byte chunks l, l + lanes, ... (``chunks`` of them) with
+    unconditional loads that stay in flight together; at the main shapes
+    every row of the block is in flight in one pass (some 45-48 KB a block,
+    ~2 blocks an SM at T = 1). ``cols`` is the least power of two from
+    DOWN_COLS up that fills the block; ``lanes`` the most (up to 16 for
+    int8, where a lane's chunks must not straddle a 256-deep supergroup,
+    else 32, and at most the row's chunks) that keeps the rows in one pass.
+    The block's shared memory is laid out and sized by the C entry point,
+    which refuses a shape that does not fit."""
+    nch = f // 16
+    most = 16 if group is None else 32
+    if cols is None:
+        cols = DOWN_COLS
+        while top_k * cols * most < DOWN_THREADS:
+            cols *= 2
+    rows = top_k * cols
+    lanes = 1
+    while 2 * lanes <= min(most, nch) and 2 * lanes * rows <= DOWN_THREADS:
+        lanes *= 2
+    tiles = -(-e // cols)
+    return {"cols": cols, "lanes": lanes, "tiles": tiles, "blocks": tiles * t,
+            "passes": -(-rows // (DOWN_THREADS // lanes)), "chunks": -(-nch // lanes)}
+
+
 def moe_decode_gate_up_i8(xq, xst, ids, gate_c, gate_sw, up_c, up_sw,
                           gate_b=None, up_b=None, *,
                           activation: str = "silu", act_limit: float = 0.0):
@@ -192,9 +228,11 @@ def moe_decode_down_i8(hq, hst, ids, down_c, down_sw, *, top_k: int):
 
     CUDA kernel ``csrc/moe_decode_i8.cu``, which replaces the Pallas kernel
     ops/moe_decode.py:moe_decode_down_i8 of the JAX package. Bound by the
-    routed experts' down-code bytes: one block per (token, E tile) loops
-    over the token's pairs and the FF supergroups in a fixed order, with no
-    atomics, so the sum is deterministic."""
+    routed experts' down-code bytes: one block per (token, column tile)
+    loads all of the token's pairs' rows at once (``down_plan``), keeps each
+    supergroup's exact int32 dot, and adds the float corrections pair by
+    pair, supergroup by supergroup, in one thread a column: the plain
+    version's order, with no atomics."""
     if hq.device.type == "cpu":
         return moe_decode_down_i8_ref(hq, hst, ids, down_c, down_sw, top_k=top_k)
     name = "moe_decode_down_i8"
@@ -205,13 +243,14 @@ def moe_decode_down_i8(hq, hst, ids, down_c, down_sw, *, top_k: int):
     for t in (hst, ids, down_c, down_sw):
         _cuda.require(t.device == hq.device, f"{name}: operands on different devices")
     e = down_c.shape[2]
+    plan = down_plan(pp // top_k, top_k, f, e)
     out = torch.empty((pp // top_k, e), dtype=torch.float32, device=hq.device)
     fn = _cuda.function("moe_decode_i8", "ik_moe_decode_down_i8",
                         [_cuda.P, _cuda.P, _cuda.I, _cuda.I] + [_cuda.P] * 4
-                        + [_cuda.I] * 4 + [_cuda.P])
+                        + [_cuda.I] * 6 + [_cuda.P])
     rc = fn(hq.data_ptr(), hst.data_ptr(), hst.stride(0), hst.stride(1), ids.data_ptr(),
             down_c.data_ptr(), down_sw.data_ptr(), out.data_ptr(),
-            pp // top_k, top_k, f, e, _cuda.stream_ptr(hq))
+            pp // top_k, top_k, f, e, plan["cols"], plan["lanes"], _cuda.stream_ptr(hq))
     moe_decode_down_i8.launches += 1
     _cuda.check(rc, name)
     return out
@@ -494,26 +533,27 @@ def moe_decode_down(hw, ids, down_c, down_s, *, top_k: int, group: int = 32):
 
     CUDA kernel ``csrc/moe_decode.cu``, which replaces the Pallas kernel
     ops/moe_decode.py:moe_decode_down of the JAX package. Bound by the
-    routed experts' down-code bytes: one block per (token, E tile) holds
-    the token's rows in shared memory and adds its pairs in pair order in
-    one thread's loop, with no atomics, so the sum is deterministic."""
+    routed experts' down-code bytes: one block per (token, column tile)
+    loads all of the token's pairs' rows at once (``down_plan``), forms each
+    pair's column dot, and adds the pairs in pair order in one thread a
+    column, with no atomics, so the sum is deterministic."""
     if hw.device.type == "cpu":
         return moe_decode_down_ref(hw, ids, down_c, down_s, top_k=top_k, group=group)
     name = "moe_decode_down"
     pp, f = hw.shape
-    _cuda.require(pp % top_k == 0 and 2 * top_k * f <= SMEM_LIMIT,
-                  f"{name}: {pp} pairs of width {f} for top_k {top_k}")
+    _cuda.require(pp % top_k == 0, f"{name}: {pp} pairs for top_k {top_k}")
     _check_rows(name, hw, ids)
     _check_planar(name, down_c, down_s, f, group)
     for t in (ids, down_c, down_s):
         _cuda.require(t.device == hw.device, f"{name}: operands on different devices")
     e = down_c.shape[2]
+    plan = down_plan(pp // top_k, top_k, f, e, group)
     out = torch.empty((pp // top_k, e), dtype=torch.float32, device=hw.device)
     fn = _cuda.function("moe_decode", "ik_moe_decode_down",
-                        [_cuda.P] * 4 + [_cuda.I, _cuda.P] + [_cuda.I] * 5 + [_cuda.P])
+                        [_cuda.P] * 4 + [_cuda.I, _cuda.P] + [_cuda.I] * 7 + [_cuda.P])
     rc = fn(hw.data_ptr(), ids.data_ptr(), down_c.data_ptr(), down_s.data_ptr(),
             int(down_s.dtype == torch.bfloat16), out.data_ptr(), pp // top_k, top_k, f, e,
-            group, _cuda.stream_ptr(hw))
+            group, plan["cols"], plan["lanes"], _cuda.stream_ptr(hw))
     moe_decode_down.launches += 1
     _cuda.check(rc, name)
     return out

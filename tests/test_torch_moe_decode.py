@@ -103,23 +103,35 @@ def test_gate_up_plain_matches_jax_kernel(t, bias):
     np.testing.assert_allclose(got, ref, rtol=BF16_ULP, atol=1e-30)
 
 
-@pytest.mark.parametrize("t", [1, 4])
-def test_down_plain_matches_jax_kernel(t):
+@pytest.mark.parametrize("t,topk,e,repeat", [
+    pytest.param(1, TOPK, K, False, id="1"), pytest.param(4, TOPK, K, False, id="4"),
+    pytest.param(2, 1, K, False, id="topk1"),               # one pair a token
+    pytest.param(1, 8, 204, False, id="e204"),              # E off the kernel's column tile
+    pytest.param(8, 4, 100, True, id="t8-repeats")])        # experts repeated in and across tokens
+def test_down_plain_matches_jax_kernel(t, topk, e, repeat):
     """Kernel 8's function: the plain version against the Pallas kernel in
     interpret mode; the same exact integer dots summed pair by pair in the
     same order."""
-    d = experts_np(seed=20 + t)
     rng = np.random.default_rng(t)
-    h = rng.standard_normal((t * TOPK, FF)).astype(np.float32)
+    if (topk, e) == (TOPK, K):
+        d = experts_np(seed=20 + t)
+        _, _, idx = pairs(t, seed=30 + t)
+        down, down_s = d["down"], d["down_s"]
+    else:
+        down = rng.integers(-127, 128, (G, FF, e), dtype=np.int8)
+        down_s = (np.abs(rng.standard_normal((G, FF // 256, e))) * 0.02 + 1e-4).astype(np.float32)
+        idx = rng.integers(0, G, (t, topk)).astype(np.int32)
+        if repeat:
+            idx[:, 1] = idx[:, 0]
+            idx[-1] = idx[0]
+    h = rng.standard_normal((t * topk, FF)).astype(np.float32)
     hq, hs = t_quant(torch.from_numpy(h).to(torch.bfloat16))
-    _, _, idx = pairs(t, seed=30 + t)
-    e = to_torch(d)
+    codes = torch.from_numpy(down.transpose(0, 2, 1).copy()).transpose(1, 2)
     got = TD.moe_decode_down_i8(hq, hs.t(), torch.from_numpy(idx.reshape(-1)),
-                                e.down, e.down_s, top_k=TOPK).numpy()
-    je = to_jax(d)
+                                codes, torch.from_numpy(down_s), top_k=topk).numpy()
     ref = np.asarray(JD.moe_decode_down_i8(
         jnp.asarray(hq.numpy()), jnp.asarray(hs.numpy()).T, jnp.asarray(idx.reshape(-1)),
-        je.down, je.down_s, top_k=TOPK, interpret=True))
+        jnp.asarray(down), jnp.asarray(down_s), top_k=topk, interpret=True))
     np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6 * np.abs(ref).max())
 
 

@@ -107,7 +107,10 @@ def test_gate_up_plain_matches_jax_kernel(t, topk, g, k, f, group, sdt, bias):
 
 @pytest.mark.parametrize("t,topk,g,f,e,group,sdt", [
     (1, 4, 8, 96, 128, 32, "f32"), (3, 2, 6, 320, 192, 32, "bf16"),
-    (8, 2, 6, 352, 256, 32, "bf16"), (2, 2, 4, 256, 128, 256, "f32")])
+    (8, 2, 6, 352, 256, 32, "bf16"), (2, 2, 4, 256, 128, 256, "f32"),
+    (2, 1, 5, 352, 128, 16, "f32"),       # top_k 1, group 16
+    (1, 8, 6, 96, 204, 32, "bf16"),       # E off the kernel's column tile
+    (8, 4, 3, 352, 100, 32, "bf16")])     # 3 experts for 4 pairs: repeats in and across tokens
 def test_down_plain_matches_jax_kernel(t, topk, g, f, e, group, sdt):
     """Kernel 13's function against the Pallas kernel in interpret mode:
     the pairs of a token are added in pair order on both sides."""
