@@ -11,12 +11,15 @@ Phases (all by default; any failure exits non-zero):
      version's time, a library call's time and the card's bound (times
      after a flush that leaves the L2 clean; kernels A, 8, 10 and 13 and
      their library calls also under the older zero_() flush), the launch
-     plan of kernels 8 and 13 and their time by columns a block
+     plan of kernels 8 and 13 and their time by columns a block, the K
+     split of kernels A, D and 15 at M <= 16 against their time, and
+     kernel A's host cost a call at M = 1
   4. end to end at full width (L32 E4096 H32 KV8 FF14336 V32000, Q4_0
      planar weights, Q8_0 tied head, random weights from a seed): load
      through Runtime.from_gguf, prefill 512 tokens, decode 64 greedily,
      with every kernel launch counted; then a torch.profiler view of 8
-     more decode steps (device time by kernel, busy share)
+     more decode steps (device time by kernel, busy share) and of one
+     prefill chunk (kernels A and B)
   5. parity at depth 2: kernel path against the plain path on the card,
      identical greedy tokens over 16 steps
   6. planar path (int8 path off: every linear a QLinear, kernel D): at
@@ -96,6 +99,10 @@ MOE_GGUF_VERSION = "port-4"
 # 1408 % 256 != 0, so its down experts stay planar beside supergroup gate/up
 Q2MOE = dict(ARCH="qwen2moe", L=24, E=2048, H=16, HKV=16, D=128, G=60, TOPK=4, FF=1408,
              FFS=5632, V=151936)
+# kernel A's (K, N) on the two MoE paths: Qwen3-30B-A3B's fused qkv, head
+# and wo; Qwen1.5-MoE-A2.7B's fused qkv, q/k/v/wo, shared gate/up and down
+A_MOE_SHAPES = [(2048, 5120), (2048, 151936), (4096, 2048), (2048, 6144), (2048, 2048),
+                (2048, 11264), (5632, 2048)]
 
 
 def log(msg: str) -> None:
@@ -143,6 +150,21 @@ class Timer:
             e.synchronize()
             ts.append(s.elapsed_time(e))
         return statistics.median(ts)
+
+    def host_us(self, fn, calls: int = 200, reps: int = 5) -> float:
+        """Host µs a call of ``fn`` (median of ``reps``): ``calls`` calls
+        enqueued behind a ~30-ms device sleep, so that the host clock sees
+        their launch cost and no device time."""
+        torch = self.torch
+        per = []
+        for _ in range(reps):
+            torch.cuda._sleep(60_000_000)
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            per.append((time.perf_counter() - t0) / calls * 1e6)
+            torch.cuda.synchronize()
+        return statistics.median(per)
 
 
 def flush_check(timer, row: str, **calls) -> None:
@@ -219,8 +241,9 @@ def _record(results, kernel, case, err, tol, ms, plain_ms, lib_ms, bnd, note="")
 
 @contextmanager
 def forced_splits(QM, splits: int, plan_name: str = "gemv_plan"):
-    """The M <= 16 launches of kernel D (``gemv_plan``) or kernel 15
-    (``gemv4_plan``) with ``splits`` blocks a cluster."""
+    """The M <= 16 launches of kernel D (``gemv_plan``), kernel 15
+    (``gemv4_plan``) or kernel A (``gemv_i8_plan``) with ``splits`` blocks
+    a cluster."""
     plan = getattr(QM, plan_name)
     setattr(QM, plan_name, lambda *shape: dict(plan(*shape), splits=splits))
     try:
@@ -294,17 +317,24 @@ def phase_kernels(torch, timer, results) -> bool:
     shapes = [(E, (H + 2 * HKV) * D), (E, E), (E, 2 * FF), (FF, E), (E, V)]
 
     log("[3] kernel A (qmatmul_i8) vs plain; library = dense bf16 torch.matmul "
-        "at the same (M, K, N), a yardstick, not the same function")
-    for k, n in shapes:
+        "at the same (M, K, N), a yardstick, not the same function. M <= 16 runs "
+        "qmatmul_i8_gemv_kernel (K split over a cluster of `splits` blocks), M > 16 the "
+        "tiled qmatmul_i8_kernel; bound = the bytes read once (x, scales, codes, out)")
+    # the dense decode linears and head at M 1, 8, 16 and the prefill chunk;
+    # then at M = 1 the attention linears and heads of the two MoE models
+    a_cases = [(k, n, (1, 8, 16, 512)) for k, n in shapes]
+    a_cases += [(k, n, (1,)) for k, n in A_MOE_SHAPES]
+    for k, n, ms in a_cases:
         codes_t = torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
                                 dtype=torch.int8)
         sw = torch.rand((k // 256, n), generator=gen, device="cuda") * 1e-3
         wb = torch.randn((k, n), generator=gen, device="cuda", dtype=torch.bfloat16)
-        for m in (1, 8, 512):
+        for m in ms:
             x = torch.randn((m, k), generator=gen, device="cuda")
             xq, xs = QM.quantize_activations(x)
             got = QM.qmatmul_i8(xq, xs, codes_t.t(), sw)
             ref = QM.qmatmul_i8_ref(xq, xs, codes_t.t(), sw)
+            again = bool(torch.equal(got, QM.qmatmul_i8(xq, xs, codes_t.t(), sw)))
             torch.cuda.synchronize()
             err = float((got - ref).abs().max())
             tol = 1e-5 * float(ref.abs().max()) + 1e-6
@@ -312,15 +342,43 @@ def phase_kernels(torch, timer, results) -> bool:
             nsg = k // 256
             bnd = bound_ms(m * k + m * nsg * 4 + k * n + nsg * n * 4 + m * n * 4,
                            2.0 * m * n * k, INT8_OPS)
+            note = (f" | gemv splits {QM.gemv_i8_plan(m, n, k)['splits']}" if m <= 16
+                    else " | tiled") + f"; repeats bit for bit: {again}"
+            if m == 1:      # decode's launch cost, on which every decode path waits
+                t0 = time.perf_counter()
+                for _ in range(10000):
+                    QM.gemv_i8_plan(m, n, k)
+                plan_us = (time.perf_counter() - t0) / 10000 * 1e6
+                call_us = timer.host_us(lambda: QM.qmatmul_i8(xq, xs, codes_t.t(), sw))
+                note += f"; host {call_us:.1f} us a call, of which gemv_i8_plan {plan_us:.2f}"
+            ok &= again
             ok &= _record(results, "qmatmul_i8", f"M={m} K={k} N={n}", err, tol,
                           timer(lambda: QM.qmatmul_i8(xq, xs, codes_t.t(), sw)),
                           timer(lambda: QM.qmatmul_i8_ref(xq, xs, codes_t.t(), sw), 3),
-                          timer(lambda: torch.matmul(xb, wb)), bnd)
+                          timer(lambda: torch.matmul(xb, wb)), bnd, note=note)
             if (m, k, n) == (1, E, 2 * FF):
                 flush_check(timer, f"A M={m} K={k} N={n}",
                             kernel=lambda: QM.qmatmul_i8(xq, xs, codes_t.t(), sw),
                             library=lambda: torch.matmul(xb, wb))
         del codes_t, wb
+
+    log("[3] kernel A's K split against its time at M <= 16 (ms a call by the number "
+        "of blocks in a cluster; * = gemv_i8_plan's choice)")
+    # where the plan splits (few column tiles) and where it stops (896 tiles)
+    for m, k, n in ((1, 2048, 2048), (1, 2048, 6144), (1, E, E), (16, E, E), (1, FF, E),
+                    (1, E, 2 * FF)):
+        codes_t = torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
+                                dtype=torch.int8)
+        sw = torch.rand((k // 256, n), generator=gen, device="cuda") * 1e-3
+        xq, xs = QM.quantize_activations(torch.randn((m, k), generator=gen, device="cuda"))
+        plan = QM.gemv_i8_plan(m, n, k)["splits"]
+        row = []
+        for sp in range(1, QM.GEMV_MAX_SPLITS + 1):
+            with forced_splits(QM, sp, "gemv_i8_plan"):
+                row.append(f"{sp}{'*' if sp == plan else ''} "
+                           f"{timer(lambda: QM.qmatmul_i8(xq, xs, codes_t.t(), sw), 5):.4f}")
+        log(f"    M={m} K={k} N={n}: " + ", ".join(row))
+        del codes_t
 
     log("[3] kernel D (qmatmul, planar group 32) vs plain; library as for A. M <= 16 "
         "runs qmatmul_gemv_kernel (K split over a cluster of `splits` blocks), M > 16 "
@@ -423,6 +481,10 @@ def phase_kernels(torch, timer, results) -> bool:
     log("[3] kernel B (flash_attention, prefill) vs plain; library = SDPA")
     ok &= attn_case("flash_attention", FA.flash_attention, 1, 512, 1024, [0], [512])
     ok &= attn_case("flash_attention", FA.flash_attention, 1, 512, 1024, [256], [768])
+    # the head layouts of Qwen3-30B-A3B (32 / 4) and Qwen1.5-MoE-A2.7B (16 / 16)
+    for hq, hkv in ((MOE["H"], MOE["HKV"]), (Q2MOE["H"], Q2MOE["HKV"])):
+        ok &= attn_case("flash_attention", FA.flash_attention, 1, 512, 1024, [0], [512],
+                        H=hq, HKV=hkv)
     log("[3] kernel C (flash_attention_decode) vs plain; library = SDPA")
     for t in (1, 8):
         for s, kvls in ((1024, (1, 513)), (4096, (1, 513, 4000))):
@@ -1257,10 +1319,24 @@ def phase_e2e(torch, gguf: Path, launches: dict) -> bool:
     in_range = bool(((toks >= 0) & (toks < V)).all())
     log(f"[4] logits finite: {finite}; tokens in vocab: {in_range}; "
         f"first tokens {toks[0, :8].tolist()}")
-    profile_decode(torch, rt, kv, n_past + DECODE + 1, toks[:, -1:])
+    prof = profile_decode(torch, rt, kv, n_past + DECODE + 1, toks[:, -1:])
+    log(f"[4] decode step: kernel A {a_ms(prof)}")
+    del kv
+    kv = rt.new_cache(1, PREFILL + 8)
+    prof = profile_window(torch, lambda: rt.eval_tokens(ids, kv, 0), 1,
+                          f"one {PREFILL}-token prefill chunk", "chunk", "4")
+    log(f"[4] prefill chunk: kernel B (fa_prefill_kernel) {kernel_ms(prof, 'fa_prefill_kernel'):.3f} "
+        f"ms, kernel A {a_ms(prof)}")
     del rt, kv
     torch.cuda.empty_cache()
     return ok and finite and in_range
+
+
+def a_ms(prof: dict) -> str:
+    """Kernel A's ms in a profile, by form."""
+    gemv, tiled = kernel_ms(prof, "qmatmul_i8_gemv_kernel"), kernel_ms(prof, "qmatmul_i8_kernel<")
+    return (f"{gemv + tiled:.3f} ms (qmatmul_i8_gemv_kernel {gemv:.3f}, the tiled "
+            f"qmatmul_i8_kernel {tiled:.3f})")
 
 
 def timed_run(torch, rt, ids, n_decode: int = DECODE):
@@ -1605,6 +1681,7 @@ def phase_moe(torch, gguf: Path, launches: dict, phases: set, c=MOE) -> bool:
         log(f"[7] kernel 8 (moe_decode_down_i8, down_i8_kernel): {k8:.3f} ms a decode step "
             f"of {step_ms:.3f} ms of kernels ({100 * k8 / step_ms:.1f}%), "
             f"{counts['moe_decode_down_i8'] / DECODE:g} launches a token")
+        log(f"[7] decode step: kernel A {a_ms(prof)}")
         del kv
         kv = rt.new_cache(1, PREFILL + 8)
         profile_window(torch, lambda: rt.eval_tokens(ids, kv, 0), 1,
@@ -1710,6 +1787,7 @@ def phase_q2moe(torch, gguf: Path, launches: dict, phases: set, c=Q2MOE) -> bool
         log(f"[12] kernel 13 (moe_decode_down, down_planar_kernel): {k13:.3f} ms a decode "
             f"step of {step_ms:.3f} ms of kernels ({100 * k13 / step_ms:.1f}%), "
             f"{counts['moe_decode_down'] / DECODE:g} launches a token")
+        log(f"[12] decode step: kernel A {a_ms(prof)}")
         del kv
         kv = rt.new_cache(1, PREFILL + 8)
         profile_window(torch, lambda: rt.eval_tokens(ids, kv, 0), 1,

@@ -18,7 +18,29 @@ IK_DEV void cp_async16(void* smem, const void* gmem) {
   uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
 }
+// The same copy reading `bytes` (0 or 16) of gmem and zero-filling the rest;
+// with 0 nothing is read, but gmem must still be a valid address.
+IK_DEV void cp_async16_zfill(void* smem, const void* gmem, int bytes) {
+  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(bytes));
+}
 IK_DEV void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// Four 8x8 b16 matrices from shared memory: lane l gives the 16-byte row
+// l % 8 of matrix l / 8; r[i] holds matrix i, lane (g, t) its row g,
+// columns 2t, 2t+1. The .trans form gives lane (g, t) rows 2t, 2t+1 of
+// column g instead.
+IK_DEV void ldmatrix_x4(uint32_t* r, const void* smem) {
+  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
+}
+IK_DEV void ldmatrix_x4_trans(uint32_t* r, const void* smem) {
+  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
+}
 template <int N>
 IK_DEV void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 

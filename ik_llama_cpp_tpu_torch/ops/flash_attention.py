@@ -88,9 +88,13 @@ def flash_attention(q, k, v, q_pos0, kv_len, *, scale: float,
     """Prefill attention (any T). CUDA kernel ``csrc/flash_attention.cu``,
     which replaces the Pallas kernel flash_attention.py:flash_attention of
     the JAX package. It is bound by bf16 tensor-core work on the live part
-    of the causal score matrix; each block loops only over its live key
-    range, which is what the TPU kernel's tile clamp achieved by skipping
-    DMAs."""
+    of the causal score matrix and, at T = 512, by the serial walk of the
+    last query tile over its key tiles; each block loops only over its live
+    key range, which is what the TPU kernel's tile clamp achieved by
+    skipping DMAs, with the next key tile in flight (cp.async) while the
+    current one is multiplied, K and V row-major read by ldmatrix, Q held
+    in registers at head dims up to 128, and the longest query tiles
+    launched first."""
     if q.device.type == "cpu":
         return attention_ref(q, k, v, q_pos0, kv_len, scale=scale,
                              softcap=softcap, swa_window=swa_window,

@@ -67,11 +67,17 @@ def gemv_plan(m: int, n: int, k: int, group: int) -> dict:
         raise ValueError(f"qmatmul: M <= {GEMV_MAX_M} needs group % 16 == 0 and "
                          f"K % group == 0 (M {m}, K {k}, group {group})")
     tiles = -(-n // GEMV_COLS)
-    groups = k // group
-    splits = max(1, min(GEMV_MAX_SPLITS, GEMV_BLOCKS // tiles, groups // GEMV_WARPS))
+    splits = gemv_splits(tiles, k // group, GEMV_BLOCKS)
     m_tiles = 1 if m <= 8 else 2
     return {"tiles": tiles, "splits": splits, "m_tiles": m_tiles,
             "smem": GEMV_WARPS * m_tiles * 8 * GEMV_COLS * 4}
+
+
+def gemv_splits(tiles: int, units: int, blocks: int) -> int:
+    """The K split of an M <= 16 kernel: as many blocks a cluster as keep
+    the launch of ``tiles`` column tiles at or under ``blocks``, at most
+    GEMV_MAX_SPLITS, and no more than leave each warp one of K's ``units``."""
+    return max(1, min(GEMV_MAX_SPLITS, blocks // tiles, units // GEMV_WARPS))
 
 
 def gemv_k_ranges(k: int, group: int, splits: int) -> list[tuple[int, int]]:
@@ -226,7 +232,7 @@ def gemv4_plan(m: int, n: int, k: int, group: int) -> dict:
         return {"kernel": "tiled"}
     tiles = -(-n // GEMV_COLS)
     units = k // unit
-    splits = max(1, min(GEMV_MAX_SPLITS, GEMV4_BLOCKS // tiles, units // GEMV_WARPS))
+    splits = gemv_splits(tiles, units, GEMV4_BLOCKS)
     m_tiles = 1 if m <= 8 else 2
     if m_tiles == 1 and splits == 1 and 2 * tiles <= GEMV4_WAVE and units >= 2 * GEMV_WARPS:
         splits = 2
@@ -355,6 +361,42 @@ def qmatmul_i8_ref(x_q, x_s, codes, sw):
     return out
 
 
+# The M <= 16 kernel (qmatmul_i8_gemv_kernel): a block's 4 warps share 32
+# output columns (two 16-column mma tiles) and take consecutive ranges of
+# 64-deep K steps; the blocks of a cluster (the K split) take further
+# ranges. A range may cut a supergroup: each part gets its own correction.
+GEMV_I8_COLS = 32
+GEMV_I8_STEP = 64
+GEMV_I8_MIN_STEPS = 2      # the ring's depth: a warp with fewer steps gains nothing from a split
+GEMV_I8_BLOCKS = 256       # blocks a launch aims at: ~2 an H100 SM (see gemv_i8_plan)
+
+
+def gemv_i8_plan(m: int, n: int, k: int) -> dict:
+    """The launch of kernel A at M <= 16 for an (m, k) x (k, n) product, a
+    pure function of the shapes: column tiles of 32 and the K split
+    (``gemv_splits`` on units of GEMV_I8_MIN_STEPS 64-deep steps, aiming at
+    GEMV_I8_BLOCKS blocks). Warp i of a cluster sums the steps
+    ``gemv_k_ranges(k, GEMV_I8_STEP, splits)[i]``. ~2 blocks an SM is where
+    chip_smoke.py's split sweep (phase 3) is fastest on the H100 (N 2048 and
+    4096 at K 2048-14336): more blocks add partial sums and cluster
+    scheduling, fewer leave bytes out of flight; from 160 tiles up one block
+    a tile is fastest.
+
+    Where a launch has few column tiles (N 2048-6144 at K 2048-5632: 64-192
+    tiles), the split is what fills the card: K = 2048 has only 8
+    supergroups, so the ranges are cut in 64-deep steps, not supergroups,
+    and a supergroup cut between two warps is corrected in two exact parts.
+    Narrowing the column tile instead would leave half of each mma's 16
+    rows empty."""
+    if not (1 <= m <= GEMV_MAX_M and k > 0 and k % SUPERGROUP == 0 and n > 0):
+        raise ValueError(f"qmatmul_i8: the M <= {GEMV_MAX_M} kernel needs K % {SUPERGROUP} "
+                         f"== 0 (M {m}, K {k}, N {n})")
+    tiles = -(-n // GEMV_I8_COLS)
+    steps = k // GEMV_I8_STEP
+    return {"tiles": tiles, "splits": gemv_splits(tiles, steps // GEMV_I8_MIN_STEPS,
+                                                  GEMV_I8_BLOCKS), "steps": steps}
+
+
 def qmatmul_i8(x_q, x_s, codes, sw):
     """int8 (M, K) @ int8 (K, N) -> f32 (M, N) with supergroup corrections.
 
@@ -362,12 +404,16 @@ def qmatmul_i8(x_q, x_s, codes, sw):
     ``codes`` must be the (K, N) transposed view of a contiguous (N, K)
     tensor, which is how QLinearI8 stores it.
 
-    CUDA kernel ``csrc/qmatmul_i8.cu``, which replaces the Pallas kernel
+    CUDA kernels in ``csrc/qmatmul_i8.cu``, which replace the Pallas kernel
     ops/qmatmul.py:qmatmul_i8_mxu and the XLA qmatmul_i8 of the JAX package
-    at every M. Decode (M <= 16) is bound by the weight bytes: N/32 blocks
-    stream them through a 4-stage cp.async ring. Prefill is bound by int8
-    tensor-core work: 128 x 128 tiles of mma.sync.m16n8k32, one supergroup
-    per stage, the float correction applied once per stage."""
+    at every M. Decode (M <= 16) is bound by the weight bytes: a GEMV-shaped
+    kernel builds the mma operands in registers from 16-byte loads of the
+    weight rows, keeps several K steps and their supergroup corrections in
+    flight with no barrier in the K sweep, splits K over the warps of a
+    block and the blocks of a cluster (``gemv_i8_plan``) and adds the
+    partial sums in a fixed order, so a call repeats bit for bit. Prefill
+    is bound by int8 tensor-core work: 128 x 128 tiles of mma.sync.m16n8k32,
+    one supergroup per stage, the float correction applied once per stage."""
     if x_q.device.type == "cpu":
         return qmatmul_i8_ref(x_q, x_s, codes, sw)
     m, k = x_q.shape
@@ -383,11 +429,12 @@ def qmatmul_i8(x_q, x_s, codes, sw):
     for t in (x_s, codes, sw):
         _cuda.require(t.device == x_q.device, "qmatmul_i8: operands on different devices")
     _cuda.require(_cuda.aligned16(x_q, codes), "qmatmul_i8: int8 operands must be 16-byte aligned")
+    splits = gemv_i8_plan(m, n, k)["splits"] if m <= GEMV_MAX_M else 1
     out = torch.empty((m, n), dtype=torch.float32, device=x_q.device)
     fn = _cuda.function("qmatmul_i8", "ik_qmatmul_i8",
-                        [_cuda.P] * 5 + [_cuda.I] * 3 + [_cuda.P])
+                        [_cuda.P] * 5 + [_cuda.I] * 4 + [_cuda.P])
     rc = fn(x_q.data_ptr(), x_s.data_ptr(), codes.data_ptr(), sw.data_ptr(),
-            out.data_ptr(), m, n, k, _cuda.stream_ptr(x_q))
+            out.data_ptr(), m, n, k, splits, _cuda.stream_ptr(x_q))
     qmatmul_i8.launches += 1
     _cuda.check(rc, "qmatmul_i8")
     return out

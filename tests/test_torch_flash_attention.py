@@ -184,8 +184,8 @@ def test_glu_matches_jax(act):
 
 
 # ------------------------------------------------------------------ card --
-def _card_case(b, t, s, h, hkv, d, qpos, kvlen, seed, extra=None):
-    (q, k, v), _ = make(b, t, s, h, hkv, d, seed)
+def _card_case(b, t, s, h, hkv, d, qpos, kvlen, seed, extra=None, dv=None):
+    (q, k, v), _ = make(b, t, s, h, hkv, d, seed, dv)
     q, k, v = q.cuda(), k.cuda(), v.cuda()
     kw = _kw(extra or {}, h, d, seed)
     if "sinks" in kw:
@@ -213,4 +213,44 @@ def test_decode_kernel_matches_plain(case):
     args, kw = _card_case(b, t, s, h, hkv, d, qpos, kvlen, 2, extra)
     got = TFA.flash_attention_decode(*args, **kw).float()
     ref = TFA.attention_ref(*args, **kw).float()
+    assert float((got - ref).abs().max()) <= 2.0 ** -7 * float(ref.abs().max())
+
+
+# b, t, s, h, hkv, dk, dv, q_pos0, kv_len, extra: the prefill kernel at
+# the models' head layouts (32/8 dense, 32/4 Qwen3-30B-A3B, 16/16
+# Qwen1.5-MoE-A2.7B), head dims 64-256 and Dk != Dv (72/40: not whole
+# 16-column fragments), T that is not a whole 64-row tile, q_pos0 > 0 with
+# kv_len inside a key tile, rows that see fewer keys than their position,
+# and the masks over several key tiles
+CARD_PREFILL = {
+    "t17_d128_32x8": (1, 17, 64, 32, 8, 128, None, [0], [17], {}),
+    "t64_d64_16x16": (1, 64, 128, 16, 16, 64, None, [0], [64], {}),
+    "t100_d256_32x4": (1, 100, 256, 32, 4, 256, None, [30], [130], {}),
+    "t512_d128_32x8": (1, 512, 1024, 32, 8, 128, None, [0], [512], {}),
+    "t512_d128_32x4_cont": (1, 512, 1024, 32, 4, 128, None, [256], [768], {}),
+    "t512_d128_16x16": (1, 512, 1024, 16, 16, 128, None, [0], [512], {}),
+    "dk192_dv128": (1, 100, 256, 8, 2, 192, 128, [37], [137], {}),
+    "dk128_dv64": (1, 64, 192, 8, 2, 128, 64, [70], [134], {}),
+    "dk72_dv40": (1, 64, 160, 8, 4, 72, 40, [10], [74], {}),
+    "batch_across_tiles": (2, 100, 320, 8, 2, 128, None, [50, 121], [150, 221], {}),
+    "kv_shorter_than_pos": (1, 64, 256, 8, 2, 128, None, [100], [80], {}),
+    "softcap": (1, 128, 256, 8, 2, 128, None, [64], [192], {"softcap": 30.0}),
+    "swa": (1, 256, 512, 8, 2, 128, None, [100], [356], {"swa_window": 100}),
+    "chunk": (1, 200, 512, 8, 2, 128, None, [40], [240], {"attn_chunk": 64}),
+    "sinks": (1, 128, 256, 8, 2, 64, None, [60], [188],
+              {"sinks": True, "softcap": 20.0, "swa_window": 90}),
+    "d256_swa_chunk": (1, 96, 256, 4, 2, 256, None, [100], [196],
+                       {"swa_window": 50, "attn_chunk": 128}),
+}
+
+
+@needs_cuda
+@pytest.mark.parametrize("case", list(CARD_PREFILL))
+def test_prefill_kernel_at_model_shapes(case):
+    b, t, s, h, hkv, d, dv, qpos, kvlen, extra = CARD_PREFILL[case]
+    args, kw = _card_case(b, t, s, h, hkv, d, qpos, kvlen, 3, extra, dv)
+    got = TFA.flash_attention(*args, **kw).float()
+    ref = TFA.attention_ref(*args, **kw).float()
+    assert got.shape == ref.shape
+    # probabilities enter the PV product in bf16: two bf16 ulps at the max
     assert float((got - ref).abs().max()) <= 2.0 ** -7 * float(ref.abs().max())

@@ -49,7 +49,7 @@ def test_quantize_activations_bit_exact(m):
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
 
 
-@pytest.mark.parametrize("m", [1, 5, 24, 300])
+@pytest.mark.parametrize("m", [1, 5, 16, 24, 300])
 def test_qmatmul_i8_plain_matches_jax(m):
     """Kernel A's function: the plain version against the Pallas kernel
     (interpret mode), the XLA qmatmul_i8 and the JAX oracle."""
