@@ -216,9 +216,34 @@ def phase_build(_cuda) -> None:
     log(f"[2] build: {len(built)} libraries in {time.perf_counter() - t0:.1f} s "
         f"(parallel nvcc, sm_90a)")
     for name, (_, text) in built.items():
+        kernel = ""
         for ln in text.splitlines():
-            if "registers" in ln or "spill" in ln.lower() and "0 bytes spill" not in ln:
-                log(f"    {name}: {ln.strip()}")
+            if "Compiling entry function" in ln:
+                kernel = ln.split("'")[1] if "'" in ln else ""
+            elif "registers" in ln or "spill" in ln.lower() and "0 bytes spill" not in ln:
+                log(f"    {name} {demangled(kernel)}: {ln.strip()}")
+
+
+def demangled(sym: str) -> str:
+    """A kernel's name and template arguments from its mangled symbol
+    (enough to tell the instantiations apart: e.g. qmatmul_i8_wgmma_kernel<128,6>)."""
+    import re
+    best = None
+    for i in range(len(sym)):
+        m = re.match(r"\d+", sym[i:])
+        if m is None:
+            continue
+        n, start = int(m.group()), i + m.end()
+        name = sym[start:start + n]
+        if len(name) == n and name.endswith("_kernel") and re.fullmatch(r"[A-Za-z_]\w*", name):
+            best = (name, start + n)
+    if best is None:
+        return sym[:60]
+    name, end = best
+    args = []
+    if sym[end:end + 1] == "I":
+        args = re.findall(r"Li(\d+)E", sym[end:sym.find("EE", end) + 2])
+    return name + (f"<{','.join(args)}>" if args else "")
 
 
 def sum_tol(k, absdot):
@@ -253,6 +278,22 @@ def forced_splits(QM, splits: int, plan_name: str = "gemv_plan"):
 
 
 @contextmanager
+def forced_width(QM, bn: int):
+    """The M > 16 launches of kernel A with tiles of ``bn`` columns."""
+    plan = QM.tiled_i8_plan
+
+    def forced(m, n, k, sms=QM._cuda.DEFAULT_SMS):
+        p = plan(m, n, k, sms)
+        tiles = p["m_tiles"] * -(-n // bn)
+        return dict(p, bn=bn, n_tiles=-(-n // bn), tiles=tiles, blocks=min(tiles, sms))
+    QM.tiled_i8_plan = forced
+    try:
+        yield
+    finally:
+        QM.tiled_i8_plan = plan
+
+
+@contextmanager
 def forced_cols(MD, cols: int):
     """The launches of kernels 8 and 13 with ``cols`` columns a block
     (``down_plan`` then picks the lanes a row for that)."""
@@ -262,6 +303,11 @@ def forced_cols(MD, cols: int):
         yield
     finally:
         MD.down_plan = plan
+
+
+def tiled_text(plan: dict) -> str:
+    return (f"plan: {plan['bm']}x{plan['bn']} tiles, {plan['tiles']} tiles on "
+            f"{plan['blocks']} blocks")
 
 
 def plan_text(plan: dict) -> str:
@@ -316,14 +362,19 @@ def phase_kernels(torch, timer, results) -> bool:
     ok = True
     shapes = [(E, (H + 2 * HKV) * D), (E, E), (E, 2 * FF), (FF, E), (E, V)]
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     log("[3] kernel A (qmatmul_i8) vs plain; library = dense bf16 torch.matmul "
         "at the same (M, K, N), a yardstick, not the same function. M <= 16 runs "
         "qmatmul_i8_gemv_kernel (K split over a cluster of `splits` blocks), M > 16 the "
-        "tiled qmatmul_i8_kernel; bound = the bytes read once (x, scales, codes, out)")
+        "tiled qmatmul_i8_wgmma_kernel (persistent grid, tiled_i8_plan); bound = the "
+        "larger of the bytes read once (x, scales, codes, out) and the int8 operations")
+    from ik_llama_cpp_tpu_torch.ops import _cuda
+    log("[3] tiled A's warpgroup MMAs in SASS: " + sass_opcodes(
+        _cuda._lib_path("qmatmul_i8"), "qmatmul_i8_wgmma_kernel", "IGMMA"))
     # the dense decode linears and head at M 1, 8, 16 and the prefill chunk;
     # then at M = 1 the attention linears and heads of the two MoE models
     a_cases = [(k, n, (1, 8, 16, 512)) for k, n in shapes]
-    a_cases += [(k, n, (1,)) for k, n in A_MOE_SHAPES]
+    a_cases += [(k, n, (1, 512)) for k, n in A_MOE_SHAPES]
     for k, n, ms in a_cases:
         codes_t = torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
                                 dtype=torch.int8)
@@ -343,7 +394,8 @@ def phase_kernels(torch, timer, results) -> bool:
             bnd = bound_ms(m * k + m * nsg * 4 + k * n + nsg * n * 4 + m * n * 4,
                            2.0 * m * n * k, INT8_OPS)
             note = (f" | gemv splits {QM.gemv_i8_plan(m, n, k)['splits']}" if m <= 16
-                    else " | tiled") + f"; repeats bit for bit: {again}"
+                    else " | tiled " + tiled_text(QM.tiled_i8_plan(m, n, k, sms))) + \
+                f"; repeats bit for bit: {again}"
             if m == 1:      # decode's launch cost, on which every decode path waits
                 t0 = time.perf_counter()
                 for _ in range(10000):
@@ -377,6 +429,24 @@ def phase_kernels(torch, timer, results) -> bool:
             with forced_splits(QM, sp, "gemv_i8_plan"):
                 row.append(f"{sp}{'*' if sp == plan else ''} "
                            f"{timer(lambda: QM.qmatmul_i8(xq, xs, codes_t.t(), sw), 5):.4f}")
+        log(f"    M={m} K={k} N={n}: " + ", ".join(row))
+        del codes_t
+
+    log("[3] tiled A's tile width against its time at M = 512 (ms a call by the columns "
+        "of a tile; * = tiled_i8_plan's choice; bf16 torch.matmul beside)")
+    for k, n in shapes + A_MOE_SHAPES:
+        m = 512
+        codes_t = torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
+                                dtype=torch.int8)
+        sw = torch.rand((k // 256, n), generator=gen, device="cuda") * 1e-3
+        xq, xs = QM.quantize_activations(torch.randn((m, k), generator=gen, device="cuda"))
+        plan = QM.tiled_i8_plan(m, n, k, sms)
+        row = []
+        for bn in (64, 128, 192):
+            with forced_width(QM, bn):
+                t = timer(lambda: QM.qmatmul_i8(xq, xs, codes_t.t(), sw), 5)
+            tiles = QM.tiled_i8_plan(m, n, k, sms)["m_tiles"] * -(-n // bn)
+            row.append(f"{bn}{'*' if bn == plan['bn'] else ''} {t:.4f} ({tiles} tiles)")
         log(f"    M={m} K={k} N={n}: " + ", ".join(row))
         del codes_t
 
@@ -472,11 +542,22 @@ def phase_kernels(torch, timer, results) -> bool:
                        4.0 * H * D * live, BF16_FLOPS)
         case = (f"B={b} T={t} S={s} q_pos0={qpos} kv_len={kvlen}"
                 + ("" if (H, HKV) == (32, 8) else f" H={H} HKV={HKV}"))
+        note = ""
+        if fn is FA.flash_attention_decode:
+            again = bool(torch.equal(got, fn(q, kc, vc, qp, kl, scale=scale_)))
+            plan = FA.decode_split_plan(b, t, H, HKV, s, D, D, sms)
+            blocks = [len(FA.decode_key_ranges(plan, 0, min(kvlen[i], qpos[i] + t)))
+                      for i in range(b)]
+            note = (f" | plan: {plan['splits']} splits x {plan['groups']} groups, "
+                    f"round {plan['round']} keys, blocks working a group {blocks}; "
+                    f"repeats bit for bit: {again}")
+            if not again:
+                err = float("inf")
         return _record(results, kernel, case, err, tol,
                        timer(lambda: fn(q, kc, vc, qp, kl, scale=scale_)),
                        timer(lambda: FA.attention_ref(q, kc, vc, qp, kl,
                                                       scale=scale_), 3),
-                       lib, bnd)
+                       lib, bnd, note=note)
 
     log("[3] kernel B (flash_attention, prefill) vs plain; library = SDPA")
     ok &= attn_case("flash_attention", FA.flash_attention, 1, 512, 1024, [0], [512])
@@ -485,7 +566,8 @@ def phase_kernels(torch, timer, results) -> bool:
     for hq, hkv in ((MOE["H"], MOE["HKV"]), (Q2MOE["H"], Q2MOE["HKV"])):
         ok &= attn_case("flash_attention", FA.flash_attention, 1, 512, 1024, [0], [512],
                         H=hq, HKV=hkv)
-    log("[3] kernel C (flash_attention_decode) vs plain; library = SDPA")
+    log("[3] kernel C (flash_attention_decode, split-K fa_decode_kernel) vs plain; "
+        "library = SDPA")
     for t in (1, 8):
         for s, kvls in ((1024, (1, 513)), (4096, (1, 513, 4000))):
             for kvl in kvls:
@@ -1062,21 +1144,30 @@ def phase_qmatmul4(torch, timer, results, gen) -> bool:
     return ok
 
 
+def sass_functions(lib: Path) -> list | None:
+    """The SASS of ``lib`` (cuobjdump -sass), one text a function, each
+    starting with its mangled name; None without cuobjdump."""
+    import re
+    import shutil
+    tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
+    tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
+    if tool is None:
+        return None
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300).stdout
+    return [f for f in re.split(r"\n\s*Function : ", text) if f.startswith("_")]
+
+
 def sass_per_weight(lib: Path, kernel: str, weights_per_mma: int) -> str:
     """Instructions a weight in the K loop of ``kernel`` (a mangled-name
     fragment) in the SASS of ``lib`` (cuobjdump -sass): the backward branch
     whose body holds the most HMMA is the K loop; a lane's share of an HMMA
     is ``weights_per_mma`` weights. Counts by opcode beside the total."""
     import re
-    import shutil
-    tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
-    tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
-    if tool is None:
+    funcs = sass_functions(lib)
+    if funcs is None:
         return f"SASS of {kernel}: not measured (no cuobjdump)"
-    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
-                          timeout=300).stdout
-    funcs = re.split(r"\n\s*Function : ", text)
-    body = next((f for f in funcs if f.startswith("_") and kernel in f.split("\n", 1)[0]), None)
+    body = next((f for f in funcs if kernel in f.split("\n", 1)[0]), None)
     if body is None:
         return f"SASS of {kernel}: not measured (function not found)"
     ins = [(int(a, 16), op.strip()) for a, op in
@@ -1104,6 +1195,27 @@ def sass_per_weight(lib: Path, kernel: str, weights_per_mma: int) -> str:
     return (f"SASS of {kernel}: K loop {len(loop)} instructions, {n_mma} HMMA = "
             f"{n_mma * weights_per_mma} weights a lane: "
             f"{len(loop) / (n_mma * weights_per_mma):.3f} instructions a weight ({top})")
+
+
+def sass_opcodes(lib: Path, kernel: str, prefix: str) -> str:
+    """Counts of the SASS instructions of ``kernel`` (a name fragment) in
+    ``lib`` whose opcode starts with ``prefix``, by form (cuobjdump -sass)."""
+    import re
+    funcs = sass_functions(lib)
+    if funcs is None:
+        return f"SASS of {kernel}: not measured (no cuobjdump)"
+    out = []
+    for f in funcs:
+        head = f.split("\n", 1)[0]
+        if kernel not in head:
+            continue
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?(" + prefix + r"[\w.]*)", f)
+        kinds: dict = {}
+        for o in ops:
+            kinds[o] = kinds.get(o, 0) + 1
+        out.append(f"{demangled(head.strip())}: " + (", ".join(
+            f"{k} x{v}" for k, v in sorted(kinds.items())) or f"no {prefix}"))
+    return "; ".join(out) or f"SASS of {kernel}: function not found"
 
 
 def sync(torch) -> None:
@@ -1320,7 +1432,7 @@ def phase_e2e(torch, gguf: Path, launches: dict) -> bool:
     log(f"[4] logits finite: {finite}; tokens in vocab: {in_range}; "
         f"first tokens {toks[0, :8].tolist()}")
     prof = profile_decode(torch, rt, kv, n_past + DECODE + 1, toks[:, -1:])
-    log(f"[4] decode step: kernel A {a_ms(prof)}")
+    log(f"[4] decode step: kernel A {a_ms(prof)}; {c_ms(prof)}")
     del kv
     kv = rt.new_cache(1, PREFILL + 8)
     prof = profile_window(torch, lambda: rt.eval_tokens(ids, kv, 0), 1,
@@ -1334,9 +1446,15 @@ def phase_e2e(torch, gguf: Path, launches: dict) -> bool:
 
 def a_ms(prof: dict) -> str:
     """Kernel A's ms in a profile, by form."""
-    gemv, tiled = kernel_ms(prof, "qmatmul_i8_gemv_kernel"), kernel_ms(prof, "qmatmul_i8_kernel<")
+    gemv = kernel_ms(prof, "qmatmul_i8_gemv_kernel")
+    tiled = kernel_ms(prof, "qmatmul_i8_wgmma_kernel")
     return (f"{gemv + tiled:.3f} ms (qmatmul_i8_gemv_kernel {gemv:.3f}, the tiled "
-            f"qmatmul_i8_kernel {tiled:.3f})")
+            f"qmatmul_i8_wgmma_kernel {tiled:.3f})")
+
+
+def c_ms(prof: dict) -> str:
+    """Kernel C's ms in a profile."""
+    return f"kernel C (fa_decode_kernel) {kernel_ms(prof, 'fa_decode_kernel<'):.3f} ms"
 
 
 def timed_run(torch, rt, ids, n_decode: int = DECODE):
@@ -1681,11 +1799,12 @@ def phase_moe(torch, gguf: Path, launches: dict, phases: set, c=MOE) -> bool:
         log(f"[7] kernel 8 (moe_decode_down_i8, down_i8_kernel): {k8:.3f} ms a decode step "
             f"of {step_ms:.3f} ms of kernels ({100 * k8 / step_ms:.1f}%), "
             f"{counts['moe_decode_down_i8'] / DECODE:g} launches a token")
-        log(f"[7] decode step: kernel A {a_ms(prof)}")
+        log(f"[7] decode step: kernel A {a_ms(prof)}; {c_ms(prof)}")
         del kv
         kv = rt.new_cache(1, PREFILL + 8)
-        profile_window(torch, lambda: rt.eval_tokens(ids, kv, 0), 1,
-                       f"one {PREFILL}-token prefill chunk", "chunk", "7")
+        prof = profile_window(torch, lambda: rt.eval_tokens(ids, kv, 0), 1,
+                              f"one {PREFILL}-token prefill chunk", "chunk", "7")
+        log(f"[7] prefill chunk: kernel A {a_ms(prof)}")
         del kv
         log(f"[7] MoE end to end: {time.perf_counter() - t_phase:.1f} s")
     if 14 in phases:
@@ -1787,11 +1906,12 @@ def phase_q2moe(torch, gguf: Path, launches: dict, phases: set, c=Q2MOE) -> bool
         log(f"[12] kernel 13 (moe_decode_down, down_planar_kernel): {k13:.3f} ms a decode "
             f"step of {step_ms:.3f} ms of kernels ({100 * k13 / step_ms:.1f}%), "
             f"{counts['moe_decode_down'] / DECODE:g} launches a token")
-        log(f"[12] decode step: kernel A {a_ms(prof)}")
+        log(f"[12] decode step: kernel A {a_ms(prof)}; {c_ms(prof)}")
         del kv
         kv = rt.new_cache(1, PREFILL + 8)
-        profile_window(torch, lambda: rt.eval_tokens(ids, kv, 0), 1,
-                       f"one {PREFILL}-token prefill chunk", "chunk", "12")
+        prof = profile_window(torch, lambda: rt.eval_tokens(ids, kv, 0), 1,
+                              f"one {PREFILL}-token prefill chunk", "chunk", "12")
+        log(f"[12] prefill chunk: kernel A {a_ms(prof)}")
         del kv
         log(f"[12] mixed-format MoE end to end: {time.perf_counter() - t_phase:.1f} s")
     if 13 in phases:

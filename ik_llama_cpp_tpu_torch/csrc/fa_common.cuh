@@ -79,8 +79,20 @@ struct FaWarp {
                    const __nv_bfloat16* svt, int key0, int qp0, int qp1,
                    const FaMask& mk, float scale, float softcap, int dk,
                    int dv, const float* ksc = nullptr) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
     float s[KT / 8][4];
+    softmax<LDQ, LDK>(s, sq, sk, key0, qp0, qp1, mk, scale, softcap, dk, ksc);
+    pv_t<LDV>(s, svt, dv);
+  }
+
+  // The first half of ``step``: S = Q K^T over the tile, scale, softcap
+  // and mask, then the online-softmax update of m, l and o; leaves the
+  // tile's probabilities (float) in s.
+  template <int LDQ, int LDK>
+  IK_DEV void softmax(float (&s)[KT / 8][4], const __nv_bfloat16* sq,
+                      const __nv_bfloat16* sk, int key0, int qp0, int qp1,
+                      const FaMask& mk, float scale, float softcap, int dk,
+                      const float* ksc = nullptr) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
     for (int j = 0; j < KT / 8; ++j)
 #pragma unroll
@@ -150,13 +162,16 @@ struct FaWarp {
       o[n][2] *= alpha[1];
       o[n][3] *= alpha[1];
     }
+  }
+
+  // O += P V, P rounded to bf16; V transposed in svt (D x LDV, dim-major).
+  template <int LDV>
+  IK_DEV void pv_t(const float (&s)[KT / 8][4], const __nv_bfloat16* svt, int dv) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
     for (int kk = 0; kk < KT / 16; ++kk) {
       uint32_t a[4];
-      a[0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      pack_p(a, s, kk);
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) {
         if (n * 8 >= dv) break;
@@ -167,6 +182,35 @@ struct FaWarp {
         mma_bf16_16816(o[n], a, b);
       }
     }
+  }
+
+  // The same product with V row-major in sv (KT x LD, key-major, zero past
+  // dv): V's B fragments for dim groups 2np, 2np + 1 from one
+  // ldmatrix.trans, the same operands as pv_t's.
+  template <int LD>
+  IK_DEV void pv_rows(const float (&s)[KT / 8][4], const __nv_bfloat16* sv, int dv) {
+    const int lane = threadIdx.x & 31, lr = lane & 7, lm = lane >> 3;
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) {
+      uint32_t a[4];
+      pack_p(a, s, kk);
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        if (np * 16 >= dv) break;
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, sv + (kk * 16 + (lm & 1) * 8 + lr) * LD + np * 16 + (lm >> 1) * 8);
+        mma_bf16_16816(o[2 * np], a, vf);
+        mma_bf16_16816(o[2 * np + 1], a, vf + 2);
+      }
+    }
+  }
+
+  // P's A fragment for keys 16kk .. 16kk + 15, rounded to bf16.
+  static IK_DEV void pack_p(uint32_t* a, const float (&s)[KT / 8][4], int kk) {
+    a[0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
+    a[1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
+    a[2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    a[3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
   }
 
   // Sums each row's l over the four lanes that hold it.

@@ -34,12 +34,40 @@
 // through distributed shared memory: no atomics, a call repeats bit for
 // bit.
 //
-// M > 16, qmatmul_i8_kernel (prefill). Bound by int8 tensor-core work:
-// mma.sync.m16n8k32.s8 on 128 x 128 shared-memory tiles, one 256-deep
-// supergroup per pipeline stage (so the int32 partial is exact and its
-// float correction happens once per stage), a cp.async ring of stages to
-// keep bytes in flight. wgmma and TMA are later work.
+// M > 16, qmatmul_i8_wgmma_kernel (prefill). Bound by int8 tensor-core
+// work from M ~ 64 up: 2MNK operations against NK weight bytes (at M = 512,
+// K = 4096, N = 28672 the card's 1,979 TOP/s need 0.061 ms, its 3.35 TB/s
+// 0.053 ms for every byte, the f32 output included). On Hopper only the
+// warpgroup MMA reaches that rate, so the design is Hopper's GEMM shape:
+// - wgmma.mma_async m64nBNk32 s32.s8.s8 (BN = 64, 128 or 192), both
+//   operands K-major in shared memory, read through 128-byte swizzle
+//   descriptors;
+// - a ring of 128-deep K stages (8, 6 or 5 of them: ~200 KB), loaded by
+//   TMA (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint: no
+//   -lcuda; a map is encoded on the host at each call) under full/empty
+//   mbarriers by one producer warp; rows and columns past M and N read as
+//   zeros;
+// - each supergroup's xs (128 rows) and sw (the tile's columns) slices go
+//   into the first of its two stages by cp.async from the producer's lanes,
+//   with an mbarrier arrive that fires when they land: the K loop reads
+//   no global memory;
+// - two consumer warpgroups of 64 rows (setmaxnreg: 232 registers each, the
+//   producer 40); each supergroup's int32 sums start from zero (scale-d 0 on
+//   its first wgmma) and are folded as acc += float(part) * (xs * sw), in
+//   supergroup order: the expression and order of the mma.sync form this
+//   replaces, so its bits. While one warpgroup folds, the other's wgmmas
+//   keep the tensor cores busy. (A second set of sums, so that a warpgroup's
+//   own next MMAs run during its fold, made ptxas serialize the wgmmas and
+//   ran slower; so did clusters of two blocks sharing the weight tile by
+//   TMA multicast. PERF.md has the numbers.)
+// - one block an SM walks the output tiles (a persistent grid of
+//   ops/qmatmul.tiled_i8_plan's blocks), rows fastest, so that the blocks in
+//   flight share each weight tile in L2; K is never split (the order of the
+//   corrections would change); the plan picks the tile width whose rounds
+//   of the grid cost least (N 6144 takes 192 columns: 128 tiles, one round).
 #include <cooperative_groups.h>
+
+#include <cuda.h>
 
 #include "common.cuh"
 
@@ -48,146 +76,360 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int SG = 256;          // supergroup depth
-constexpr int LDS = SG + 16;     // padded shared row (bytes): conflict-free fragment loads
 
-template <int BM, int BN, int WM, int WN, int STAGES>
-__global__ void __launch_bounds__((BM / WM) * (BN / WN) * 32)
-qmatmul_i8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
-                  const int8_t* __restrict__ wt, const float* __restrict__ sw,
-                  float* __restrict__ out, int M, int N, int K) {
-  constexpr int WARPS_N = BN / WN;
-  constexpr int NT = (BM / WM) * (BN / WN) * 32;
-  constexpr int MI = WM / 16, NI = WN / 8;
-  constexpr int CH = SG / 16;    // 16-byte chunks per row per stage
-  extern __shared__ __align__(16) int8_t smem[];
-  int8_t* sa = smem;                           // [STAGES][BM][LDS]
-  int8_t* sb = smem + STAGES * BM * LDS;       // [STAGES][BN][LDS]
+// ------------------------------------------------------------ M > 16 -----
+namespace tiled {
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = (warp / WARPS_N) * WM, wn = (warp % WARPS_N) * WN;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int nsg = K / SG;
+constexpr int BM = 128;          // rows of a tile: two consumer warpgroups of 64
+constexpr int BK = 128;          // K of a stage: one 128-byte swizzled row a tile row
+constexpr int THREADS = 384;     // the producer warpgroup, then two consumer warpgroups
 
-  auto load_stage = [&](int slot, int sgi) {
-    const size_t koff = (size_t)sgi * SG;
-    for (int c = tid; c < BM * CH; c += NT) {
-      const int r = c / CH, col = (c % CH) * 16;
-      const int gm = min(m0 + r, M - 1);       // ragged rows: repeat the last row
-      cp_async16(sa + (slot * BM + r) * LDS + col, xq + (size_t)gm * K + koff + col);
+IK_DEV uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+IK_DEV void mbar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)), "r"(count));
+}
+// Waits for the completion of the barrier's phase of this parity.
+IK_DEV void mbar_wait(uint64_t* b, int parity) {
+  const uint32_t a = smem_u32(b);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+  } while (!done);
+}
+IK_DEV void mbar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(b)) : "memory");
+}
+IK_DEV void mbar_expect_tx(uint64_t* b, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(b)), "r"(bytes) : "memory");
+}
+// An arrive on b once every cp.async this thread issued before it has landed.
+IK_DEV void mbar_arrive_cp_async(uint64_t* b) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               ::"r"(smem_u32(b)) : "memory");
+}
+IK_DEV void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(smem)), "l"(gmem)
+               : "memory");
+}
+// The (c0 = k, c1 = row) box of a 2-D tensor map into shared memory; the
+// bytes land on barrier b.
+IK_DEV void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* b, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(b)),
+        "r"(c0), "r"(c1)
+      : "memory");
+}
+template <int R>
+IK_DEV void setmaxnreg_inc() { asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R)); }
+template <int R>
+IK_DEV void setmaxnreg_dec() { asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R)); }
+
+IK_DEV void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+IK_DEV void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+IK_DEV void wgmma_wait() { asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory"); }
+// Pins the accumulator registers in program order around the async MMAs.
+template <int N>
+IK_DEV void fence_regs(int* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// Shared-memory descriptor of a K-major operand in 128-byte swizzled rows
+// (what TMA's SWIZZLE_128B writes): 8-row groups 1024 bytes apart, no
+// leading offset; +2 (32 bytes) steps one k32 slice along the row.
+IK_DEV uint64_t desc_sw128(const void* p) {
+  const uint64_t a = smem_u32(p);
+  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// D (s32, 64 x 128) = A (s8, 64 x 32) * B (s8, 128 x 32)^T (+ D if scale_d)
+IK_DEV void wgmma_s8_n128(int* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (s32, 64 x 64) = A (s8, 64 x 32) * B (s8, 64 x 32)^T (+ D if scale_d)
+IK_DEV void wgmma_s8_n64(int* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (s32, 64 x 192) = A (s8, 64 x 32) * B (s8, 192 x 32)^T (+ D if scale_d)
+IK_DEV void wgmma_s8_n192(int* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int BN>
+IK_DEV void wgmma_s8(int* d, uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (BN == 192) wgmma_s8_n192(d, da, db, scale_d);
+  else if constexpr (BN == 128) wgmma_s8_n128(d, da, db, scale_d);
+  else wgmma_s8_n64(d, da, db, scale_d);
+}
+
+template <int BN, int STAGES>
+struct Smem {
+  static constexpr int A = BM * BK, B = BN * BK;      // bytes of a stage's code tiles
+  static constexpr int SC = BM + BN;                  // floats of a stage's scales
+  static constexpr int BYTES = STAGES * (A + B + SC * 4) + 2 * STAGES * 8 + 1024;
+};
+
+// One block an SM walks the output tiles blockIdx.x, + gridDim.x, ...
+// (tile i: rows (i % tiles_m) * BM, columns (i / tiles_m) * BN, so the
+// blocks in flight share weight tiles in L2).
+template <int BN, int STAGES>
+__global__ void __launch_bounds__(THREADS, 1)
+qmatmul_i8_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                        const __grid_constant__ CUtensorMap map_w,
+                        const float* __restrict__ xs, const float* __restrict__ sw,
+                        float* __restrict__ out, int M, int N, int K) {
+  using L = Smem<BN, STAGES>;
+  extern __shared__ unsigned char smem_raw[];
+  // 1024-byte aligned stages: the swizzle pattern repeats every 8 rows
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  int8_t* sa = reinterpret_cast<int8_t*>(base);                  // [STAGES][BM][BK]
+  int8_t* sb = sa + STAGES * L::A;                                // [STAGES][BN][BK]
+  float* ssc = reinterpret_cast<float*>(sb + STAGES * L::B);      // [STAGES][xs BM | sw BN]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ssc + STAGES * L::SC);
+  uint64_t* empty = full + STAGES;
+
+  const int tid = threadIdx.x, wg = tid / 128, warp = tid / 32, lane = tid & 31;
+  const int nsg = K / SG, nkb = K / BK;
+  const int tiles_m = (M + BM - 1) / BM, tiles = tiles_m * ((N + BN - 1) / BN);
+
+  if (tid == 0) {
+    // full: the producer lane 0's expect_tx arrive + the 32 lanes' cp.async
+    // arrives; empty: the 8 consumer warps
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 33);
+      mbar_init(&empty[s], 8);
     }
-    for (int c = tid; c < BN * CH; c += NT) {
-      const int r = c / CH, col = (c % CH) * 16;
-      const int gn = min(n0 + r, N - 1);
-      cp_async16(sb + (slot * BN + r) * LDS + col, wt + (size_t)gn * K + koff + col);
-    }
-  };
-
-  float acc[MI][NI][4];
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NI; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nsg) load_stage(s, s);
-    cp_async_commit();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  for (int sgi = 0; sgi < nsg; ++sgi) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    const int nxt = sgi + STAGES - 1;          // refill the slot read last iteration
-    if (nxt < nsg) load_stage(nxt % STAGES, nxt);
-    cp_async_commit();
-
-    const int8_t* a_st = sa + (sgi % STAGES) * BM * LDS;
-    const int8_t* b_st = sb + (sgi % STAGES) * BN * LDS;
-    int part[MI][NI][4];
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int j = 0; j < NI; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) part[i][j][e] = 0;
-
-#pragma unroll
-    for (int kk = 0; kk < SG; kk += 32) {
-      uint32_t af[MI][4], bf[NI][2];
-#pragma unroll
-      for (int i = 0; i < MI; ++i) {
-        const int8_t* p = a_st + (wm + i * 16 + g) * LDS + kk + t * 4;
-        af[i][0] = ld32(p);
-        af[i][1] = ld32(p + 8 * LDS);
-        af[i][2] = ld32(p + 16);
-        af[i][3] = ld32(p + 8 * LDS + 16);
+  if (wg == 0) {
+    // producer: one warp keeps STAGES stages in flight
+    setmaxnreg_dec<40>();
+    if (warp == 0) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile % tiles_m) * BM, n0 = (tile / tiles_m) * BN;
+        for (int kb = 0; kb < nkb; ++kb, ++it) {
+          const int s = it % STAGES;
+          mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          if (lane == 0) {
+            mbar_expect_tx(&full[s], L::A + L::B);
+            tma_load_2d(sa + s * L::A, &map_x, &full[s], kb * BK, m0);
+            tma_load_2d(sb + s * L::B, &map_w, &full[s], kb * BK, n0);
+          }
+          if ((kb & 1) == 0) {      // the supergroup's scales ride with its first half
+            const int sg = kb >> 1;
+            float* sc = ssc + s * L::SC;
+            for (int r = lane; r < BM; r += 32)
+              cp_async4(sc + r, xs + (size_t)min(m0 + r, M - 1) * nsg + sg);
+            for (int c = lane; c < BN; c += 32)
+              cp_async4(sc + BM + c, sw + (size_t)sg * N + min(n0 + c, N - 1));
+          }
+          mbar_arrive_cp_async(&full[s]);
+        }
       }
-#pragma unroll
-      for (int j = 0; j < NI; ++j) {
-        const int8_t* p = b_st + (wn + j * 8 + g) * LDS + kk + t * 4;
-        bf[j][0] = ld32(p);
-        bf[j][1] = ld32(p + 16);
-      }
-#pragma unroll
-      for (int i = 0; i < MI; ++i)
-#pragma unroll
-        for (int j = 0; j < NI; ++j) mma_s8_16832(part[i][j], af[i], bf[j]);
+      cp_async_wait<0>();
     }
-
-    // rank-1 supergroup correction: acc += part * (xs[m, g] * sw[g, n])
+  } else {
+    // consumers: warpgroup c owns rows 64c .. 64c + 63 of the tile
+    setmaxnreg_inc<232>();
+    constexpr int NR = BN / 2;          // accumulator registers a thread
+    const int c = wg - 1, w = warp & 3, g = lane >> 2, t = lane & 3;
+    const int xr = c * 64 + w * 16 + g;  // the thread's tile rows xr, xr + 8
+    int part[NR];
+    float acc[NR];
 #pragma unroll
-    for (int i = 0; i < MI; ++i) {
-      const int r0 = min(m0 + wm + i * 16 + g, M - 1);
-      const int r1 = min(m0 + wm + i * 16 + g + 8, M - 1);
-      const float xs0 = xs[(size_t)r0 * nsg + sgi];
-      const float xs1 = xs[(size_t)r1 * nsg + sgi];
+    for (int i = 0; i < NR; ++i) part[i] = 0;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = (tile % tiles_m) * BM, n0 = (tile / tiles_m) * BN;
 #pragma unroll
-      for (int j = 0; j < NI; ++j) {
-        const int c0 = min(n0 + wn + j * 8 + t * 2, N - 1);
-        const int c1 = min(n0 + wn + j * 8 + t * 2 + 1, N - 1);
-        const float sw0 = sw[(size_t)sgi * N + c0];
-        const float sw1 = sw[(size_t)sgi * N + c1];
-        acc[i][j][0] += (float)part[i][j][0] * (xs0 * sw0);
-        acc[i][j][1] += (float)part[i][j][1] * (xs0 * sw1);
-        acc[i][j][2] += (float)part[i][j][2] * (xs1 * sw0);
-        acc[i][j][3] += (float)part[i][j][3] * (xs1 * sw1);
+      for (int i = 0; i < NR; ++i) acc[i] = 0.f;
+      for (int sg = 0; sg < nsg; ++sg, it += 2) {
+        const int s0 = it % STAGES, s1 = (it + 1) % STAGES;
+        mbar_wait(&full[s0], (it / STAGES) & 1);
+        mbar_wait(&full[s1], ((it + 1) / STAGES) & 1);
+        // the supergroup's exact int32 sums, from zero
+        fence_regs<NR>(part);
+        wgmma_fence();
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int s = h ? s1 : s0;
+          const uint64_t da = desc_sw128(sa + s * L::A + c * 64 * BK);
+          const uint64_t db = desc_sw128(sb + s * L::B);
+#pragma unroll
+          for (int kk = 0; kk < BK / 32; ++kk)
+            wgmma_s8<BN>(part, da + 2 * kk, db + 2 * kk, (h | kk) != 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<NR>(part);
+        // acc += part * (xs[m, sg] * sw[sg, n]), the expression of the
+        // mma.sync form, supergroup by supergroup
+        const float* sc = ssc + s0 * L::SC;
+        const float x0 = sc[xr], x1 = sc[xr + 8];
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const float w0 = sc[BM + 8 * j + 2 * t], w1 = sc[BM + 8 * j + 2 * t + 1];
+          acc[4 * j + 0] += (float)part[4 * j + 0] * (x0 * w0);
+          acc[4 * j + 1] += (float)part[4 * j + 1] * (x0 * w1);
+          acc[4 * j + 2] += (float)part[4 * j + 2] * (x1 * w0);
+          acc[4 * j + 3] += (float)part[4 * j + 3] * (x1 * w1);
+        }
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive(&empty[s0]);
+          mbar_arrive(&empty[s1]);
+        }
       }
-    }
-  }
-  cp_async_wait<0>();
-
+      // d[4j + e]: row xr + 8 (e >> 1), column 8j + 2t + (e & 1)
 #pragma unroll
-  for (int i = 0; i < MI; ++i) {
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * t;
 #pragma unroll
-    for (int j = 0; j < NI; ++j) {
-      const int c = n0 + wn + j * 8 + t * 2;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = m0 + wm + i * 16 + g + h * 8;
-        if (r >= M) continue;
-        if (c < N) out[(size_t)r * N + c] = acc[i][j][2 * h];
-        if (c + 1 < N) out[(size_t)r * N + c + 1] = acc[i][j][2 * h + 1];
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = m0 + xr + 8 * hh;
+          if (row >= M) continue;
+          float* o = out + (size_t)row * N + col;
+          if (col + 1 < N && (N & 1) == 0) {
+            *reinterpret_cast<float2*>(o) = make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+          } else {
+            if (col < N) o[0] = acc[4 * j + 2 * hh];
+            if (col + 1 < N) o[1] = acc[4 * j + 2 * hh + 1];
+          }
+        }
       }
     }
   }
 }
 
-template <int BM, int BN, int WM, int WN, int STAGES>
-cudaError_t launch(const int8_t* xq, const float* xs, const int8_t* wt,
-                   const float* sw, float* out, int M, int N, int K,
-                   cudaStream_t stream) {
-  static bool smem_set = false;
-  constexpr int smem = STAGES * (BM + BN) * LDS;
-  auto kern = qmatmul_i8_kernel<BM, BN, WM, WN, STAGES>;
-  cudaError_t e = set_smem(kern, smem, smem_set);
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+cudaError_t encoder(EncodeTiled* fn) {
+  static EncodeTiled cached = nullptr;
+  if (cached == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                     cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e != cudaSuccess) return e;
+    if (q != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorNotSupported;
+    cached = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = cached;
+  return cudaSuccess;
+}
+
+// (rows, K) int8 row-major as boxes of BK x box_rows in 128-byte swizzle;
+// rows past the end read as zeros.
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int rows, int K, int box_rows) {
+  EncodeTiled fn;
+  cudaError_t e = encoder(&fn);
   if (e != cudaSuccess) return e;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  kern<<<grid, (BM / WM) * (BN / WN) * 32, smem, stream>>>(xq, xs, wt, sw, out, M, N, K);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K)};
+  const cuuint32_t box[2] = {BK, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims,
+                        strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int BN, int STAGES>
+cudaError_t launch(const int8_t* xq, const float* xs, const int8_t* wt, const float* sw,
+                   float* out, int M, int N, int K, int blocks, cudaStream_t s) {
+  using L = Smem<BN, STAGES>;
+  static_assert(L::BYTES <= 232448, "shared memory of one block");
+  static bool smem_set = false;
+  auto kern = qmatmul_i8_wgmma_kernel<BN, STAGES>;
+  cudaError_t e = set_smem(kern, L::BYTES, smem_set);
+  if (e != cudaSuccess) return e;
+  CUtensorMap mx, mw;
+  if ((e = make_map(&mx, xq, M, K, BM)) != cudaSuccess) return e;
+  if ((e = make_map(&mw, wt, N, K, BN)) != cudaSuccess) return e;
+  kern<<<blocks, THREADS, L::BYTES, s>>>(mx, mw, xs, sw, out, M, N, K);
   return cudaGetLastError();
 }
+
+}  // namespace tiled
 
 
 // ------------------------------------------------------------ M <= 16 ----
@@ -387,25 +629,32 @@ cudaError_t launch(const int8_t* xq, const float* xs, const int8_t* wt, const fl
 
 }  // namespace
 
-// splits: the blocks of a cluster that split K at M <= 16 (1-8;
-// ops/qmatmul.gemv_i8_plan); not read above 16 rows.
+// splits: at M <= 16 the blocks of a cluster that split K (1-8;
+// ops/qmatmul.gemv_i8_plan); above, the persistent grid's blocks and
+// tile_n the columns of an output tile, 192, 128 or 64 (ops/qmatmul.tiled_i8_plan).
 extern "C" int ik_qmatmul_i8(const void* xq, const void* xs, const void* wt,
                              const void* sw, void* out, int M, int N, int K,
-                             int splits, void* stream) {
+                             int splits, int tile_n, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto a = static_cast<const int8_t*>(xq);
   auto b = static_cast<const int8_t*>(wt);
   auto as = static_cast<const float*>(xs);
   auto bs = static_cast<const float*>(sw);
   auto o = static_cast<float*>(out);
-  if (K % SG != 0 || M < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (K % SG != 0 || M < 1 || splits < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
   if (M <= 16) {
-    if (splits < 1 || splits > gemv::MAX_SPLITS) return static_cast<int>(cudaErrorInvalidValue);
+    if (splits > gemv::MAX_SPLITS) return static_cast<int>(cudaErrorInvalidValue);
     e = M <= 8 ? gemv::launch<1>(a, as, b, bs, o, M, N, K, splits, s)
                : gemv::launch<2>(a, as, b, bs, o, M, N, K, splits, s);
+  } else if (tile_n == 192) {
+    e = tiled::launch<192, 5>(a, as, b, bs, o, M, N, K, splits, s);
+  } else if (tile_n == 128) {
+    e = tiled::launch<128, 6>(a, as, b, bs, o, M, N, K, splits, s);
+  } else if (tile_n == 64) {
+    e = tiled::launch<64, 8>(a, as, b, bs, o, M, N, K, splits, s);
   } else {
-    e = launch<128, 128, 64, 32, 2>(a, as, b, bs, o, M, N, K, s);
+    e = cudaErrorInvalidValue;
   }
   return static_cast<int>(e);
 }

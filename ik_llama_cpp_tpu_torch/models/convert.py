@@ -99,11 +99,13 @@ def params_from_numpy(tree, device, *, _key: str = ""):
     return _tensor(tree, device, torch.bfloat16 if _key in _BF16_KEYS else None)
 
 
-def kv_from_numpy(k, v, k_scale=None, v_scale=None, device="cpu") -> KVCache:
+def kv_from_numpy(k, v, k_scale=None, v_scale=None, *, device) -> KVCache:
     """A KV cache of the JAX package, fetched to numpy, as the port's: bf16
     k/v (L, B, S, Hkv, D), or codes (int8 / uint8, any of the four codecs)
     with their float32 scale stacks (L, B, S, Hkv). The arrays are copied,
-    so the port's in-place row writes do not touch the caller's."""
+    so the port's in-place row writes do not touch the caller's. ``device``
+    has no default: the port's entry points run on the card unless the
+    caller names the CPU."""
     if k_scale is None:
         return KVCache(_tensor(k, device, torch.bfloat16),
                        _tensor(v, device, torch.bfloat16))

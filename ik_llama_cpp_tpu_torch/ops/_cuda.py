@@ -125,6 +125,19 @@ def stream_ptr(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+DEFAULT_SMS = 132         # an H100 SXM's SMs: the launch plans' default
+_SMS: dict[int, int] = {}
+
+
+def sm_count(t) -> int:
+    """The streaming multiprocessors of t's card (read once a device)."""
+    import torch
+    i = t.device.index if t.device.index is not None else torch.cuda.current_device()
+    if i not in _SMS:
+        _SMS[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _SMS[i]
+
+
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise ValueError(what)

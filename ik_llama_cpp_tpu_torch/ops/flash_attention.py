@@ -49,7 +49,9 @@ def attention_ref(q, k, v, q_pos0, kv_len, *, scale: float,
 
 
 def _launch(symbol, lib, q, k, v, q_pos0, kv_len, scale, softcap, swa_window,
-            attn_chunk, sinks):
+            attn_chunk, sinks, split=None):
+    """Checks and launches one attention kernel; ``split`` = (scratch,
+    counters, splits) for the decode kernel, which takes them after out."""
     b, t, h, dk = q.shape
     _, s, hkv, dk2 = k.shape
     dv = v.shape[3]
@@ -70,12 +72,18 @@ def _launch(symbol, lib, q, k, v, q_pos0, kv_len, scale, softcap, swa_window,
     if sinks is not None:
         sk = sinks.to(device=q.device, dtype=torch.float32).reshape(h).contiguous()
     out = torch.empty((b, t, h, dv), dtype=torch.bfloat16, device=q.device)
-    fn = _cuda.function(lib, symbol, [_cuda.P] * 7 + [_cuda.I] * 6
+    extra, extra_types = (), []
+    if split is not None:
+        part, counters, splits = split
+        extra = (None if part is None else part.data_ptr(),
+                 None if counters is None else counters.data_ptr(), splits)
+        extra_types = [_cuda.P, _cuda.P, _cuda.I]
+    fn = _cuda.function(lib, symbol, [_cuda.P] * 7 + extra_types + [_cuda.I] * 6
                         + [_cuda.L] * 9 + [_cuda.F] * 2 + [_cuda.I] * 2
                         + [_cuda.P])
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(),
             kl.data_ptr(), None if sk is None else sk.data_ptr(),
-            out.data_ptr(), b, t, h, hkv, dk, dv,
+            out.data_ptr(), *extra, b, t, h, hkv, dk, dv,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             float(scale), float(softcap), int(swa_window), int(attn_chunk),
             _cuda.stream_ptr(q))
@@ -110,6 +118,67 @@ def flash_attention(q, k, v, q_pos0, kv_len, *, scale: float,
 flash_attention.launches = 0      # kernel launches, counted where they happen
 
 
+# The decode kernel (csrc/flash_attention_decode.cu): 32-key tiles, 8 warps
+# a block (4 at head dims above 128), each (batch, kv head, row tile)
+# group's live keys split over up to DECODE_MAX_SPLITS blocks.
+DECODE_KT = 32
+DECODE_MAX_SPLITS = 32
+
+
+def decode_split_plan(b: int, t: int, h: int, hkv: int, s: int, dk: int, dv: int,
+                      sms: int = _cuda.DEFAULT_SMS) -> dict:
+    """The launch of the decode kernel, a pure function of the shapes and
+    the SM count (never of kv_len, which stays on the device). The q rows
+    of a kv head (GQA group x T) are cut into row tiles of ``rows``; a
+    block runs ``warps`` warps, ``ksplit`` of them over the keys of each 16
+    rows, so one round of the block's warps covers ``round`` keys. There
+    are ``groups`` (batch, kv head, row tile) groups and each gets
+    ``splits`` blocks: enough for one block an SM, no more than a capacity
+    of S keys can give whole rounds, at most DECODE_MAX_SPLITS."""
+    if not (1 <= t <= DECODE_MAX_T and h % hkv == 0 and s > 0 and sms > 0):
+        raise ValueError(f"flash_attention_decode: T={t} H={h} Hkv={hkv} S={s}")
+    d = max(dk, dv)
+    warps = 8 if d <= 128 else 4
+    mt = -(-(h // hkv) * t // 16)
+    mtb = 1
+    while mtb < mt and mtb < warps:
+        mtb *= 2
+    ksplit = warps // mtb
+    rnd = ksplit * DECODE_KT
+    groups = b * hkv * -(-mt // mtb)
+    splits = max(1, min(-(-s // rnd), -(-sms // groups), DECODE_MAX_SPLITS))
+    return {"warps": warps, "rows": 16 * mtb, "row_groups": -(-mt // mtb), "ksplit": ksplit,
+            "round": rnd, "groups": groups, "splits": splits}
+
+
+def decode_key_ranges(plan: dict, key_start: int, key_end: int) -> list:
+    """The blocks' key ranges [lo, hi) of one group whose live keys are
+    [key_start, key_end), in split order (the kernel derives the same from
+    kv_len and q_pos0). One range where the live keys fit one round of the
+    block's warps or the plan has one split: block 0 then runs the
+    partition of the kernel's first port. Otherwise chunks of a whole
+    number of 32-key tiles, at least one round, so that every tile stays
+    inside its block's range; blocks past the last chunk do nothing."""
+    live = max(key_end - key_start, 0)
+    if plan["splits"] == 1 or live <= plan["round"]:
+        return [(key_start, key_end)]
+    per = -(-live // plan["splits"])
+    per = max(-(-per // DECODE_KT) * DECODE_KT, plan["round"])
+    return [(lo, min(lo + per, key_end)) for lo in range(key_start, key_end, per)]
+
+
+_COUNTERS: dict = {}
+
+
+def _decode_counters(device, n: int) -> torch.Tensor:
+    """n zero int32 counters on ``device``, one a group, kept across calls:
+    the kernel's merging block resets its counter to zero."""
+    c = _COUNTERS.get(device)
+    if c is None or c.numel() < n:
+        c = _COUNTERS[device] = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+    return c
+
+
 def flash_attention_decode(q, k, v, q_pos0, kv_len, *, scale: float,
                            softcap: float = 0.0, swa_window: int = 0,
                            attn_chunk: int = 0, sinks=None):
@@ -118,18 +187,30 @@ def flash_attention_decode(q, k, v, q_pos0, kv_len, *, scale: float,
     ``csrc/flash_attention_decode.cu``, which replaces the Pallas kernel
     flash_attention.py:flash_attention_decode (quant none) of the JAX
     package. It is bound by the filled K/V bytes; the q rows of a GQA group
-    share each K/V tile, so the cache is read once per kv head. Unlike the
-    TPU kernel it takes any S and any head dim up to 256 that is a multiple
-    of 8, and raises on anything else instead of returning None."""
+    share each K/V tile, so the cache is read once per kv head, and each
+    group's live keys are split over the blocks of ``decode_split_plan``,
+    whose partial softmax states the last block to finish merges in split
+    order: one launch, no host sync. Unlike the TPU kernel it takes any S
+    and any head dim up to 256 that is a multiple of 8, and raises on
+    anything else instead of returning None."""
     if q.device.type == "cpu":
         return attention_ref(q, k, v, q_pos0, kv_len, scale=scale,
                              softcap=softcap, swa_window=swa_window,
                              attn_chunk=attn_chunk, sinks=sinks)
-    _cuda.require(q.shape[1] <= DECODE_MAX_T,
-                  f"flash_attention_decode: T={q.shape[1]} > {DECODE_MAX_T}")
+    b, t, h, _ = q.shape
+    _cuda.require(t <= DECODE_MAX_T, f"flash_attention_decode: T={t} > {DECODE_MAX_T}")
+    _cuda.require(k.dim() == 4 and h % k.shape[2] == 0,
+                  f"flash_attention_decode: {h} heads over kv {tuple(k.shape)}")
+    plan = decode_split_plan(b, t, h, k.shape[2], k.shape[1], q.shape[3], v.shape[3],
+                             _cuda.sm_count(q))
+    part = counters = None
+    if plan["splits"] > 1:
+        part = torch.empty(plan["groups"] * plan["splits"] * plan["rows"] * (v.shape[3] + 2),
+                           dtype=torch.float32, device=q.device)
+        counters = _decode_counters(q.device, plan["groups"])
     rc, out = _launch("ik_flash_attention_decode", "flash_attention_decode",
                       q, k, v, q_pos0, kv_len, scale, softcap, swa_window,
-                      attn_chunk, sinks)
+                      attn_chunk, sinks, split=(part, counters, plan["splits"]))
     flash_attention_decode.launches += 1
     _cuda.check(rc, "flash_attention_decode")
     return out

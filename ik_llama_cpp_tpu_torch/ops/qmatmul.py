@@ -397,6 +397,42 @@ def gemv_i8_plan(m: int, n: int, k: int) -> dict:
                                                   GEMV_I8_BLOCKS), "steps": steps}
 
 
+# The M > 16 kernel (qmatmul_i8_wgmma_kernel): 128-row output tiles (two
+# warpgroups of 64) by 64, 128 or 192 columns, 128-deep K stages, one
+# persistent block an SM.
+TILED_I8_BM = 128
+# a tile's time by its columns, over a 128-column tile's: what the plan
+# weighs rounds of the grid with (chip_smoke.py phase 3's width sweep on
+# the H100: 0.69 and 1.29-1.43, PERF.md)
+TILED_I8_TILE_COST = {128: 1.0, 192: 1.4, 64: 0.7}
+
+
+def tiled_i8_plan(m: int, n: int, k: int, sms: int = _cuda.DEFAULT_SMS) -> dict:
+    """The launch of kernel A at M > 16, a pure function of the shapes and
+    the card's SM count: output tiles of TILED_I8_BM rows by ``bn``
+    columns (tile i at rows (i % m_tiles) * BM and columns (i // m_tiles) *
+    bn) and a persistent grid of ``blocks`` that walks them, block b taking
+    tiles b, b + blocks, ... Each tile sums the whole of K in supergroup
+    order: K is never split, so the float corrections keep their order.
+    ``bn`` is the width whose rounds of the grid (tiles over SMs, rounded
+    up) cost least at TILED_I8_TILE_COST, 128 on a tie: wider tiles where
+    128 columns leave most of a last round idle (N 6144: 192 tiles on 132
+    SMs), narrower where they would leave half the card idle."""
+    if not (m > GEMV_MAX_M and n > 0 and k > 0 and k % SUPERGROUP == 0 and sms > 0):
+        raise ValueError(f"qmatmul_i8: the M > {GEMV_MAX_M} kernel needs K % {SUPERGROUP} "
+                         f"== 0 (M {m}, K {k}, N {n})")
+    m_tiles = -(-m // TILED_I8_BM)
+
+    def cost(bn):
+        return -(-(m_tiles * -(-n // bn)) // sms) * TILED_I8_TILE_COST[bn]
+
+    bn = min(TILED_I8_TILE_COST, key=cost)      # dict order: 128 first wins a tie
+    n_tiles = -(-n // bn)
+    tiles = m_tiles * n_tiles
+    return {"bm": TILED_I8_BM, "bn": bn, "m_tiles": m_tiles, "n_tiles": n_tiles,
+            "tiles": tiles, "blocks": min(tiles, sms)}
+
+
 def qmatmul_i8(x_q, x_s, codes, sw):
     """int8 (M, K) @ int8 (K, N) -> f32 (M, N) with supergroup corrections.
 
@@ -412,8 +448,10 @@ def qmatmul_i8(x_q, x_s, codes, sw):
     flight with no barrier in the K sweep, splits K over the warps of a
     block and the blocks of a cluster (``gemv_i8_plan``) and adds the
     partial sums in a fixed order, so a call repeats bit for bit. Prefill
-    is bound by int8 tensor-core work: 128 x 128 tiles of mma.sync.m16n8k32,
-    one supergroup per stage, the float correction applied once per stage."""
+    is bound by int8 tensor-core work: warpgroup MMAs (wgmma m64nNk32) on
+    128-row tiles of 64-192 columns fed by TMA through a ring of 128-deep
+    stages, a persistent grid (``tiled_i8_plan``), each supergroup's exact
+    int32 sums folded into the float result in supergroup order."""
     if x_q.device.type == "cpu":
         return qmatmul_i8_ref(x_q, x_s, codes, sw)
     m, k = x_q.shape
@@ -429,12 +467,16 @@ def qmatmul_i8(x_q, x_s, codes, sw):
     for t in (x_s, codes, sw):
         _cuda.require(t.device == x_q.device, "qmatmul_i8: operands on different devices")
     _cuda.require(_cuda.aligned16(x_q, codes), "qmatmul_i8: int8 operands must be 16-byte aligned")
-    splits = gemv_i8_plan(m, n, k)["splits"] if m <= GEMV_MAX_M else 1
+    if m <= GEMV_MAX_M:
+        splits, tile_n = gemv_i8_plan(m, n, k)["splits"], 0
+    else:
+        plan = tiled_i8_plan(m, n, k, _cuda.sm_count(x_q))
+        splits, tile_n = plan["blocks"], plan["bn"]
     out = torch.empty((m, n), dtype=torch.float32, device=x_q.device)
     fn = _cuda.function("qmatmul_i8", "ik_qmatmul_i8",
-                        [_cuda.P] * 5 + [_cuda.I] * 4 + [_cuda.P])
+                        [_cuda.P] * 5 + [_cuda.I] * 5 + [_cuda.P])
     rc = fn(x_q.data_ptr(), x_s.data_ptr(), codes.data_ptr(), sw.data_ptr(),
-            out.data_ptr(), m, n, k, splits, _cuda.stream_ptr(x_q))
+            out.data_ptr(), m, n, k, splits, tile_n, _cuda.stream_ptr(x_q))
     qmatmul_i8.launches += 1
     _cuda.check(rc, "qmatmul_i8")
     return out

@@ -61,7 +61,7 @@ def test_k_shift_matches_jax(codec, rope_dim):
     arrs = filled(codec, cfg, cap, n_past, seed=7)
     with jax.disable_jit():       # op by op, as the port runs: see ops/kv_quant.py
         jkv, jn = JK.k_shift(as_jax(arrs), JConfig(**cfg), n_keep, n_discard, n_past)
-    tkv = kv_from_numpy(*arrs)
+    tkv = kv_from_numpy(*arrs, device="cpu")
     ptr = tkv.k.data_ptr()
     tkv, tn = TK.k_shift(tkv, TConfig(**cfg), n_keep, n_discard, n_past)
     assert tn == jn == n_past - n_discard and tkv.k.data_ptr() == ptr     # in place
