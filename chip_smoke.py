@@ -13,7 +13,9 @@ Phases (all by default; any failure exits non-zero):
      their library calls also under the older zero_() flush), the launch
      plan of kernels 8 and 13 and their time by columns a block, the K
      split of kernels A, D and 15 at M <= 16 against their time, and
-     kernel A's host cost a call at M = 1
+     kernel A's host cost a call at M = 1, the tile widths of the tiled A,
+     D and 15 at M = 512 against their time, and the warpgroup MMAs of the
+     three tiled kernels in their SASS
   4. end to end at full width (L32 E4096 H32 KV8 FF14336 V32000, Q4_0
      planar weights, Q8_0 tied head, random weights from a seed): load
      through Runtime.from_gguf, prefill 512 tokens, decode 64 greedily,
@@ -23,10 +25,11 @@ Phases (all by default; any failure exits non-zero):
   5. parity at depth 2: kernel path against the plain path on the card,
      identical greedy tokens over 16 steps
   6. planar path (int8 path off: every linear a QLinear, kernel D): at
-     depth 2 the launch check; then the same file cloned to the full width
-     of phase 4 (L32): prefill 512, decode 64, launch counts, a decode
-     profile (the M <= 16 kernel a step, the idle share) and a prefill
-     profile (the tiled kernel)
+     depth 2 the launch check and the kernel path against the plain path
+     over one token history (every step's logits); then the same file
+     cloned to the full width of phase 4 (L32): prefill 512, decode 64,
+     launch counts, a decode profile (the M <= 16 kernel a step, the idle
+     share) and a prefill profile (the tiled kernel)
   7. MoE end to end at the full width of Qwen3-30B-A3B (L48 E2048 H32 KV4
      D128, 128 experts top-8 FF768, V151936; Q4_0 attention and experts,
      Q8_0 embedding and untied head, random blocks from a seed): load,
@@ -294,6 +297,50 @@ def forced_width(QM, bn: int):
 
 
 @contextmanager
+def forced_tm(QM, tm: int):
+    """The M > 16 wgmma launches of kernels D and 15 with tiles of ``tm``
+    tokens."""
+    plan = QM.tiled_plan
+
+    def forced(m, n, k, group, sms=QM._cuda.DEFAULT_SMS):
+        p = plan(m, n, k, group, sms)
+        if p["kernel"] != "wgmma":
+            return p
+        tiles = -(-m // tm) * p["n_tiles"]
+        return dict(p, tm=tm, m_tiles=-(-m // tm), tiles=tiles, blocks=min(tiles, sms))
+    QM.tiled_plan = forced
+    try:
+        yield
+    finally:
+        QM.tiled_plan = plan
+
+
+def tm_sweep(timer, QM, sms: int, what: str, m: int, n: int, k: int, fn) -> None:
+    """ms a call of a wgmma kernel by the tokens of its tiles (* =
+    tiled_plan's choice)."""
+    want = QM.tiled_plan(m, n, k, 32, sms)["tm"]
+    row = []
+    for tm in QM.TILED_TILE_COST:
+        with forced_tm(QM, tm):
+            t = timer(fn, 5)
+        row.append(f"{tm}{'*' if tm == want else ''} {t:.4f} "
+                   f"({-(-m // tm) * -(-n // QM.TILED_TN)} tiles)")
+    log(f"    {what} M={m} K={k} N={n}: ms by tokens a tile: " + ", ".join(row))
+
+
+def dq_record(QM, sms: int, kernel: str, m: int, n: int, k: int, group: int, gemv_note: str):
+    """The kernel-table row and launch note of a kernel D or 15 call: the
+    wgmma form's own row at M > 16 where tiled_plan takes the shape."""
+    if m <= QM.GEMV_MAX_M:
+        return kernel, gemv_note
+    plan = QM.tiled_plan(m, n, k, group, sms)
+    if plan["kernel"] != "wgmma":
+        return kernel, " | the mma.sync tiled kernel (tiled_plan)"
+    return f"{kernel}_wgmma", (f" | wgmma plan: {plan['tn']}x{plan['tm']} tiles (columns x "
+                               f"tokens), {plan['tiles']} tiles on {plan['blocks']} blocks")
+
+
+@contextmanager
 def forced_cols(MD, cols: int):
     """The launches of kernels 8 and 13 with ``cols`` columns a block
     (``down_plan`` then picks the lanes a row for that)."""
@@ -452,7 +499,10 @@ def phase_kernels(torch, timer, results) -> bool:
 
     log("[3] kernel D (qmatmul, planar group 32) vs plain; library as for A. M <= 16 "
         "runs qmatmul_gemv_kernel (K split over a cluster of `splits` blocks), M > 16 "
-        "the tiled qmatmul_kernel; bound = the bytes read once (codes, scales, x, out)")
+        "qmatmul_wgmma_kernel (persistent grid, tiled_plan; row qmatmul_wgmma); bound = the "
+        "larger of the bytes read once (codes, scales, x, out) and the bf16 operations")
+    log("[3] tiled D's warpgroup MMAs in SASS: " + sass_opcodes(
+        _cuda._lib_path("qmatmul"), "qmatmul_wgmma_kernel", "HGMMA"))
     # the planar dense shapes (fused qkv, wo, fused gate/up, down, the head),
     # K % 256 != 0 (Qwen1.5-MoE-A2.7B's 1408), a partial column tile (4000)
     # and rows that are not 16-byte aligned (1000)
@@ -482,16 +532,27 @@ def phase_kernels(torch, timer, results) -> bool:
             sb = scale.element_size() * (2 if bias is not None else 1)
             bnd = bound_ms(m * k * 2 + k * n + sb * (k // 32) * n + m * n * 4,
                            2.0 * m * n * k, BF16_FLOPS)
-            note = (f" | gemv splits {QM.gemv_plan(m, n, k, 32)['splits']}" if m <= 16
-                    else " | tiled") + f"; repeats bit for bit: {bool(torch.equal(got, again))}"
+            name, note = dq_record(QM, sms, "qmatmul", m, n, k, 32,
+                                   f" | gemv splits {QM.gemv_plan(m, n, k, 32)['splits']}"
+                                   if m <= 16 else "")
+            note += f"; repeats bit for bit: {bool(torch.equal(got, again))}"
             ok &= bool(torch.equal(got, again))
-            ok &= _record(results, "qmatmul", f"M={m} K={k} N={n}"
+            ok &= _record(results, name, f"M={m} K={k} N={n}"
                           + (" bias" if bias is not None else "")
                           + (" f32 scales" if sdt == torch.float32 else ""), err, tol,
                           timer(lambda: QM.qmatmul(x, codes, scale, bias)),
                           timer(lambda: QM.qmatmul_ref(x, codes, scale, bias), 3),
                           timer(lambda: torch.matmul(x, wb)), bnd, note=note)
         del codes, wb, absw
+
+    log("[3] tiled D's tile width against its time at M = 512 (ms a call by the tokens of a "
+        "tile; * = tiled_plan's choice)")
+    for k, n in shapes:
+        codes = torch.randint(-128, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+        scale = (torch.rand((k // 32, n), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+        x = torch.randn((512, k), generator=gen, device="cuda").to(torch.bfloat16)
+        tm_sweep(timer, QM, sms, "D", 512, n, k, lambda: QM.qmatmul(x, codes, scale))
+        del codes
 
     log("[3] kernel D's K split against its time at M <= 16 (ms a call by the number "
         "of blocks in a cluster; * = gemv_plan's choice)")
@@ -1082,8 +1143,12 @@ def phase_qmatmul4(torch, timer, results, gen) -> bool:
     ok = True
     log("[3] kernel 15 (qmatmul4, 4-bit packed, group 32) vs plain; library = dense bf16 "
         "torch.matmul at the same (M, K, N) with the weights already in bf16. M <= 16 runs "
-        "qmatmul4_gemv_kernel (K split over a cluster of `splits` blocks), M > 16 the tiled "
-        "qmatmul4_kernel; bound = the bytes read once (packed, scales, x, out)")
+        "qmatmul4_gemv_kernel (K split over a cluster of `splits` blocks), M > 16 "
+        "qmatmul4_wgmma_kernel (persistent grid, tiled_plan; row qmatmul4_wgmma); bound = the "
+        "larger of the bytes read once (packed, scales, x, out) and the bf16 operations")
+    log("[3] tiled 15's warpgroup MMAs in SASS: " + sass_opcodes(
+        _cuda._lib_path("qmatmul4"), "qmatmul4_wgmma_kernel", "HGMMA"))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     iq4nl = tuple(float(v) for v in KQ.IQ4NL_VALUES)       # a 16-level codebook
     cases = [(k, n, (1, 8, 16, 512), lut, False) for k, n in DECODE_SHAPES
              for lut in (None, iq4nl)]
@@ -1110,18 +1175,30 @@ def phase_qmatmul4(torch, timer, results, gen) -> bool:
             bnd = bound_ms(m * k * 2 + k * n // 2 + sb * (k // 32) * n + m * n * 4,
                            2.0 * m * n * k, BF16_FLOPS)
             plan = QM.gemv4_plan(m, n, k, 32)
-            note = (f" | gemv splits {plan['splits']}" if plan["kernel"] == "gemv"
-                    else " | tiled") + f"; repeats bit for bit: {again}"
+            name, note = dq_record(QM, sms, "qmatmul4", m, n, k, 32,
+                                   f" | gemv splits {plan['splits']}" if plan["kernel"] == "gemv"
+                                   else " | the mma.sync tiled kernel")
+            note += f"; repeats bit for bit: {again}"
             ok &= again
             # both sum the same exact bf16 products in float32 in different
             # orders: 16 sqrt(K) float32 roundings of the largest sum of |x w|
-            ok &= _record(results, "qmatmul4", f"M={m} K={k} N={n}"
+            ok &= _record(results, name, f"M={m} K={k} N={n}"
                           + (" codebook" if lut is not None else "")
                           + (" bias" if bias is not None else ""), err, sum_tol(k, absdot),
                           timer(lambda: QM.qmatmul4(x, packed, sc, bias, lut16=lut)),
                           timer(lambda: QM.qmatmul4_ref(x, packed, sc, bias, lut16=lut), 3),
                           timer(lambda: torch.matmul(x, wb)), bnd, note=note)
         del packed, wb, absw
+
+    log("[3] tiled 15's tile width against its time at M = 512 (ms a call by the tokens of a "
+        "tile; * = tiled_plan's choice)")
+    for k, n in DECODE_SHAPES:
+        packed = torch.randint(0, 256, (k // 2, n), generator=gen, device="cuda",
+                               dtype=torch.uint8)
+        sc = (torch.rand((k // 32, n), generator=gen, device="cuda") * 0.02).to(bf16)
+        x = torch.randn((512, k), generator=gen, device="cuda").to(bf16)
+        tm_sweep(timer, QM, sms, "15", 512, n, k, lambda: QM.qmatmul4(x, packed, sc))
+        del packed
 
     log("[3] kernel 15's K split against its time at M <= 16 (ms a call by the number of "
         "blocks in a cluster; * = gemv4_plan's choice)")
@@ -1366,12 +1443,13 @@ def clone_layers(rt, n_layer: int):
 
 
 def counters():
+    """{name: (wrapper, the attribute that counts its launches)}"""
     from ik_llama_cpp_tpu_torch.ops import flash_attention as FA
     from ik_llama_cpp_tpu_torch.ops import moe_decode as MD
     from ik_llama_cpp_tpu_torch.ops import moe_qmm as MQ
     from ik_llama_cpp_tpu_torch.ops import qmatmul as QM
     from ik_llama_cpp_tpu_torch.tools import perf_dequant as PD
-    return {"qmatmul_i8": QM.qmatmul_i8, "flash_attention": FA.flash_attention,
+    fns = {"qmatmul_i8": QM.qmatmul_i8, "flash_attention": FA.flash_attention,
             "flash_attention_decode": FA.flash_attention_decode,
             "qmatmul": QM.qmatmul,
             "flash_attention_decode_q8": FA.flash_attention_decode_q8,
@@ -1384,15 +1462,20 @@ def counters():
             "moe_decode_gate_up": MD.moe_decode_gate_up,
             "moe_decode_down": MD.moe_decode_down,
             "ragged_qmatmul": MQ.ragged_qmatmul, "qmatmul_pair": PD.qmatmul_pair}
+    out = {name: (fn, "launches") for name, fn in fns.items()}
+    # the M > 16 wgmma kernels of D and 15: the part of their wrappers' launches
+    out["qmatmul_wgmma"] = (QM.qmatmul, "wgmma_launches")
+    out["qmatmul4_wgmma"] = (QM.qmatmul4, "wgmma_launches")
+    return out
 
 
 def reset_counts():
-    for f in counters().values():
-        f.launches = 0
+    for f, attr in counters().values():
+        setattr(f, attr, 0)
 
 
 def read_counts() -> dict:
-    return {k: f.launches for k, f in counters().items()}
+    return {k: getattr(f, attr) for k, (f, attr) in counters().items()}
 
 
 def phase_e2e(torch, gguf: Path, launches: dict) -> bool:
@@ -1644,7 +1727,8 @@ def phase_parity(torch, gguf: Path) -> bool:
 
 def phase_planar(torch, gguf: Path, launches: dict) -> bool:
     """Phase 6: the exact planar path (int8 path off: every linear a
-    QLinear, kernel D). At depth 2, the launch check; then on the same file
+    QLinear, kernel D). At depth 2, the launch check and the parity of
+    every step's logits over one token history; then on the same file
     at the full width of phase 4 (L32): prefill 512 and decode 64 with the
     launch counts, a decode profile (the M <= 16 kernel a step) and a
     prefill profile (the tiled kernel)."""
@@ -1672,6 +1756,14 @@ def phase_planar(torch, gguf: Path, launches: dict) -> bool:
         f"{toks[0].tolist()}")
     ok = counts["qmatmul"] == 9 * 9 and finite
     del kv
+    # the wgmma kernel sums in another order than the plain version: every
+    # step's logits over one token history (phase 11's gate)
+    pids = [int(x) for x in np.random.default_rng(7).integers(3, V, 128)]
+    _, lk, lp, _, _, _ = forced_parity(torch, rt, pids, 16)
+    good, text = parity_verdict(lk, lp)
+    log(f"[6] depth-2 parity, kernel path vs plain path: {text}: {'ok' if good else 'FAIL'}")
+    ok &= good
+    del lk, lp
 
     rt = clone_layers(rt, NL)           # block 0 again, into NL blocks
     torch.cuda.synchronize()
@@ -1687,27 +1779,31 @@ def phase_planar(torch, gguf: Path, launches: dict) -> bool:
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     launches["qmatmul"] = counts["qmatmul"]
+    launches["qmatmul_wgmma"] = counts["qmatmul_wgmma"]
     per = 4 * NL + 1
     want = dict.fromkeys(counts, 0)
-    want.update({"qmatmul": per * (1 + DECODE), "flash_attention": NL,
+    want.update({"qmatmul": per * (1 + DECODE), "qmatmul_wgmma": per, "flash_attention": NL,
                  "flash_attention_decode": NL * DECODE})
     finite = bool(torch.isfinite(logits).all()) and bool(((toks >= 0) & (toks < V)).all())
     log(f"[6] prefill {PREFILL} tokens: {pre_s * 1e3:.1f} ms = {PREFILL / pre_s:.1f} tok/s; "
         f"decode {DECODE} tokens at context {PREFILL}: {dec_s * 1e3:.1f} ms = "
         f"{DECODE / dec_s:.2f} tok/s; peak memory {peak:.2f} GiB")
     log(f"[6] launches {counts}; expected {want} (D = 4*{NL}+1 = {per} a decode step and "
-        f"a prefill chunk); logits finite, tokens in vocab: {finite}")
+        f"a prefill chunk, the chunk's by the wgmma kernel); logits finite, tokens in vocab: "
+        f"{finite}")
     ok &= counts == want and finite
     prof = profile_decode(torch, rt, kv, n_past + DECODE + 1, toks[:, -1:], tag="6")
     log(f"[6] decode step: qmatmul_gemv_kernel {kernel_ms(prof, 'qmatmul_gemv_kernel'):.3f} ms, "
-        f"the tiled qmatmul_kernel {kernel_ms(prof, 'qmatmul_kernel<'):.3f} ms")
+        f"the tiled qmatmul_wgmma_kernel {kernel_ms(prof, 'qmatmul_wgmma_kernel'):.3f} ms")
     ok &= kernel_ms(prof, "qmatmul_gemv_kernel") > 0
     del kv
     kv = rt.new_cache(1, PREFILL + 8)
     prof = profile_window(torch, lambda: rt.eval_tokens(ids, kv, 0), 1,
                           f"one {PREFILL}-token prefill chunk", "chunk", "6")
-    log(f"[6] prefill chunk: the tiled qmatmul_kernel {kernel_ms(prof, 'qmatmul_kernel<'):.3f} ms, "
-        f"qmatmul_gemv_kernel {kernel_ms(prof, 'qmatmul_gemv_kernel'):.3f} ms")
+    log(f"[6] prefill chunk: the tiled qmatmul_wgmma_kernel "
+        f"{kernel_ms(prof, 'qmatmul_wgmma_kernel'):.3f} ms, qmatmul_gemv_kernel "
+        f"{kernel_ms(prof, 'qmatmul_gemv_kernel'):.3f} ms, the mma.sync qmatmul_kernel "
+        f"{kernel_ms(prof, 'qmatmul_kernel<'):.3f} ms")
     del rt, kv
     torch.cuda.empty_cache()
     log(f"[6] planar path: {time.perf_counter() - t_phase:.1f} s")
@@ -1949,7 +2045,8 @@ def phase_planar_moe_parity(torch, gguf: Path, c=MOE) -> bool:
     counts = read_counts()
     good, text = parity_verdict(lk, lp)
     want = {"moe_decode_gate_up": 2 * 16, "moe_decode_down": 2 * 16, "ragged_qmatmul": 3 * 2,
-            "qmatmul": (2 * 2 + 1) * 17, "flash_attention": 2, "flash_attention_decode": 2 * 16}
+            "qmatmul": (2 * 2 + 1) * 17, "qmatmul_wgmma": 2 * 2 + 1, "flash_attention": 2,
+            "flash_attention_decode": 2 * 16}
     got = {k: n for k, n in counts.items() if n}
     good &= groups == (32, 32, 32) and got == want
     log(f"[13b] Qwen3-30B-A3B shape with the int8 path off (expert groups {groups}, linears "
@@ -2170,8 +2267,10 @@ def phase_int4(torch, gguf: Path, launches: dict) -> bool:
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     launches["qmatmul4"] = counts["qmatmul4"]
+    launches["qmatmul4_wgmma"] = counts["qmatmul4_wgmma"]
     want = dict.fromkeys(counts, 0)
-    want.update({"qmatmul4": 4 * NL * (1 + DECODE), "qmatmul_i8": 1 + DECODE,
+    want.update({"qmatmul4": 4 * NL * (1 + DECODE), "qmatmul4_wgmma": 4 * NL,
+                 "qmatmul_i8": 1 + DECODE,
                  "flash_attention": NL, "flash_attention_decode": NL * DECODE})
     good = counts == want
     finite = bool(torch.isfinite(logits).all())
@@ -2180,22 +2279,26 @@ def phase_int4(torch, gguf: Path, launches: dict) -> bool:
         f"decode {DECODE} tokens at context {PREFILL}: {dec_s * 1e3:.1f} ms = "
         f"{DECODE / dec_s:.2f} tok/s; peak memory {peak:.2f} GiB")
     log(f"[11] launches { {k: v for k, v in counts.items() if v} }; as expected (kernel 15 "
-        f"x {4 * NL} and kernel A x 1 a step and a chunk): {good}; logits finite: {finite}; "
+        f"x {4 * NL} and kernel A x 1 a step and a chunk, the chunk's 15 by the wgmma kernel): "
+        f"{good}; logits finite: {finite}; "
         f"tokens in vocab: {in_range}")
     ok &= good and finite and in_range
     prof = profile_decode(torch, rt, kv, n_past + DECODE + 1, toks[:, -1:], tag="11")
-    gemv_ms, tiled_ms = kernel_ms(prof, "qmatmul4_gemv_kernel"), kernel_ms(prof, "qmatmul4_kernel<")
+    gemv_ms = kernel_ms(prof, "qmatmul4_gemv_kernel")
+    tiled_ms = kernel_ms(prof, "qmatmul4_wgmma_kernel", "qmatmul4_kernel<")
     log(f"[11] decode step: qmatmul4_gemv_kernel {gemv_ms:.3f} ms ({4 * NL} launches), the "
-        f"tiled qmatmul4_kernel {tiled_ms:.3f} ms, every kernel {sum(prof.values()):.3f} ms")
+        f"tiled forms (qmatmul4_wgmma_kernel, qmatmul4_kernel) {tiled_ms:.3f} ms, every kernel "
+        f"{sum(prof.values()):.3f} ms")
     ok &= gemv_ms > 0 and tiled_ms == 0
     del kv
     kv = rt.new_cache(1, PREFILL + 8)
     prof = profile_window(torch, lambda: rt.eval_tokens(ids, kv, 0), 1,
                           f"one {PREFILL}-token prefill chunk", "chunk", "11")
-    tiled_ms, every = kernel_ms(prof, "qmatmul4_kernel<"), sum(prof.values())
-    log(f"[11] prefill chunk: the tiled qmatmul4_kernel {tiled_ms:.3f} ms of {every:.3f} ms of "
-        f"kernels ({100 * tiled_ms / every:.1f}%), qmatmul4_gemv_kernel "
-        f"{kernel_ms(prof, 'qmatmul4_gemv_kernel'):.3f} ms")
+    tiled_ms, every = kernel_ms(prof, "qmatmul4_wgmma_kernel"), sum(prof.values())
+    log(f"[11] prefill chunk: the tiled qmatmul4_wgmma_kernel {tiled_ms:.3f} ms of {every:.3f} ms "
+        f"of kernels ({100 * tiled_ms / every:.1f}%), qmatmul4_gemv_kernel "
+        f"{kernel_ms(prof, 'qmatmul4_gemv_kernel'):.3f} ms, the mma.sync qmatmul4_kernel "
+        f"{kernel_ms(prof, 'qmatmul4_kernel<'):.3f} ms")
     del kv, logits
     rt.params["blocks"] = rt.params["blocks"][:2]
     rt.cfg = replace(rt.cfg, n_layer=2)
@@ -2221,6 +2324,8 @@ KERNELS = {
                                "B=1 T=1 S=1024 q_pos0=[512] kv_len=[513]"),
     "qmatmul": ("ik_llama_cpp_tpu_torch/csrc/qmatmul.cu",
                 "ik_llama_cpp_tpu/ops/qmatmul.py:96", "M=1 K=4096 N=28672"),
+    "qmatmul_wgmma": ("ik_llama_cpp_tpu_torch/csrc/qmatmul.cu",
+                      "ik_llama_cpp_tpu/ops/qmatmul.py:96", "M=512 K=4096 N=28672"),
     "moe_decode_gate_up_i8": ("ik_llama_cpp_tpu_torch/csrc/moe_decode_i8.cu",
                               "ik_llama_cpp_tpu/ops/moe_decode.py:392",
                               "P=8 K=2048 FF=768 G=128"),
@@ -2241,6 +2346,8 @@ KERNELS = {
                            "q8 B=1 T=512 S=1024 q_pos0=[0] kv_len=[512]"),
     "qmatmul4": ("ik_llama_cpp_tpu_torch/csrc/qmatmul4.cu",
                  "ik_llama_cpp_tpu/ops/qmatmul.py:243", "M=1 K=4096 N=28672"),
+    "qmatmul4_wgmma": ("ik_llama_cpp_tpu_torch/csrc/qmatmul4.cu",
+                       "ik_llama_cpp_tpu/ops/qmatmul.py:243", "M=512 K=4096 N=28672"),
     "moe_decode_fused_i8": ("ik_llama_cpp_tpu_torch/csrc/moe_decode_fused_i8.cu",
                             "ik_llama_cpp_tpu/ops/moe_decode.py:686",
                             "P=8 K=2048 FF=768 E=2048 G=128"),

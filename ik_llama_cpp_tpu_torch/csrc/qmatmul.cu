@@ -14,7 +14,8 @@
 // byte of packed column j is the code of column j, the high byte that of
 // column j + N/2.
 //
-// Two kernels, chosen by M.
+// Three kernels; the wrapper's plans (ops/qmatmul.gemv_plan, tiled_plan)
+// pick one before the launch.
 //
 // M <= 16, qmatmul_gemv_kernel (decode). Bound on the H100 by the weight
 // bytes: ~1.06 a weight (the code, 2/G of a bf16 scale) at 2-32 flops a
@@ -37,14 +38,27 @@
 // one subtraction; code x scale is one bf16x2 multiply of an exact
 // product (the same bits as rounding the float product).
 //
-// M > 16, qmatmul_kernel (prefill). Bound by bf16 tensor-core work at large
-// M. A simple tiled kernel: each block dequantizes a 32-deep slice of its 64
-// columns into shared memory (K-contiguous per column, so the mma's B
-// fragment is one 32-bit load), loads the matching x slice, and accumulates
-// in float registers; no copy/compute overlap yet.
+// M > 16, qmatmul_wgmma_kernel (prefill): the warpgroup-MMA design of
+// csrc/dq_wgmma.cuh (the weights as the MMA's A operand, dequantized in
+// registers from ldmatrix.trans of the TMA-loaded code tile; x by TMA as
+// the B operand; a persistent grid of 128-column by 64/128/256-token
+// tiles, ops/qmatmul.tiled_plan). Bound by bf16 tensor-core work at large
+// M. A code register from ldmatrix.trans holds codes (k 2t, 2t+1) x
+// (columns 2g, 2g+1); codes_pair turns two of its bytes into the bf16x2
+// of one fragment register with GEMV's magic-number conversion, and one
+// mul.rn.bf16x2 by the column's scale rounds once, as above.
+//
+// Shapes the wgmma form does not take (ops/qmatmul.tiled_plan routes them
+// by name before the launch: N not a multiple of 16, whose code rows TMA
+// cannot address, or a group that is not a multiple of 16 dividing 64 or
+// divided by it) keep the first port's qmatmul_kernel: each block
+// dequantizes a 32-deep slice of its 64 columns into shared memory
+// (K-contiguous per column, so the mma's B fragment is one 32-bit load),
+// loads the matching x slice, and accumulates mma.sync products in float
+// registers, with no copy/compute overlap.
 #include <cooperative_groups.h>
 
-#include "common.cuh"
+#include "dq_wgmma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -171,6 +185,105 @@ cudaError_t launch(const void* x, const void* codes, const void* scale, const vo
       static_cast<const __nv_bfloat16*>(x), codes, static_cast<const S*>(scale),
       static_cast<const S*>(bias), static_cast<float*>(out), M, N, K, G);
   return cudaGetLastError();
+}
+
+// ------------------------------------------------- M > 16, wgmma form ---
+// bf16x2 {code of byte b0, code of byte b1} of a word whose bytes were
+// XORed with 0x80 (gemv::codes_bf16x2's arithmetic on one word)
+IK_DEV uint32_t codes_pair(uint32_t q, int b0, int b1) {
+  const float f0 = __uint_as_float(__byte_perm(q, 0x4B000000u, 0x7650 | b0)) - 8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(q, 0x4B000000u, 0x7650 | b1)) - 8388736.f;
+  return __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+}
+
+// bf16x2 {lo + b, hi + b}: float sums rounded once to bf16, as
+// qmatmul_ref and the GEMV kernel add the bias
+IK_DEV uint32_t add_f(uint32_t w, float b) {
+  return pack_bf16x2(__uint_as_float(w << 16) + b, __uint_as_float(w & 0xFFFF0000u) + b);
+}
+
+// int8 codes (K, N) (or the pair form's int16 (K, N/2), the same bytes):
+// 64 code rows a stage; two ldmatrix.x4.trans a stage give a thread
+// registers (k 2t, 2t+1) x (columns 2g, 2g+1) of k rows 0-7 and 8-15 of
+// each k16 step.
+struct PlanarCodes {
+  static constexpr int ROWS = dqw::BK, NREG = 8, STATIC_SMEM = 0;
+  static int rows_of(int K) { return K; }
+  IK_DEV static void load(uint32_t (&r)[NREG], const unsigned char* tile, int lane, int chunk) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = 32 * h + lane;
+      ldmatrix_x4_trans(r + 4 * h, tile + k * 128 + ((chunk ^ (k & 7)) << 4));
+    }
+  }
+  // fragment: a0 = column l at k 2t, 2t+1 (bytes 0, 2 of the low word),
+  // a1 = column l + 1 (bytes 1, 3), a2 / a3 the same at k 2t+8, 2t+9
+  template <bool BIAS>
+  IK_DEV static void step(uint32_t (&a)[4], const uint32_t (&r)[NREG], int j, uint32_t sp,
+                          uint32_t bp, const uint32_t*) {
+    const uint32_t lo = r[2 * j] ^ 0x80808080u, hi = r[2 * j + 1] ^ 0x80808080u;
+    const uint32_t s0 = dqw::splat(sp, 0), s1 = dqw::splat(sp, 1);
+    a[0] = mul_rn(codes_pair(lo, 0, 2), s0);
+    a[1] = mul_rn(codes_pair(lo, 1, 3), s1);
+    a[2] = mul_rn(codes_pair(hi, 0, 2), s0);
+    a[3] = mul_rn(codes_pair(hi, 1, 3), s1);
+    if constexpr (BIAS) {
+      const float b0 = __uint_as_float(bp << 16), b1 = __uint_as_float(bp & 0xFFFF0000u);
+      a[0] = add_f(a[0], b0);
+      a[1] = add_f(a[1], b1);
+      a[2] = add_f(a[2], b0);
+      a[3] = add_f(a[3], b1);
+    }
+  }
+};
+
+template <int TM, bool F32, bool BIAS, bool PAIR>
+__global__ void __launch_bounds__(dqw::THREADS, 1)
+qmatmul_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                     const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_s,
+                     const __grid_constant__ CUtensorMap map_b, float* __restrict__ out,
+                     const dqw::Args a) {
+  dqw::dq_wgmma_body<PlanarCodes, TM, dqw::Form<F32, BIAS, PAIR>>(&map_x, &map_q, &map_s, &map_b,
+                                                                 out, a, nullptr);
+}
+
+template <int TM, bool F32, bool BIAS, bool PAIR>
+cudaError_t wgmma_go(const void* x, const void* codes, const void* scale, const void* bias,
+                     float* out, const dqw::Args& a, int blocks, cudaStream_t s) {
+  return dqw::launch<PlanarCodes, TM, qmatmul_wgmma_kernel<TM, F32, BIAS, PAIR>>(
+      x, codes, scale, bias, out, a, blocks, s);
+}
+
+// the kernel of a launch's form: f32 or bf16 scales, a bias, the pair form
+template <int TM>
+cudaError_t wgmma_form(const void* x, const void* codes, const void* scale, const void* bias,
+                       float* out, const dqw::Args& a, int blocks, cudaStream_t s) {
+  if (a.pair)
+    return a.s_f32 ? wgmma_go<TM, true, false, true>(x, codes, scale, bias, out, a, blocks, s)
+                   : wgmma_go<TM, false, false, true>(x, codes, scale, bias, out, a, blocks, s);
+  if (a.has_bias)
+    return a.s_f32 ? wgmma_go<TM, true, true, false>(x, codes, scale, bias, out, a, blocks, s)
+                   : wgmma_go<TM, false, true, false>(x, codes, scale, bias, out, a, blocks, s);
+  return a.s_f32 ? wgmma_go<TM, true, false, false>(x, codes, scale, bias, out, a, blocks, s)
+                 : wgmma_go<TM, false, false, false>(x, codes, scale, bias, out, a, blocks, s);
+}
+
+// tile_m: the tokens of a tile (64, 128 or 256), blocks: the persistent
+// grid (ops/qmatmul.tiled_plan)
+cudaError_t wgmma_launch(const void* x, const void* codes, const void* scale, const void* bias,
+                         void* out, int M, int N, int K, int G, int s_f32, int pair, int tile_m,
+                         int blocks, cudaStream_t s) {
+  dqw::Args a;
+  if (!dqw::make_args(&a, M, N, K, G, s_f32, bias != nullptr, pair, blocks))
+    return cudaErrorInvalidValue;
+  float* o = static_cast<float*>(out);
+  switch (tile_m) {
+    case 256: return wgmma_form<256>(x, codes, scale, bias, o, a, blocks, s);
+    case 128: return wgmma_form<128>(x, codes, scale, bias, o, a, blocks, s);
+    case 64: return wgmma_form<64>(x, codes, scale, bias, o, a, blocks, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // ------------------------------------------------------------ M <= 16 ----
@@ -460,7 +573,11 @@ cudaError_t by_m(const void* x, const void* codes, const void* scale, const void
 
 template <typename S, bool PAIR>
 cudaError_t by_rows(const void* x, const void* codes, const void* scale, const void* bias,
-                    void* out, int M, int N, int K, int G, int splits, cudaStream_t s) {
+                    void* out, int M, int N, int K, int G, int splits, int tile_m,
+                    cudaStream_t s) {
+  if (M > 16 && tile_m > 0)
+    return wgmma_launch(x, codes, scale, bias, out, M, N, K, G, sizeof(S) == 4, PAIR, tile_m,
+                        splits, s);
   if (M > 16) return launch<64, 32, 32, S, PAIR>(x, codes, scale, bias, out, M, N, K, G, s);
   if constexpr (!PAIR)
     if (bias != nullptr)
@@ -470,26 +587,31 @@ cudaError_t by_rows(const void* x, const void* codes, const void* scale, const v
 
 }  // namespace
 
-// scale_bf16: scale (and bias) are bf16, else float32. splits: the blocks
-// of a cluster that split K at M <= 16 (1-8; ops/qmatmul.gemv_plan).
+// scale_bf16: scale (and bias) are bf16, else float32. M <= 16: splits,
+// the blocks of a cluster that split K (1-8; ops/qmatmul.gemv_plan). M > 16
+// (ops/qmatmul.tiled_plan): tile_m, the tokens of a wgmma tile (64, 128 or
+// 256), and splits its persistent grid's blocks; tile_m 0 takes the
+// mma.sync tiled kernel.
 extern "C" int ik_qmatmul(const void* x, const void* codes, const void* scale,
                           const void* bias, int scale_bf16, void* out, int M, int N, int K,
-                          int G, int splits, void* stream) {
+                          int G, int splits, int tile_m, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
       scale_bf16
-          ? by_rows<__nv_bfloat16, false>(x, codes, scale, bias, out, M, N, K, G, splits, s)
-          : by_rows<float, false>(x, codes, scale, bias, out, M, N, K, G, splits, s));
+          ? by_rows<__nv_bfloat16, false>(x, codes, scale, bias, out, M, N, K, G, splits, tile_m,
+                                          s)
+          : by_rows<float, false>(x, codes, scale, bias, out, M, N, K, G, splits, tile_m, s));
 }
 
 // codes16: int16 (K, N/2), two int8 codes a lane; N even; no bias.
 extern "C" int ik_qmatmul_pair(const void* x, const void* codes16, const void* scale,
                                int scale_bf16, void* out, int M, int N, int K, int G,
-                               int splits, void* stream) {
+                               int splits, int tile_m, void* stream) {
   if (N % 2) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
       scale_bf16
-          ? by_rows<__nv_bfloat16, true>(x, codes16, scale, nullptr, out, M, N, K, G, splits, s)
-          : by_rows<float, true>(x, codes16, scale, nullptr, out, M, N, K, G, splits, s));
+          ? by_rows<__nv_bfloat16, true>(x, codes16, scale, nullptr, out, M, N, K, G, splits,
+                                         tile_m, s)
+          : by_rows<float, true>(x, codes16, scale, nullptr, out, M, N, K, G, splits, tile_m, s));
 }

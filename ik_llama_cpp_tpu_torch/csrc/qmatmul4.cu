@@ -11,8 +11,8 @@
 // with K % G == 0. The dequant chain runs in bf16 with float sums, which is
 // qmatmul4_ref's numerics contract.
 //
-// Two kernels; the wrapper (ops/qmatmul.gemv4_plan) picks one before the
-// launch.
+// Three kernels; the wrapper's plans (ops/qmatmul.gemv4_plan, tiled_plan)
+// pick one before the launch.
 //
 // M <= 16, group % 16 == 0 and K a whole number of lcm(G, 32)-row units:
 // qmatmul4_gemv_kernel (decode). Bound on the H100 by the weight bytes:
@@ -62,17 +62,29 @@
 // unpack gained 2-3%. So the interleaved layout that would save the byte
 // permutes (a load-time recode of QLinearI4's buffer) was not taken.
 //
-// Other shapes (M > 16, or a group that is not a multiple of 16):
-// qmatmul4_kernel, bound by bf16 tensor-core work at large M. Each block
-// dequantizes a 32-deep slice of its 64 columns into shared memory,
-// K-contiguous per column, both nibbles of a byte into neighbouring K
-// positions (one 32-bit store), so x is taken whole (the TPU kernel
-// pre-splits x into even and odd columns to avoid a lane interleave); then
-// bf16 mma.sync.m16n8k16 with float accumulators. The codebook sits in
-// shared memory. No copy/compute overlap.
+// M > 16 (ops/qmatmul.tiled_plan): qmatmul4_wgmma_kernel, bound by bf16
+// tensor-core work at large M: the warpgroup-MMA design of
+// csrc/dq_wgmma.cuh (the weights as the MMA's A operand, dequantized in
+// registers; x by TMA as the B operand; a persistent grid of 128-column by
+// 64/128/256-token tiles). A stage is 32 packed rows (64 K rows); one
+// ldmatrix.x4.trans a stage, its matrix rows ordered packed rows t, t + 4,
+// gives a thread one register a k16 step whose four bytes are its whole A
+// fragment (columns 2g, 2g+1 at K rows 2t, 2t+1 and 2t+8, 2t+9), so the
+// GEMV kernel's unpack applies as it is: magic_pairs, sub_rn, mul_rn,
+// add_rn, or the 1 KB pair table for a codebook.
+//
+// Other shapes (M <= 16 where the GEMV kernel does not apply; M > 16 with
+// N not a multiple of 16, whose packed rows TMA cannot address, or a group
+// the wgmma form does not take): qmatmul4_kernel, the first port's tiled
+// kernel. Each block dequantizes a 32-deep slice of its 64 columns into
+// shared memory, K-contiguous per column, both nibbles of a byte into
+// neighbouring K positions (one 32-bit store), so x is taken whole (the
+// TPU kernel pre-splits x into even and odd columns to avoid a lane
+// interleave); then bf16 mma.sync.m16n8k16 with float accumulators. The
+// codebook sits in shared memory. No copy/compute overlap.
 #include <cooperative_groups.h>
 
-#include "common.cuh"
+#include "dq_wgmma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -214,26 +226,6 @@ IK_DEV uint4 ld_stream16(const void* p) {
 }
 
 IK_DEV uint32_t bf16x2_bits(__nv_bfloat162 v) { return *reinterpret_cast<uint32_t*>(&v); }
-
-// bf16x2 arithmetic that rounds at each step: the .rn forms, which the
-// compiler may not contract into one fused multiply-add (__hmul2 then
-// __hadd2 may become one, which rounds once where the plain version
-// rounds twice).
-IK_DEV uint32_t sub_rn(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-IK_DEV uint32_t mul_rn(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-IK_DEV uint32_t add_rn(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
 
 // (a & mask) | bits in one logic op: written as C, the two constants are
 // two immediates, which one LOP3 cannot take, and it becomes two.
@@ -520,14 +512,88 @@ cudaError_t run(const __nv_bfloat16* x, const uint8_t* packed, const __nv_bfloat
 
 }  // namespace gemv
 
+// ------------------------------------------------- M > 16, wgmma form ---
+// 4-bit packed bytes (K/2, N): 32 packed rows a stage; one
+// ldmatrix.x4.trans a stage, matrix i = k16 step i with its rows ordered
+// packed rows 0, 4, 1, 5, 2, 6, 3, 7, gives thread (g, t) bytes (t, 2g),
+// (t, 2g+1), (t+4, 2g), (t+4, 2g+1) of each step.
+template <bool LUT>
+struct PackedCodes {
+  static constexpr int ROWS = dqw::BK / 2, NREG = 4, STATIC_SMEM = 1024;
+  static int rows_of(int K) { return K / 2; }
+  IK_DEV static void load(uint32_t (&r)[NREG], const unsigned char* tile, int lane, int chunk) {
+    const int rr = lane & 7, prow = 8 * (lane >> 3) + (rr >> 1) + 4 * (rr & 1);
+    ldmatrix_x4_trans(r, tile + prow * 128 + ((chunk ^ (prow & 7)) << 4));
+  }
+  // byte b of the step's register is fragment register b: the bf16x2 of
+  // its two nibbles (K rows 2i, 2i + 1), column l + (b & 1)
+  template <bool BIAS>
+  IK_DEV static void step(uint32_t (&a)[4], const uint32_t (&r)[NREG], int j, uint32_t sp,
+                          uint32_t bp, const uint32_t* tab) {
+    uint32_t p[4];
+    if (LUT) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) p[b] = tab[__byte_perm(r[j], 0u, 0x4440 | b)];
+    } else {
+      gemv::magic_pairs(r[j], p);
+#pragma unroll
+      for (int b = 0; b < 4; ++b) p[b] = sub_rn(p[b], 0x43084308u);    // - {136, 136}
+    }
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      a[b] = mul_rn(p[b], dqw::splat(sp, b & 1));
+      if constexpr (BIAS) a[b] = add_rn(a[b], dqw::splat(bp, b & 1));
+    }
+  }
+};
+
+template <int TM, bool LUT, bool BIAS>
+__global__ void __launch_bounds__(dqw::THREADS, 1)
+qmatmul4_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                      const __grid_constant__ CUtensorMap map_q,
+                      const __grid_constant__ CUtensorMap map_s,
+                      const __grid_constant__ CUtensorMap map_b, float* __restrict__ out,
+                      const dqw::Args a, Lut16 lut) {
+  __shared__ uint32_t tab[LUT ? 256 : 1];    // byte -> bf16x2 {value(lo), value(hi)}
+  if (LUT)
+    for (int b = threadIdx.x; b < 256; b += dqw::THREADS)
+      tab[b] = gemv::bf16x2_bits(__floats2bfloat162_rn(lut.v[b & 15], lut.v[b >> 4]));
+  dqw::dq_wgmma_body<PackedCodes<LUT>, TM, dqw::Form<false, BIAS, false>>(&map_x, &map_q, &map_s,
+                                                                          &map_b, out, a, tab);
+}
+
+template <int TM, bool LUT, bool BIAS>
+cudaError_t wgmma_go(const __nv_bfloat16* x, const uint8_t* packed, const __nv_bfloat16* scale,
+                     const __nv_bfloat16* bias, float* out, const dqw::Args& a, int blocks,
+                     const Lut16& lut, cudaStream_t s) {
+  return dqw::launch<PackedCodes<LUT>, TM, qmatmul4_wgmma_kernel<TM, LUT, BIAS>>(
+      x, packed, scale, bias, out, a, blocks, s, lut);
+}
+
+template <bool LUT, bool BIAS>
+cudaError_t wgmma_by_tm(const __nv_bfloat16* x, const uint8_t* packed,
+                        const __nv_bfloat16* scale, const __nv_bfloat16* bias, float* out,
+                        const dqw::Args& a, int tile_m, int blocks, const Lut16& lut,
+                        cudaStream_t s) {
+  switch (tile_m) {
+    case 256: return wgmma_go<256, LUT, BIAS>(x, packed, scale, bias, out, a, blocks, lut, s);
+    case 128: return wgmma_go<128, LUT, BIAS>(x, packed, scale, bias, out, a, blocks, lut, s);
+    case 64: return wgmma_go<64, LUT, BIAS>(x, packed, scale, bias, out, a, blocks, lut, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// lut: 16 floats in host memory, or null for value(idx) = idx - 8. splits:
-// 0 for the tiled kernel; 1-8 for the M <= 16 kernel, with the blocks of a
-// cluster that split K in whole units of `unit` rows (ops/qmatmul.gemv4_plan).
+// lut: 16 floats in host memory, or null for value(idx) = idx - 8. tile_m
+// 64, 128 or 256: the wgmma kernel with tiles of tile_m tokens on a
+// persistent grid of `splits` blocks (M > 16; ops/qmatmul.tiled_plan);
+// else splits 1-8: the M <= 16 kernel, with the blocks of a cluster that
+// split K in whole units of `unit` rows (ops/qmatmul.gemv4_plan); splits 0:
+// the mma.sync tiled kernel.
 extern "C" int ik_qmatmul4(const void* x, const void* packed, const void* scale,
                            const void* bias, void* out, int M, int N, int K, int G,
-                           const float* lut, int splits, int unit, void* stream) {
+                           const float* lut, int splits, int unit, int tile_m, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto xb = static_cast<const __nv_bfloat16*>(x);
   auto p = static_cast<const uint8_t*>(packed);
@@ -538,6 +604,19 @@ extern "C" int ik_qmatmul4(const void* x, const void* packed, const void* scale,
   if (lut != nullptr)
     for (int i = 0; i < 16; ++i) l.v[i] = lut[i];
   const int has_lut = lut != nullptr;
+  if (tile_m > 0) {
+    dqw::Args a;
+    if (!dqw::make_args(&a, M, N, K, G, 0, bias != nullptr, 0, splits))
+      return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t e;
+    if (has_lut)
+      e = bi ? wgmma_by_tm<true, true>(xb, p, sc, bi, o, a, tile_m, splits, l, s)
+             : wgmma_by_tm<true, false>(xb, p, sc, bi, o, a, tile_m, splits, l, s);
+    else
+      e = bi ? wgmma_by_tm<false, true>(xb, p, sc, bi, o, a, tile_m, splits, l, s)
+             : wgmma_by_tm<false, false>(xb, p, sc, bi, o, a, tile_m, splits, l, s);
+    return static_cast<int>(e);
+  }
   if (splits > 0)
     return static_cast<int>(gemv::run(xb, p, sc, bi, o, M, N, K, G, unit, splits, has_lut, l, s));
   cudaError_t e = (M <= 16) ? launch<16, 16, 16>(xb, p, sc, bi, o, M, N, K, G, has_lut, l, s)

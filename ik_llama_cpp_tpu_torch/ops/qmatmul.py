@@ -87,6 +87,62 @@ def gemv_k_ranges(k: int, group: int, splits: int) -> list[tuple[int, int]]:
     return [(i * ng // nw * group, (i + 1) * ng // nw * group) for i in range(nw)]
 
 
+# The M > 16 kernels of the planar form and of its 4-bit packed form
+# (qmatmul_wgmma_kernel, qmatmul4_wgmma_kernel, csrc/dq_wgmma.cuh): output
+# tiles of TILED_TN weight columns (two warpgroups of 64) by ``tm`` tokens,
+# 64-deep K stages, one persistent block an SM.
+TILED_TN = 128
+TILED_BK = 64
+# a tile's time by its tokens, over a 256-token tile's: what the plan
+# weighs rounds of the grid with (chip_smoke.py phase 3's width sweep)
+TILED_TILE_COST = {256: 1.0, 128: 0.67, 64: 0.6}
+
+
+def tiled_plan(m: int, n: int, k: int, group: int, sms: int = _cuda.DEFAULT_SMS) -> dict:
+    """The launch of kernels D and 15 at M > 16, a pure function of the
+    shapes and the card's SM count, chosen before the launch.
+
+    {"kernel": "wgmma"}: output tiles of TILED_TN columns by ``tm`` tokens
+    (tile i at tokens (i % m_tiles) * tm and columns (i // m_tiles) *
+    TILED_TN) and a persistent grid of ``blocks`` that walks them, block b
+    taking tiles b, b + blocks, ... Each tile sums the whole of K in order:
+    K is never split, so a call repeats bit for bit. ``tm`` is the width
+    whose rounds of the grid (tiles over SMs, rounded up) cost least at
+    TILED_TILE_COST, the widest on a tie. It needs N % 16 == 0 (TMA
+    addresses 16-byte code rows), group % 16 == 0 with group dividing 64 or
+    64 dividing group (a stage's scale rows are one TMA box), and K %
+    group == 0.
+
+    {"kernel": "tiled"} for the other shapes at M > 16: the first port's
+    mma.sync kernels (``qmatmul_kernel``, ``qmatmul4_kernel``), by name."""
+    if m <= GEMV_MAX_M:
+        raise ValueError(f"qmatmul: the M > {GEMV_MAX_M} kernels take M > {GEMV_MAX_M} (M {m})")
+    if not (n > 0 and n % 16 == 0 and group > 0 and group % 16 == 0
+            and (TILED_BK % group == 0 or group % TILED_BK == 0)
+            and k > 0 and k % group == 0 and sms > 0):
+        return {"kernel": "tiled"}
+    n_tiles = -(-n // TILED_TN)
+
+    def cost(tm):
+        return -(-(-(-m // tm) * n_tiles) // sms) * TILED_TILE_COST[tm]
+
+    tm = min(TILED_TILE_COST, key=cost)         # dict order: the widest wins a tie
+    m_tiles = -(-m // tm)
+    tiles = m_tiles * n_tiles
+    return {"kernel": "wgmma", "tm": tm, "tn": TILED_TN, "m_tiles": m_tiles,
+            "n_tiles": n_tiles, "tiles": tiles, "blocks": min(tiles, sms)}
+
+
+def _launch_plan(m, n, k, group, x):
+    """(splits, tile_m) of an ``ik_qmatmul`` / ``ik_qmatmul_pair`` call:
+    the K split at M <= 16, the wgmma kernel's grid and tile tokens above
+    (tile_m 0: the mma.sync tiled kernel)."""
+    if m <= GEMV_MAX_M:
+        return gemv_plan(m, n, k, group)["splits"], 0
+    plan = tiled_plan(m, n, k, group, _cuda.sm_count(x))
+    return (plan["blocks"], plan["tm"]) if plan["kernel"] == "wgmma" else (1, 0)
+
+
 def qmatmul(x, codes, scale, bias=None, *, group: int = 32):
     """(M, K) x int8 (K, N) -> f32 (M, N); scale/bias (K/G, N), bf16 (as the
     loaders store them) or float32, which the kernel rounds to bf16.
@@ -98,9 +154,12 @@ def qmatmul(x, codes, scale, bias=None, *, group: int = 32):
     flight and no barrier in the K sweep, splits K over the warps of a
     block and the blocks of a cluster (``gemv_plan``) and adds the partial
     sums in a fixed order, so a call repeats bit for bit. It needs
-    group % 16 == 0. Above 16 rows a tiled kernel dequantizes 32-deep slices
-    into shared memory and runs mma.sync on them (no copy/compute overlap
-    yet); it is bound by bf16 tensor-core work at large M."""
+    group % 16 == 0. Above 16 rows the product is bound by bf16
+    tensor-core work: warpgroup MMAs with the weights as the A operand,
+    dequantized in registers from TMA-loaded code tiles, x by TMA as the B
+    operand, a persistent grid of 128-column tiles (``tiled_plan``); the
+    shapes it does not take run the first port's mma.sync tiled kernel.
+    The wgmma form needs the weights 16-byte aligned."""
     if x.device.type == "cpu":
         return qmatmul_ref(x, codes, scale, bias, group=group)
     m, k = x.shape
@@ -115,15 +174,17 @@ def qmatmul(x, codes, scale, bias=None, *, group: int = 32):
                       and bias.shape == scale.shape, "qmatmul: bias must match scale")
     for t in (codes, scale, bias):
         _cuda.require(t is None or t.device == x.device, "qmatmul: operands on different devices")
-    splits = gemv_plan(m, n, k, group)["splits"] if m <= GEMV_MAX_M else 1
+    splits, tile_m = _launch_plan(m, n, k, group, x)
     xb = _gemv_operand(x, codes, scale, bias)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     fn = _cuda.function("qmatmul", "ik_qmatmul",
-                        [_cuda.P] * 4 + [_cuda.I, _cuda.P] + [_cuda.I] * 5 + [_cuda.P])
+                        [_cuda.P] * 4 + [_cuda.I, _cuda.P] + [_cuda.I] * 6 + [_cuda.P])
     rc = fn(xb.data_ptr(), codes.data_ptr(), scale.data_ptr(),
             None if bias is None else bias.data_ptr(),
             int(scale.dtype == torch.bfloat16), out.data_ptr(),
-            m, n, k, group, splits, _cuda.stream_ptr(x))
+            m, n, k, group, splits, tile_m, _cuda.stream_ptr(x))
+    if tile_m:
+        qmatmul.wgmma_launches += 1
     qmatmul.launches += 1
     _cuda.check(rc, "qmatmul")
     return out
@@ -139,6 +200,7 @@ def _gemv_operand(x, *weights):
 
 
 qmatmul.launches = 0      # kernel launches, counted where they happen
+qmatmul.wgmma_launches = 0   # ... of them, the wgmma form's (M > 16)
 
 
 # --------------------------------------------------------------------------
@@ -251,10 +313,11 @@ def qmatmul4(x, packed, scale, bias=None, *, group: int = 32, lut16=None):
     loads, steps in flight in registers, K split over the warps of a block
     and the blocks of a cluster, partial sums added in a fixed order, so a
     call repeats bit for bit) with the nibble unpack in registers. It needs
-    group % 16 == 0 and K a whole number of lcm(group, 32) rows. Other
-    shapes take the tiled kernel, bound by bf16 tensor-core work at large M:
-    ``qmatmul``'s tiled design with the unpack in front, both nibbles of a
-    byte into neighbouring K positions, so x is taken whole."""
+    group % 16 == 0 and K a whole number of lcm(group, 32) rows. Above 16
+    rows ``tiled_plan`` picks ``qmatmul``'s wgmma design, bound by bf16
+    tensor-core work, with the GEMV kernel's unpack on each thread's A
+    fragment; the shapes neither takes run the first port's mma.sync
+    tiled kernel (both nibbles of a byte into neighbouring K positions)."""
     if x.device.type == "cpu":
         return qmatmul4_ref(x, packed, scale, bias, group=group, lut16=lut16)
     m, k = x.shape
@@ -272,27 +335,34 @@ def qmatmul4(x, packed, scale, bias=None, *, group: int = 32, lut16=None):
     for t in (packed, scale, bias):
         _cuda.require(t is None or t.device == x.device, "qmatmul4: operands on different devices")
     _cuda.require(lut16 is None or len(lut16) == 16, "qmatmul4: lut16 must hold 16 values")
+    splits, unit, tile_m = 0, 0, 0
     plan = gemv4_plan(m, n, k, group)
     if plan["kernel"] == "gemv":
         splits, unit = plan["splits"], plan["unit"]
         xb = _gemv_operand(x, packed, scale, bias)
     else:
-        splits, unit = 0, 0
-        xb = x.to(torch.bfloat16).contiguous()
+        if m > GEMV_MAX_M:
+            plan = tiled_plan(m, n, k, group, _cuda.sm_count(x))
+            if plan["kernel"] == "wgmma":
+                splits, tile_m = plan["blocks"], plan["tm"]
+        xb = _gemv_operand(x, packed, scale, bias) if tile_m else x.to(torch.bfloat16).contiguous()
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     lut = None if lut16 is None else (ctypes.c_float * 16)(*lut16)
     fn = _cuda.function("qmatmul4", "ik_qmatmul4",
                         [_cuda.P] * 5 + [_cuda.I] * 4
-                        + [ctypes.POINTER(ctypes.c_float), _cuda.I, _cuda.I, _cuda.P])
+                        + [ctypes.POINTER(ctypes.c_float)] + [_cuda.I] * 3 + [_cuda.P])
     rc = fn(xb.data_ptr(), packed.data_ptr(), scale.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(),
-            m, n, k, group, lut, splits, unit, _cuda.stream_ptr(x))
+            m, n, k, group, lut, splits, unit, tile_m, _cuda.stream_ptr(x))
+    if tile_m:
+        qmatmul4.wgmma_launches += 1
     qmatmul4.launches += 1
     _cuda.check(rc, "qmatmul4")
     return out
 
 
 qmatmul4.launches = 0
+qmatmul4.wgmma_launches = 0
 
 
 # --------------------------------------------------------------------------

@@ -26,8 +26,7 @@ import numpy as np
 import torch
 
 from ..ops import _cuda
-from ..ops.qmatmul import (GEMV_MAX_M, _dequant_bf16, _gemv_operand, gemv_plan, qmatmul,
-                           qmatmul_ref)
+from ..ops.qmatmul import _dequant_bf16, _gemv_operand, _launch_plan, qmatmul, qmatmul_ref
 
 
 def pack_pairs(codes: np.ndarray) -> np.ndarray:
@@ -59,9 +58,11 @@ def qmatmul_pair(x, codes16, scale, *, group: int = 32):
     CUDA kernels of ``csrc/qmatmul.cu`` (their pair form), which replace
     the Pallas kernel tools/perf_dequant.py:qmatmul_pair of the JAX
     package: the planar kernels' arithmetic, split plan and order of sums
-    behind a loader whose 16-byte load is 8 packed columns, both halves, so
-    the result equals ``qmatmul`` on the unpacked codes bit for bit. Bound
-    by the weight bytes at the decode shape (M <= 16)."""
+    behind a loader whose 16-byte load is 8 packed columns, both halves
+    (above 16 rows: the wgmma kernel's tile of 128 code bytes, 64 packed
+    columns and their high halves), so the result equals ``qmatmul`` on
+    the unpacked codes bit for bit. Bound by the weight bytes at the decode
+    shape (M <= 16)."""
     if x.device.type == "cpu":
         return qmatmul_pair_ref(x, codes16, scale, group=group)
     m, k = x.shape
@@ -76,14 +77,14 @@ def qmatmul_pair(x, codes16, scale, *, group: int = 32):
                   "qmatmul_pair: scale must be contiguous bf16 or float32 (K/group, N)")
     for t in (codes16, scale):
         _cuda.require(t.device == x.device, "qmatmul_pair: operands on different devices")
-    splits = gemv_plan(m, n, k, group)["splits"] if m <= GEMV_MAX_M else 1
+    splits, tile_m = _launch_plan(m, n, k, group, x)
     xb = _gemv_operand(x, codes16, scale)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     fn = _cuda.function("qmatmul", "ik_qmatmul_pair",
-                        [_cuda.P] * 3 + [_cuda.I, _cuda.P] + [_cuda.I] * 5 + [_cuda.P])
+                        [_cuda.P] * 3 + [_cuda.I, _cuda.P] + [_cuda.I] * 6 + [_cuda.P])
     rc = fn(xb.data_ptr(), codes16.data_ptr(), scale.data_ptr(),
             int(scale.dtype == torch.bfloat16), out.data_ptr(), m, n, k, group, splits,
-            _cuda.stream_ptr(x))
+            tile_m, _cuda.stream_ptr(x))
     qmatmul_pair.launches += 1
     _cuda.check(rc, "qmatmul_pair")
     return out
