@@ -15,7 +15,11 @@ Phases (all by default; any failure exits non-zero):
      split of kernels A, D and 15 at M <= 16 against their time, and
      kernel A's host cost a call at M = 1, the tile widths of the tiled A,
      D and 15 at M = 512 against their time, and the warpgroup MMAs of the
-     three tiled kernels in their SASS
+     three tiled kernels in their SASS; the split plans of the decode
+     attention kernels C and 5 and kernel 14's work plan beside their
+     cases. With phase 12 also run, row 14p follows it: kernel 14 at the
+     group sizes phase 12's router gave (the layer-0 call against its
+     plain version and library call, every layer's call timed alone)
   4. end to end at full width (L32 E4096 H32 KV8 FF14336 V32000, Q4_0
      planar weights, Q8_0 tied head, random weights from a seed): load
      through Runtime.from_gguf, prefill 512 tokens, decode 64 greedily,
@@ -39,7 +43,10 @@ Phases (all by default; any failure exits non-zero):
   9. quantized KV cache end to end at the full width of phase 4: q8 (prefill
      512, decode 64, launch counts, decode profile), then q4, q6, nl4, q8
      with the K/V Hadamard rotation and a per-layer codec dict on the same
-     weights, and one K-shift on the q8 cache followed by more decode steps
+     weights; a q8 cache and a bf16 one of capacity 4,096 filled with 3,999
+     tokens by the prefill chunks, 8 decode steps at ~4,000 keys profiled
+     (kernel 5's ms a step beside kernel C's); and one K-shift on the q8
+     cache followed by more decode steps
  10. quantized-KV parity at depth 2: per codec, kernel path against plain
      path over one token history (the plain path is fed the kernel path's
      greedy tokens): logits at every step, where the greedy picks differ,
@@ -55,7 +62,8 @@ Phases (all by default; any failure exits non-zero):
      untied head, random blocks from a seed): gate/up experts re-coded per
      supergroup of 256, down experts planar group 32 (1408 % 256 != 0);
      load, prefill 512, decode 64, launch counts, decode and prefill profiles
-     (kernel 13's share of a decode step)
+     (kernel 13's share of a decode step, kernel 14's of a prefill chunk),
+     and the group sizes the router gives kernel 14 in a chunk
  13. parity at depth 2, kernel path against plain path over one token
      history, for (a) the phase-12 model, (b) the Qwen3-30B-A3B shape with
      the int8 path off (every expert projection planar) and (c) the same
@@ -798,6 +806,42 @@ def phase_moe_kernels(torch, timer, results, c=MOE, dev="cuda") -> bool:
     return ok
 
 
+def ragged_case(torch, timer, results, x, codes, sc, wg, sizes, name: str) -> bool:
+    """One kernel 14 case against its plain version and the grouped library
+    call: x (M, K) bf16, codes (G, K, N), scales (G, K/32, N), wg the
+    experts dequantized (k_major), sizes the group sizes (numpy). Checks
+    that two calls repeat bit for bit."""
+    from ik_llama_cpp_tpu_torch.ops import moe_qmm as MQ
+    from ik_llama_cpp_tpu_torch.ops import _cuda
+    (m, k), (g_, _, n) = x.shape, codes.shape
+    gsz = torch.from_numpy(sizes.astype(np.int32)).to(x.device)
+    total, ne = int(sizes.sum()), int((sizes > 0).sum())
+    got = MQ.ragged_qmatmul(x, codes, sc, gsz, group=32)
+    ref = MQ.ragged_qmatmul_ref(x, codes, sc, gsz, group=32)
+    again = bool(torch.equal(got[:total], MQ.ragged_qmatmul(x, codes, sc, gsz, group=32)[:total]))
+    sync(torch)
+    err = float((got[:total] - ref[:total]).abs().max()) if total else 0.0
+    if not again:
+        err = float("inf")
+    # the largest sum of |x w| over the live rows, from their own experts
+    absdot = float(MQ.ragged_qmatmul_ref(x.abs(), codes.abs(), sc, gsz, group=32)
+                   [:total].max()) if total else 0.0
+    bnd = bound_ms(total * k * 2 + ne * (k * n + (k // 32) * n * 2) + total * n * 4
+                   + g_ * 4, 2.0 * total * k * n, BF16_FLOPS)
+    plan = MQ.ragged_plan(m, n, k, g_, 32, sc.element_size(), _cuda.sm_count(x))
+    note = (f" | plan: {plan['kernel']}" + (f", sweeps of {plan['tn']} columns by {plan['tm']} "
+                                            f"tokens on {plan['blocks']} blocks"
+                                            if plan["kernel"] == "wgmma" else "")
+            + f"; {ne} experts with rows, at most {int(sizes.max()) if g_ else 0}; "
+              f"repeats bit for bit: {again}")
+    return _record(results, "ragged_qmatmul", f"M={m} K={k} N={n} G={g_} group=32 {name}", err,
+                   sum_tol(k, absdot) + 1e-12,
+                   timer(lambda: MQ.ragged_qmatmul(x, codes, sc, gsz, group=32)),
+                   timer(lambda: MQ.ragged_qmatmul_ref(x, codes, sc, gsz, group=32), 3),
+                   time_grouped(timer, x, wg, gsz, f"kernel 14 K={k} N={n} {name}"), bnd,
+                   note=note)
+
+
 def phase_planar_moe_kernels(torch, timer, results, dev="cuda") -> bool:
     """Kernels 12-14 (planar MoE decode and prefill), 11 (the single-kernel
     int8 decode) and 16 (the pair form of the planar GEMM) against their
@@ -905,8 +949,9 @@ def phase_planar_moe_kernels(torch, timer, results, dev="cuda") -> bool:
                         library=lambda: torch.bmm(hb, wb))
         del wb, down
 
-    log("[3] kernel 14 (ragged_qmatmul, planar) vs plain; library = bf16 grouped product "
-        "over the live experts (torch._grouped_mm of the rows and the dequantized experts)")
+    log("[3] kernel 14 (ragged_qmatmul, planar; ragged_wgmma_kernel where ragged_plan "
+        "takes the shape) vs plain; library = bf16 grouped product over the live experts "
+        "(torch._grouped_mm of the rows and the dequantized experts)")
     for c, k, n in ((q2, q2["FF"], q2["E"]), (q3, q3["E"], q3["FF"])):
         g_ = c["G"]
         m = PREFILL * c["TOPK"]
@@ -920,23 +965,7 @@ def phase_planar_moe_kernels(torch, timer, results, dev="cuda") -> bool:
         for name, sizes in size_sets.items():
             if c is q3 and name != "skewed":
                 continue
-            gsz = torch.from_numpy(sizes.astype(np.int32)).to(dev)
-            total, ne = int(sizes.sum()), int((sizes > 0).sum())
-            got = MQ.ragged_qmatmul(x, codes, sc, gsz, group=32)
-            ref = MQ.ragged_qmatmul_ref(x, codes, sc, gsz, group=32)
-            sync(torch)
-            err = float((got[:total] - ref[:total]).abs().max()) if total else 0.0
-            # the largest sum of |x w| over the live rows, from their own experts
-            absdot = float(MQ.ragged_qmatmul_ref(x.abs(), codes.abs(), sc, gsz, group=32)
-                           [:total].max()) if total else 0.0
-            bnd = bound_ms(total * k * 2 + ne * (k * n + (k // 32) * n * 2) + total * n * 4
-                           + g_ * 4, 2.0 * total * k * n, BF16_FLOPS)
-            ok &= _record(results, "ragged_qmatmul",
-                          f"M={m} K={k} N={n} G={g_} group=32 {name}", err,
-                          sum_tol(k, absdot) + 1e-12,
-                          timer(lambda: MQ.ragged_qmatmul(x, codes, sc, gsz, group=32)),
-                          timer(lambda: MQ.ragged_qmatmul_ref(x, codes, sc, gsz, group=32), 3),
-                          time_grouped(timer, x, wg, gsz, f"kernel 14 K={k} N={n} {name}"), bnd)
+            ok &= ragged_case(torch, timer, results, x, codes, sc, wg, sizes, name)
         del codes, wg
 
     log("[3] kernel 11 (moe_decode_fused_i8, one launch) vs plain, beside kernels 7 + 8 "
@@ -1053,6 +1082,7 @@ def phase_kvq_kernels(torch, timer, results) -> bool:
     gen = torch.Generator(device="cuda").manual_seed(2)
     bf16 = torch.bfloat16
     scale_ = 1.0 / float(np.sqrt(D))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     ok = True
 
     def attn_case(kernel, fn, codec, b, t, s, qpos, kvlen, **kw):
@@ -1103,13 +1133,25 @@ def phase_kvq_kernels(torch, timer, results) -> bool:
                        4.0 * H * D * live, BF16_FLOPS)
         extra = "".join(f" {k}" for k in kw)
         case = f"{codec} B={b} T={t} S={s} q_pos0={qpos} kv_len={kvlen}{extra}"
+        note = f" | SDPA alone {sdpa:.4f} ms"
+        if fn is FA.flash_attention_decode_q8:
+            again = bool(torch.equal(got, fn(*args, scale=scale_, **kw)))
+            plan = FA.decode_split_plan(b, t, H, HKV, s, D, D, sms)
+            blocks = [len(FA.decode_key_ranges(plan, lo[i], min(kvlen[i], qpos[i] + t)))
+                      for i in range(b)]
+            note += (f" | plan: {plan['splits']} splits x {plan['groups']} groups, round "
+                     f"{plan['round']} keys, blocks working a group {blocks}; repeats bit for "
+                     f"bit: {again}")
+            if not again:
+                err = float("inf")
         return _record(results, kernel, case, err, tol,
                        timer(lambda: fn(*args, scale=scale_, **kw)),
                        timer(lambda: FA.attention_quant_ref(*args, scale=scale_, **kw), 3),
-                       lib, bnd, note=f" | SDPA alone {sdpa:.4f} ms")
+                       lib, bnd, note=note)
 
-    log("[3] kernel 5 (flash_attention_decode_q8, codecs q8/q4/q6/nl4) vs plain; "
-        "library = the slab dequantized to bf16 + SDPA (both timed together)")
+    log("[3] kernel 5 (flash_attention_decode_q8, split-K fa_decode_q_kernel, codecs "
+        "q8/q4/q6/nl4) vs plain; library = the slab dequantized to bf16 + SDPA (both timed "
+        "together)")
     for codec in ("q8", "q4", "q6", "nl4"):
         for t in (1, 8):
             for s, kvl in ((1024, 513), (4096, 4000)):
@@ -1118,6 +1160,9 @@ def phase_kvq_kernels(torch, timer, results) -> bool:
     sinks = torch.randn(H, generator=gen, device="cuda")
     ok &= attn_case("flash_attention_decode_q8", FA.flash_attention_decode_q8, "q6",
                     1, 1, 1024, [512], [513], sinks=sinks, swa_window=256)
+    for codec in ("q8", "q4", "q6", "nl4"):
+        ok &= attn_case("flash_attention_decode_q8", FA.flash_attention_decode_q8, codec,
+                        1, 1, 4096, [3999], [4000], sinks=sinks, swa_window=1000)
     log("[3] kernel 6 (flash_attention_q8, prefill over int8 KV) vs plain; library as for 5")
     ok &= attn_case("flash_attention_q8", FA.flash_attention_q8, "q8", 1, 512, 1024, [0], [512])
     ok &= attn_case("flash_attention_q8", FA.flash_attention_q8, "q8", 1, 512, 1024, [256], [768])
@@ -1466,6 +1511,8 @@ def counters():
     # the M > 16 wgmma kernels of D and 15: the part of their wrappers' launches
     out["qmatmul_wgmma"] = (QM.qmatmul, "wgmma_launches")
     out["qmatmul4_wgmma"] = (QM.qmatmul4, "wgmma_launches")
+    # ... and kernel 14's (the mma.sync form runs only shapes TMA cannot address)
+    out["ragged_qmatmul_wgmma"] = (MQ.ragged_qmatmul, "wgmma_launches")
     return out
 
 
@@ -1958,10 +2005,83 @@ def phase_moe(torch, gguf: Path, launches: dict, phases: set, c=MOE) -> bool:
     return ok
 
 
-def phase_q2moe(torch, gguf: Path, launches: dict, phases: set, c=Q2MOE) -> bool:
+def router_group_sizes(torch, rt, ids) -> list:
+    """The group sizes kernel 14 is given in one prefill chunk of ``ids``,
+    one list a call (a layer), each read back after its call (a chunk of
+    its own, not timed)."""
+    from ik_llama_cpp_tpu_torch.ops import moe
+    seen, fn = [], moe.ragged_qmatmul
+
+    def spy(x, codes, scale, group_sizes, **kw):
+        seen.append(group_sizes.tolist())
+        return fn(x, codes, scale, group_sizes, **kw)
+
+    moe.ragged_qmatmul = spy
+    try:
+        rt.eval_tokens(ids, rt.new_cache(1, PREFILL + 8), 0)
+    finally:
+        moe.ragged_qmatmul = fn
+    torch.cuda.synchronize()
+    return seen
+
+
+def phase_replay_14p(torch, timer, results, sizes: list, chunk_ms: dict, c=Q2MOE) -> bool:
+    """Row 14p of phase 3, after phase 12: kernel 14 at the group sizes
+    phase 12's router gave its prefill chunk, on random codes from a seed at
+    that shape: layer 0's call against its plain version and the library
+    call, then every layer's call timed alone, summed beside the profiled
+    chunk's kernel-14 time (the model's warm L2 and back-to-back launches
+    against the clean flush of each timed call here). Kernel 10, which
+    takes the same sizes for the gate and up experts, the same way, beside
+    its time at sizes that fill every expert."""
+    from ik_llama_cpp_tpu_torch.ops import moe_decode as MD
+    from ik_llama_cpp_tpu_torch.ops import moe_qmm as MQ
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    k, n, g_ = c["FF"], c["E"], c["G"]
+    m = PREFILL * c["TOPK"]
+    codes = torch.randint(-8, 9, (g_, n, k), generator=gen, device="cuda",
+                          dtype=torch.int8).transpose(1, 2)
+    sc = ((torch.rand((g_, k // 32, n), generator=gen, device="cuda") + 0.5)
+          * (0.3 / 8 / k ** 0.5)).to(torch.bfloat16)
+    x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    wg = k_major(MD.dequant_experts(codes, sc, 32))
+    log(f"[3] 14p: kernel 14 at the group sizes of phase 12's router (layer 0 of "
+        f"{len(sizes)}), M={m} K={k} N={n} G={g_}")
+    ok = ragged_case(torch, timer, results, x, codes, sc, wg, np.asarray(sizes[0]),
+                     "phase-12 router, layer 0")
+    kern = lib = 0.0
+    for gs in sizes:
+        gsz = torch.tensor(gs, dtype=torch.int32, device="cuda")
+        kern += timer(lambda: MQ.ragged_qmatmul(x, codes, sc, gsz, group=32), 5)
+        lib += timer(lambda: grouped_library(x, wg, gsz), 5)
+    log(f"[3] 14p: the {len(sizes)} layers' calls timed alone (clean flush each): kernel 14 "
+        f"{kern:.3f} ms, library {lib:.3f} ms; the profiled chunk's kernel 14 "
+        f"{chunk_ms['14']:.3f} ms")
+    del codes, wg
+    k, n = c["E"], c["FF"]
+    w = torch.randint(-127, 128, (g_, n, k), generator=gen, device="cuda",
+                      dtype=torch.int8).transpose(1, 2)
+    sw = torch.rand((g_, k // 256, n), generator=gen, device="cuda") * 1e-3
+    xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+    xst = (torch.rand((m, k // 256), generator=gen, device="cuda") * 1e-2 + 1e-4).t()
+    full = np.random.default_rng(12).multinomial(m, np.full(g_, 1.0 / g_))
+    t10 = [timer(lambda: MQ.ragged_qmatmul_i8(xq, xst, w, sw, gsz), 5)
+           for gsz in (torch.tensor(gs, dtype=torch.int32, device="cuda")
+                       for gs in [*sizes, full])]
+    log(f"[3] kernel 10 (gate and up, K={k} N={n} G={g_}) at the same sizes: the {len(sizes)} "
+        f"layers' calls {sum(t10[:-1]):.3f} ms, twice that a chunk {2 * sum(t10[:-1]):.3f} ms "
+        f"(the profiled chunk's kernel 10 {chunk_ms['10']:.3f} ms); a call at random sizes "
+        f"(all {g_} experts live) {t10[-1]:.4f} ms, at the router's {sum(t10[:-1]) / len(sizes):.4f}")
+    del w
+    return ok
+
+
+def phase_q2moe(torch, gguf: Path, launches: dict, phases: set, c=Q2MOE,
+                replay: dict | None = None) -> bool:
     """Phase 12 (Qwen1.5-MoE-A2.7B at full width: mixed-format experts, a
     shared expert, attention biases) and phase 13a (its parity at depth 2)
-    on one loaded model."""
+    on one loaded model. ``replay`` gets phase 12's router group sizes of
+    kernel 14 and the chunk's kernel-14 ms (row 14p)."""
     from ik_llama_cpp_tpu_torch.ops.moe import QuantExpertWeights
     from ik_llama_cpp_tpu_torch.runtime.generate import Runtime
     nl, v = c["L"], c["V"]
@@ -1992,7 +2112,7 @@ def phase_q2moe(torch, gguf: Path, launches: dict, phases: set, c=Q2MOE) -> bool
         step = {"qmatmul_i8": per, "flash_attention_decode": nl,
                 "moe_decode_gate_up": nl, "moe_decode_down": nl}
         chunk = {"qmatmul_i8": per, "flash_attention": nl,
-                 "ragged_qmatmul_i8": 2 * nl, "ragged_qmatmul": nl}
+                 "ragged_qmatmul_i8": 2 * nl, "ragged_qmatmul": nl, "ragged_qmatmul_wgmma": nl}
         good, counts, ids, toks, kv, n_past = moe_run(torch, rt, c, 12, "12", step, chunk, load_s)
         ok &= good
         launches.update({k: counts[k] for k in ("moe_decode_gate_up", "moe_decode_down",
@@ -2008,7 +2128,21 @@ def phase_q2moe(torch, gguf: Path, launches: dict, phases: set, c=Q2MOE) -> bool
         prof = profile_window(torch, lambda: rt.eval_tokens(ids, kv, 0), 1,
                               f"one {PREFILL}-token prefill chunk", "chunk", "12")
         log(f"[12] prefill chunk: kernel A {a_ms(prof)}")
+        k14 = kernel_ms(prof, "ragged_wgmma_kernel", "ragged_kernel<")
+        log(f"[12] prefill chunk: kernel 14 (ragged_qmatmul) {k14:.3f} ms, "
+            f"{100 * k14 / sum(prof.values()):.1f}% of the chunk's {sum(prof.values()):.3f} ms "
+            f"of kernels, {counts['ragged_qmatmul']} launches "
+            f"({counts['ragged_qmatmul_wgmma']} of the wgmma form)")
         del kv
+        sizes = router_group_sizes(torch, rt, ids)
+        per = np.asarray(sizes)
+        log(f"[12] kernel 14's group sizes from the router, {len(sizes)} calls of "
+            f"{int(per[0].sum())} rows over {per.shape[1]} experts: experts with rows "
+            f"{int((per > 0).sum(1).min())}-{int((per > 0).sum(1).max())} a call, rows an "
+            f"expert mean {per.mean():.1f}, max {int(per.max())}; layer 0 {sizes[0]}")
+        if replay is not None:
+            replay.update(sizes=sizes, chunk_ms={"14": k14, "10": kernel_ms(
+                prof, "ragged_kernel(signed char")})
         log(f"[12] mixed-format MoE end to end: {time.perf_counter() - t_phase:.1f} s")
     if 13 in phases:
         t0 = time.perf_counter()
@@ -2045,7 +2179,7 @@ def phase_planar_moe_parity(torch, gguf: Path, c=MOE) -> bool:
     counts = read_counts()
     good, text = parity_verdict(lk, lp)
     want = {"moe_decode_gate_up": 2 * 16, "moe_decode_down": 2 * 16, "ragged_qmatmul": 3 * 2,
-            "qmatmul": (2 * 2 + 1) * 17, "qmatmul_wgmma": 2 * 2 + 1, "flash_attention": 2,
+            "ragged_qmatmul_wgmma": 3 * 2, "qmatmul": (2 * 2 + 1) * 17, "qmatmul_wgmma": 2 * 2 + 1, "flash_attention": 2,
             "flash_attention_decode": 2 * 16}
     got = {k: n for k, n in counts.items() if n}
     good &= groups == (32, 32, 32) and got == want
@@ -2145,6 +2279,7 @@ def phase_kvq(torch, gguf: Path, launches: dict) -> bool:
             kv_q8, n_q8_past, last_tok = kv, n_past + n_dec, toks[:, -1:]
         else:
             del kv
+    ok &= kvq_long_context(torch, rt, base_cfg, rng)
     # K-shift on the q8 cache: drop 128 rows after the first 4, then decode on
     rt.kv_quant, rt.cfg = "q8", base_cfg
     if not kshift.can_shift(rt.cfg):
@@ -2174,6 +2309,38 @@ def phase_kvq(torch, gguf: Path, launches: dict) -> bool:
     del rt, kv_q8, kv_plain
     torch.cuda.empty_cache()
     log(f"[9] quantized KV end to end: {time.perf_counter() - t_phase:.1f} s")
+    return ok
+
+
+LONG = 4000      # cached tokens of phase 9's long-context decode
+
+
+def kvq_long_context(torch, rt, base_cfg, rng) -> bool:
+    """Phase 9 at the context a quantized cache is for: a q8 cache and a
+    bf16 one of capacity 4,096, filled with LONG - 1 tokens by the prefill
+    chunks, then 8 decode steps profiled at ~LONG keys (after 2 warm ones):
+    kernel 5's ms a step beside kernel C's, and their launches."""
+    ids = [int(x) for x in rng.integers(3, V, LONG - 1)]
+    ok, ms = True, {}
+    for name, quant, key, kname in (("q8", "q8", "flash_attention_decode_q8", "fa_decode_q_kernel<"),
+                                    ("bf16", False, "flash_attention_decode", "fa_decode_kernel<")):
+        rt.kv_quant, rt.cfg = quant, base_cfg
+        kv = rt.new_cache(1, LONG)
+        logits, kv, n_past = rt.eval_tokens(ids, kv, 0)
+        tok = torch.argmax(logits[-1]).reshape(1, 1)
+        reset_counts()
+        prof = profile_decode(torch, rt, kv, n_past, tok, steps=8, tag=f"9 {name} at {LONG}",
+                              top=6)
+        n = read_counts()[key]
+        ms[name] = kernel_ms(prof, kname)
+        good = n == NL * 10 and kv.capacity == 4096 and bool(torch.isfinite(logits).all())
+        log(f"[9] {name} cache, capacity {kv.capacity}, {n_past} tokens prefilled: {key} "
+            f"{ms[name]:.3f} ms a decode step at {n_past + 1}-{n_past + 8} keys, "
+            f"{n} launches in 10 steps (expected {NL * 10}): {'ok' if good else 'FAIL'}")
+        ok &= good
+        del kv
+    log(f"[9] decode at {LONG} keys: kernel 5 {ms['q8']:.3f} ms a step over the q8 cache, "
+        f"kernel C {ms['bf16']:.3f} ms over the bf16 one")
     return ok
 
 
@@ -2439,7 +2606,10 @@ def main() -> int:
         t0 = time.perf_counter()
         q2_gguf = build_moe_gguf(ROOT / "build" / "smoke_qwen2moe.gguf", Q2MOE)
         log(f"[12] model file ready in {time.perf_counter() - t0:.1f} s: {q2_gguf}")
-        ok &= phase_q2moe(torch, q2_gguf, launches, phases)
+        replay = {}
+        ok &= phase_q2moe(torch, q2_gguf, launches, phases, replay=replay)
+        if 3 in phases and replay:
+            ok &= phase_replay_14p(torch, timer, results, replay["sizes"], replay["chunk_ms"])
     if 15 in phases:
         ok &= phase_perf_dequant(torch, launches)
     kernels = summary(results, launches)

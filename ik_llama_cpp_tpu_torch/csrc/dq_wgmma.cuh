@@ -79,6 +79,15 @@ IK_DEV uint32_t add_rn(uint32_t a, uint32_t b) {
   return d;
 }
 
+// bf16x2 {code of byte b0, code of byte b1} of a word whose bytes are int8
+// codes XORed with 0x80: each byte into a float magic number (2^23 + u, u =
+// code + 128) less 2^23 + 128, exact; the high halves are the bf16 values.
+IK_DEV uint32_t codes_pair(uint32_t q, int b0, int b1) {
+  const float f0 = __uint_as_float(__byte_perm(q, 0x4B000000u, 0x7650 | b0)) - 8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(q, 0x4B000000u, 0x7650 | b1)) - 8388736.f;
+  return __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+}
+
 namespace dqw {
 
 constexpr int TN = 128;          // weight columns of a tile: two consumer warpgroups of 64
@@ -185,13 +194,34 @@ IK_DEV void wgmma_rs(float* d, const uint32_t (&a)[4], uint64_t db, int scale_d)
 // {v, v} of the low (h = 0) or high (h = 1) bf16 of a word
 IK_DEV uint32_t splat(uint32_t w, int h) { return __byte_perm(w, 0u, h ? 0x3232 : 0x1010); }
 
-template <int TM, int ROWS>
+// RESERVE: static shared memory the kernel holds beside the ring
+template <int TM, int ROWS, int RESERVE = 0>
 struct Layout {
   static constexpr int X = TM * 128;                  // bytes of a stage's x tile
   static constexpr int Q = ROWS * 128;                // ... of its code tile
   static constexpr int STAGE = X + Q + 2 * SC_BYTES;  // + scale and bias rows
-  static constexpr int STAGES = (SMEM_MAX - 2048) / STAGE < 8 ? (SMEM_MAX - 2048) / STAGE : 8;
+  static constexpr int FIT = (SMEM_MAX - 2048 - RESERVE) / STAGE;
+  static constexpr int STAGES = FIT < 8 ? FIT : 8;
   static constexpr int BYTES = STAGES * STAGE + 2 * STAGES * 8 + 1024;
+};
+
+// One K sweep: tokens [m0, m0 + TM) against weight columns [n0, n0 + TN);
+// rows below m_end are stored. q0: the first code row of the sweep's
+// weights (an expert's), s0 its first scale row.
+struct Sweep {
+  int m0, m_end, n0, q0, s0;
+};
+
+// The work of kernels D and 15: the output tiles of one weight, tokens
+// fastest, so that the blocks in flight share each code tile in L2.
+struct DenseTiles {
+  static constexpr int SMEM = 0;
+  template <int TM, class Fn>
+  IK_DEV void each(const Args& a, Fn&& fn) const {
+    const int tiles_m = (a.M + TM - 1) / TM, tiles = tiles_m * ((a.N + TN - 1) / TN);
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+      fn(Sweep{(tile % tiles_m) * TM, a.M, (tile / tiles_m) * TN, 0, 0});
+  }
 };
 
 // What a launch's weights are, fixed at compile time so that the K loop
@@ -225,15 +255,18 @@ IK_DEV uint32_t scale_pair(const unsigned char* p, int half) {
   }
 }
 
-// Q: the code format (csrc/qmatmul.cu, csrc/qmatmul4.cu): ROWS code rows a
-// stage, NREG registers of raw codes a thread a stage (Q::load, by
-// ldmatrix from the warp's chunk of the stage's code tile), Q::step the A
-// fragment of k16 step j from them and the scale / bias pairs. F: the Form.
-template <class Q, int TM, class F>
+// Q: the code format (csrc/qmatmul.cu, csrc/qmatmul4.cu, csrc/moe_qmm.cu):
+// ROWS * 128 bytes of codes a stage, NREG registers of raw codes a thread
+// a stage (Q::load, from the warp's chunk of the stage's code tile), Q::step
+// the A fragment of k16 step j from them and the scale / bias pairs;
+// Q::K_MAJOR: the code tile is TN columns by BK k bytes (else ROWS code
+// rows by TN columns). F: the Form. W: the sweeps a block runs (W::each).
+template <class Q, int TM, class F, class W = DenseTiles>
 IK_DEV void dq_wgmma_body(const CUtensorMap* map_x, const CUtensorMap* map_q,
                           const CUtensorMap* map_s, const CUtensorMap* map_b,
-                          float* __restrict__ out, const Args& a, const uint32_t* tab) {
-  using L = Layout<TM, Q::ROWS>;
+                          float* __restrict__ out, const Args& a, const uint32_t* tab,
+                          const W& work = W{}) {
+  using L = Layout<TM, Q::ROWS, W::SMEM>;
   constexpr int NR = TM / 2;                 // accumulator registers a thread
   extern __shared__ unsigned char smem_raw[];
   // 1024-byte aligned stages: the swizzle pattern repeats every 8 rows
@@ -246,7 +279,6 @@ IK_DEV void dq_wgmma_body(const CUtensorMap* map_x, const CUtensorMap* map_q,
 
   const int tid = threadIdx.x, wg = tid / 128, warp = tid / 32, lane = tid & 31;
   const int nkb = (a.K + BK - 1) / BK;
-  const int tiles_m = (a.M + TM - 1) / TM, tiles = tiles_m * ((a.N + TN - 1) / TN);
 
   if (tid == 0) {
     // full: the producer's expect_tx arrive; empty: the 8 consumer warps
@@ -265,16 +297,19 @@ IK_DEV void dq_wgmma_body(const CUtensorMap* map_x, const CUtensorMap* map_q,
       const uint32_t sc_box = a.sr * TN * F::es;
       const uint32_t tx = L::X + L::Q + sc_box * (F::bias ? 2 : 1);
       int it = 0;
-      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int m0 = (tile % tiles_m) * TM, n0 = (tile / tiles_m) * TN;
+      work.template each<TM>(a, [&](const Sweep& sw) {
+        const int n0 = sw.n0;
         for (int kb = 0; kb < nkb; ++kb, ++it) {
           const int s = it % L::STAGES;
           mbar_wait(&empty[s], ((it / L::STAGES) & 1) ^ 1);
           mbar_expect_tx(&full[s], tx);
-          tma_load_2d(sx + s * L::X, map_x, &full[s], kb * BK, m0);
-          tma_load_2d(sq + s * L::Q, map_q, &full[s], n0, kb * Q::ROWS);
+          tma_load_2d(sx + s * L::X, map_x, &full[s], kb * BK, sw.m0);
+          if constexpr (Q::K_MAJOR)
+            tma_load_2d(sq + s * L::Q, map_q, &full[s], kb * BK, sw.q0 + n0);
+          else
+            tma_load_2d(sq + s * L::Q, map_q, &full[s], n0, sw.q0 + kb * Q::ROWS);
           unsigned char* sc = ssc + s * 2 * SC_BYTES;
-          const int row = kb * BK / a.G;
+          const int row = sw.s0 + kb * BK / a.G;
           if (F::pair) {
             tma_load_2d(sc, map_s, &full[s], n0 / 2, row);
             tma_load_2d(sc + sc_box / 2, map_s, &full[s], a.N / 2 + n0 / 2, row);
@@ -283,7 +318,7 @@ IK_DEV void dq_wgmma_body(const CUtensorMap* map_x, const CUtensorMap* map_q,
             if (F::bias) tma_load_2d(sc + SC_BYTES, map_b, &full[s], n0, row);
           }
         }
-      }
+      });
     }
   } else {
     // consumers: warpgroup c owns weight columns 64c .. 64c + 63 of the
@@ -304,8 +339,8 @@ IK_DEV void dq_wgmma_body(const CUtensorMap* map_x, const CUtensorMap* map_q,
       if (lane == 0) mbar_arrive(&empty[it % L::STAGES]);
     };
     int it = 0;
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const int m0 = (tile % tiles_m) * TM, n0 = (tile / tiles_m) * TN;
+    work.template each<TM>(a, [&](const Sweep& sw) {
+      const int m0 = sw.m0, n0 = sw.n0;
       fence_regs<NR>(acc);
       for (int kb = 0; kb < nkb; ++kb, ++it) {
         const int s = it % L::STAGES;
@@ -343,7 +378,7 @@ IK_DEV void dq_wgmma_body(const CUtensorMap* map_x, const CUtensorMap* map_q,
 #pragma unroll
         for (int p = 0; p < 2; ++p) {
           const int m = m0 + 8 * jj + 2 * t + p;
-          if (m >= a.M) continue;
+          if (m >= sw.m_end) continue;
           float* o = out + (size_t)m * a.N;
           if constexpr (!F::pair) {
             if (n0 + l < a.N)
@@ -357,7 +392,7 @@ IK_DEV void dq_wgmma_body(const CUtensorMap* map_x, const CUtensorMap* map_q,
           }
         }
       }
-    }
+    });
   }
 }
 
@@ -394,17 +429,24 @@ cudaError_t launch(const void* x, const void* codes, const void* scale, const vo
   return cudaGetLastError();
 }
 
-// The plan's arguments, checked: M > 16, N a multiple of 16 (16-byte code
-// rows for TMA), G a multiple of 16 that divides 64 or that 64 divides
-// (a stage's scale rows are one TMA box), K a multiple of G; a grid.
-inline bool make_args(Args* a, int M, int N, int K, int G, int s_f32, int has_bias, int pair,
-                      int blocks) {
-  if (M <= 16 || N <= 0 || N % 16 != 0 || G <= 0 || G % 16 != 0 ||
-      (BK % G != 0 && G % BK != 0) || K <= 0 || K % G != 0 || blocks < 1)
+// The Args of a weight of group G, checked: G a multiple of 16 that
+// divides 64 or that 64 divides (a stage's scale rows are one TMA box), K
+// a multiple of G, and M, N positive.
+inline bool group_args(Args* a, int M, int N, int K, int G, int s_f32, int has_bias, int pair) {
+  if (M <= 0 || N <= 0 || G <= 0 || G % 16 != 0 || (BK % G != 0 && G % BK != 0) || K <= 0 ||
+      K % G != 0)
     return false;
   *a = Args{M, N, K, G, G >= BK ? 1 : BK / G, G >= BK ? 2 : (G == 32 ? 1 : 0), s_f32,
             has_bias, pair};
   return true;
+}
+
+// The plan's arguments, checked: M > 16, N a multiple of 16 (16-byte code
+// rows for TMA), the group as group_args takes it; a grid.
+inline bool make_args(Args* a, int M, int N, int K, int G, int s_f32, int has_bias, int pair,
+                      int blocks) {
+  return M > 16 && N % 16 == 0 && blocks >= 1 &&
+         group_args(a, M, N, K, G, s_f32, has_bias, pair);
 }
 
 }  // namespace dqw

@@ -36,12 +36,14 @@
 //   warp), or the plan gives one split, block 0 alone runs the partition
 //   and merge of the kernel's first port and writes the output: the same
 //   bits for short ranges (a 128-token prompt and its first decode steps).
-// Any S and any head dim up to 256 that is a multiple of 8.
-#include "fa_common.cuh"
+// Any S and any head dim up to 256 that is a multiple of 8. The split frame
+// (the grid, the blocks' key ranges, the query rows, the merges) is
+// fa_decode.cuh, shared with kernel 5 (flash_attention_decode_q.cu).
+#include "fa_decode.cuh"
 
 namespace {
 
-constexpr int KT = 32;
+constexpr int KT = FA_DEC_KT;
 
 // Keys [key0, key0 + KT) of one kv head, row-major (KT x LD), by one
 // warp's cp.async copies; zero at keys >= end and at dims >= d.
@@ -75,51 +77,20 @@ fa_decode_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int WARP_BYTES_CMB = (32 + 16 * D) * 4;
   constexpr int WARP_BYTES = WARP_BYTES_KV > WARP_BYTES_CMB ? WARP_BYTES_KV : WARP_BYTES_CMB;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ int last_block;
   __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // [MTB*16][LDQ]
   unsigned char* warp_area = smem_raw + MTB * 16 * LDQ * 2;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2;
-  const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
-  const int rep = H / Hkv, R = rep * T, RB = MTB * 16;
-  const int row_base = blockIdx.y * RB;
-  const int ksplit = NW / MTB, round = ksplit * KT;
-  const int splits = gridDim.z, split = blockIdx.z;
-  const int gi = blockIdx.x * gridDim.y + blockIdx.y;     // the group's scratch and counter
-  const int qpos = q_pos0[b];
-  const FaMask mk{kv_len[b], swa, chunk};
+  const int qpos = q_pos0[blockIdx.x / Hkv];
+  const FaMask mk{kv_len[blockIdx.x / Hkv], swa, chunk};
+  FaDecBlock blk;
+  if (!fa_dec_block(blk, qpos, mk, T, H, Hkv, MTB, NW)) return;
+  const int b = blk.b, hk = blk.hk, R = blk.R, row_base = blk.row_base;
+  const int ksplit = blk.ksplit, round = ksplit * KT;
+  const int lo = blk.lo, hi = blk.hi, key_end = blk.key_end;
 
-  // this block's keys [lo, hi) of the group's live [key_start, key_end)
-  const int key_end = min(mk.kv_len, qpos + T);
-  const int key_start = fa_first_key(qpos, mk);
-  const int live = max(key_end - key_start, 0);
-  const bool whole = splits == 1 || live <= round;
-  int lo = key_start, hi = key_end, used = 1;
-  if (whole) {
-    if (split != 0) return;
-  } else {
-    const int per = max(((live + splits - 1) / splits + KT - 1) / KT * KT, round);
-    used = (live + per - 1) / per;
-    if (split >= used) return;
-    lo = key_start + split * per;
-    hi = min(lo + per, key_end);
-  }
-
-  {  // the group's query rows, zero past R and past Dk
-    constexpr int CH = D / 8;
-    for (int c = tid; c < RB * CH; c += NW * 32) {
-      const int r = c / CH, d0 = (c % CH) * 8;
-      const int gr = row_base + r;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (gr < R && d0 < Dk) {
-        const int tt = gr % T, h = hk * rep + gr / T;
-        val = *reinterpret_cast<const uint4*>(q + (size_t)b * sqb + (size_t)tt * sqt +
-                                              (size_t)h * sqh + d0);
-      }
-      *reinterpret_cast<uint4*>(sq + r * LDQ + d0) = val;
-    }
-  }
+  fa_dec_load_q<D, NW>(sq, q, blk, Dk, sqb, sqt, sqh);
   __syncthreads();
 
   const int mt = warp / ksplit, ks = warp % ksplit;
@@ -163,130 +134,8 @@ fa_decode_kernel(const __nv_bfloat16* __restrict__ q,
       key0 = nxt;
     }
   }
-  st.finish();
-  __syncthreads();   // every warp is done with its K/V tiles: reuse them
-
-  // per warp: m[16], l[16], o[16][D] (float)
-  {
-    const int t = lane & 3;
-    float* cm = reinterpret_cast<float*>(warp_area + warp * WARP_BYTES);
-    if (t == 0) {
-      cm[g] = st.m[0];
-      cm[g + 8] = st.m[1];
-      cm[16 + g] = st.l[0];
-      cm[16 + g + 8] = st.l[1];
-    }
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const int c = n * 8 + 2 * t;
-      cm[32 + g * D + c] = st.o[n][0];
-      cm[32 + g * D + c + 1] = st.o[n][1];
-      cm[32 + (g + 8) * D + c] = st.o[n][2];
-      cm[32 + (g + 8) * D + c + 1] = st.o[n][3];
-    }
-  }
-  __syncthreads();
-  auto warp_part = [&](int mtl, int w) {
-    return reinterpret_cast<const float*>(warp_area + (mtl * ksplit + w) * WARP_BYTES);
-  };
-  // per row, once (the query tile is free): the max over the warps (with
-  // the sink where this block gives the output), each warp's factor
-  // exp(m_w - max) and the sum l, in warp order; [RB][ksplit + 2]
-  float* rowv = reinterpret_cast<float*>(smem_raw);
-  const int RV = ksplit + 2;
-  for (int r = tid; r < RB; r += NW * 32) {
-    const int mtl = r / 16, row = r % 16, gr = row_base + r;
-    if (gr >= R) continue;
-    float mm = FA_NEG;
-    for (int w = 0; w < ksplit; ++w) mm = fmaxf(mm, warp_part(mtl, w)[row]);
-    const bool sink_here = whole && sinks != nullptr;
-    float sink = 0.f;
-    if (sink_here) {
-      sink = sinks[hk * rep + gr / T];
-      mm = fmaxf(mm, sink);
-    }
-    float l = 0.f;
-    for (int w = 0; w < ksplit; ++w) {
-      const float* c = warp_part(mtl, w);
-      const float f = expf(c[row] - mm);
-      l += c[16 + row] * f;
-      rowv[r * RV + w] = f;
-    }
-    if (sink_here) l += expf(sink - mm);
-    rowv[r * RV + ksplit] = mm;
-    rowv[r * RV + ksplit + 1] = l;
-  }
-  __syncthreads();
-
-  // whole: the output; else this split's (max, sum, unnormalised output) a
-  // row to the scratch [group][split] = o [RB][Dv], m [RB], l [RB]
-  const size_t psz = (size_t)RB * (Dv + 2);
-  float* pb = part + ((size_t)gi * splits + split) * psz;
-  for (int idx = tid; idx < RB * Dv; idx += NW * 32) {
-    const int r = idx / Dv, d = idx % Dv, mtl = r / 16, row = r % 16;
-    const int gr = row_base + r;
-    if (gr >= R) continue;
-    float o = 0.f;
-    for (int w = 0; w < ksplit; ++w) o += warp_part(mtl, w)[32 + row * D + d] * rowv[r * RV + w];
-    if (whole) {
-      const int tt = gr % T, h = hk * rep + gr / T;
-      const float l = rowv[r * RV + ksplit + 1];
-      out[(((size_t)b * T + tt) * H + h) * Dv + d] = __float2bfloat16_rn(o / (l > 0.f ? l : 1.f));
-    } else {
-      pb[r * Dv + d] = o;
-      if (d == 0) {
-        pb[RB * Dv + r] = rowv[r * RV + ksplit];
-        pb[RB * Dv + RB + r] = rowv[r * RV + ksplit + 1];
-      }
-    }
-  }
-  if (whole) return;
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) {
-    const int prev = atomicAdd(&counters[gi], 1);
-    last_block = prev == used - 1;
-    if (last_block) counters[gi] = 0;    // ready for the next call
-  }
-  __syncthreads();
-  if (!last_block) return;
-  __threadfence();
-
-  // the last block merges the splits in split order, with the sinks: per
-  // row the max, each split's factor and the sum; then each output
-  const float* p0 = part + (size_t)gi * splits * psz;
-  const int SV = used + 2;                 // [RB][used + 2], used <= 32
-  for (int r = tid; r < RB; r += NW * 32) {
-    const int gr = row_base + r;
-    if (gr >= R) continue;
-    float mm = FA_NEG;
-    for (int j = 0; j < used; ++j) mm = fmaxf(mm, __ldcg(p0 + j * psz + RB * Dv + r));
-    float sink = 0.f;
-    if (sinks != nullptr) {
-      sink = sinks[hk * rep + gr / T];
-      mm = fmaxf(mm, sink);
-    }
-    float l = 0.f;
-    for (int j = 0; j < used; ++j) {
-      const float* pj = p0 + j * psz;
-      const float f = expf(__ldcg(pj + RB * Dv + r) - mm);
-      l += __ldcg(pj + RB * Dv + RB + r) * f;
-      rowv[r * SV + j] = f;
-    }
-    if (sinks != nullptr) l += expf(sink - mm);
-    rowv[r * SV + used] = l;
-  }
-  __syncthreads();
-  for (int idx = tid; idx < RB * Dv; idx += NW * 32) {
-    const int r = idx / Dv, d = idx % Dv;
-    const int gr = row_base + r;
-    if (gr >= R) continue;
-    const int tt = gr % T, h = hk * rep + gr / T;
-    float o = 0.f;
-    for (int j = 0; j < used; ++j) o += __ldcg(p0 + j * psz + r * Dv + d) * rowv[r * SV + j];
-    const float l = rowv[r * SV + used];
-    out[(((size_t)b * T + tt) * H + h) * Dv + d] = __float2bfloat16_rn(o / (l > 0.f ? l : 1.f));
-  }
+  fa_dec_finish<D, NW>(st, smem_raw, warp_area, WARP_BYTES, blk, sinks, out, part, counters,
+                       Dv);
 }
 
 template <int D, int NW>
@@ -300,8 +149,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* qp,
   constexpr int cmb_bytes = (32 + 16 * D) * 4;
   constexpr int warp_bytes = kv_bytes > cmb_bytes ? kv_bytes : cmb_bytes;
   const int R = (H / Hkv) * T, MT = (R + 15) / 16;
-  int MTB = 1;
-  while (MTB < MT && MTB < NW) MTB *= 2;
+  const int MTB = fa_dec_mtb(R, NW);
   const int smem = MTB * 16 * LDQ * 2 + NW * warp_bytes;
   static bool smem_set = false;
   auto kern = fa_decode_kernel<D, NW>;

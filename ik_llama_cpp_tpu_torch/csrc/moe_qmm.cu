@@ -8,32 +8,209 @@
 //   out[m, n] = sum_k x[m, k] w[e(m), k, n],
 //   w[e, k, n] = bf16(bf16(codes[e, k, n]) * bf16(scale[e, k / group, n]))
 //
-// with e(m) the group that owns sorted row m. x is bf16 (M, K), the sums
-// float32. Codes are stored (G, N, K), K-contiguous per output column;
-// scales are (G, K / group, N), float32 or bf16 (a template parameter:
-// float32 scales are rounded to bf16 here). group is any multiple of 16 that
-// divides K, K any multiple of 16. Rows at or past sum(group_sizes) are
-// never written.
+// with e(m) the group (expert) that owns sorted row m. x is bf16 (M, K), the
+// sums float32. Codes are stored (G, N, K), K-contiguous per output column
+// (the experts' storage, which kernel 13 reads at decode); scales are
+// (G, K / group, N), float32 or bf16 (float32 scales are rounded to bf16
+// here). Rows at or past sum(group_sizes) are never written.
 //
-// Bound on the H100: the expert bytes when the groups are short (every
-// expert's codes are read once per row tile it owns rows in), bf16
-// tensor-core work when they are long. Design: the row map of kernel 10 (a
-// grid of (N tiles, row tiles) from M alone; each block prefix-sums
-// group_sizes in shared memory, leaves when its rows are past the last
-// group, and runs one K sweep per group that owns some of its rows, storing
-// only those rows: no host read, no step table) around the inner loop of the
-// planar GEMM (a 64-deep slice of 64 columns dequantized to bf16 in shared
-// memory, mma.sync.m16n8k16). The next slice's global loads go into
-// registers before the current slice's mma, so they overlap.
+// Bound on the H100 by the expert bytes at the models' sizes (Qwen1.5-MoE-
+// A2.7B's down projection at a 512-token chunk: 60 experts of K 1408 x N
+// 2048 codes, ~34 rows an expert, 173 of the 184 MB moved), by bf16
+// tensor-core work when the groups are long. Two kernels; the wrapper's
+// plan (ops/moe_qmm.ragged_plan) picks one before the launch.
+//
+// ragged_wgmma_kernel: the warpgroup-MMA body of kernels D and 15
+// (dq_wgmma.cuh: out^T = W^T x^T, the weights the wgmma A operand
+// dequantized in registers, x the TMA-fed B operand, a ring of 64-deep
+// stages under mbarriers, one producer thread, two consumer warpgroups)
+// over a grouped work list: the block prefix-sums group_sizes in shared
+// memory and walks sweeps (expert with rows, 128-column tile, TM of its
+// rows: 64 or 128, from M / G) on a persistent grid sized from M, N and G
+// alone (no host read, no step table); the sweeps of an (expert, column
+// tile) are consecutive, so neighbouring blocks run them at once and each
+// expert's codes come from device memory about once a column tile, shared
+// in L2; only the expert's own rows are stored. K is never split and no sums
+// meet in atomics: a call repeats bit for bit. The code tile is K-major
+// (KMajorCodes): TMA loads 128 columns of 64 code bytes in its 64-byte
+// swizzle, and each thread takes its fragment's codes with 16-bit shared
+// loads, so the experts keep the one layout that kernel 13 reads too (a
+// copy laid out N-major would double their memory).
+//
+// ragged_kernel, for the shapes TMA cannot address (scale rows that are
+// not a multiple of 16 bytes, groups that neither divide 64 nor are a
+// multiple of it): the first port's row map of kernel 10 (a grid of
+// (N tiles, row tiles); each block runs one K sweep per group that owns
+// some of its rows, a 64-deep slice of 64 columns dequantized to bf16 in
+// shared memory for mma.sync, the next slice's loads in flight).
+#include "dq_wgmma.cuh"
 #include "moe_common.cuh"
 
 namespace {
 
+constexpr int MAXG = 1024;         // groups the prefix sums hold
+
+// ------------------------------------------------------------ wgmma form --
+IK_DEV uint32_t ld_u16(const unsigned char* p) {
+  return *reinterpret_cast<const uint16_t*>(p);
+}
+
+// int8 codes stored (G, N, K): a stage's tile is 128 columns of 64 code
+// bytes (one TMA box, 64-byte rows), which TMA's 64-byte swizzle writes
+// with 16-byte chunk c of column n at chunk c ^ ((n >> 1) & 3). (Under
+// the 128-byte swizzle the 64-byte box did not arrive as dense 64-byte
+// rows: wrong sums, and calls that did not repeat.) Thread
+// (g, t) of the warp's 16-column chunk takes D's permuted fragment rows:
+// row g is column l = 2g of the chunk, row g + 8 column l + 1. A 16-bit load
+// gives one fragment register's codes (k 2t, 2t + 1 of a k16 step, or
+// 2t + 8, 2t + 9) of one column; the 8 columns of a load fall on 4 bank
+// groups, two ways each. Two columns' pairs make a register: bytes (l, k),
+// (l, k + 1), (l + 1, k), (l + 1, k + 1).
+struct KMajorCodes {
+  static constexpr int ROWS = dqw::BK, NREG = 8, STATIC_SMEM = 0;
+  static constexpr bool K_MAJOR = true;
+  IK_DEV static void load(uint32_t (&r)[NREG], const unsigned char* tile, int lane, int chunk) {
+    const int g = lane >> 2, t = lane & 3, key = g & 3;
+    const unsigned char* p = tile + (16 * chunk + 2 * g) * 64 + 2 * t;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        r[2 * j + h] = ld_u16(p + ((j ^ key) << 4) + 8 * h) |
+                       (ld_u16(p + 64 + ((j ^ key) << 4) + 8 * h) << 16);
+  }
+  template <bool BIAS>
+  IK_DEV static void step(uint32_t (&a)[4], const uint32_t (&r)[NREG], int j, uint32_t sp,
+                          uint32_t, const uint32_t*) {
+    const uint32_t lo = r[2 * j] ^ 0x80808080u, hi = r[2 * j + 1] ^ 0x80808080u;
+    const uint32_t s0 = dqw::splat(sp, 0), s1 = dqw::splat(sp, 1);
+    a[0] = mul_rn(codes_pair(lo, 0, 1), s0);     // column l at k 2t, 2t + 1
+    a[1] = mul_rn(codes_pair(lo, 2, 3), s1);     // column l + 1
+    a[2] = mul_rn(codes_pair(hi, 0, 1), s0);     // ... at k 2t + 8, 2t + 9
+    a[3] = mul_rn(codes_pair(hi, 2, 3), s1);
+  }
+};
+
+// The work of kernel 14: sweeps (expert with rows, 128-column tile, TM of
+// the expert's rows), numbered experts first, then columns, then tokens,
+// and taken round robin by the blocks: the sweeps of one (expert, column
+// tile) are consecutive, so neighbouring blocks run them at once and read
+// the tile's codes from device memory about once, sharing them in L2, and
+// a large expert's sweeps spread over as many blocks as it has token
+// tiles. end: each expert's end row (the prefix sums of the group sizes,
+// clamped to M); live: the experts with rows, n_live of them; first: the
+// number of token tiles of the live experts before each (n_live + 1
+// entries). Shared memory, filled by rows_map.
+struct GroupedItems {
+  static constexpr int SMEM = (3 * MAXG + 8) * 4;
+  const int* end;
+  const int* live;
+  const int* first;
+  const int* n_live;
+  template <int TM, class Fn>
+  IK_DEV void each(const dqw::Args& a, Fn&& fn) const {
+    const int tiles_n = (a.N + dqw::TN - 1) / dqw::TN, total = first[*n_live] * tiles_n;
+    int i = 0;
+    for (int u = blockIdx.x; u < total; u += gridDim.x) {
+      while (first[i + 1] * tiles_n <= u) ++i;
+      const int e = live[i], te = first[i + 1] - first[i], r = u - first[i] * tiles_n;
+      const int m0 = (e ? end[e - 1] : 0) + (r % te) * TM;
+      fn(dqw::Sweep{m0, min(m0 + TM, end[e]), (r / te) * dqw::TN, e * a.N, e * (a.K / a.G)});
+    }
+  }
+};
+
+// GroupedItems' arrays from the G group sizes: every thread loads, warp 0
+// scans 32 groups at a time (rows, then token tiles of TM). Visible to the
+// block after its next barrier.
+template <int TM>
+IK_DEV void rows_map(const int* __restrict__ gsz, int G, int M, int* end, int* live, int* first,
+                     int* n_live) {
+  for (int i = threadIdx.x; i < G; i += blockDim.x) end[i] = gsz[i];
+  __syncthreads();
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  int carry = 0, tcarry = 0, n = 0;
+  for (int base = 0; base < G; base += 32) {
+    const int e = base + lane;
+    const int c = e < G ? end[e] : 0;
+    int x = c;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    const int stop = min(carry + x, M), start = min(carry + x - c, M);
+    const int tiles = e < G ? (stop - start + TM - 1) / TM : 0;
+    int tx = tiles;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, tx, o);
+      if (lane >= o) tx += y;
+    }
+    if (e < G) end[e] = stop;
+    const unsigned mask = __ballot_sync(0xffffffffu, tiles > 0);
+    if (tiles > 0) {
+      const int at = n + __popc(mask & ((1u << lane) - 1u));
+      live[at] = e;
+      first[at] = tcarry + tx - tiles;
+    }
+    n += __popc(mask);
+    carry = __shfl_sync(0xffffffffu, carry + x, 31);
+    tcarry = __shfl_sync(0xffffffffu, tcarry + tx, 31);
+  }
+  if (lane == 0) {
+    *n_live = n;
+    first[n] = tcarry;
+  }
+}
+
+template <int TM, bool F32>
+__global__ void __launch_bounds__(dqw::THREADS, 1)
+ragged_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                    const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_s, float* __restrict__ out,
+                    const dqw::Args a, const int* __restrict__ gsz, int experts) {
+  __shared__ int s_end[MAXG], s_live[MAXG], s_first[MAXG + 1], s_n;
+  rows_map<TM>(gsz, experts, a.M, s_end, s_live, s_first, &s_n);
+  dqw::dq_wgmma_body<KMajorCodes, TM, dqw::Form<F32, false, false>, GroupedItems>(
+      &map_x, &map_q, &map_s, &map_s, out, a, nullptr,
+      GroupedItems{s_end, s_live, s_first, &s_n});
+}
+
+// The three tensor maps (x (M, K) bf16; the codes as (G N, K) bytes; the
+// scales as (G K / group, N)) and the launch.
+template <int TM, bool F32>
+cudaError_t wgmma_go(const void* x, const void* codes, const void* scale, const void* gsz,
+                     float* out, const dqw::Args& a, int G, int blocks, cudaStream_t s) {
+  using L = dqw::Layout<TM, KMajorCodes::ROWS, GroupedItems::SMEM>;
+  static_assert(L::BYTES + GroupedItems::SMEM <= dqw::SMEM_MAX, "shared memory of one block");
+  auto kern = ragged_wgmma_kernel<TM, F32>;
+  static bool smem_set = false;
+  cudaError_t e = set_smem(kern, L::BYTES, smem_set);
+  if (e != cudaSuccess) return e;
+  CUtensorMap mx, mq, ms;
+  if ((e = tensor_map_2d(&mx, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a.K, a.M, (uint64_t)a.K * 2,
+                         dqw::BK, TM, CU_TENSOR_MAP_SWIZZLE_128B)) != cudaSuccess)
+    return e;
+  if ((e = tensor_map_2d(&mq, codes, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.K, (uint64_t)G * a.N,
+                         a.K, dqw::BK, dqw::TN, CU_TENSOR_MAP_SWIZZLE_64B)) != cudaSuccess)
+    return e;
+  if ((e = tensor_map_2d(&ms, scale,
+                         F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_UINT16,
+                         a.N, (uint64_t)G * (a.K / a.G), (uint64_t)a.N * (F32 ? 4 : 2), dqw::TN,
+                         a.sr, CU_TENSOR_MAP_SWIZZLE_NONE)) != cudaSuccess)
+    return e;
+  kern<<<blocks, dqw::THREADS, L::BYTES, s>>>(mx, mq, ms, out, a,
+                                              static_cast<const int*>(gsz), G);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------- mma.sync form --
 constexpr int NT = 256;            // threads a block (8 warps)
 constexpr int TILE = 64;           // rows / columns of a tile
 constexpr int BK = 64;             // K depth of a staged slice
 constexpr int LDK = BK + 8;        // padded shared row (bf16): conflict-free fragment loads
-constexpr int MAXG = 1024;         // groups the prefix sum holds
 
 // Four codes of one 32-bit word times s, rounded to bf16: two packed pairs.
 IK_DEV void deq4(int w, float s, uint32_t& lo, uint32_t& hi) {
@@ -169,15 +346,36 @@ cudaError_t launch(const void* x, const void* codes, const void* scale, const vo
 }  // namespace
 
 // scale_bf16: the scales are bf16 (else float32). K % 16 == 0, group % 16 == 0,
-// K % group == 0, 1 <= G <= 1024.
+// K % group == 0, 1 <= G <= 1024. tile_m: the tokens of a sweep of the
+// wgmma form (64 or 128) and blocks its persistent grid
+// (ops/moe_qmm.ragged_plan); tile_m 0 takes the mma.sync form.
 extern "C" int ik_ragged_qmatmul(const void* x, const void* codes, const void* scale,
                                  int scale_bf16, const void* gsz, void* out, int M, int N,
-                                 int K, int G, int group, void* stream) {
+                                 int K, int G, int group, int tile_m, int blocks,
+                                 void* stream) {
   if (K % 16 || group % 16 || K % group || G < 1 || G > MAXG)
     return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(scale_bf16
-                              ? launch<__nv_bfloat16>(x, codes, scale, gsz, out, M, N, K, G, group, s)
-                              : launch<float>(x, codes, scale, gsz, out, M, N, K, G, group, s));
+  if (tile_m == 0)
+    return static_cast<int>(
+        scale_bf16 ? launch<__nv_bfloat16>(x, codes, scale, gsz, out, M, N, K, G, group, s)
+                   : launch<float>(x, codes, scale, gsz, out, M, N, K, G, group, s));
+  dqw::Args a;
+  if (!dqw::group_args(&a, M, N, K, group, !scale_bf16, 0, 0) || blocks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* o = static_cast<float*>(out);
+  cudaError_t e;
+  switch (tile_m) {
+    case 64:
+      e = scale_bf16 ? wgmma_go<64, false>(x, codes, scale, gsz, o, a, G, blocks, s)
+                     : wgmma_go<64, true>(x, codes, scale, gsz, o, a, G, blocks, s);
+      break;
+    case 128:
+      e = scale_bf16 ? wgmma_go<128, false>(x, codes, scale, gsz, o, a, G, blocks, s)
+                     : wgmma_go<128, true>(x, codes, scale, gsz, o, a, G, blocks, s);
+      break;
+    default: e = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(e);
 }

@@ -188,14 +188,6 @@ cudaError_t launch(const void* x, const void* codes, const void* scale, const vo
 }
 
 // ------------------------------------------------- M > 16, wgmma form ---
-// bf16x2 {code of byte b0, code of byte b1} of a word whose bytes were
-// XORed with 0x80 (gemv::codes_bf16x2's arithmetic on one word)
-IK_DEV uint32_t codes_pair(uint32_t q, int b0, int b1) {
-  const float f0 = __uint_as_float(__byte_perm(q, 0x4B000000u, 0x7650 | b0)) - 8388736.f;
-  const float f1 = __uint_as_float(__byte_perm(q, 0x4B000000u, 0x7650 | b1)) - 8388736.f;
-  return __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
-}
-
 // bf16x2 {lo + b, hi + b}: float sums rounded once to bf16, as
 // qmatmul_ref and the GEMV kernel add the bias
 IK_DEV uint32_t add_f(uint32_t w, float b) {
@@ -208,6 +200,7 @@ IK_DEV uint32_t add_f(uint32_t w, float b) {
 // each k16 step.
 struct PlanarCodes {
   static constexpr int ROWS = dqw::BK, NREG = 8, STATIC_SMEM = 0;
+  static constexpr bool K_MAJOR = false;
   static int rows_of(int K) { return K; }
   IK_DEV static void load(uint32_t (&r)[NREG], const unsigned char* tile, int lane, int chunk) {
 #pragma unroll

@@ -520,6 +520,7 @@ cudaError_t run(const __nv_bfloat16* x, const uint8_t* packed, const __nv_bfloat
 template <bool LUT>
 struct PackedCodes {
   static constexpr int ROWS = dqw::BK / 2, NREG = 4, STATIC_SMEM = 1024;
+  static constexpr bool K_MAJOR = false;
   static int rows_of(int K) { return K / 2; }
   IK_DEV static void load(uint32_t (&r)[NREG], const unsigned char* tile, int lane, int chunk) {
     const int rr = lane & 7, prow = 8 * (lane >> 3) + (rr >> 1) + 4 * (rr & 1);

@@ -48,6 +48,17 @@ def attention_ref(q, k, v, q_pos0, kv_len, *, scale: float,
                   sinks=sinks, attn_chunk=attn_chunk)
 
 
+def _split_args(split):
+    """The ctypes arguments and their types of a decode kernel's split,
+    (scratch, counters, splits) or None for a kernel that takes none."""
+    if split is None:
+        return (), []
+    part, counters, splits = split
+    return ((None if part is None else part.data_ptr(),
+             None if counters is None else counters.data_ptr(), splits),
+            [_cuda.P, _cuda.P, _cuda.I])
+
+
 def _launch(symbol, lib, q, k, v, q_pos0, kv_len, scale, softcap, swa_window,
             attn_chunk, sinks, split=None):
     """Checks and launches one attention kernel; ``split`` = (scratch,
@@ -72,12 +83,7 @@ def _launch(symbol, lib, q, k, v, q_pos0, kv_len, scale, softcap, swa_window,
     if sinks is not None:
         sk = sinks.to(device=q.device, dtype=torch.float32).reshape(h).contiguous()
     out = torch.empty((b, t, h, dv), dtype=torch.bfloat16, device=q.device)
-    extra, extra_types = (), []
-    if split is not None:
-        part, counters, splits = split
-        extra = (None if part is None else part.data_ptr(),
-                 None if counters is None else counters.data_ptr(), splits)
-        extra_types = [_cuda.P, _cuda.P, _cuda.I]
+    extra, extra_types = _split_args(split)
     fn = _cuda.function(lib, symbol, [_cuda.P] * 7 + extra_types + [_cuda.I] * 6
                         + [_cuda.L] * 9 + [_cuda.F] * 2 + [_cuda.I] * 2
                         + [_cuda.P])
@@ -179,6 +185,21 @@ def _decode_counters(device, n: int) -> torch.Tensor:
     return c
 
 
+def _decode_split(q, hkv: int, s: int, dv: int):
+    """(scratch, counters, splits) of a decode kernel's launch (C or 5) for
+    q (B, T, H, Dk) over a slab of ``hkv`` kv heads and capacity ``s``: the
+    float32 scratch of the splits' partial states (none for one split) and
+    the zeroed counters, one a group. The two kernels share the counters:
+    calls on one stream run in order, and each leaves them zero."""
+    b, t, h, dk = q.shape
+    plan = decode_split_plan(b, t, h, hkv, s, dk, dv, _cuda.sm_count(q))
+    if plan["splits"] == 1:
+        return None, None, 1
+    part = torch.empty(plan["groups"] * plan["splits"] * plan["rows"] * (dv + 2),
+                       dtype=torch.float32, device=q.device)
+    return part, _decode_counters(q.device, plan["groups"]), plan["splits"]
+
+
 def flash_attention_decode(q, k, v, q_pos0, kv_len, *, scale: float,
                            softcap: float = 0.0, swa_window: int = 0,
                            attn_chunk: int = 0, sinks=None):
@@ -201,16 +222,10 @@ def flash_attention_decode(q, k, v, q_pos0, kv_len, *, scale: float,
     _cuda.require(t <= DECODE_MAX_T, f"flash_attention_decode: T={t} > {DECODE_MAX_T}")
     _cuda.require(k.dim() == 4 and h % k.shape[2] == 0,
                   f"flash_attention_decode: {h} heads over kv {tuple(k.shape)}")
-    plan = decode_split_plan(b, t, h, k.shape[2], k.shape[1], q.shape[3], v.shape[3],
-                             _cuda.sm_count(q))
-    part = counters = None
-    if plan["splits"] > 1:
-        part = torch.empty(plan["groups"] * plan["splits"] * plan["rows"] * (v.shape[3] + 2),
-                           dtype=torch.float32, device=q.device)
-        counters = _decode_counters(q.device, plan["groups"])
     rc, out = _launch("ik_flash_attention_decode", "flash_attention_decode",
                       q, k, v, q_pos0, kv_len, scale, softcap, swa_window,
-                      attn_chunk, sinks, split=(part, counters, plan["splits"]))
+                      attn_chunk, sinks,
+                      split=_decode_split(q, k.shape[2], k.shape[1], v.shape[3]))
     flash_attention_decode.launches += 1
     _cuda.check(rc, "flash_attention_decode")
     return out
@@ -239,7 +254,9 @@ def attention_quant_ref(q, k_q, k_s, v_q, v_s, q_pos0, kv_len, *, scale: float,
 
 
 def _launch_quant(symbol, lib, codec, q, k_q, k_s, v_q, v_s, q_pos0, kv_len,
-                  scale, softcap, swa_window, attn_chunk, sinks):
+                  scale, softcap, swa_window, attn_chunk, sinks, split: bool = False):
+    """Checks and launches one quantized-cache kernel; ``split``: the decode
+    kernel, which takes its split scratch, counters and count after out."""
     b, t, h, dk = q.shape
     _, s, hkv, wk = k_q.shape
     wv = v_q.shape[3]
@@ -279,12 +296,14 @@ def _launch_quant(symbol, lib, codec, q, k_q, k_s, v_q, v_s, q_pos0, kv_len,
     if sinks is not None:
         sk = sinks.to(device=q.device, dtype=torch.float32).reshape(h).contiguous()
     out = torch.empty((b, t, h, dv), dtype=torch.bfloat16, device=q.device)
-    fn = _cuda.function(lib, symbol, [_cuda.P] * 9 + [_cuda.I] * 7
+    scratch = _decode_split(q, hkv, s, dv) if split else None
+    extra, extra_types = _split_args(scratch)
+    fn = _cuda.function(lib, symbol, [_cuda.P] * 9 + extra_types + [_cuda.I] * 7
                         + [_cuda.L] * 13 + [_cuda.F] * 2 + [_cuda.I] * 2
                         + [_cuda.P])
     rc = fn(q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
             v_s.data_ptr(), qp.data_ptr(), kl.data_ptr(),
-            None if sk is None else sk.data_ptr(), out.data_ptr(),
+            None if sk is None else sk.data_ptr(), out.data_ptr(), *extra,
             _CODEC_ID[codec], b, t, h, hkv, dk, dv,
             *q.stride()[:3], *k_q.stride()[:3], *v_q.stride()[:3],
             *k_s.stride()[:2], *v_s.stride()[:2],
@@ -301,10 +320,12 @@ def flash_attention_decode_q8(q, k_q, k_s, v_q, v_s, q_pos0, kv_len, *,
     in any of the four codecs, told apart by the codes' dtype and width.
     CUDA kernel ``csrc/flash_attention_decode_q.cu``, which replaces the
     Pallas kernel flash_attention.py:flash_attention_decode_q8 of the JAX
-    package. It is bound by the stored bytes of the filled rows; the block
-    layout is ``flash_attention_decode``'s, with a tile loader that unpacks
-    the codes. It raises where the TPU kernel returned None (packed codecs
-    need equal k and v head dims that are multiples of 32)."""
+    package. It is bound by the stored bytes of the filled rows; it runs
+    ``flash_attention_decode``'s split-K frame (``decode_split_plan``, one
+    launch, the splits merged in order by the last block) with a tile
+    loader that stages the raw rows by cp.async and unpacks them to bf16
+    after the wait. It raises where the TPU kernel returned None (packed
+    codecs need equal k and v head dims that are multiples of 32)."""
     if q.device.type == "cpu":
         return attention_quant_ref(q, k_q, k_s, v_q, v_s, q_pos0, kv_len,
                                    scale=scale, softcap=softcap,
@@ -315,7 +336,7 @@ def flash_attention_decode_q8(q, k_q, k_s, v_q, v_s, q_pos0, kv_len, *,
     rc, out = _launch_quant("ik_flash_attention_decode_q", "flash_attention_decode_q",
                             kv_codec_of(k_q, q.shape[-1]), q, k_q, k_s, v_q, v_s,
                             q_pos0, kv_len, scale, softcap, swa_window, attn_chunk,
-                            sinks)
+                            sinks, split=True)
     flash_attention_decode_q8.launches += 1
     _cuda.check(rc, "flash_attention_decode_q8")
     return out

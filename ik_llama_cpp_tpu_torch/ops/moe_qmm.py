@@ -122,6 +122,41 @@ def ragged_qmatmul_ref(x, codes, scale, group_sizes, *, group: int = 32):
     return out
 
 
+# The wgmma form of kernel 14 (csrc/moe_qmm.cu, ragged_wgmma_kernel): sweeps
+# of 128 weight columns of one expert by 64 or 128 of its rows; a stage is
+# 64 deep (ops/qmatmul.TILED_BK).
+RAGGED_TN = 128
+
+
+def ragged_plan(m: int, n: int, k: int, g: int, group: int, scale_bytes: int,
+                sms: int = _cuda.DEFAULT_SMS) -> dict:
+    """The launch of kernel 14, a pure function of the shapes and the SM
+    count, chosen before the launch (group_sizes stay on the device).
+
+    {"kernel": "wgmma"}: sweeps of RAGGED_TN columns by ``tm`` rows of one
+    expert (64 where the experts average up to 96 rows, M / G, else 128),
+    ``n_tiles`` column tiles, on a persistent grid of ``blocks``: one an
+    SM, or fewer where the most sweeps a call can have (``sweeps``: every
+    column tile of ceil(M / tm) + min(G, M) token tiles) are fewer. The
+    sweeps are numbered over the experts with rows in order, then column
+    tiles, then token tiles, and block b takes sweeps b, b + blocks, ...
+    (tests/test_torch_moe_qmm_grouped.py models it). It needs a group
+    that is a multiple of 16 dividing 64 or divided by it, K a multiple of
+    the group and of 16, and scale rows of a multiple of 16 bytes (TMA).
+
+    {"kernel": "ragged"} for the other shapes: the first port's mma.sync
+    kernel (``ragged_kernel``), by name."""
+    if not (m >= 1 and n >= 1 and 1 <= g and group > 0 and group % 16 == 0
+            and (64 % group == 0 or group % 64 == 0) and k % 16 == 0 and k % group == 0
+            and n * scale_bytes % 16 == 0 and sms > 0):
+        return {"kernel": "ragged"}
+    tm = 64 if m <= 96 * g else 128
+    n_tiles = -(-n // RAGGED_TN)
+    sweeps = n_tiles * (-(-m // tm) + min(g, m))
+    return {"kernel": "wgmma", "tm": tm, "tn": RAGGED_TN, "n_tiles": n_tiles,
+            "sweeps": sweeps, "blocks": min(sweeps, sms)}
+
+
 def ragged_qmatmul(x, codes, scale, group_sizes, *, group: int = 32):
     """Grouped planar GEMM: x bf16 (M, K) sorted by group, codes int8
     (G, K, N), scale f32 or bf16 (G, K/group, N), group_sizes int32 (G,)
@@ -131,12 +166,15 @@ def ragged_qmatmul(x, codes, scale, group_sizes, *, group: int = 32):
 
     CUDA kernel ``csrc/moe_qmm.cu``, which replaces the Pallas kernel
     ops/moe_qmm.py:ragged_qmatmul of the JAX package. Bound by the expert
-    bytes when the groups are short and by bf16 tensor-core work when they
-    are long: kernel 10's grid of (N tiles, row tiles) and its row map read
-    from the group sizes on the device (no host sync, no step table)
-    around the planar GEMM's inner loop, a 64-deep slice dequantized to
-    bf16 in shared memory for mma.sync, the next slice's loads in flight
-    meanwhile."""
+    bytes at the models' sizes and by bf16 tensor-core work when the
+    groups are long: the warpgroup-MMA body of the tiled planar GEMM (the
+    weights the MMA's A operand, dequantized in registers from a TMA-loaded
+    K-major code tile; x by TMA) over sweeps (expert, 128 columns, 64 or
+    128 of its rows) that a persistent grid reads from the group sizes on
+    the device (no host sync, no step table), the sweeps of one expert's
+    column tile run at once by neighbouring blocks, which read its codes
+    from device memory about once (``ragged_plan``). The shapes TMA cannot
+    address run the first port's mma.sync kernel."""
     if x.device.type == "cpu":
         return ragged_qmatmul_ref(x, codes, scale, group_sizes, group=group)
     name = "ragged_qmatmul"
@@ -150,18 +188,23 @@ def ragged_qmatmul(x, codes, scale, group_sizes, *, group: int = 32):
                   f"{name}: group_sizes must be contiguous int32 (G,), G <= 1024")
     for t in (codes, scale, group_sizes):
         _cuda.require(t.device == x.device, f"{name}: operands on different devices")
+    plan = ragged_plan(m, n, k, g, group, scale.element_size(), _cuda.sm_count(x))
+    tile_m, blocks = (plan["tm"], plan["blocks"]) if plan["kernel"] == "wgmma" else (0, 1)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     fn = _cuda.function("moe_qmm", "ik_ragged_qmatmul",
-                        [_cuda.P] * 3 + [_cuda.I] + [_cuda.P] * 2 + [_cuda.I] * 5 + [_cuda.P])
+                        [_cuda.P] * 3 + [_cuda.I] + [_cuda.P] * 2 + [_cuda.I] * 7 + [_cuda.P])
     rc = fn(x.data_ptr(), codes.data_ptr(), scale.data_ptr(),
             int(scale.dtype == torch.bfloat16), group_sizes.data_ptr(), out.data_ptr(),
-            m, n, k, g, group, _cuda.stream_ptr(x))
+            m, n, k, g, group, tile_m, blocks, _cuda.stream_ptr(x))
+    if tile_m:
+        ragged_qmatmul.wgmma_launches += 1
     ragged_qmatmul.launches += 1
     _cuda.check(rc, name)
     return out
 
 
 ragged_qmatmul.launches = 0
+ragged_qmatmul.wgmma_launches = 0     # the part of ``launches`` the wgmma form took
 
 
 def fused_smem_bytes(ff: int) -> int:
