@@ -739,36 +739,11 @@ def phase_moe_kernels(torch, timer, results, c=MOE, dev="cuda") -> bool:
     for n_live in (g_, min(37, g_ // 2)):
         sizes = np.zeros(g_, np.int64)
         sizes[rng.permutation(g_)[:n_live]] = rng.integers(1, r + 1, n_live)
-        sz = torch.from_numpy(sizes).to(dev)
-        valid = torch.arange(r, device=dev)[None, :] < sz[:, None]
-        xg = torch.randint(-127, 128, (g_, r, e_), generator=gen, device=dev, dtype=torch.int8)
-        xg = torch.where(valid[..., None], xg, 0).to(torch.int8)
-        xs = torch.rand((g_, r, nsg), generator=gen, device=dev) * 1e-2 + 1e-4
-        xst = torch.where(valid[..., None], xs, 0.0).transpose(1, 2)
-        ar = torch.arange(g_, device=dev)
-        eids = torch.argsort(torch.where(sz > 0, ar, 2 * g_)).to(torch.int32)
-        nl = torch.tensor(n_live, dtype=torch.int32, device=dev)
-        a9 = (xg, xst, eids, nl, gate, gsw, up, usw, down, dsw)
-        got = MQ.fused_moe_prefill_i8(*a9, capacity=r)
-        ref = MQ.fused_moe_prefill_i8_ref(*a9, capacity=r)
-        sync(torch)
-        live = eids[:n_live].long()
-        err = float((got[live] - ref[live]).abs().max())
-        # a one-ulp float32 difference in the activation can move an h
-        # across a bf16 boundary and one requantized h by one int8 step
-        tol = 1e-2 * float(ref[live].abs().max())
-        bnd = bound_ms(n_live * (r * e_ + nsg * r * 4) + g_ * 4 + 4
-                       + n_live * (2 * e_ * ff + 2 * nsg * ff * 4 + ff * e_ + nsgf * e_ * 4)
-                       + n_live * r * e_ * 4, n_live * r * (4.0 * e_ * ff + 2.0 * ff * e_),
-                       INT8_OPS)
-        wb = torch.cat([gate[live], up[live]], dim=2).to(bf16)
-        xb = xg[live].to(bf16)
-        ok &= _record(results, "fused_moe_prefill_i8",
-                      f"G={g_} R={r} K={e_} FF={ff} E={e_} n_live={n_live}", err, tol,
-                      timer(lambda: MQ.fused_moe_prefill_i8(*a9, capacity=r)),
-                      timer(lambda: MQ.fused_moe_prefill_i8_ref(*a9, capacity=r), 3),
-                      timer(lambda: torch.bmm(xb, wb)), bnd)
-        del wb, xb
+        xg, xst, eids, nl, _ = fused_buckets(torch, sizes, g_, r, e_, gen, dev)
+        ok &= prefill_case(torch, timer, results,
+                           (xg, xst, eids, nl, gate, gsw, up, usw, down, dsw), n_live, r, c,
+                           f"G={g_} R={r} K={e_} FF={ff} E={e_} n_live={n_live}")
+        del xg
 
     m = PREFILL * topk                          # the rows of a 512-token chunk
     log("[3] kernel 10 (ragged_qmatmul_i8) vs plain; library = bf16 grouped product over "
@@ -984,9 +959,12 @@ def phase_planar_moe_kernels(torch, timer, results, dev="cuda") -> bool:
         xq, xs = quantize_activations(x)
         a11 = (xq, xs.t(), ids, wts, gate, gsw, up, usw, down, dsw)
         got = MD.moe_decode_fused_i8(*a11, top_k=topk)
+        again = MD.moe_decode_fused_i8(*a11, top_k=topk)
         ref = MD.moe_decode_fused_i8_ref(*a11, top_k=topk)
         sync(torch)
         err = float((got - ref).abs().max())
+        rep = bool(torch.equal(got, again))
+        ok &= rep
         # the same exact integer dots, corrections, bf16 roundings and
         # requantization in the same order as the plain version: only a
         # float32 reassociation may differ
@@ -1013,7 +991,9 @@ def phase_planar_moe_kernels(torch, timer, results, dev="cuda") -> bool:
                       timer(lambda: MD.moe_decode_fused_i8_ref(*a11, top_k=topk), 3),
                       timer(lambda: (torch.bmm(xb, wgu), torch.bmm(hb, wdn))), bnd,
                       note=f" | kernels 7 + 8 with the glue between them {ms78:.4f} ms; "
-                           f"bit-identical to plain: {bool(torch.equal(got, ref))}")
+                           f"{MD.fused_decode_plan(t, topk, ff, e_)['blocks']} blocks; "
+                           f"bit-identical to plain: {bool(torch.equal(got, ref))}; "
+                           f"repeats bit for bit: {rep}")
         del wgu, wdn
     del gate, up, down
 
@@ -1907,11 +1887,14 @@ def fused_decode_env():
             os.environ["IK_MOE_FUSED_TG"] = old
 
 
-def phase_moe(torch, gguf: Path, launches: dict, phases: set, c=MOE) -> bool:
+def phase_moe(torch, gguf: Path, launches: dict, phases: set, c=MOE,
+              replay: dict | None = None) -> bool:
     """On one loaded Qwen3-30B-A3B model: phase 7 (full width, launch
-    counts, profiles), phase 14 (the single-kernel decode at full width),
-    then at depth 2 phase 8 (greedy parity, kernel path against plain path)
-    and phase 13c (parity of the single-kernel decode over one history)."""
+    counts, profiles, the router's capacity buckets), phase 14 (the
+    single-kernel decode at full width), then at depth 2 phase 8 (greedy
+    parity, kernel path against plain path) and phase 13c (parity of the
+    single-kernel decode over one history). ``replay`` gets phase 7's
+    group sizes a layer and the chunk's kernel-9 and kernel-10 ms (row 9p)."""
     from ik_llama_cpp_tpu_torch.runtime.generate import Runtime
     nl, v = c["L"], c["V"]
     t_phase = t0 = time.perf_counter()
@@ -1948,7 +1931,16 @@ def phase_moe(torch, gguf: Path, launches: dict, phases: set, c=MOE) -> bool:
         prof = profile_window(torch, lambda: rt.eval_tokens(ids, kv, 0), 1,
                               f"one {PREFILL}-token prefill chunk", "chunk", "7")
         log(f"[7] prefill chunk: kernel A {a_ms(prof)}")
+        k9 = kernel_ms(prof, "fused_prefill_i8_kernel")
+        k10 = kernel_ms(prof, "ragged_kernel(signed char")
+        log(f"[7] prefill chunk: kernel 9 (fused_moe_prefill_i8, fused_prefill_i8_kernel) "
+            f"{k9:.3f} ms, {counts['fused_moe_prefill_i8']} launches; kernel 10 (the overflow "
+            f"pass) {k10:.3f} ms; {sum(prof.values()):.3f} ms of kernels")
         del kv
+        sizes = router_sizes(torch, rt, ids, "_fused_prefill_try", 1)
+        log_buckets(sizes)
+        if replay is not None:
+            replay.update(sizes=sizes, chunk_ms={"9": k9, "10": k10})
         log(f"[7] MoE end to end: {time.perf_counter() - t_phase:.1f} s")
     if 14 in phases:
         t0 = time.perf_counter()
@@ -1959,7 +1951,7 @@ def phase_moe(torch, gguf: Path, launches: dict, phases: set, c=MOE) -> bool:
             prof = profile_decode(torch, rt, kv, n_past + DECODE + 1, toks[:, -1:], tag="14")
         ok &= good
         launches["moe_decode_fused_i8"] = counts["moe_decode_fused_i8"]
-        fused_ms = kernel_ms(prof, "fused_kernel")
+        fused_ms = kernel_ms(prof, "fused_decode_i8_kernel")
         log(f"[14] single-kernel decode (IK_MOE_FUSED_TG=1) at L{nl}: kernel 11 "
             f"{fused_ms:.3f} ms a step ({nl} launches), every kernel of a step "
             f"{sum(prof.values()):.3f} ms; the two-kernel step of phase 7: kernels 7 + 8 "
@@ -2005,22 +1997,138 @@ def phase_moe(torch, gguf: Path, launches: dict, phases: set, c=MOE) -> bool:
     return ok
 
 
-def router_group_sizes(torch, rt, ids) -> list:
-    """The group sizes kernel 14 is given in one prefill chunk of ``ids``,
-    one list a call (a layer), each read back after its call (a chunk of
-    its own, not timed)."""
+def log_buckets(sizes: list) -> None:
+    """Per layer: the live experts, the rows a live expert puts in its
+    bucket, and the rows past the capacity that go to kernel 10."""
+    from ik_llama_cpp_tpu_torch.ops.moe import fused_capacity
+    per = np.asarray(sizes)
+    r = fused_capacity(int(per[0].sum()), per.shape[1])
+    live = (per > 0).sum(1)
+    in_bucket = np.minimum(per, r)
+    over = np.maximum(per - r, 0).sum(1)
+    log(f"[7] kernel 9's buckets from the router, {len(sizes)} calls of {int(per[0].sum())} "
+        f"rows over {per.shape[1]} experts at capacity {r}: live experts "
+        f"{int(live.min())}-{int(live.max())} a layer (mean {live.mean():.1f}); rows in a live "
+        f"bucket mean {in_bucket.sum() / max(1, live.sum()):.1f}, max {int(in_bucket.max())}; "
+        f"overflow rows to kernel 10 {int(over.min())}-{int(over.max())} a layer (sum "
+        f"{int(over.sum())})")
+    for i, (gs, n, o) in enumerate(zip(per, live, over)):
+        rows = np.minimum(gs[gs > 0], r)
+        log(f"    layer {i:2d}: n_live {int(n):3d}, rows a live bucket {rows.mean():5.1f} "
+            f"(min {int(rows.min())}, max {int(rows.max())}), overflow {int(o)}")
+
+
+def fused_buckets(torch, sizes, g_: int, r: int, k: int, gen, dev="cuda"):
+    """Capacity buckets as _fused_prefill_try builds them from group sizes:
+    random int8 rows (zero past each expert's rows, capped at r), their
+    scales, live experts first, and the live count on the device."""
+    sz = torch.as_tensor(np.minimum(np.asarray(sizes), r), device=dev)
+    valid = torch.arange(r, device=dev)[None, :] < sz[:, None]
+    xg = torch.randint(-127, 128, (g_, r, k), generator=gen, device=dev, dtype=torch.int8)
+    xg = torch.where(valid[..., None], xg, 0).to(torch.int8)
+    xs = torch.rand((g_, r, k // 256), generator=gen, device=dev) * 1e-2 + 1e-4
+    xst = torch.where(valid[..., None], xs, 0.0).transpose(1, 2)
+    ar = torch.arange(g_, device=dev)
+    eids = torch.argsort(torch.where(sz > 0, ar, 2 * g_)).to(torch.int32)
+    n_live = int((sz > 0).sum())
+    return xg, xst, eids, torch.tensor(n_live, dtype=torch.int32, device=dev), n_live
+
+
+def prefill_case(torch, timer, results, a9, n_live: int, r: int, c, case: str) -> bool:
+    """One kernel 9 case against its plain version (live rows), repeated for
+    its bits, beside the bf16 torch.bmm of the live buckets against their
+    gate|up and the byte bound of this call's live experts."""
+    from ik_llama_cpp_tpu_torch.ops import moe_qmm as MQ
+    xg, xst, eids, nl, gate, gsw, up, usw, down, dsw = a9
+    g_, e_, ff = c["G"], c["E"], c["FF"]
+    nsg, nsgf = e_ // 256, ff // 256
+    got = MQ.fused_moe_prefill_i8(*a9, capacity=r)
+    again = MQ.fused_moe_prefill_i8(*a9, capacity=r)
+    ref = MQ.fused_moe_prefill_i8_ref(*a9, capacity=r)
+    sync(torch)
+    live = eids[:n_live].long()
+    err = float((got[live] - ref[live]).abs().max()) if n_live else 0.0
+    same = bool(torch.equal(got[live], ref[live]))
+    rep = bool(torch.equal(got[live], again[live]))
+    # a one-ulp float32 difference in the activation can move an h
+    # across a bf16 boundary and one requantized h by one int8 step
+    tol = 1e-2 * float(ref[live].abs().max()) if n_live else 0.0
+    bnd = bound_ms(n_live * (r * e_ + nsg * r * 4) + g_ * 4 + 4
+                   + n_live * (2 * e_ * ff + 2 * nsg * ff * 4 + ff * e_ + nsgf * e_ * 4)
+                   + n_live * r * e_ * 4, n_live * r * (4.0 * e_ * ff + 2.0 * ff * e_),
+                   INT8_OPS)
+    wb = torch.cat([gate[live], up[live]], dim=2).to(torch.bfloat16)
+    xb = xg[live].to(torch.bfloat16)
+    plan = MQ.fused_prefill_plan(r, ff, e_, g_, MQ._cuda.sm_count(xg))
+    ok = _record(results, "fused_moe_prefill_i8", case, err, tol,
+                 timer(lambda: MQ.fused_moe_prefill_i8(*a9, capacity=r)),
+                 timer(lambda: MQ.fused_moe_prefill_i8_ref(*a9, capacity=r), 3),
+                 timer(lambda: torch.bmm(xb, wb)), bnd,
+                 note=f" | plan mi {plan['mi']} depth {plan['depth']} blocks {plan['blocks']} "
+                      f"smem {plan['smem']}; bit-identical to plain: {same}; repeats bit for "
+                      f"bit: {rep}")
+    del wb, xb
+    return ok and rep
+
+
+def phase_replay_9p(torch, timer, results, sizes: list, chunk_ms: dict, c=MOE) -> bool:
+    """Row 9p of phase 3, after phase 7: kernel 9 at the group sizes phase
+    7's router gave its prefill chunk (capped at the bucket capacity), on
+    random codes from a seed at that shape: layer 0's call against its plain
+    version, the library call and its bound, then every layer's call timed
+    alone, summed beside the profiled chunk's kernel-9 time."""
+    from ik_llama_cpp_tpu_torch.ops import moe_qmm as MQ
+    from ik_llama_cpp_tpu_torch.ops.moe import fused_capacity
+    g_, e_, ff = c["G"], c["E"], c["FF"]
+    gen = torch.Generator(device="cuda").manual_seed(9)
+
+    def codes(n, k):
+        return torch.randint(-127, 128, (g_, n, k), generator=gen, device="cuda",
+                             dtype=torch.int8).transpose(1, 2)
+
+    def scales(k, n):
+        return torch.rand((g_, k // 256, n), generator=gen, device="cuda") * 2e-3 + 1e-5
+
+    w = (codes(ff, e_), scales(e_, ff), codes(ff, e_), scales(e_, ff), codes(e_, ff),
+         scales(ff, e_))
+    m = int(np.sum(sizes[0]))
+    r = fused_capacity(m, g_)
+    xg, xst, eids, nl, n_live = fused_buckets(torch, sizes[0], g_, r, e_, gen)
+    log(f"[3] 9p: kernel 9 at the bucket sizes of phase 7's router (layer 0 of {len(sizes)}): "
+        f"n_live {n_live}, capacity {r}")
+    a9 = (xg, xst, eids, nl) + w
+    ok = prefill_case(torch, timer, results, a9, n_live, r, c,
+                      f"G={g_} R={r} K={e_} FF={ff} E={e_} phase-7 router, layer 0 "
+                      f"(n_live={n_live})")
+    kern = 0.0
+    for gs in sizes:
+        xg, xst, eids, nl, _ = fused_buckets(torch, gs, g_, r, e_, gen)
+        kern += timer(lambda: MQ.fused_moe_prefill_i8(xg, xst, eids, nl, *w, capacity=r), 5)
+    log(f"[3] 9p: the {len(sizes)} layers' calls timed alone (clean flush each): kernel 9 "
+        f"{kern:.3f} ms; the profiled chunk's kernel 9 {chunk_ms['9']:.3f} ms, kernel 10 "
+        f"{chunk_ms['10']:.3f} ms")
+    del w, xg
+    return ok
+
+
+def router_sizes(torch, rt, ids, fn: str, pos: int) -> list:
+    """The group sizes that the function ``fn`` of ops/moe.py is given (its
+    argument ``pos``) in one prefill chunk of ``ids``, one list a call (a
+    layer), each read back after its call (a chunk of its own, not timed):
+    ``ragged_qmatmul``, 3, for kernel 14; ``_fused_prefill_try``, 1, for
+    kernel 9's buckets and its kernel-10 overflow pass."""
     from ik_llama_cpp_tpu_torch.ops import moe
-    seen, fn = [], moe.ragged_qmatmul
+    seen, real = [], getattr(moe, fn)
 
-    def spy(x, codes, scale, group_sizes, **kw):
-        seen.append(group_sizes.tolist())
-        return fn(x, codes, scale, group_sizes, **kw)
+    def spy(*a, **kw):
+        seen.append(a[pos].tolist())
+        return real(*a, **kw)
 
-    moe.ragged_qmatmul = spy
+    setattr(moe, fn, spy)
     try:
         rt.eval_tokens(ids, rt.new_cache(1, PREFILL + 8), 0)
     finally:
-        moe.ragged_qmatmul = fn
+        setattr(moe, fn, real)
     torch.cuda.synchronize()
     return seen
 
@@ -2134,7 +2242,7 @@ def phase_q2moe(torch, gguf: Path, launches: dict, phases: set, c=Q2MOE,
             f"of kernels, {counts['ragged_qmatmul']} launches "
             f"({counts['ragged_qmatmul_wgmma']} of the wgmma form)")
         del kv
-        sizes = router_group_sizes(torch, rt, ids)
+        sizes = router_sizes(torch, rt, ids, "ragged_qmatmul", 3)
         per = np.asarray(sizes)
         log(f"[12] kernel 14's group sizes from the router, {len(sizes)} calls of "
             f"{int(per[0].sum())} rows over {per.shape[1]} experts: experts with rows "
@@ -2593,9 +2701,12 @@ def main() -> int:
         t0 = time.perf_counter()
         moe_gguf = build_moe_gguf(ROOT / "build" / "smoke_qwen3moe.gguf")
         log(f"[7] model file ready in {time.perf_counter() - t0:.1f} s: {moe_gguf}")
-        ok &= phase_moe(torch, moe_gguf, launches, phases)
+        replay9 = {}
+        ok &= phase_moe(torch, moe_gguf, launches, phases, replay=replay9)
         if 13 in phases:
             ok &= phase_planar_moe_parity(torch, moe_gguf)
+        if 3 in phases and replay9:
+            ok &= phase_replay_9p(torch, timer, results, replay9["sizes"], replay9["chunk_ms"])
     if 9 in phases:
         ok &= phase_kvq(torch, gguf, launches)
     if 10 in phases:

@@ -6,10 +6,10 @@
 //
 // Codes are stored (G, N, K) so that both mma.sync operands are
 // K-contiguous; activation scales are read through strides (the JAX layout
-// keeps them transposed). Every 256-deep supergroup is one pipeline stage
-// whose int32 products are exact; its float correction part * (sx * sw) is
-// added in supergroup order with no contraction into FMA, the order and
-// rounding of the plain versions.
+// keeps them transposed). Every 256-deep supergroup's int32 products are
+// exact; its float correction part * (sx * sw) is added in supergroup order
+// with no contraction into FMA, the order and rounding of the plain
+// versions.
 //
 // Kernel 10, ragged: out[m, n] = sum_g xs[m, g] sw[e(m), g, n] dot_g(xq[m], w[e(m), n])
 // with e(m) the group that owns sorted row m. Bound by int8 tensor-core work
@@ -21,15 +21,33 @@
 // Rows at or past sum(group_sizes) are never written.
 //
 // Kernel 9, fused: per live expert slot s < n_live (read on the device) and
-// 64-row block of its capacity bucket, gate and up (2 x 64-column tiles per
-// K sweep), the activation, bf16 rounding, the per-(row, 256) requant of h
-// by multiplying by 1/scale, then the down projection. Bound by the live
-// experts' code bytes. The TPU's sequential grid over n_live becomes a grid
-// over (slot, row block) whose blocks share nothing; the int8 h (64 x FF)
-// stays in shared memory between the two halves (50 KB at FF 768). A
-// cp.async double buffer keeps the next 256-deep tile in flight. wgmma, TMA
-// and splitting an expert over several SMs are later work.
+// 64-row block of its capacity bucket, gate and up, the activation, bf16
+// rounding, the per-(row, 256) requant of h by multiplying by 1/scale, then
+// the down projection. Bound by the live experts' code bytes (some 4.7 MB an
+// expert at Qwen3-30B-A3B's shape; the int8 work is an eighth of that time).
+// The TPU kernel walks the live experts in order on one core; giving each
+// one block left most SMs idle when few experts are live, which is the
+// common case (8-66 of 128 a layer from the random-weights router). Here the
+// work is cut into items of a persistent grid, one block an SM, dealt by a
+// ticket counter: first the phase-1 items (slot, row block, 64 columns of
+// FF: gate and up over the whole K, the activation rounded to bf16 into a
+// scratch; the last of a 256-column group's four items, found by a counter a
+// group, requantizes the group into an int8 scratch of G x R x FF that stays
+// in L2), then the phase-2 items (slot, row block, 256 columns of E: the down
+// projection over the whole FF in supergroup order), each waiting until its
+// slot's FF/256 groups are requantized. A phase-2 item waits only on items
+// already taken by running blocks that never wait, so one ordinary launch
+// suffices. One producer warp takes the tickets and keeps a 4-stage ring of
+// 128-byte-deep stages in flight by TMA (x, gate and up tiles, or down
+// tiles, in the 128-byte swizzle) under mbarriers, running ahead into the
+// next item while the 8 consumer warps finish one; the consumers run
+// mma.sync m16n8k32 over 16 rows a tile (no padding past the bucket's next
+// multiple of 16), the scales of a supergroup loaded into registers as its
+// first stage is awaited. Every sum keeps the order of the plain version:
+// an item changes who computes a column, not how. The counters are one
+// zeroed int32 buffer a device that the last block to finish resets.
 #include "moe_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -177,171 +195,427 @@ ragged_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xst, int 
 }
 
 // -------------------------------------------------------------- kernel 9 --
-// 64-row blocks; 64-column tiles; warps 4 (rows) x 2 (columns) of 16 x 32.
-__global__ void __launch_bounds__(NT)
-fused_kernel(const int8_t* __restrict__ xg, const float* __restrict__ xst, int st_g,
-             int st_sg, int st_r, const int* __restrict__ eids,
-             const int* __restrict__ n_live, const int8_t* __restrict__ gate,
-             const float* __restrict__ gsw, const int8_t* __restrict__ up,
-             const float* __restrict__ usw, const int8_t* __restrict__ down,
-             const float* __restrict__ dsw, float* __restrict__ out, int R, int K, int F,
-             int E, int act, float limit) {
-  const int slot = blockIdx.x;
-  if (slot >= *n_live) return;
-  const int e = eids[slot];
-  const int r0 = blockIdx.y * TILE, rv = min(TILE, R - r0);
-  extern __shared__ __align__(16) int8_t smem[];
-  int8_t* stages = smem;                                     // [2][x, gate, up][64][LDS]
-  __nv_bfloat16* hslab = reinterpret_cast<__nv_bfloat16*>(smem + 2 * 3 * TILE * LDS);
-  int8_t* hq = reinterpret_cast<int8_t*>(hslab + TILE * MOE_SG);   // [64][F + 16]
-  const int ldh = F + 16;
-  float* hs = reinterpret_cast<float*>(hq + (size_t)TILE * ldh);   // [64][F / 256]
+namespace fused9 {
+
+constexpr int BK = 128;            // bytes of K a ring stage holds (two a supergroup)
+constexpr int COLS = 256;          // E columns of a phase-2 item; FF columns of a requant group
+constexpr int SWEEP = 64;          // FF columns of a phase-1 item
+constexpr int NQ = COLS / SWEEP;   // phase-1 items of a requant group
+constexpr int ROWS = 64;           // rows of a row block
+constexpr int CONSUMERS = 256;     // 8 consumer warps
+constexpr int THREADS = CONSUMERS + 32;   // + the producer warp
+constexpr int MAX_DEPTH = 4;         // deeper rings measured slower on the H100
+
+// A ring stage: a phase-1 stage holds the gate tile [64][BK] at 0, the up
+// tile at W1, the x tile [16 MI][BK] at 2 W1; a phase-2 stage the down tile
+// [256][BK] at 0. Every tile is 1024-byte aligned (the swizzle repeats
+// every 8 rows).
+template <int MI>
+struct Stage {
+  static constexpr int W1 = SWEEP * BK;
+  static constexpr int X = 16 * MI * BK;
+  static constexpr int D = COLS * BK;
+  static constexpr int BYTES = 2 * W1 + X > D ? 2 * W1 + X : D;
+};
+
+IK_DEV void bar_consumers() { asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory"); }
+
+IK_DEV int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// The 16-byte chunk c of row r of a tile written by TMA in the 128-byte
+// swizzle (rows of BK bytes): chunk c lands at c ^ (r % 8).
+IK_DEV const int8_t* swz(const int8_t* tile, int r, int c) {
+  return tile + r * BK + ((c ^ (r & 7)) << 4);
+}
+
+// Exact int32 products of one 128-byte stage for a warp: MI 16-row tiles of
+// A (x from a swizzled tile, or int8 h from padded rows of `lda` bytes at
+// column `acol`) against NT 8-column tiles of B (swizzled; b[j] is the
+// tile's first row, a multiple of 8 rows from its 1024-byte aligned start).
+template <int MI, int NT, bool SWZ_A>
+IK_DEV void stage_mma(int (&part)[MI][NT][4], const int8_t* a, int lda, int acol,
+                      const int8_t* const (&b)[NT], int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < BK; kk += 32) {
+    const int c0 = kk >> 4;
+    uint32_t af[MI][4], bf[NT][2];
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+      if (SWZ_A) {
+        const int r = i * 16 + g;
+        af[i][0] = ld32(swz(a, r, c0) + 4 * t);
+        af[i][1] = ld32(swz(a, r + 8, c0) + 4 * t);
+        af[i][2] = ld32(swz(a, r, c0 + 1) + 4 * t);
+        af[i][3] = ld32(swz(a, r + 8, c0 + 1) + 4 * t);
+      } else {
+        const int8_t* p = a + (i * 16 + g) * lda + acol + kk + 4 * t;
+        af[i][0] = ld32(p);
+        af[i][1] = ld32(p + 8 * lda);
+        af[i][2] = ld32(p + 16);
+        af[i][3] = ld32(p + 8 * lda + 16);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      bf[j][0] = ld32(swz(b[j], g, c0) + 4 * t);
+      bf[j][1] = ld32(swz(b[j], g, c0 + 1) + 4 * t);
+    }
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mma_s8_16832(part[i][j], af[i], bf[j]);
+  }
+}
+
+template <int MI, int NT>
+IK_DEV void zero_parts(int (&part)[MI][NT][4]) {
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) part[i][j][q] = 0;
+}
+
+struct Args {
+  const float* xst;                 // (G, K/256, R) through the strides below
+  int st_g, st_sg, st_r;
+  const int* eids;
+  const int* n_live;
+  const float* gsw;
+  const float* usw;
+  const float* dsw;
+  __nv_bfloat16* hb;                // (G, R, FF) bf16 scratch: h before its requant
+  int8_t* hq;                       // (G, R, FF) int8 scratch
+  float* hs;                        // (G, R, FF/256) f32 scratch
+  int* counters;                    // [ticket, done, ready [G][nrb], groups [G][nrb][FF/256]]
+  float* out;                       // (G, R, E)
+  int G, R, K, F, E, act, depth;
+  float limit;
+};
+
+// A work item as the producer hands it to the consumers: kind 0 = no more
+// work, 1 = (slot, row block, FF supergroup idx / NQ, its 64 columns idx % NQ),
+// 2 = (slot, row block, E tile idx).
+struct Item {
+  int kind, e, slot, rb, idx;
+};
+
+template <int MI>
+__global__ void __launch_bounds__(THREADS, 1)
+fused_prefill_i8_kernel(const __grid_constant__ CUtensorMap map_x,
+                        const __grid_constant__ CUtensorMap map_g,
+                        const __grid_constant__ CUtensorMap map_u,
+                        const __grid_constant__ CUtensorMap map_d, const Args a) {
+  using S = Stage<MI>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  int8_t* ring = reinterpret_cast<int8_t*>(base);                  // [depth][S::BYTES]
+  int8_t* region = ring + a.depth * S::BYTES;                       // int8 h rows [16 MI][ldh]
+  const int ldh = a.F + 16;
+  uint64_t* full = reinterpret_cast<uint64_t*>(region + 16 * MI * ldh);
+  uint64_t* empty = full + MAX_DEPTH;
+  uint64_t* qfull = empty + MAX_DEPTH;
+  uint64_t* qempty = qfull + 2;
+  Item* queue = reinterpret_cast<Item*>(qempty + 2);               // [2]
+  int* flag = reinterpret_cast<int*>(queue + 2);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g8 = lane >> 2, t4 = lane & 3;
-  const int wm = (warp >> 1) * 16, wn = (warp & 1) * 32;
-  const int nsg_k = K / MOE_SG, nsg_f = F / MOE_SG;
-  const int ra = min(wm + g8, rv - 1), rb = min(wm + g8 + 8, rv - 1);   // scale rows
-  const int8_t* xb = xg + ((size_t)e * R + r0) * K;
-  const float* xsb = xst + (size_t)e * st_g + (size_t)r0 * st_r;
-  const size_t eF = (size_t)e * F;
+  const int nsg = a.K / MOE_SG, nsgf = a.F / MOE_SG, nkb = a.K / BK;
+  const int nrb = (a.R + ROWS - 1) / ROWS, n_et = (a.E + COLS - 1) / COLS;
+  int* ticket = a.counters;
+  int* done = a.counters + 1;
+  int* ready = a.counters + 2;                                      // [G][nrb]
+  int* groups = ready + a.G * nrb;                                  // [G][nrb][nsgf]
 
-  // phase 1: gate and up over 64-column tiles of FF, one K sweep each
-  const int n1 = (F / TILE) * nsg_k;
-  auto load1 = [&](int buf, int it) {
-    const int nt = it / nsg_k, s = it % nsg_k;
-    int8_t* st = stages + buf * 3 * TILE * LDS;
-    stage_rows(st, xb + s * MOE_SG, K, TILE, rv, tid);
-    stage_rows(st + TILE * LDS, gate + (eF + nt * TILE) * K + s * MOE_SG, K, TILE, TILE, tid);
-    stage_rows(st + 2 * TILE * LDS, up + (eF + nt * TILE) * K + s * MOE_SG, K, TILE, TILE, tid);
-  };
-  float ag[4][4], au[4][4];
-  load1(0, 0);
-  cp_async_commit();
-  for (int it = 0; it < n1; ++it) {
-    const int nt = it / nsg_k, s = it % nsg_k;
-    if (it + 1 < n1) {
-      load1((it + 1) & 1, it + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (tid == 0) {
+    for (int s = 0; s < MAX_DEPTH; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS / 32);
     }
-    __syncthreads();
-    if (s == 0) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) ag[j][q] = au[j][q] = 0.0f;
+    for (int q = 0; q < 2; ++q) {
+      mbar_init(&qfull[q], 1);
+      mbar_init(&qempty[q], CONSUMERS / 32);
     }
-    const int8_t* st = stages + (it & 1) * 3 * TILE * LDS;
-    int pg[1][4][4], pu[1][4][4];
-    mma_stage<1, 4>(pg, st + wm * LDS, LDS, st + (TILE + wn) * LDS, LDS, lane);
-    mma_stage<1, 4>(pu, st + wm * LDS, LDS, st + (2 * TILE + wn) * LDS, LDS, lane);
-    const float xs0 = xsb[(size_t)s * st_sg + (size_t)ra * st_r];
-    const float xs1 = xsb[(size_t)s * st_sg + (size_t)rb * st_r];
-    const float* gs = gsw + ((size_t)e * nsg_k + s) * F;
-    const float* us = usw + ((size_t)e * nsg_k + s) * F;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = nt * TILE + wn + j * 8 + 2 * t4;
-      ag[j][0] = sg_corr(ag[j][0], pg[0][j][0], xs0, gs[c]);
-      ag[j][1] = sg_corr(ag[j][1], pg[0][j][1], xs0, gs[c + 1]);
-      ag[j][2] = sg_corr(ag[j][2], pg[0][j][2], xs1, gs[c]);
-      ag[j][3] = sg_corr(ag[j][3], pg[0][j][3], xs1, gs[c + 1]);
-      au[j][0] = sg_corr(au[j][0], pu[0][j][0], xs0, us[c]);
-      au[j][1] = sg_corr(au[j][1], pu[0][j][1], xs0, us[c + 1]);
-      au[j][2] = sg_corr(au[j][2], pu[0][j][2], xs1, us[c]);
-      au[j][3] = sg_corr(au[j][3], pu[0][j][3], xs1, us[c + 1]);
-    }
-    if (s == nsg_k - 1) {
-      // activation, rounded to bf16, into the slab of this tile's FF supergroup
-      const int cb = (nt % (MOE_SG / TILE)) * TILE + wn;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int row = wm + g8 + (q >> 1) * 8, col = cb + j * 8 + 2 * t4 + (q & 1);
-          hslab[row * MOE_SG + col] = __float2bfloat16_rn(moe_act(ag[j][q], au[j][q], act, limit));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CONSUMERS / 32) {
+    // ---- producer: tickets in order, every stage of an item by TMA ----
+    if (lane == 0) {
+      const int nl = *a.n_live;
+      const int per1 = nrb * nsgf * NQ, per2 = nrb * n_et;
+      const int total1 = nl * per1, total2 = nl * per2;
+      int it = 0;
+      for (int n = 0;; ++n) {
+        const int qs = n & 1;
+        if (n >= 2) mbar_wait(&qempty[qs], ((n >> 1) - 1) & 1);
+        const int tk = atomicAdd(ticket, 1);
+        Item item{0, 0, 0, 0, 0};
+        if (tk < total1) {
+          item = {1, 0, tk / per1, tk % per1 / (nsgf * NQ), tk % (nsgf * NQ)};
+        } else if (tk - total1 < total2) {
+          const int t2 = tk - total1;
+          item = {2, 0, t2 / per2, t2 % per2 / n_et, t2 % n_et};
         }
-      if (nt % (MOE_SG / TILE) == MOE_SG / TILE - 1) {
-        // the slab is complete: requantize each row's 256 values by 1/scale
-        __syncthreads();
-        const int fs = nt / (MOE_SG / TILE);
-        for (int row = warp; row < TILE; row += NT / 32) {
-          float v[8], amax = 0.0f;
-#pragma unroll
-          for (int q = 0; q < 8; ++q) {
-            v[q] = __bfloat162float(hslab[row * MOE_SG + lane * 8 + q]);
-            amax = fmaxf(amax, fabsf(v[q]));
+        if (item.kind) item.e = __ldg(a.eids + item.slot);
+        queue[qs] = item;
+        mbar_arrive(&qfull[qs]);
+        if (!item.kind) break;
+        const int e = item.e;
+        if (item.kind == 1) {
+          const int rows_x = e * a.R + item.rb * ROWS, rows_w = e * a.F + item.idx * SWEEP;
+          for (int kb = 0; kb < nkb; ++kb, ++it) {
+            const int s = it % a.depth;
+            mbar_wait(&empty[s], ((it / a.depth) & 1) ^ 1);
+            int8_t* dst = ring + s * S::BYTES;
+            mbar_expect_tx(&full[s], 2 * S::W1 + S::X);
+            tma_load_2d(dst, &map_g, &full[s], kb * BK, rows_w);
+            tma_load_2d(dst + S::W1, &map_u, &full[s], kb * BK, rows_w);
+            tma_load_2d(dst + 2 * S::W1, &map_x, &full[s], kb * BK, rows_x);
           }
-#pragma unroll
-          for (int o = 16; o; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(FULL, amax, o));
-          const float sc = amax / 127.0f;
-          const float inv = sc > 0.0f ? 1.0f / sc : 0.0f;
-#pragma unroll
-          for (int q = 0; q < 8; ++q)
-            hq[row * ldh + fs * MOE_SG + lane * 8 + q] =
-                static_cast<int8_t>(max(-127, min(127, __float2int_rn(fmul(v[q], inv)))));
-          if (lane == 0) hs[row * nsg_f + fs] = sc;
+        } else {
+          const int rows_d = e * a.E + item.idx * COLS;
+          for (int st = 0; st < a.F / BK; ++st, ++it) {
+            const int s = it % a.depth;
+            mbar_wait(&empty[s], ((it / a.depth) & 1) ^ 1);
+            mbar_expect_tx(&full[s], S::D);
+            tma_load_2d(ring + s * S::BYTES, &map_d, &full[s], st * BK, rows_d);
+          }
         }
       }
     }
-    __syncthreads();
+    __syncwarp();
+  } else {
+    // ---- consumers: warp w owns 8 columns of a phase-1 item's 64 (gate and
+    // up) or 32 of a phase-2 item's 256; every warp all 16 MI rows ----
+    const int w = warp, g = lane >> 2, t = lane & 3;
+    int it = 0;
+    for (int n = 0;; ++n) {
+      const int qs = n & 1;
+      mbar_wait(&qfull[qs], (n >> 1) & 1);
+      const Item item = queue[qs];
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&qempty[qs]);
+      if (!item.kind) break;
+      const int e = item.e, r0 = item.rb * ROWS, rv = min(ROWS, a.R - r0);
+      const size_t erow = (size_t)e * a.R + r0;        // the row block's first row
+      bar_consumers();                                  // the last item is done with flag, region
+      if (item.kind == 1) {
+        // phase 1: gate and up of 64 FF columns, one K sweep
+        const int fs = item.idx / NQ, c_w = item.idx * SWEEP + w * 8;   // the warp's first column
+        float ag[MI][4], au[MI][4];
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) ag[i][q] = au[i][q] = 0.0f;
+        int part[MI][2][4];
+        for (int sg = 0; sg < nsg; ++sg) {
+          // this supergroup's scales, in flight while its stages are awaited
+          float xs[MI][2], gs[2], us[2];
+          const float* xsb = a.xst + (size_t)e * a.st_g + (size_t)sg * a.st_sg;
+#pragma unroll
+          for (int i = 0; i < MI; ++i)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              xs[i][h] = __ldg(xsb + (size_t)(r0 + min(i * 16 + g + 8 * h, rv - 1)) * a.st_r);
+          const size_t sc = ((size_t)e * nsg + sg) * a.F + c_w + 2 * t;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            gs[h] = __ldg(a.gsw + sc + h);
+            us[h] = __ldg(a.usw + sc + h);
+          }
+          zero_parts<MI, 2>(part);
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2, ++it) {      // the supergroup's two stages
+            const int s = it % a.depth;
+            mbar_wait(&full[s], (it / a.depth) & 1);
+            const int8_t* st = ring + s * S::BYTES;
+            const int8_t* const b[2] = {st + (w * 8) * BK, st + S::W1 + (w * 8) * BK};
+            stage_mma<MI, 2, true>(part, st + 2 * S::W1, BK, 0, b, lane);
+            __syncwarp();
+            if (lane == 0) mbar_arrive(&empty[s]);
+          }
+#pragma unroll
+          for (int i = 0; i < MI; ++i)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              ag[i][q] = sg_corr(ag[i][q], part[i][0][q], xs[i][q >> 1], gs[q & 1]);
+              au[i][q] = sg_corr(au[i][q], part[i][1][q], xs[i][q >> 1], us[q & 1]);
+            }
+        }
+        // the activation, rounded to bf16, into the bf16 scratch
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = i * 16 + g + 8 * h;
+            if (row >= rv) continue;
+            *reinterpret_cast<uint32_t*>(a.hb + (erow + row) * a.F + c_w + 2 * t) =
+                pack_bf16x2(moe_act(ag[i][2 * h], au[i][2 * h], a.act, a.limit),
+                            moe_act(ag[i][2 * h + 1], au[i][2 * h + 1], a.act, a.limit));
+          }
+        __threadfence();
+        bar_consumers();
+        int* grp = groups + (item.slot * nrb + item.rb) * nsgf + fs;
+        if (tid == 0) *flag = atomicAdd(grp, 1) == NQ - 1;
+        bar_consumers();
+        if (*flag) {
+          // the last of the group's items: requantize each row's 256 values by 1/scale
+          __threadfence();
+          for (int row = w; row < rv; row += CONSUMERS / 32) {
+            const uint4 raw = __ldcg(reinterpret_cast<const uint4*>(
+                a.hb + (erow + row) * a.F + fs * COLS + lane * 8));
+            const uint32_t wds[4] = {raw.x, raw.y, raw.z, raw.w};
+            float v[8], amax = 0.0f;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              v[2 * q] = __uint_as_float(wds[q] << 16);
+              v[2 * q + 1] = __uint_as_float(wds[q] & 0xffff0000u);
+            }
+#pragma unroll
+            for (int q = 0; q < 8; ++q) amax = fmaxf(amax, fabsf(v[q]));
+#pragma unroll
+            for (int o = 16; o; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(FULL, amax, o));
+            const float sc = amax / 127.0f;
+            const float inv = sc > 0.0f ? 1.0f / sc : 0.0f;
+            uint32_t packed[2] = {0u, 0u};
+#pragma unroll
+            for (int q = 0; q < 8; ++q) {
+              const int cq = max(-127, min(127, __float2int_rn(fmul(v[q], inv))));
+              packed[q >> 2] |= static_cast<uint32_t>(cq & 0xff) << (8 * (q & 3));
+            }
+            *reinterpret_cast<uint2*>(a.hq + (erow + row) * a.F + fs * COLS + lane * 8) =
+                make_uint2(packed[0], packed[1]);
+            if (lane == 0) a.hs[(erow + row) * nsgf + fs] = sc;
+          }
+          __threadfence();
+          bar_consumers();
+          if (tid == 0) atomicAdd(&ready[item.slot * nrb + item.rb], 1);
+        }
+      } else {
+        // phase 2: wait for the slot's h, stage its int8 rows, the down sweep
+        if (tid == 0) {
+          while (ld_acquire(&ready[item.slot * nrb + item.rb]) < nsgf) __nanosleep(128);
+          __threadfence();
+        }
+        bar_consumers();
+        const int cpr = a.F / 16;
+        for (int c = tid; c < rv * cpr; c += CONSUMERS) {   // every copy in flight at once
+          const int row = c / cpr, ch = c % cpr;
+          cp_async16(region + row * ldh + ch * 16, a.hq + (erow + row) * a.F + ch * 16);
+        }
+        cp_async_commit();
+        cp_async_wait<0>();
+        bar_consumers();
+        int part[MI][4][4];
+        float ad[MI][4][4];
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) ad[i][j][q] = 0.0f;
+        const int c_w = item.idx * COLS + w * 32;
+        for (int sg = 0; sg < nsgf; ++sg) {
+          float hsv[MI][2], ds[4][2];
+#pragma unroll
+          for (int i = 0; i < MI; ++i)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              hsv[i][h] = __ldcg(a.hs + (erow + min(i * 16 + g + 8 * h, rv - 1)) * nsgf + sg);
+          const float* dsb = a.dsw + ((size_t)e * nsgf + sg) * a.E;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) ds[j][h] = __ldg(dsb + min(c_w + 8 * j + 2 * t + h, a.E - 1));
+          zero_parts<MI, 4>(part);
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2, ++it) {
+            const int s = it % a.depth;
+            mbar_wait(&full[s], (it / a.depth) & 1);
+            const int8_t* st = ring + s * S::BYTES + (w * 32) * BK;
+            const int8_t* const b[4] = {st, st + 8 * BK, st + 16 * BK, st + 24 * BK};
+            stage_mma<MI, 4, false>(part, region, ldh, (2 * sg + h2) * BK, b, lane);
+            __syncwarp();
+            if (lane == 0) mbar_arrive(&empty[s]);
+          }
+#pragma unroll
+          for (int i = 0; i < MI; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int q = 0; q < 4; ++q)
+                ad[i][j][q] = sg_corr(ad[i][j][q], part[i][j][q], hsv[i][q >> 1], ds[j][q & 1]);
+        }
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int row = i * 16 + g + 8 * h, col = c_w + 8 * j + 2 * t;
+              if (row >= rv) continue;
+              float* o = a.out + (erow + row) * a.E + col;
+              if (col + 1 < a.E && (a.E & 1) == 0) {
+                *reinterpret_cast<float2*>(o) = make_float2(ad[i][j][2 * h], ad[i][j][2 * h + 1]);
+              } else {
+                if (col < a.E) o[0] = ad[i][j][2 * h];
+                if (col + 1 < a.E) o[1] = ad[i][j][2 * h + 1];
+              }
+            }
+      }
+    }
   }
 
-  // phase 2: down over 64-column tiles of E, one FF sweep each, A = int8 h
-  const int8_t* dsrc = down + (size_t)e * E * F;
-  const int n2 = ((E + TILE - 1) / TILE) * nsg_f;
-  auto load2 = [&](int buf, int it) {
-    const int et = it / nsg_f, s = it % nsg_f;
-    stage_rows(stages + buf * 3 * TILE * LDS, dsrc + (size_t)et * TILE * F + s * MOE_SG, F,
-               TILE, E - et * TILE, tid);
-  };
-  float ad[4][4];
-  load2(0, 0);
-  cp_async_commit();
-  for (int it = 0; it < n2; ++it) {
-    const int et = it / nsg_f, s = it % nsg_f;
-    if (it + 1 < n2) {
-      load2((it + 1) & 1, it + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  // the last block to finish leaves the counters zero for the next call
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    if (atomicAdd(done, 1) == (int)gridDim.x - 1) {
+      for (int i = 0; i < a.G * nrb * (1 + nsgf); ++i) ready[i] = 0;
+      *ticket = 0;
+      *done = 0;
+      __threadfence();
     }
-    __syncthreads();
-    if (s == 0) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) ad[j][q] = 0.0f;
-    }
-    int pd[1][4][4];
-    mma_stage<1, 4>(pd, hq + wm * ldh + s * MOE_SG, ldh,
-                    stages + (it & 1) * 3 * TILE * LDS + wn * LDS, LDS, lane);
-    const float hs0 = hs[(wm + g8) * nsg_f + s], hs1 = hs[(wm + g8 + 8) * nsg_f + s];
-    const float* ds = dsw + ((size_t)e * nsg_f + s) * E;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c0 = min(et * TILE + wn + j * 8 + 2 * t4, E - 1), c1 = min(c0 + 1, E - 1);
-      ad[j][0] = sg_corr(ad[j][0], pd[0][j][0], hs0, ds[c0]);
-      ad[j][1] = sg_corr(ad[j][1], pd[0][j][1], hs0, ds[c1]);
-      ad[j][2] = sg_corr(ad[j][2], pd[0][j][2], hs1, ds[c0]);
-      ad[j][3] = sg_corr(ad[j][3], pd[0][j][3], hs1, ds[c1]);
-    }
-    if (s == nsg_f - 1) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int row = wm + g8 + (q >> 1) * 8, col = et * TILE + wn + j * 8 + 2 * t4 + (q & 1);
-          if (row < rv && col < E) out[((size_t)e * R + r0 + row) * E + col] = ad[j][q];
-        }
-    }
-    __syncthreads();
   }
 }
+
+// Dynamic shared memory of a block (ops/moe_qmm.py:fused_prefill_plan).
+int smem_bytes(int mi, int F, int depth) {
+  const int stage = max(2 * SWEEP * BK + 16 * mi * BK, COLS * BK);
+  return 1024 + depth * stage + 16 * mi * (F + 16) + (2 * MAX_DEPTH + 4) * 8 +
+         2 * (int)sizeof(Item) + 16;
+}
+
+template <int MI>
+cudaError_t launch(const void* xg, const void* gate, const void* up, const void* down,
+                   const Args& a, int blocks, cudaStream_t stream) {
+  const int smem = smem_bytes(MI, a.F, a.depth);
+  if (smem > MOE_SMEM_MAX) return cudaErrorInvalidValue;
+  static bool smem_set = false;
+  auto kern = fused_prefill_i8_kernel<MI>;
+  cudaError_t e = set_smem(kern, MOE_SMEM_MAX, smem_set);
+  if (e != cudaSuccess) return e;
+  CUtensorMap mx, mg, mu, md;
+  const auto u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  if ((e = tensor_map_2d(&mx, xg, u8, a.K, (uint64_t)a.G * a.R, a.K, BK, 16 * MI, sw)) != cudaSuccess ||
+      (e = tensor_map_2d(&mg, gate, u8, a.K, (uint64_t)a.G * a.F, a.K, BK, SWEEP, sw)) != cudaSuccess ||
+      (e = tensor_map_2d(&mu, up, u8, a.K, (uint64_t)a.G * a.F, a.K, BK, SWEEP, sw)) != cudaSuccess ||
+      (e = tensor_map_2d(&md, down, u8, a.F, (uint64_t)a.G * a.E, a.F, BK, COLS, sw)) != cudaSuccess)
+    return e;
+  kern<<<blocks, THREADS, smem, stream>>>(mx, mg, mu, md, a);
+  return cudaGetLastError();
+}
+
+}  // namespace fused9
 
 }  // namespace
 
@@ -363,25 +637,35 @@ extern "C" int ik_ragged_qmatmul_i8(const void* xq, const void* xst, int s_sg, i
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// R % 8 == 0, K and F multiples of 256; hb a bf16 (G, R, F), hq an int8
+// (G, R, F) and hs an f32 (G, R, F/256) scratch; counters 2 + G *
+// ceil(R/64) * (1 + F/256) zeroed int32 (left zero); mi = ceil(min(R, 64) /
+// 16), depth and blocks from the plan.
 extern "C" int ik_fused_moe_prefill_i8(const void* xg, const void* xst, int st_g, int st_sg,
                                        int st_r, const void* eids, const void* n_live,
                                        const void* gate, const void* gsw, const void* up,
                                        const void* usw, const void* down, const void* dsw,
-                                       void* out, int G, int R, int K, int F, int E, int act,
-                                       float limit, void* stream) {
-  static bool smem_set = false;
-  cudaError_t e = set_smem(fused_kernel, MOE_SMEM_MAX, smem_set);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int smem = 2 * 3 * TILE * LDS + TILE * MOE_SG * 2 + TILE * (F + 16) +
-                   TILE * (F / MOE_SG) * 4;
-  if (smem > MOE_SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(G, (R + TILE - 1) / TILE);
-  fused_kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(xg), static_cast<const float*>(xst), st_g, st_sg, st_r,
-      static_cast<const int*>(eids), static_cast<const int*>(n_live),
-      static_cast<const int8_t*>(gate), static_cast<const float*>(gsw),
-      static_cast<const int8_t*>(up), static_cast<const float*>(usw),
-      static_cast<const int8_t*>(down), static_cast<const float*>(dsw),
-      static_cast<float*>(out), R, K, F, E, act, limit);
-  return static_cast<int>(cudaGetLastError());
+                                       void* hb, void* hq, void* hs, void* counters, void* out, int G,
+                                       int R, int K, int F, int E, int act, float limit, int mi,
+                                       int depth, int blocks, void* stream) {
+  if (K % MOE_SG || F % MOE_SG || R % 8 || R < 8 || depth < 2 || depth > fused9::MAX_DEPTH ||
+      mi != (R < 64 ? (R + 15) / 16 : 4) || blocks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  fused9::Args a{static_cast<const float*>(xst), st_g, st_sg, st_r,
+                 static_cast<const int*>(eids), static_cast<const int*>(n_live),
+                 static_cast<const float*>(gsw), static_cast<const float*>(usw),
+                 static_cast<const float*>(dsw), static_cast<__nv_bfloat16*>(hb),
+                 static_cast<int8_t*>(hq),
+                 static_cast<float*>(hs), static_cast<int*>(counters), static_cast<float*>(out),
+                 G, R, K, F, E, act, depth, limit};
+  const auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  switch (mi) {
+    case 1: e = fused9::launch<1>(xg, gate, up, down, a, blocks, s); break;
+    case 2: e = fused9::launch<2>(xg, gate, up, down, a, blocks, s); break;
+    case 3: e = fused9::launch<3>(xg, gate, up, down, a, blocks, s); break;
+    default: e = fused9::launch<4>(xg, gate, up, down, a, blocks, s); break;
+  }
+  return static_cast<int>(e);
 }

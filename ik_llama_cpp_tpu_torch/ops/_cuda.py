@@ -138,6 +138,21 @@ def sm_count(t) -> int:
     return _SMS[i]
 
 
+_COUNTERS: dict = {}
+
+
+def zeroed_counters(device, name: str, n: int):
+    """n zero int32 counters on ``device`` for the kernels that share
+    ``name``, kept across calls: each launch leaves them zero again (its
+    last block resets them), so calls on one stream may share them."""
+    import torch
+    c = _COUNTERS.get((device, name))
+    if c is None or c.numel() < n:
+        c = _COUNTERS[(device, name)] = torch.zeros(max(n, 256), dtype=torch.int32,
+                                                    device=device)
+    return c
+
+
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise ValueError(what)

@@ -173,18 +173,6 @@ def decode_key_ranges(plan: dict, key_start: int, key_end: int) -> list:
     return [(lo, min(lo + per, key_end)) for lo in range(key_start, key_end, per)]
 
 
-_COUNTERS: dict = {}
-
-
-def _decode_counters(device, n: int) -> torch.Tensor:
-    """n zero int32 counters on ``device``, one a group, kept across calls:
-    the kernel's merging block resets its counter to zero."""
-    c = _COUNTERS.get(device)
-    if c is None or c.numel() < n:
-        c = _COUNTERS[device] = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
-    return c
-
-
 def _decode_split(q, hkv: int, s: int, dv: int):
     """(scratch, counters, splits) of a decode kernel's launch (C or 5) for
     q (B, T, H, Dk) over a slab of ``hkv`` kv heads and capacity ``s``: the
@@ -197,7 +185,8 @@ def _decode_split(q, hkv: int, s: int, dv: int):
         return None, None, 1
     part = torch.empty(plan["groups"] * plan["splits"] * plan["rows"] * (dv + 2),
                        dtype=torch.float32, device=q.device)
-    return part, _decode_counters(q.device, plan["groups"]), plan["splits"]
+    counters = _cuda.zeroed_counters(q.device, "decode attention", plan["groups"])
+    return part, counters, plan["splits"]
 
 
 def flash_attention_decode(q, k, v, q_pos0, kv_len, *, scale: float,

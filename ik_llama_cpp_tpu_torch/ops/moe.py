@@ -119,6 +119,12 @@ def _fused_tg_enabled() -> bool:
     return os.environ.get("IK_MOE_FUSED_TG", "0") not in ("0", "false", "")
 
 
+def fused_capacity(m: int, g: int) -> int:
+    """The rows a capacity bucket of kernel 9 holds for m sorted rows over g
+    experts: ~1.25x the mean rows per expert, 8-aligned, 8 to 512."""
+    return min(512, max(8, (-(-(m * 5) // (g * 4)) + 7) // 8 * 8))
+
+
 def _fused_prefill_try(xs, group_sizes, experts: QuantExpertWeights,
                        activation: str, act_limit: float):
     """Capacity-bucketed whole-FFN prefill (kernel 9) with the ragged
@@ -129,8 +135,7 @@ def _fused_prefill_try(xs, group_sizes, experts: QuantExpertWeights,
     JAX package's, with the kernel's own shape rule."""
     m, k = xs.shape
     g, _, f = experts.gate.shape
-    # capacity ~1.25x the mean rows per expert, 8-aligned
-    r = min(512, max(8, (-(-(m * 5) // (g * 4)) + 7) // 8 * 8))
+    r = fused_capacity(m, g)
     if (not experts.supergroup or experts.gate_b is not None or experts.up_b is not None
             or not fused_prefill_fits(r, k, f)):
         return None

@@ -284,18 +284,46 @@ def moe_decode_fused_i8_ref(xq, xst, ids, wts, gate_c, gate_sw, up_c, up_sw, dow
     return moe_decode_down_i8_ref(hq, hs.t(), ids, down_c, down_sw, top_k=top_k)
 
 
+FUSED_COLS = 16          # FF columns of a phase-1 item of kernel 11 (its 32 gate and up rows)
+def fused_decode_plan(t: int, top_k: int, ff: int, e: int) -> dict:
+    """The launch of kernel 11 (``csrc/moe_decode_fused_i8.cu``) for T
+    tokens: one block a work item, dealt in ticket order. Tickets
+    0 .. ``items1`` - 1 are the phase-1 items (pair p, FUSED_COLS columns of
+    FF from f0), pair-major; the next ``items2`` the phase-2 items (token t,
+    ``cols`` columns of E from n0: kernel 8's block, ``down_plan``),
+    token-major. ``counters``: the ticket, the blocks done, one a (pair, FF
+    supergroup), one a token."""
+    d = down_plan(t, top_k, ff, e)
+    p = t * top_k
+    items1 = p * (ff // FUSED_COLS)
+    return {"items1": items1, "items2": t * d["tiles"], "blocks": items1 + t * d["tiles"],
+            "n_ft": ff // FUSED_COLS, "tiles": d["tiles"], "cols": d["cols"],
+            "lanes": d["lanes"], "counters": 2 + p * (ff // SUPERGROUP) + t}
+
+
+def fused_decode_item(plan: dict, ticket: int) -> tuple:
+    """What the block holding ``ticket`` computes, as the kernel decodes it:
+    (1, pair, f0) or (2, token, n0)."""
+    if ticket < plan["items1"]:
+        return 1, ticket // plan["n_ft"], ticket % plan["n_ft"] * FUSED_COLS
+    i = ticket - plan["items1"]
+    return 2, i // plan["tiles"], i % plan["tiles"] * plan["cols"]
+
+
 def fused_decode_smem_bytes(k: int, ff: int, top_k: int) -> int:
-    """Shared memory of a block of csrc/moe_decode_fused_i8.cu: the larger
-    of the pair's int8 row and the token's requantized rows, each with its
-    supergroup scales."""
-    return max(k + k // SUPERGROUP * 4, top_k * (ff + ff // SUPERGROUP * 4))
+    """Dynamic shared memory of a block of csrc/moe_decode_fused_i8.cu: the
+    larger of phase 1's activation row with its supergroup scales and
+    phase 2's scales of h, down scales and int32 sums (h itself is read
+    from L2)."""
+    cols = down_plan(1, top_k, ff, 1)["cols"]
+    return max(k + k // SUPERGROUP * 4, 4 * top_k * (ff // SUPERGROUP) * (1 + 2 * cols))
 
 
 def fused_decode_fits(k: int, ff: int, top_k: int) -> bool:
     """Whether kernel 11 takes these shapes, decided from shapes alone (the
     counterpart of the JAX kernel returning None): supergroup K and FF and
-    a token's rows in one block's shared memory. Models that fail it take
-    the two-kernel chain."""
+    a block's shared memory within the limit. Models that fail it take the
+    two-kernel chain."""
     return (k % SUPERGROUP == 0 and ff % SUPERGROUP == 0
             and fused_decode_smem_bytes(k, ff, top_k) <= SMEM_LIMIT)
 
@@ -310,11 +338,12 @@ def moe_decode_fused_i8(xq, xst, ids, wts, gate_c, gate_sw, up_c, up_sw, down_c,
 
     CUDA kernel ``csrc/moe_decode_fused_i8.cu``, which replaces the Pallas
     kernel ops/moe_decode.py:moe_decode_fused_i8 of the JAX package. Bound
-    by the routed experts' code bytes: a cooperative launch whose first
-    phase is kernel 7's grid writing bf16 h (weight folded in) to a scratch
-    of P x FF, and whose second phase, after a grid-wide barrier,
-    requantizes each token's rows in shared memory and runs kernel 8's
-    sum in pair order; no float atomics."""
+    by the routed experts' code bytes: one block a work item from a ticket
+    counter (``fused_decode_plan``), the phase-1 items (a pair's gate and up
+    rows of 16 columns in flight at once) before the phase-2 items (kernel
+    8's block, its down loads issued before it waits for its token's h); h
+    requantized once a (pair, supergroup) by the block that completes it,
+    into an int8 scratch that stays in L2; no float atomics."""
     if xq.device.type == "cpu":
         return moe_decode_fused_i8_ref(xq, xst, ids, wts, gate_c, gate_sw, up_c, up_sw,
                                        down_c, down_sw, gate_b, up_b, top_k=top_k,
@@ -337,18 +366,23 @@ def moe_decode_fused_i8(xq, xst, ids, wts, gate_c, gate_sw, up_c, up_sw, down_c,
     for t in (xst, ids, wts, gate_c, gate_sw, up_c, up_sw, down_c, down_sw, gate_b, up_b):
         _cuda.require(t is None or t.device == xq.device, f"{name}: operands on different devices")
     _cuda.require(activation in ACTIVATIONS, f"{name}: activation {activation!r}")
+    plan = fused_decode_plan(p // top_k, top_k, f, e)
     hbuf = torch.empty((p, f), dtype=torch.bfloat16, device=xq.device)
+    hq = torch.empty((p, f), dtype=torch.int8, device=xq.device)
+    hs = torch.empty((p, f // SUPERGROUP), dtype=torch.float32, device=xq.device)
+    counters = _cuda.zeroed_counters(xq.device, name, plan["counters"])
     out = torch.empty((p // top_k, e), dtype=torch.float32, device=xq.device)
     fn = _cuda.function("moe_decode_fused_i8", "ik_moe_decode_fused_i8",
-                        [_cuda.P, _cuda.P, _cuda.I, _cuda.I] + [_cuda.P] * 12
-                        + [_cuda.I] * 6 + [_cuda.F, _cuda.P])
+                        [_cuda.P, _cuda.P, _cuda.I, _cuda.I] + [_cuda.P] * 15
+                        + [_cuda.I] * 8 + [_cuda.F, _cuda.P])
     rc = fn(xq.data_ptr(), xst.data_ptr(), xst.stride(0), xst.stride(1), ids.data_ptr(),
             wts.data_ptr(), gate_c.data_ptr(), gate_sw.data_ptr(), up_c.data_ptr(),
             up_sw.data_ptr(), down_c.data_ptr(), down_sw.data_ptr(),
             None if gate_b is None else gate_b.data_ptr(),
-            None if up_b is None else up_b.data_ptr(), hbuf.data_ptr(), out.data_ptr(),
-            p, top_k, k, f, e, ACTIVATIONS[activation], float(act_limit),
-            _cuda.stream_ptr(xq))
+            None if up_b is None else up_b.data_ptr(), hbuf.data_ptr(), hq.data_ptr(),
+            hs.data_ptr(), counters.data_ptr(), out.data_ptr(),
+            p, top_k, k, f, e, plan["cols"], plan["lanes"], ACTIVATIONS[activation],
+            float(act_limit), _cuda.stream_ptr(xq))
     moe_decode_fused_i8.launches += 1
     _cuda.check(rc, name)
     return out

@@ -9,7 +9,8 @@ The torch counterpart of the JAX package's ``ops/moe_qmm.py``:
   group scales (any group, f32 or bf16 scales), dequantized in bf16.
 * ``fused_moe_prefill_i8``: the rows gathered into (G, R, K) capacity
   buckets; per live expert the whole FFN (gate/up, activation, bf16 round,
-  per-(row, 256) requantization of h, down) in one block.
+  per-(row, 256) requantization of h, down) in one launch, each expert
+  split over several work items.
 
 Layouts at the public functions are the JAX package's: codes (G, K, N),
 scales (G, K/group, N), activation scales transposed. On the card the codes
@@ -25,11 +26,16 @@ from .moe_decode import (ACTIVATIONS, SMEM_LIMIT, SUPERGROUP, _act, _check_codes
                          _check_planar, dequant_experts, requant_by_inverse,
                          sg_accumulate)
 
-# Shared-memory plan of csrc/moe_qmm_i8.cu's fused kernel (64-row blocks,
-# 64-column tiles, 2 stages of 256-deep x / gate / up tiles padded to 272
-# bytes a row, one 256-column bf16 staging slab of h, the int8 h of the
-# block's rows padded to FF + 16 bytes, and its per-(row, 256) scales).
+# The work items of csrc/moe_qmm_i8.cu's fused kernel (kernel 9): 64-row
+# blocks of a bucket; 64 columns of FF (phase 1) or 256 of E (phase 2) an
+# item; h requantized per 256 FF columns by the last of their four phase-1
+# items; a ring of 128-byte-deep stages fed by TMA.
 FUSED_ROWS = 64
+FUSED_COLS = 256
+FUSED_SWEEP = 64
+FUSED_BK = 128
+FUSED_MAX_DEPTH = 4
+_FUSED_FIXED = 1024 + (2 * FUSED_MAX_DEPTH + 4) * 8 + 2 * 20 + 16   # alignment, barriers, queue
 
 
 def _i8_rows(q, qs, codes, sw):
@@ -207,20 +213,59 @@ ragged_qmatmul.launches = 0
 ragged_qmatmul.wgmma_launches = 0     # the part of ``launches`` the wgmma form took
 
 
-def fused_smem_bytes(ff: int) -> int:
-    stages = 2 * 3 * FUSED_ROWS * (SUPERGROUP + 16)
-    h_slab = FUSED_ROWS * SUPERGROUP * 2
-    return stages + h_slab + FUSED_ROWS * (ff + 16) + FUSED_ROWS * (ff // SUPERGROUP) * 4
+def fused_prefill_plan(capacity: int, ff: int, e: int = 1, g: int = 1,
+                       sms: int = _cuda.DEFAULT_SMS) -> dict:
+    """The launch of kernel 9, a pure function of the shapes and the SM
+    count (n_live stays on the device). ``mi`` 16-row tiles of a row block
+    (ceil(min(capacity, 64) / 16)); a ring stage of 128 bytes of K (2 x 64
+    weight rows and 16 mi bucket rows, or 256 down rows); a phase-2 item's
+    int8 h rows beside it; ``depth`` stages, as many as fit up to
+    FUSED_MAX_DEPTH (deeper rings measured slower on the H100; the kernel
+    needs 2); at most ``items`` work items (every slot live); ``blocks``,
+    one an SM or fewer; ``counters``: the ticket, the blocks done, one a
+    (slot, row block) and one a (slot, row block, FF supergroup)."""
+    mi = min(4, -(-min(capacity, FUSED_ROWS) // 16))
+    stage = max(2 * FUSED_SWEEP * FUSED_BK + 16 * mi * FUSED_BK, FUSED_COLS * FUSED_BK)
+    region = 16 * mi * (ff + 16)
+    depth = min(FUSED_MAX_DEPTH, (SMEM_LIMIT - _FUSED_FIXED - region) // stage)
+    nrb = -(-capacity // FUSED_ROWS)
+    nsgf = ff // SUPERGROUP
+    items = g * nrb * (ff // FUSED_SWEEP + -(-e // FUSED_COLS))
+    return {"mi": mi, "depth": depth, "smem": _FUSED_FIXED + region + max(depth, 0) * stage,
+            "row_blocks": nrb, "items": items, "blocks": max(1, min(sms, items)),
+            "counters": 2 + g * nrb * (1 + nsgf)}
+
+
+def fused_prefill_items(n_live: int, capacity: int, ff: int, e: int) -> list:
+    """The work items of one call in ticket order, as the kernel's producer
+    decodes its tickets: (1, slot, row block, 64-column sweep of FF) for
+    every live slot, then (2, slot, row block, 256-column tile of E)."""
+    nrb, n_et = -(-capacity // FUSED_ROWS), -(-e // FUSED_COLS)
+    nq = ff // FUSED_SWEEP
+    out = []
+    for tk in range(n_live * nrb * (nq + n_et)):
+        if tk < n_live * nrb * nq:
+            per = nrb * nq
+            out.append((1, tk // per, tk % per // nq, tk % nq))
+        else:
+            t2, per = tk - n_live * nrb * nq, nrb * n_et
+            out.append((2, t2 // per, t2 % per // n_et, t2 % n_et))
+    return out
+
+
+def fused_smem_bytes(ff: int, capacity: int = FUSED_ROWS) -> int:
+    """Dynamic shared memory of a block of kernel 9 at ``fused_prefill_plan``'s depth."""
+    return fused_prefill_plan(capacity, ff)["smem"]
 
 
 def fused_prefill_fits(capacity: int, k: int, ff: int) -> bool:
     """Whether kernel 9 takes these shapes, decided from shapes alone on the
     host (the counterpart of the JAX kernel returning None): supergroup
-    K and FF, a capacity that is a multiple of 8, and the int8 h of a
-    64-row block in shared memory beside the tile ring (FF <= 1280).
-    Models that fail it take the ragged chain."""
+    K and FF, a capacity that is a multiple of 8, and a ring of at least two
+    stages beside the h region in shared memory (FF up to 2304 at any
+    capacity). Models that fail it take the ragged chain."""
     return (k % SUPERGROUP == 0 and ff % SUPERGROUP == 0 and capacity % 8 == 0
-            and fused_smem_bytes(ff) <= SMEM_LIMIT)
+            and capacity >= 8 and fused_prefill_plan(capacity, ff)["depth"] >= 2)
 
 
 def fused_moe_prefill_i8_ref(xg, xst, eids, n_live, gate_c, gate_sw, up_c, up_sw,
@@ -260,10 +305,14 @@ def fused_moe_prefill_i8(xg, xst, eids, n_live, gate_c, gate_sw, up_c, up_sw,
 
     CUDA kernel ``csrc/moe_qmm_i8.cu``, which replaces the Pallas kernel
     ops/moe_qmm.py:fused_moe_prefill_i8 of the JAX package. Bound by the
-    live experts' code bytes: the TPU's sequential grid over n_live
-    becomes a grid over (expert slot, 64-row block) whose blocks past
-    n_live exit after reading n_live from device memory; each block keeps
-    its int8 h in shared memory between gate/up and down."""
+    live experts' code bytes: the TPU's sequential grid over n_live becomes
+    a persistent grid (``fused_prefill_plan``) whose producer warps deal
+    work items from a ticket counter on the device, every live slot's
+    phase-1 items (gate, up and the activation of 64 FF columns, into a
+    bf16 scratch; the last of a 256-column group's four items requantizes
+    it into an int8 scratch, all of it in L2) before the phase-2 items (the
+    down projection of 256 E columns, once its slot's h is written), each
+    streamed through a TMA ring."""
     if xg.device.type == "cpu":
         return fused_moe_prefill_i8_ref(xg, xst, eids, n_live, gate_c, gate_sw, up_c,
                                         up_sw, down_c, down_sw, capacity=capacity,
@@ -288,15 +337,21 @@ def fused_moe_prefill_i8(xg, xst, eids, n_live, gate_c, gate_sw, up_c, up_sw,
     for t in (xst, eids, n_live, gate_c, gate_sw, up_c, up_sw, down_c, down_sw):
         _cuda.require(t.device == xg.device, f"{name}: operands on different devices")
     _cuda.require(activation in ACTIVATIONS, f"{name}: activation {activation!r}")
+    plan = fused_prefill_plan(r, f, e, g, _cuda.sm_count(xg))
+    hb = torch.empty((g, r, f), dtype=torch.bfloat16, device=xg.device)
+    hq = torch.empty((g, r, f), dtype=torch.int8, device=xg.device)
+    hs = torch.empty((g, r, f // SUPERGROUP), dtype=torch.float32, device=xg.device)
+    counters = _cuda.zeroed_counters(xg.device, name, plan["counters"])
     out = torch.empty((g, r, e), dtype=torch.float32, device=xg.device)
     fn = _cuda.function("moe_qmm_i8", "ik_fused_moe_prefill_i8",
-                        [_cuda.P, _cuda.P] + [_cuda.I] * 3 + [_cuda.P] * 9
-                        + [_cuda.I] * 6 + [_cuda.F, _cuda.P])
+                        [_cuda.P, _cuda.P] + [_cuda.I] * 3 + [_cuda.P] * 13
+                        + [_cuda.I] * 6 + [_cuda.F] + [_cuda.I] * 3 + [_cuda.P])
     rc = fn(xg.data_ptr(), xst.data_ptr(), *xst.stride(), eids.data_ptr(),
             n_live.data_ptr(), gate_c.data_ptr(), gate_sw.data_ptr(), up_c.data_ptr(),
-            up_sw.data_ptr(), down_c.data_ptr(), down_sw.data_ptr(), out.data_ptr(),
+            up_sw.data_ptr(), down_c.data_ptr(), down_sw.data_ptr(), hb.data_ptr(), hq.data_ptr(),
+            hs.data_ptr(), counters.data_ptr(), out.data_ptr(),
             g, r, k, f, e, ACTIVATIONS[activation], float(act_limit),
-            _cuda.stream_ptr(xg))
+            plan["mi"], plan["depth"], plan["blocks"], _cuda.stream_ptr(xg))
     fused_moe_prefill_i8.launches += 1
     _cuda.check(rc, name)
     return out

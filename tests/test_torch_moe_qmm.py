@@ -148,7 +148,10 @@ def test_fused_rule_decides_by_shape():
     assert TQ.fused_prefill_fits(512, 4096, 1280)
     assert not TQ.fused_prefill_fits(40, 4096, 14336)
     assert not TQ.fused_prefill_fits(36, 2048, 768)
-    assert TQ.fused_smem_bytes(768) == 188160
+    # a 64-row block: 4 ring stages of 32 KB (the down tile; two 8 KB weight
+    # tiles and an 8 KB row tile in phase 1), beside the int8 h rows (64 x
+    # 784 bytes), barriers, the item queue and alignment
+    assert TQ.fused_smem_bytes(768) == 1176 + 64 * 784 + 4 * 32768
 
 
 # ------------------------------------------------------------------ card --
@@ -168,17 +171,29 @@ def test_ragged_kernel_matches_plain(m, sizes):
 
 
 @needs_cuda
-@pytest.mark.parametrize("sizes", [[40, 0, 17, 3, 0, 40, 8, 1], [0, 0, 5, 0, 0, 0, 0, 0]])
-def test_fused_kernel_matches_plain(sizes):
-    r, k, f = 40, 512, 768
+@pytest.mark.parametrize("r,sizes", [
+    (40, [40, 0, 17, 3, 0, 40, 8, 1]),
+    (40, [0, 0, 5, 0, 0, 0, 0, 0]),            # a single live expert
+    (40, [40, 12, 33, 1, 7, 40, 22, 9]),       # every slot live
+    (96, [96, 0, 70, 3, 0, 65, 8, 1]),         # two row blocks (64 + 32 rows)
+    (8, [8, 0, 3, 0, 0, 0, 1, 0]),             # one 16-row tile
+])
+def test_fused_kernel_matches_plain(r, sizes):
+    """Kernel 9 against its plain version on the card: the same exact int32
+    supergroup dots, corrections in supergroup order, activation, bf16
+    rounding and requantization by 1/scale (torch's sigmoid and division
+    round as the kernel does), so every live row equals the plain version
+    bit for bit and repeats bit for bit."""
+    k, f = 512, 768
     d = experts_np(g=len(sizes), k=k, f=f, seed=9)
     xq, xst, eids, n_live = _buckets(sizes, k, r, seed=5)
     e = to_torch(d, "cuda")
     args = (torch.from_numpy(xq).cuda(), torch.from_numpy(xst).cuda(),
             torch.from_numpy(eids).cuda(), torch.tensor(n_live).cuda(),
             e.gate, e.gate_s, e.up, e.up_s, e.down, e.down_s)
-    got = TQ.fused_moe_prefill_i8(*args, capacity=r).cpu().numpy()
-    ref = TQ.fused_moe_prefill_i8_ref(*args, capacity=r).cpu().numpy()
-    live = eids[:n_live]
-    hmax = np.abs(ref[live]).max()
-    assert np.abs(got[live] - ref[live]).max() <= 1e-2 * hmax
+    got = TQ.fused_moe_prefill_i8(*args, capacity=r)
+    again = TQ.fused_moe_prefill_i8(*args, capacity=r)
+    ref = TQ.fused_moe_prefill_i8_ref(*args, capacity=r)
+    live = torch.from_numpy(eids[:n_live]).long().cuda()
+    assert torch.equal(got[live], ref[live])
+    assert torch.equal(got[live], again[live])
