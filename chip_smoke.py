@@ -12,10 +12,13 @@ Phases (all by default; any failure exits non-zero):
      after a flush that leaves the L2 clean; kernels A, 8, 10 and 13 and
      their library calls also under the older zero_() flush), the launch
      plan of kernels 8 and 13 and their time by columns a block, the K
-     split of kernels A, D and 15 at M <= 16 against their time, and
-     kernel A's host cost a call at M = 1, the tile widths of the tiled A,
-     D and 15 at M = 512 against their time, and the warpgroup MMAs of the
-     three tiled kernels in their SASS; the split plans of the decode
+     split of kernels A, D and 15 at M <= 16 against their time, kernel
+     12's plan and its time by columns a block, kernel 6's time by query
+     heads a block (rows 6L and 2L: the last chunk of phase 9's long fill
+     over a q8 and a bf16 cache), kernel A's host cost a call at M = 1,
+     the tile widths of the tiled A, D and 15 at M = 512 against their
+     time, and the warpgroup MMAs of the three tiled kernels in their
+     SASS; the split plans of the decode
      attention kernels C and 5 and kernel 14's work plan beside their
      cases. With phase 12 also run, row 14p follows it: kernel 14 at the
      group sizes phase 12's router gave (the layer-0 call against its
@@ -44,9 +47,10 @@ Phases (all by default; any failure exits non-zero):
      512, decode 64, launch counts, decode profile), then q4, q6, nl4, q8
      with the K/V Hadamard rotation and a per-layer codec dict on the same
      weights; a q8 cache and a bf16 one of capacity 4,096 filled with 3,999
-     tokens by the prefill chunks, 8 decode steps at ~4,000 keys profiled
-     (kernel 5's ms a step beside kernel C's); and one K-shift on the q8
-     cache followed by more decode steps
+     tokens by the prefill chunks (profiled: kernel 6's ms over the q8
+     fill beside kernel B's over the bf16 one), 8 decode steps at ~4,000
+     keys profiled (kernel 5's ms a step beside kernel C's); and one
+     K-shift on the q8 cache followed by more decode steps
  10. quantized-KV parity at depth 2: per codec, kernel path against plain
      path over one token history (the plain path is fed the kernel path's
      greedy tokens): logits at every step, where the greedy picks differ,
@@ -360,6 +364,30 @@ def forced_cols(MD, cols: int):
         MD.down_plan = plan
 
 
+@contextmanager
+def forced_gate_up_cols(MD, cols: int):
+    """The launches of kernel 12 with ``cols`` columns a block
+    (``gate_up_plan`` then picks the lanes a row for that)."""
+    plan = MD.gate_up_plan
+    MD.gate_up_plan = lambda *shape: plan(*shape, cols=cols)
+    try:
+        yield
+    finally:
+        MD.gate_up_plan = plan
+
+
+@contextmanager
+def forced_heads(FA, n: int):
+    """The launches of kernel 6 with blocks of ``n`` query heads of a GQA
+    group (where ``prefill_q8_heads`` allows n; else 1)."""
+    old = FA.Q8_HEADS
+    FA.Q8_HEADS = n
+    try:
+        yield
+    finally:
+        FA.Q8_HEADS = old
+
+
 def tiled_text(plan: dict) -> str:
     return (f"plan: {plan['bm']}x{plan['bn']} tiles, {plan['tiles']} tiles on "
             f"{plan['blocks']} blocks")
@@ -631,6 +659,9 @@ def phase_kernels(torch, timer, results) -> bool:
     log("[3] kernel B (flash_attention, prefill) vs plain; library = SDPA")
     ok &= attn_case("flash_attention", FA.flash_attention, 1, 512, 1024, [0], [512])
     ok &= attn_case("flash_attention", FA.flash_attention, 1, 512, 1024, [256], [768])
+    # row 2L: the last chunk of phase 9's long fill over the bf16 cache
+    # (beside kernel 6's row 6L over the q8 one)
+    ok &= attn_case("flash_attention", FA.flash_attention, 1, 512, 4096, [3488], [4000])
     # the head layouts of Qwen3-30B-A3B (32 / 4) and Qwen1.5-MoE-A2.7B (16 / 16)
     for hq, hkv in ((MOE["H"], MOE["HKV"]), (Q2MOE["H"], Q2MOE["HKV"])):
         ok &= attn_case("flash_attention", FA.flash_attention, 1, 512, 1024, [0], [512],
@@ -875,12 +906,22 @@ def phase_planar_moe_kernels(torch, timer, results, dev="cuda") -> bool:
         wb = torch.cat([MD.dequant_experts(gate[li], gs[li], group),
                         MD.dequant_experts(up[li], us[li], group)], dim=2)
         xb = x[:, None, :]
+        rep = bool(torch.equal(got, MD.moe_decode_gate_up(*a12, group=group)))
+        ok &= rep
+        plan = MD.gate_up_plan(p, k, ff)
         ok &= _record(results, "moe_decode_gate_up",
                       f"P={p} K={k} FF={ff} G={g_} group={group} "
                       f"{'f32' if sdt == torch.float32 else 'bf16'} scales", err, tol,
                       timer(lambda: MD.moe_decode_gate_up(*a12, group=group)),
                       timer(lambda: MD.moe_decode_gate_up_ref(*a12, group=group), 3),
-                      timer(lambda: torch.bmm(xb, wb)), bnd)
+                      timer(lambda: torch.bmm(xb, wb)), bnd,
+                      note=f" | {plan_text(plan)}; repeats bit for bit: {rep}")
+        row = []
+        for cols in (2, 4, 8, 16, 32):
+            with forced_gate_up_cols(MD, cols):
+                row.append(f"{cols}{'*' if cols == plan['cols'] else ''} "
+                           f"{timer(lambda: MD.moe_decode_gate_up(*a12, group=group), 5):.4f}")
+        log(f"    kernel 12 P={p}: ms by columns a block: " + ", ".join(row))
         del wb, gate, up
 
     log("[3] kernel 13 (moe_decode_down, planar) vs plain; library = bf16 torch.bmm over "
@@ -1124,6 +1165,20 @@ def phase_kvq_kernels(torch, timer, results) -> bool:
                      f"bit: {again}")
             if not again:
                 err = float("inf")
+        if fn is FA.flash_attention_q8:
+            # every form of the block runs each warp's arithmetic unchanged:
+            # the same bits for 1, 2 or 4 query heads a block
+            again = bool(torch.equal(got, fn(*args, scale=scale_, **kw)))
+            row, same, want = [], True, FA.Q8_HEADS
+            for n in (1, 2, 4):
+                with forced_heads(FA, n):
+                    same &= bool(torch.equal(got, fn(*args, scale=scale_, **kw)))
+                    row.append(f"{n}{'*' if n == want else ''} "
+                               f"{timer(lambda: fn(*args, scale=scale_, **kw), 5):.4f}")
+            note += (f" | ms by query heads a block: {', '.join(row)}; the same bits in every "
+                     f"form: {same}; repeats bit for bit: {again}")
+            if not (again and same):
+                err = float("inf")
         return _record(results, kernel, case, err, tol,
                        timer(lambda: fn(*args, scale=scale_, **kw)),
                        timer(lambda: FA.attention_quant_ref(*args, scale=scale_, **kw), 3),
@@ -1143,9 +1198,15 @@ def phase_kvq_kernels(torch, timer, results) -> bool:
     for codec in ("q8", "q4", "q6", "nl4"):
         ok &= attn_case("flash_attention_decode_q8", FA.flash_attention_decode_q8, codec,
                         1, 1, 4096, [3999], [4000], sinks=sinks, swa_window=1000)
-    log("[3] kernel 6 (flash_attention_q8, prefill over int8 KV) vs plain; library as for 5")
+    log("[3] kernel 6 (flash_attention_q8, prefill over int8 KV) vs plain; library as for 5 "
+        "(without the softcap, which SDPA does not take)")
     ok &= attn_case("flash_attention_q8", FA.flash_attention_q8, "q8", 1, 512, 1024, [0], [512])
     ok &= attn_case("flash_attention_q8", FA.flash_attention_q8, "q8", 1, 512, 1024, [256], [768])
+    ok &= attn_case("flash_attention_q8", FA.flash_attention_q8, "q8", 1, 512, 1024, [256], [768],
+                    sinks=sinks, swa_window=256, softcap=30.0)
+    # row 6L: the last chunk of phase 9's long fill over the q8 cache
+    ok &= attn_case("flash_attention_q8", FA.flash_attention_q8, "q8", 1, 512, 4096, [3488],
+                    [4000])
 
     ok &= phase_qmatmul4(torch, timer, results, gen)
     return ok
@@ -2429,19 +2490,31 @@ def kvq_long_context(torch, rt, base_cfg, rng) -> bool:
     chunks, then 8 decode steps profiled at ~LONG keys (after 2 warm ones):
     kernel 5's ms a step beside kernel C's, and their launches."""
     ids = [int(x) for x in rng.integers(3, V, LONG - 1)]
-    ok, ms = True, {}
-    for name, quant, key, kname in (("q8", "q8", "flash_attention_decode_q8", "fa_decode_q_kernel<"),
-                                    ("bf16", False, "flash_attention_decode", "fa_decode_kernel<")):
+    ok, ms, fill_ms, fill_n = True, {}, {}, {}
+    for name, quant, key, kname, pkey, pname in (
+            ("q8", "q8", "flash_attention_decode_q8", "fa_decode_q_kernel<",
+             "flash_attention_q8", "fa_q8_kernel<"),
+            ("bf16", False, "flash_attention_decode", "fa_decode_kernel<",
+             "flash_attention", "fa_prefill_kernel<")):
         rt.kv_quant, rt.cfg = quant, base_cfg
         kv = rt.new_cache(1, LONG)
-        logits, kv, n_past = rt.eval_tokens(ids, kv, 0)
+        filled = {}
+
+        def fill():
+            filled["r"] = rt.eval_tokens(ids, kv, 0)
+        reset_counts()
+        prof = profile_window(torch, fill, 1, f"the {LONG - 1}-token fill", "fill",
+                              f"9 {name} fill", top=6)
+        logits, kv, n_past = filled["r"]
+        fill_ms[name], fill_n[name] = kernel_ms(prof, pname), read_counts()[pkey]
         tok = torch.argmax(logits[-1]).reshape(1, 1)
         reset_counts()
         prof = profile_decode(torch, rt, kv, n_past, tok, steps=8, tag=f"9 {name} at {LONG}",
                               top=6)
         n = read_counts()[key]
         ms[name] = kernel_ms(prof, kname)
-        good = n == NL * 10 and kv.capacity == 4096 and bool(torch.isfinite(logits).all())
+        good = (n == NL * 10 and kv.capacity == 4096 and bool(torch.isfinite(logits).all())
+                and fill_n[name] > 0 and fill_n[name] % NL == 0)
         log(f"[9] {name} cache, capacity {kv.capacity}, {n_past} tokens prefilled: {key} "
             f"{ms[name]:.3f} ms a decode step at {n_past + 1}-{n_past + 8} keys, "
             f"{n} launches in 10 steps (expected {NL * 10}): {'ok' if good else 'FAIL'}")
@@ -2449,6 +2522,9 @@ def kvq_long_context(torch, rt, base_cfg, rng) -> bool:
         del kv
     log(f"[9] decode at {LONG} keys: kernel 5 {ms['q8']:.3f} ms a step over the q8 cache, "
         f"kernel C {ms['bf16']:.3f} ms over the bf16 one")
+    log(f"[9] the {LONG - 1}-token fill: kernel 6 {fill_ms['q8']:.3f} ms over the q8 cache "
+        f"({fill_n['q8']} launches), kernel B {fill_ms['bf16']:.3f} ms over the bf16 one "
+        f"({fill_n['bf16']} launches)")
     return ok
 
 

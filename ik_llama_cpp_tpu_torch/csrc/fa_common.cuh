@@ -1,6 +1,6 @@
 // Shared pieces of the prefill and decode flash-attention kernels: the mask,
-// the tile loaders, and one warp's online-softmax step over a KV tile with
-// bf16 tensor-core products (mma.sync.m16n8k16, float accumulate).
+// and one warp's online-softmax step over a KV tile of the decode kernels
+// with bf16 tensor-core products (mma.sync.m16n8k16, float accumulate).
 #pragma once
 
 #include "common.cuh"
@@ -28,32 +28,6 @@ IK_DEV int fa_first_key(int q_first, const FaMask& mk) {
   return start;
 }
 
-// Copies keys [key0, key0 + KT) of one kv head into sk (KT x LDK, key-major)
-// and the values transposed into svt (D x LDV, dim-major), so both B
-// fragments are single 32-bit shared loads. Keys at or past key_end and dims
-// past dk/dv are zero. Rows are read as 16-byte vectors (dk, dv % 8 == 0).
-template <int D, int KT, int LDK, int LDV>
-IK_DEV void fa_load_kv(__nv_bfloat16* sk, __nv_bfloat16* svt,
-                       const __nv_bfloat16* kbase, const __nv_bfloat16* vbase,
-                       long long sks, long long svs, int key0, int key_end,
-                       int dk, int dv, int tid, int nthreads) {
-  constexpr int CH = D / 8;
-  const uint4 z = make_uint4(0, 0, 0, 0);
-  for (int c = tid; c < KT * CH; c += nthreads) {
-    const int r = c / CH, d0 = (c % CH) * 8;
-    const int key = key0 + r;
-    uint4 kv = z, vv = z;
-    if (key < key_end) {
-      if (d0 < dk) kv = *reinterpret_cast<const uint4*>(kbase + (size_t)key * sks + d0);
-      if (d0 < dv) vv = *reinterpret_cast<const uint4*>(vbase + (size_t)key * svs + d0);
-    }
-    *reinterpret_cast<uint4*>(sk + r * LDK + d0) = kv;
-    const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) svt[(d0 + i) * LDV + r] = ve[i];
-  }
-}
-
 // One warp's running state for 16 query rows: output accumulator in mma C
 // layout, running max m and this lane's partial row sum l for rows g, g+8.
 template <int D, int KT>
@@ -70,23 +44,12 @@ struct FaWarp {
     l[0] = l[1] = 0.f;
   }
 
-  // sq: the warp's 16 query rows (LDQ); sk/svt: the tile from fa_load_kv.
-  // qp0/qp1: absolute positions of rows g and g+8. ksc: null, or one
-  // float32 factor per key of the tile (the row scales of a quantized K
-  // tile that holds raw codes), applied to the score before ``scale``.
-  template <int LDQ, int LDK, int LDV>
-  IK_DEV void step(const __nv_bfloat16* sq, const __nv_bfloat16* sk,
-                   const __nv_bfloat16* svt, int key0, int qp0, int qp1,
-                   const FaMask& mk, float scale, float softcap, int dk,
-                   int dv, const float* ksc = nullptr) {
-    float s[KT / 8][4];
-    softmax<LDQ, LDK>(s, sq, sk, key0, qp0, qp1, mk, scale, softcap, dk, ksc);
-    pv_t<LDV>(s, svt, dv);
-  }
-
-  // The first half of ``step``: S = Q K^T over the tile, scale, softcap
-  // and mask, then the online-softmax update of m, l and o; leaves the
-  // tile's probabilities (float) in s.
+  // S = Q K^T over a key-major tile sk (KT x LDK) and the warp's 16 query
+  // rows sq (LDQ), scale, softcap and mask, then the online-softmax update
+  // of m, l and o; leaves the tile's probabilities (float) in s. qp0/qp1:
+  // absolute positions of rows g and g+8. ksc: null, or one float32 factor
+  // per key of the tile (the row scales of a quantized K tile that holds
+  // raw codes), applied to the score before ``scale``.
   template <int LDQ, int LDK>
   IK_DEV void softmax(float (&s)[KT / 8][4], const __nv_bfloat16* sq,
                       const __nv_bfloat16* sk, int key0, int qp0, int qp1,
@@ -164,29 +127,9 @@ struct FaWarp {
     }
   }
 
-  // O += P V, P rounded to bf16; V transposed in svt (D x LDV, dim-major).
-  template <int LDV>
-  IK_DEV void pv_t(const float (&s)[KT / 8][4], const __nv_bfloat16* svt, int dv) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int kk = 0; kk < KT / 16; ++kk) {
-      uint32_t a[4];
-      pack_p(a, s, kk);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        if (n * 8 >= dv) break;
-        uint32_t b[2];
-        const __nv_bfloat16* pv = svt + (n * 8 + g) * LDV + kk * 16 + 2 * t;
-        b[0] = ld32(pv);
-        b[1] = ld32(pv + 8);
-        mma_bf16_16816(o[n], a, b);
-      }
-    }
-  }
-
-  // The same product with V row-major in sv (KT x LD, key-major, zero past
-  // dv): V's B fragments for dim groups 2np, 2np + 1 from one
-  // ldmatrix.trans, the same operands as pv_t's.
+  // O += P V, P rounded to bf16, with V row-major in sv (KT x LD,
+  // key-major, zero past dv): V's B fragments for dim groups 2np, 2np + 1
+  // from one ldmatrix.trans.
   template <int LD>
   IK_DEV void pv_rows(const float (&s)[KT / 8][4], const __nv_bfloat16* sv, int dv) {
     const int lane = threadIdx.x & 31, lr = lane & 7, lm = lane >> 3;

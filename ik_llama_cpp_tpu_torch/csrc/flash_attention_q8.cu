@@ -18,20 +18,112 @@
 //
 // Bound on the H100: bf16 tensor-core operations over the live (causal)
 // part of the score matrix; the int8 K/V bytes are half the bf16 kernel's.
-// Design: the block layout of flash_attention.cu (one block per (64-query
-// tile, head, batch), four warps of 16 query rows, 64-key tiles, 32 for head
-// dims above 128) with the int8 tile loader of fa_quant.cuh; a block loops
-// only over its live key range. The TPU kernel's whole-row-axis scale
-// blocks and its 128-row tile rule are tiling rules of that chip and are
-// not carried over. No copy/compute overlap yet.
+// Design: kernel B's frame (fa_prefill.cuh: 64-query tiles of four warps a
+// head, 64-key tiles, 32 above D = 128, a walk over the live key range
+// only, the longest query tiles launched first, Q's fragments in
+// registers, softcap a template parameter, the mask only on tiles some row
+// does not see whole), fed from the int8 cache:
+// - the raw K and V rows of tile j + 1 and their two scale vectors go by
+//   cp.async (16-byte copies where the rows are 16-byte aligned, else 8)
+//   into a two-stage ring while tile j is unpacked and computed;
+// - after the wait each tile is unpacked once into bf16 tiles kept
+//   row-major (rows padded by 16 bytes), 8 codes a thread and one 16-byte
+//   shared store each: K as the raw codes (exact in bf16, converted with
+//   no conversion instruction), V as bf16(code * v_scale); K's B fragments
+//   then come from ldmatrix, V's from ldmatrix.trans, as in B;
+// - a block may take NH heads of one GQA group (4 * NH warps) and unpack
+//   each tile once for all of them (prefill_q8_heads in
+//   ops/flash_attention.py chooses; PERF.md has both forms' times).
+// The TPU kernel's whole-row-axis scale blocks and its 128-row tile rule
+// are tiling rules of that chip and are not carried over.
+#include "fa_prefill.cuh"
 #include "fa_quant.cuh"
 
 namespace {
 
-constexpr int BQ = 64, NWARP = 4;
+constexpr int BQ = FA_BQ;
 
-template <int D, int KT>
-__global__ void __launch_bounds__(NWARP * 32)
+// 8 / 4 bytes global -> shared, asynchronously (cp.async.ca), zero-filled
+// past `bytes` (0 reads nothing, but gmem must still be a valid address).
+IK_DEV void cp_async8_zfill(void* smem, const void* gmem, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               ::"r"(static_cast<uint32_t>(__cvta_generic_to_shared(smem))), "l"(gmem),
+               "r"(bytes));
+}
+IK_DEV void cp_async4_zfill(void* smem, const void* gmem, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               ::"r"(static_cast<uint32_t>(__cvta_generic_to_shared(smem))), "l"(gmem),
+               "r"(bytes));
+}
+
+template <int D, int KT, int NH>
+struct Layout {
+  static constexpr int LD = D + 8;                  // padded bf16 row
+  static constexpr int NT = NH * FA_HEAD_WARPS * 32;
+  static constexpr int RAW = KT * D;                // bytes of one tile's K (or V) codes
+  static constexpr int SK = NH * BQ * LD * 2;       // after the heads' query tiles
+  static constexpr int SV = SK + KT * LD * 2;       // the bf16 K tile, then V
+  static constexpr int RING = SV + KT * LD * 2;     // [2 stages][K, V][KT][D] codes
+  static constexpr int SC = RING + 4 * RAW;         // [2 stages][K, V][KT] scales
+  static constexpr int BYTES = SC + 4 * KT * 4;
+};
+
+// The codes of keys [key0, key0 + KT) of one kv head, CW bytes a copy, into
+// a stage's rows (D bytes apart); zero at keys >= end and at dims >= d.
+template <int D, int KT, int NT, int CW>
+IK_DEV void stage_codes(uint8_t* dst, const uint8_t* base, long long rs, int key0, int end,
+                        int d, int tid) {
+  constexpr int CH = D / CW;
+#pragma unroll
+  for (int c = tid; c < KT * CH; c += NT) {
+    const int r = c / CH, j = (c % CH) * CW;
+    const int n = key0 + r < end ? min(CW, d - j) : 0;
+    const uint8_t* src = n > 0 ? base + (size_t)(key0 + r) * rs + j : base;
+    if (CW == 16) {
+      cp_async16_zfill(dst + r * D + j, src, n > 0 ? n : 0);
+    } else {
+      cp_async8_zfill(dst + r * D + j, src, n > 0 ? n : 0);
+    }
+  }
+}
+
+// bf16 tile rows from a stage's codes, 8 codes a thread and step: K as the
+// codes (V: bf16(code * scale), scales[r] the row's). The code b + 128 put
+// in the mantissa of 2^23 gives float(b) after one subtraction, and a
+// float that holds an integer of at most 8 bits is exact in its upper half.
+template <int D, int KT, int NT, bool IS_V>
+IK_DEV void unpack_tile(__nv_bfloat16* tile, const uint8_t* codes, const float* scales,
+                        int tid) {
+  constexpr int LD = D + 8, CH = D / 8;
+#pragma unroll
+  for (int c = tid; c < KT * CH; c += NT) {
+    const int r = c / CH, d0 = (c % CH) * 8;
+    const uint2 w = *reinterpret_cast<const uint2*>(codes + r * D + d0);
+    const float vs = IS_V ? scales[r] : 0.f;
+    uint32_t o[4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t u = (h ? w.y : w.x) ^ 0x80808080u;
+      float f[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + i)) - 8388736.0f;
+      if (IS_V) {
+        o[2 * h] = pack_bf16x2(__fmul_rn(f[0], vs), __fmul_rn(f[1], vs));
+        o[2 * h + 1] = pack_bf16x2(__fmul_rn(f[2], vs), __fmul_rn(f[3], vs));
+      } else {
+        o[2 * h] = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+        o[2 * h + 1] = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+      }
+    }
+    *reinterpret_cast<uint4*>(tile + r * LD + d0) = make_uint4(o[0], o[1], o[2], o[3]);
+  }
+}
+
+// Block: (NH heads of one kv head's group, batch, 64-query tile); warp w
+// runs rows 16 (w % 4) .. of head w / 4. vec16: codes by 16-byte copies.
+template <int D, int KT, bool CAP, int NH>
+__global__ void __launch_bounds__(NH * FA_HEAD_WARPS * 32)
 fa_q8_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__ k,
              const float* __restrict__ k_s, const uint8_t* __restrict__ v,
              const float* __restrict__ v_s, const int* __restrict__ q_pos0,
@@ -40,124 +132,152 @@ fa_q8_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__ k,
              long long sqb, long long sqt, long long sqh, long long skb, long long sks,
              long long skh, long long svb, long long svs, long long svh,
              long long sksb, long long skss, long long svsb, long long svss,
-             float scale, float softcap, int swa, int chunk) {
-  constexpr int LDQ = D + 8, LDK = D + 8, LDV = KT + 8;
+             float scale, float softcap, int swa, int chunk, int vec16) {
+  using L = Layout<D, KT, NH>;
+  constexpr int LD = L::LD, NT = L::NT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // [BQ][LDQ]
-  __nv_bfloat16* sk = sq + BQ * LDQ;                                 // [KT][LDK]
-  __nv_bfloat16* svt = sk + KT * LDK;                                // [D][LDV]
-  float* ksc = reinterpret_cast<float*>(svt + D * LDV);              // [KT]
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);          // [NH][BQ][LD]
+  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::SK);   // [KT][LD]
+  __nv_bfloat16* sv = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::SV);   // [KT][LD]
+  uint8_t* ring = smem_raw + L::RING;
+  float* rsc = reinterpret_cast<float*>(smem_raw + L::SC);
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * BQ;
-  const int hk = h / (H / Hkv);
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int hh = warp / FA_HEAD_WARPS, wrow = (warp % FA_HEAD_WARPS) * 16;
+  const int slices = H / Hkv / NH;
+  const int hk = blockIdx.x / slices;
+  const int h0 = hk * (H / Hkv) + (blockIdx.x % slices) * NH;
+  const int b = blockIdx.y;
+  const int row0 = (gridDim.z - 1 - blockIdx.z) * BQ;   // longest key ranges first
   const int nrows = min(BQ, T - row0);
   const int qpos = q_pos0[b];
   const FaMask mk{kv_len[b], swa, chunk};
 
-  {  // query tile, zero past T and past Dk
-    constexpr int CH = D / 8;
-    const __nv_bfloat16* qb = q + (size_t)b * sqb + (size_t)h * sqh;
-    for (int c = tid; c < BQ * CH; c += NWARP * 32) {
-      const int r = c / CH, d0 = (c % CH) * 8;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (r < nrows && d0 < Dk)
-        val = *reinterpret_cast<const uint4*>(qb + (size_t)(row0 + r) * sqt + d0);
-      *reinterpret_cast<uint4*>(sq + r * LDQ + d0) = val;
-    }
-  }
-
-  const int key_end = min(mk.kv_len, qpos + row0 + nrows);
-  const int key_start = fa_first_key(qpos + row0, mk);
-  const int qp0 = qpos + row0 + warp * 16 + g, qp1 = qp0 + 8;
+  const FaKeyRange kr = fa_key_range<KT>(qpos + row0, nrows, mk);
   const uint8_t* kb = k + (size_t)b * skb + (size_t)hk * skh;
   const uint8_t* vb = v + (size_t)b * svb + (size_t)hk * svh;
   const float* ksb = k_s + (size_t)b * sksb + hk;
   const float* vsb = v_s + (size_t)b * svsb + hk;
-
-  FaWarp<D, KT> st;
-  st.init();
-  for (int key0 = key_start; key0 < key_end; key0 += KT) {
-    __syncthreads();
-    fa_load_kv_quant<KVQ_Q8, D, KT, LDK, LDV>(sk, svt, ksc, kb, vb, ksb, vsb, sks, svs,
-                                              skss, svss, key0, key_end, Dk, Dv, nullptr,
-                                              tid, NWARP * 32);
-    __syncthreads();
-    st.template step<LDQ, LDK, LDV>(sq + warp * 16 * LDQ, sk, svt, key0, qp0, qp1,
-                                    mk, scale, softcap, Dk, Dv, ksc);
-  }
-  st.finish();
-
-  float corr[2] = {1.f, 1.f}, denom[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = st.l[r];
-    if (sinks != nullptr) {  // extra per-head logit in the denominator
-      const float sk_ = sinks[h];
-      const float mm = fmaxf(st.m[r], sk_);
-      corr[r] = expf(st.m[r] - mm);
-      l = l * corr[r] + expf(sk_ - mm);
+  auto stage = [&](int st, int key0) {
+    uint8_t* dk = ring + st * 2 * L::RAW;
+    if (vec16) {
+      stage_codes<D, KT, NT, 16>(dk, kb, sks, key0, kr.end, Dk, tid);
+      stage_codes<D, KT, NT, 16>(dk + L::RAW, vb, svs, key0, kr.end, Dv, tid);
+    } else {
+      stage_codes<D, KT, NT, 8>(dk, kb, sks, key0, kr.end, Dk, tid);
+      stage_codes<D, KT, NT, 8>(dk + L::RAW, vb, svs, key0, kr.end, Dv, tid);
     }
-    denom[r] = (l > 0.f) ? l : 1.f;
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = warp * 16 + g + 8 * r;
-    if (row >= nrows) continue;
-    __nv_bfloat16* ob = out + (((size_t)b * T + row0 + row) * H + h) * Dv;
-    const float f = corr[r] / denom[r];
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const int c = n * 8 + 2 * t;
-      if (c >= Dv) break;
-      *reinterpret_cast<uint32_t*>(ob + c) =
-          pack_bf16x2(st.o[n][2 * r] * f, st.o[n][2 * r + 1] * f);
+    if (tid < 2 * KT) {                  // K scales, then V scales
+      const int r = tid % KT, key = key0 + r;
+      const bool ok = key < kr.end;
+      const float* src = tid < KT ? ksb + (ok ? (size_t)key * skss : 0)
+                                  : vsb + (ok ? (size_t)key * svss : 0);
+      cp_async4_zfill(rsc + st * 2 * KT + tid, src, ok ? 4 : 0);
     }
+  };
+
+  // Q is zero past Dk, K and V past Dk / Dv: the products run over all D
+#pragma unroll
+  for (int i = 0; i < NH; ++i)
+    fa_load_rows<D, BQ, LD, NT>(sq + i * BQ * LD, q + (size_t)b * sqb + (size_t)(h0 + i) * sqh,
+                                sqt, row0, T, Dk, tid);
+  cp_async_commit();
+  if (kr.ntiles > 0) stage(0, kr.start);
+  cp_async_commit();
+
+  FaPrefillWarp<D, KT, CAP, (D <= 128 && NH < 4)> w;
+  w.init(sq + (hh * BQ + wrow) * LD, qpos + row0 + wrow, nrows - wrow, mk);
+  cp_async_wait<0>();          // the query tiles and the first codes
+  __syncthreads();
+  w.load_q();
+
+  for (int j = 0; j < kr.ntiles; ++j) {
+    if (j > 0) {
+      cp_async_wait<0>();      // tile j's codes are in shared memory ...
+      __syncthreads();         // ... for every thread, and tile j - 1 is read
+    }
+    const int key0 = kr.start + j * KT;
+    if (j + 1 < kr.ntiles) {   // into the stage tile j - 1 left
+      stage((j + 1) & 1, key0 + KT);
+      cp_async_commit();
+    }
+    const uint8_t* codes = ring + (j & 1) * 2 * L::RAW;
+    const float* sc = rsc + (j & 1) * 2 * KT;
+    unpack_tile<D, KT, NT, false>(sk, codes, nullptr, tid);
+    unpack_tile<D, KT, NT, true>(sv, codes + L::RAW, sc + KT, tid);
+    __syncthreads();           // the bf16 tiles are whole
+    w.template round<true>(sk, sv, sc, key0, mk, scale, softcap);
   }
+  w.store(out, sinks, b, T, H, h0 + hh, row0, wrow, nrows, Dv);
 }
 
-template <int D, int KT>
-cudaError_t launch(const FaQuantArgs& a) {
+template <int D, int KT, bool CAP, int NH>
+cudaError_t launch(const FaQuantArgs& a, int vec16) {
   static bool smem_set = false;
-  constexpr int smem = ((BQ + KT) * (D + 8) + D * (KT + 8)) * 2 + KT * 4;
-  auto kern = fa_q8_kernel<D, KT>;
+  constexpr int smem = Layout<D, KT, NH>::BYTES;
+  auto kern = fa_q8_kernel<D, KT, CAP, NH>;
   cudaError_t e = set_smem(kern, smem, smem_set);
   if (e != cudaSuccess) return e;
-  dim3 grid((a.T + BQ - 1) / BQ, a.H, a.B);
+  const int tiles = (a.T + BQ - 1) / BQ;
+  if (a.B > 65535 || tiles > 65535) return cudaErrorInvalidValue;
+  dim3 grid(a.H / NH, a.B, tiles);
   const long long* st = a.st;
-  kern<<<grid, NWARP * 32, smem, a.s>>>(
+  kern<<<grid, Layout<D, KT, NH>::NT, smem, a.s>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const uint8_t*>(a.k),
       static_cast<const float*>(a.k_s), static_cast<const uint8_t*>(a.v),
       static_cast<const float*>(a.v_s), static_cast<const int*>(a.qp),
       static_cast<const int*>(a.kl), static_cast<const float*>(a.sinks),
       static_cast<__nv_bfloat16*>(a.out), a.T, a.H, a.Hkv, a.Dk, a.Dv, st[0], st[1],
       st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], st[12],
-      a.scale, a.softcap, a.swa, a.chunk);
+      a.scale, a.softcap, a.swa, a.chunk, vec16);
   return cudaGetLastError();
+}
+
+template <int D, int KT, int NH>
+cudaError_t by_cap(const FaQuantArgs& a, int vec16) {
+  return a.softcap > 0.f ? launch<D, KT, true, NH>(a, vec16) : launch<D, KT, false, NH>(a, vec16);
+}
+
+template <int NH>
+cudaError_t by_dim(const FaQuantArgs& a, int vec16) {
+  const int dmax = a.Dk > a.Dv ? a.Dk : a.Dv;
+  if (dmax <= 64) return by_cap<64, 64, NH>(a, vec16);
+  return by_cap<128, 64, NH>(a, vec16);
 }
 
 }  // namespace
 
-// The signature of ik_flash_attention_decode_q; codec must be 0 (q8).
+// The signature of ik_flash_attention_decode_q with heads in place of the
+// split arguments; codec must be 0 (q8). heads: query heads a block (1, 2
+// or 4; a divisor of H / Hkv; 1 above head dim 128).
 extern "C" int ik_flash_attention_q8(
     const void* q, const void* k, const void* k_s, const void* v, const void* v_s,
-    const void* q_pos0, const void* kv_len, const void* sinks, void* out, int codec, int B,
-    int T, int H, int Hkv, int Dk, int Dv, long long sqb, long long sqt, long long sqh,
+    const void* q_pos0, const void* kv_len, const void* sinks, void* out, int heads, int codec,
+    int B, int T, int H, int Hkv, int Dk, int Dv, long long sqb, long long sqt, long long sqh,
     long long skb, long long sks, long long skh, long long svb, long long svs,
     long long svh, long long sksb, long long skss, long long svsb, long long svss,
     float scale, float softcap, int swa, int chunk, void* stream) {
   const FaQuantArgs a{q, k, k_s, v, v_s, q_pos0, kv_len, sinks, out, B, T, H, Hkv, Dk, Dv,
                {sqb, sqt, sqh, skb, sks, skh, svb, svs, svh, sksb, skss, svsb, svss},
                scale, softcap, swa, chunk, static_cast<cudaStream_t>(stream)};
-  if (codec != KVQ_Q8) return static_cast<int>(cudaErrorInvalidValue);
   const int dmax = Dk > Dv ? Dk : Dv;
+  if (codec != KVQ_Q8 || (heads != 1 && heads != 2 && heads != 4) || (H / Hkv) % heads ||
+      (heads > 1 && dmax > 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // 16-byte copies where every row of both caches starts 16-byte aligned
+  const unsigned long long al =
+      static_cast<unsigned long long>(reinterpret_cast<uintptr_t>(k) |
+                                      reinterpret_cast<uintptr_t>(v)) |
+      static_cast<unsigned long long>(skb | sks | skh | svb | svs | svh);
+  const int vec16 = (al & 15) == 0;
   cudaError_t e;
-  if (dmax <= 64)
-    e = launch<64, 64>(a);
+  if (heads == 4)
+    e = by_dim<4>(a, vec16);
+  else if (heads == 2)
+    e = by_dim<2>(a, vec16);
   else if (dmax <= 128)
-    e = launch<128, 64>(a);
+    e = by_dim<1>(a, vec16);
   else
-    e = launch<256, 32>(a);
+    e = by_cap<256, 32, 1>(a, vec16);
   return static_cast<int>(e);
 }

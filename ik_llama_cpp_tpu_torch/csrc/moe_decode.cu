@@ -21,10 +21,15 @@
 // the scales), read once per pair. Each block reads its own ids[p]; no
 // atomics, so both kernels are deterministic.
 //
-// Kernel 12: one warp per output column; a lane takes 16 codes with one
-// 16-byte load (they share one scale), dequantizes each to bf16 and
-// multiplies it with the activation row held in shared memory as bf16; a
-// shuffle reduction sums the lanes.
+// Kernel 12: a block takes one pair over `cols` adjacent FF columns, its 2
+// * cols gate and up rows all in flight at once (launch plan
+// ops/moe_decode.py:gate_up_plan: 16 columns and 8 lanes a row at K 2048),
+// each lane streaming its 16-byte code loads and their scales through a
+// ring of 4 in registers, the first issued before the pair's bf16 row is
+// staged in shared memory; the weights dequantize with no conversion
+// instruction (dequant4), a shuffle over the row's lanes forms each dot,
+// and one thread a column adds the biases, applies the activation and
+// stores h.
 //
 // Kernel 13: a block puts all of a token's pairs in flight at once, top_k *
 // cols rows (launch plan ops/moe_decode.py:down_plan: 8 columns and 8 lanes
@@ -37,74 +42,10 @@
 
 namespace {
 
-constexpr int WARPS = 4;
-constexpr int COLS = 16;         // output columns per block
 constexpr unsigned FULL = 0xffffffffu;
-
-// acc + four products x * bf16(code * s); x01 / x23 hold two bf16 each, the
-// lower K position in the lower half. A bf16 x bf16 product is exact in
-// float32, so the fused multiply-add rounds once, as a sum of products does.
-IK_DEV float mac4(float acc, int w, float s, uint32_t x01, uint32_t x23) {
-  acc = fmaf(__uint_as_float(x01 << 16), bf16_round(static_cast<float>(static_cast<int8_t>(w)) * s), acc);
-  acc = fmaf(__uint_as_float(x01 & 0xffff0000u),
-             bf16_round(static_cast<float>(static_cast<int8_t>(w >> 8)) * s), acc);
-  acc = fmaf(__uint_as_float(x23 << 16),
-             bf16_round(static_cast<float>(static_cast<int8_t>(w >> 16)) * s), acc);
-  return fmaf(__uint_as_float(x23 & 0xffff0000u),
-              bf16_round(static_cast<float>(static_cast<int8_t>(w >> 24)) * s), acc);
-}
-
-// sum_k x[k] * w[k] over one column: x is the bf16 activation row in shared
-// memory, row the column's K codes, sc its first scale (sstride elements
-// between groups), nch = K / 16. Every lane returns the whole sum.
-template <typename S>
-IK_DEV float col_dot(const __nv_bfloat16* x, const int8_t* row, const S* sc, size_t sstride,
-                     int nch, int group, int lane) {
-  float acc = 0.0f;
-#pragma unroll 4
-  for (int c = lane; c < nch; c += 32) {
-    const int4 w = __ldg(reinterpret_cast<const int4*>(row + 16 * c));
-    const float s = load_scale(sc + (size_t)((16 * c) / group) * sstride);
-    const uint4 xa = reinterpret_cast<const uint4*>(x)[2 * c];
-    const uint4 xb = reinterpret_cast<const uint4*>(x)[2 * c + 1];
-    acc = mac4(acc, w.x, s, xa.x, xa.y);
-    acc = mac4(acc, w.y, s, xa.z, xa.w);
-    acc = mac4(acc, w.z, s, xb.x, xb.y);
-    acc = mac4(acc, w.w, s, xb.z, xb.w);
-  }
-#pragma unroll
-  for (int o = 16; o; o >>= 1) acc += __shfl_xor_sync(FULL, acc, o);
-  return acc;
-}
-
-template <typename S>
-__global__ void __launch_bounds__(WARPS * 32)
-gate_up_kernel(const __nv_bfloat16* __restrict__ xp, const int* __restrict__ ids,
-               const int8_t* __restrict__ gate, const S* __restrict__ gs,
-               const int8_t* __restrict__ up, const S* __restrict__ us,
-               const float* __restrict__ gate_b, const float* __restrict__ up_b,
-               __nv_bfloat16* __restrict__ h, int K, int F, int group, int act, float limit) {
-  extern __shared__ __align__(16) uint8_t smem[];     // the pair's row: K bf16
-  const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(smem);
-  const int p = blockIdx.y, nch = K / 16, ngrp = K / group;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int e = ids[p];
-  for (int c = tid; c < K / 8; c += blockDim.x)
-    reinterpret_cast<uint4*>(smem)[c] = reinterpret_cast<const uint4*>(xp + (size_t)p * K)[c];
-  __syncthreads();
-
-  for (int j = warp; j < COLS; j += WARPS) {
-    const int f = blockIdx.x * COLS + j;
-    if (f >= F) break;
-    const size_t row = (size_t)e * F + f;
-    const size_t s0 = (size_t)e * ngrp * F + f;
-    float g = col_dot(x, gate + row * K, gs + s0, F, nch, group, lane);
-    float u = col_dot(x, up + row * K, us + s0, F, nch, group, lane);
-    if (gate_b) g = fadd(g, gate_b[row]);
-    if (up_b) u = fadd(u, up_b[row]);
-    if (lane == 0) h[(size_t)p * F + f] = __float2bfloat16_rn(moe_act(g, u, act, limit));
-  }
-}
+constexpr int GU_THREADS = 256;  // threads of a kernel-12 block (8 warps)
+constexpr int GU_RING = 4;       // 16-byte chunks a lane of kernel 12 keeps in flight
+static_assert(GU_THREADS == DOWN_THREADS, "kernel 12 stages its row with stage16");
 
 // {bf16(b0 s), bf16(b1 s)} and {bf16(b2 s), bf16(b3 s)} for the four int8
 // codes b of w, without a conversion instruction: the byte b + 128 placed
@@ -125,8 +66,10 @@ IK_DEV void dequant4(int w, __nv_bfloat162 s2, uint32_t& w01, uint32_t& w23) {
   w23 = *reinterpret_cast<uint32_t*>(&p23);
 }
 
-// mac4 with the weights from dequant4: the same products, added in the same
-// order.
+// acc + four products x * bf16(bf16(code) * s), added in order; x01 / x23
+// hold two bf16 each, the lower K position in the lower half. A bf16 x bf16
+// product is exact in float32, so the fused multiply-add rounds once, as a
+// sum of products does.
 IK_DEV float mac4_x2(float acc, int w, __nv_bfloat162 s2, uint32_t x01, uint32_t x23) {
   uint32_t w01, w23;
   dequant4(w, s2, w01, w23);
@@ -138,6 +81,83 @@ IK_DEV float mac4_x2(float acc, int w, __nv_bfloat162 s2, uint32_t x01, uint32_t
 
 IK_DEV __nv_bfloat162 load_scale2(const float* p) { return __float2bfloat162_rn(__ldg(p)); }
 IK_DEV __nv_bfloat162 load_scale2(const __nv_bfloat16* p) { return __bfloat162bfloat162(*p); }
+
+// Kernel 12. A block takes pair p over `cols` adjacent columns from f0: 2 *
+// cols rows of K codes (gate columns, then up columns), `lanes` lanes a
+// row. Lane l loads the row's 16-byte chunks l, l + lanes, ... and the
+// scale of each beside it through a ring of GU_RING chunks in registers,
+// each load clamped to the row (dead rows to the last column), so that
+// GU_RING loads a lane stay in flight; the first GU_RING are issued before
+// the pair's bf16 row is staged in shared memory. A shuffle over the row's
+// lanes forms its dot (at 32 lanes a row the sum order of the kernel's
+// first port: h keeps its bits); the dots go to shared memory [2][cols]
+// and one thread a column finishes h.
+template <typename S>
+__global__ void __launch_bounds__(GU_THREADS)
+gate_up_kernel(const __nv_bfloat16* __restrict__ xp, const int* __restrict__ ids,
+               const int8_t* __restrict__ gate, const S* __restrict__ gs,
+               const int8_t* __restrict__ up, const S* __restrict__ us,
+               const float* __restrict__ gate_b, const float* __restrict__ up_b,
+               __nv_bfloat16* __restrict__ h, int K, int F, int group, int act, float limit,
+               int cols, int lanes) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int p = blockIdx.y, f0 = blockIdx.x * cols, nch = K / 16, ngrp = K / group;
+  const int tid = threadIdx.x, e = ids[p];
+  const uint4* x = reinterpret_cast<const uint4*>(smem);       // the pair's row, K bf16
+  float* part = reinterpret_cast<float*>(smem + (size_t)K * 2);  // [2][cols] dots
+
+  const int rows = 2 * cols, lr = tid % lanes, cpl = (nch + lanes - 1) / lanes;
+  const float inv = 1.0f / static_cast<float>(group / 16);     // as in kernel 13
+  const int r = tid / lanes;                  // one pass: lanes * rows <= GU_THREADS
+  const bool live = r < rows;
+  const int rr = live ? r : rows - 1, c = rr % cols;
+  const size_t col = (size_t)e * F + min(f0 + c, F - 1);
+  const int4* row = reinterpret_cast<const int4*>((rr < cols ? gate : up) + col * K);
+  const S* sc = (rr < cols ? gs : us) + (size_t)e * ngrp * F + (col - (size_t)e * F);
+  // a ring of GU_RING chunks in registers: slot u holds the lane's chunk
+  // i0 + u; once it is summed it is refilled with chunk i0 + u + GU_RING
+  // (clamped to the row: every load is unconditional, so that the compiler
+  // keeps them in flight and waits for them in order)
+  int4 w[GU_RING];
+  __nv_bfloat162 s2[GU_RING];
+  auto load = [&](int u, int i) {
+    const int q = min(lr + lanes * i, nch - 1);
+    w[u] = __ldg(row + q);
+    s2[u] = load_scale2(sc + (size_t)static_cast<int>((q + 0.5f) * inv) * F);
+  };
+#pragma unroll
+  for (int u = 0; u < GU_RING; ++u) load(u, u);
+  stage16(smem, xp + (size_t)p * K, K / 8, tid);
+  __syncthreads();
+
+  float acc = 0.0f;
+  for (int i0 = 0; i0 < cpl; i0 += GU_RING) {
+#pragma unroll
+    for (int u = 0; u < GU_RING; ++u) {
+      const int q = lr + lanes * (i0 + u);
+      if (i0 + u >= cpl) break;                 // block-uniform
+      if (q < nch) {
+        const uint4 xa = x[2 * q], xb = x[2 * q + 1];
+        acc = mac4_x2(acc, w[u].x, s2[u], xa.x, xa.y);
+        acc = mac4_x2(acc, w[u].y, s2[u], xa.z, xa.w);
+        acc = mac4_x2(acc, w[u].z, s2[u], xb.x, xb.y);
+        acc = mac4_x2(acc, w[u].w, s2[u], xb.z, xb.w);
+      }
+      load(u, i0 + u + GU_RING);               // past the row: its last chunk again
+    }
+  }
+  for (int o = lanes / 2; o; o >>= 1) acc += __shfl_xor_sync(FULL, acc, o);
+  if (live && lr == 0) part[r] = acc;
+  __syncthreads();
+
+  for (int j = tid; j < cols && f0 + j < F; j += GU_THREADS) {
+    const size_t cj = (size_t)e * F + f0 + j;
+    float g = part[j], u = part[cols + j];
+    if (gate_b) g = fadd(g, gate_b[cj]);
+    if (up_b) u = fadd(u, up_b[cj]);
+    h[(size_t)p * F + f0 + j] = __float2bfloat16_rn(moe_act(g, u, act, limit));
+  }
+}
 
 // Kernel 13. A block takes token t's top_k pairs over `cols` adjacent
 // columns from n0: top_k * cols rows of F codes (pair j, column c; a pair's
@@ -216,17 +236,17 @@ template <typename S>
 cudaError_t launch_gate_up(const void* xp, const void* ids, const void* gate, const void* gs,
                            const void* up, const void* us, const void* gate_b,
                            const void* up_b, void* h, int P, int K, int F, int group, int act,
-                           float limit, cudaStream_t stream) {
+                           float limit, int cols, int lanes, int smem, cudaStream_t stream) {
   static bool smem_set = false;
   cudaError_t e = set_smem(gate_up_kernel<S>, MOE_SMEM_MAX, smem_set);
   if (e != cudaSuccess) return e;
-  dim3 grid((F + COLS - 1) / COLS, P);
-  gate_up_kernel<S><<<grid, WARPS * 32, K * 2, stream>>>(
+  dim3 grid((F + cols - 1) / cols, P);
+  gate_up_kernel<S><<<grid, GU_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(xp), static_cast<const int*>(ids),
       static_cast<const int8_t*>(gate), static_cast<const S*>(gs),
       static_cast<const int8_t*>(up), static_cast<const S*>(us),
       static_cast<const float*>(gate_b), static_cast<const float*>(up_b),
-      static_cast<__nv_bfloat16*>(h), K, F, group, act, limit);
+      static_cast<__nv_bfloat16*>(h), K, F, group, act, limit, cols, lanes);
   return cudaGetLastError();
 }
 
@@ -247,21 +267,27 @@ cudaError_t launch_down(const void* hw, const void* ids, const void* down, const
 
 }  // namespace
 
-// scale_bf16: the scales are bf16 (else float32). K % 16 == 0, group % 16 == 0,
-// K % group == 0, and K * 2 bytes of shared memory must fit a block.
+// scale_bf16: the scales are bf16 (else float32). K % 16 == 0, group % 16 ==
+// 0, K % group == 0. cols and lanes: the launch plan
+// (ops/moe_decode.py:gate_up_plan), lanes a power of two up to 32 with all
+// 2 * cols rows in one pass of the block. The block's shared memory is
+// sized here: a shape whose row does not fit is refused.
 extern "C" int ik_moe_decode_gate_up(const void* xp, const void* ids, const void* gate,
                                      const void* gs, const void* up, const void* us,
                                      int scale_bf16, const void* gate_b, const void* up_b,
                                      void* h, int P, int K, int F, int group, int act,
-                                     float limit, void* stream) {
-  if (K % 16 || group % 16 || K % group || K * 2 > MOE_SMEM_MAX)
+                                     float limit, int cols, int lanes, void* stream) {
+  if (K % 16 || group % 16 || group < 16 || K % group || cols < 1 || lanes < 1 ||
+      lanes > 32 || lanes & (lanes - 1) || 2 * cols * lanes > GU_THREADS)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = 2 * K + 8 * cols;
+  if (smem > MOE_SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
       scale_bf16 ? launch_gate_up<__nv_bfloat16>(xp, ids, gate, gs, up, us, gate_b, up_b, h, P,
-                                                 K, F, group, act, limit, s)
+                                                 K, F, group, act, limit, cols, lanes, smem, s)
                  : launch_gate_up<float>(xp, ids, gate, gs, up, us, gate_b, up_b, h, P, K, F,
-                                         group, act, limit, s));
+                                         group, act, limit, cols, lanes, smem, s));
 }
 
 // cols and lanes: the launch plan (ops/moe_decode.py:down_plan); lanes a

@@ -244,8 +244,9 @@ def attention_quant_ref(q, k_q, k_s, v_q, v_s, q_pos0, kv_len, *, scale: float,
 
 def _launch_quant(symbol, lib, codec, q, k_q, k_s, v_q, v_s, q_pos0, kv_len,
                   scale, softcap, swa_window, attn_chunk, sinks, split: bool = False):
-    """Checks and launches one quantized-cache kernel; ``split``: the decode
-    kernel, which takes its split scratch, counters and count after out."""
+    """Checks and launches one quantized-cache kernel, which takes after
+    out: the split scratch, counters and count (``split``: the decode
+    kernel), or the query heads a block (the prefill kernel)."""
     b, t, h, dk = q.shape
     _, s, hkv, wk = k_q.shape
     wv = v_q.shape[3]
@@ -285,8 +286,10 @@ def _launch_quant(symbol, lib, codec, q, k_q, k_s, v_q, v_s, q_pos0, kv_len,
     if sinks is not None:
         sk = sinks.to(device=q.device, dtype=torch.float32).reshape(h).contiguous()
     out = torch.empty((b, t, h, dv), dtype=torch.bfloat16, device=q.device)
-    scratch = _decode_split(q, hkv, s, dv) if split else None
-    extra, extra_types = _split_args(scratch)
+    if split:
+        extra, extra_types = _split_args(_decode_split(q, hkv, s, dv))
+    else:
+        extra, extra_types = (prefill_q8_heads(h, hkv, max(dk, dv)),), [_cuda.I]
     fn = _cuda.function(lib, symbol, [_cuda.P] * 9 + extra_types + [_cuda.I] * 7
                         + [_cuda.L] * 13 + [_cuda.F] * 2 + [_cuda.I] * 2
                         + [_cuda.P])
@@ -334,6 +337,21 @@ def flash_attention_decode_q8(q, k_q, k_s, v_q, v_s, q_pos0, kv_len, *,
 flash_attention_decode_q8.launches = 0
 
 
+# Query heads of one GQA group that a block of kernel 6 takes (1, 2 or 4):
+# each key tile is unpacked once for all of them. 2 walks long key ranges
+# fastest; 4 (16 warps) spills at the 128 registers a thread such a block
+# allows (chip_smoke.py's phase 3 times all three; PERF.md).
+Q8_HEADS = 2
+
+
+def prefill_q8_heads(h: int, hkv: int, dmax: int) -> int:
+    """The query heads a block of kernel 6 takes: Q8_HEADS where it divides
+    the group H / Hkv and the head dims are at most 128 (at 256 the block's
+    registers hold one head's warps only), else 1."""
+    n = Q8_HEADS
+    return n if (h // hkv) % n == 0 and dmax <= 128 else 1
+
+
 def flash_attention_q8(q, k_q, k_s, v_q, v_s, q_pos0, kv_len, *, scale: float,
                        softcap: float = 0.0, swa_window: int = 0,
                        attn_chunk: int = 0, sinks=None):
@@ -341,7 +359,10 @@ def flash_attention_q8(q, k_q, k_s, v_q, v_s, q_pos0, kv_len, *, scale: float,
     scales. CUDA kernel ``csrc/flash_attention_q8.cu``, which replaces the
     Pallas kernel flash_attention.py:flash_attention_q8 of the JAX package.
     Bound by bf16 tensor-core work on the live part of the causal score
-    matrix; ``flash_attention``'s block layout with an int8 tile loader."""
+    matrix; ``flash_attention``'s frame (``csrc/fa_prefill.cuh``) fed by a
+    two-stage cp.async ring of the raw int8 rows and their scales, each
+    tile unpacked once to row-major bf16 (K the codes, V bf16(code *
+    scale)) for the ``prefill_q8_heads`` heads of its block."""
     if q.device.type == "cpu":
         return attention_quant_ref(q, k_q, k_s, v_q, v_s, q_pos0, kv_len,
                                    scale=scale, softcap=softcap,

@@ -175,6 +175,39 @@ def down_plan(t: int, top_k: int, f: int, e: int, group: int | None = None,
             "passes": -(-rows // (DOWN_THREADS // lanes)), "chunks": -(-nch // lanes)}
 
 
+GATE_UP_THREADS = 256     # threads of a kernel-12 block (8 warps)
+GATE_UP_COLS = 4          # adjacent FF columns a kernel-12 block takes at least
+GATE_UP_LANES = 8         # lanes a row of kernel 12 takes at most
+
+
+def gate_up_plan(p: int, k: int, ff: int, cols: int | None = None) -> dict:
+    """Launch shape of kernel 12 (planar gate/up): a block takes one pair
+    over ``cols`` adjacent FF columns, its 2 * cols gate and up rows of k
+    codes, which its GATE_UP_THREADS threads split ``lanes`` lanes a row,
+    all rows in one pass; a lane streams its ``chunks`` 16-byte chunks
+    through a ring of 4 loads in flight. ``cols`` is the least power of two
+    from GATE_UP_COLS up that fills the block at the most lanes a row
+    (GATE_UP_LANES, and at most the row's chunks); ``lanes`` the most that
+    keeps the rows in one pass. At K 2048: 16 columns, 8 lanes a row, 16
+    chunks a lane (16 columns a block timed fastest, chip_smoke.py's
+    column sweep). The C entry point lays out and sizes the block's shared
+    memory (the pair's bf16 row and the 2 * cols dots) and refuses a shape
+    that does not fit."""
+    nch = k // 16
+    most = min(GATE_UP_LANES, nch)
+    if cols is None:
+        cols = GATE_UP_COLS
+        while 2 * cols * most < GATE_UP_THREADS:
+            cols *= 2
+    rows = 2 * cols
+    lanes = 1
+    while 2 * lanes <= min(32, nch) and 2 * lanes * rows <= GATE_UP_THREADS:
+        lanes *= 2
+    tiles = -(-ff // cols)
+    return {"cols": cols, "lanes": lanes, "tiles": tiles, "blocks": tiles * p,
+            "passes": -(-rows // (GATE_UP_THREADS // lanes)), "chunks": -(-nch // lanes)}
+
+
 def moe_decode_gate_up_i8(xq, xst, ids, gate_c, gate_sw, up_c, up_sw,
                           gate_b=None, up_b=None, *,
                           activation: str = "silu", act_limit: float = 0.0):
@@ -520,9 +553,12 @@ def moe_decode_gate_up(xp, ids, gate_c, gate_s, up_c, up_s, gate_b=None, up_b=No
 
     CUDA kernel ``csrc/moe_decode.cu``, which replaces the Pallas kernel
     ops/moe_decode.py:moe_decode_gate_up of the JAX package. Bound by the
-    routed experts' code bytes: kernel 7's grid of (FF tiles, pairs) and
-    one warp a column, a lane dequantizing 16 codes that share a scale to
-    bf16 against the pair's bf16 row in shared memory."""
+    routed experts' code bytes: a block takes one pair's gate and up rows
+    over a few FF columns (``gate_up_plan``), all in flight at once, each
+    lane streaming its 16-byte code loads through a ring of 4; it
+    dequantizes them to bf16 with no conversion instruction against the
+    pair's bf16 row in shared memory, and one thread a column applies the
+    activation."""
     if xp.device.type == "cpu":
         return moe_decode_gate_up_ref(xp, ids, gate_c, gate_s, up_c, up_s, gate_b, up_b,
                                       group=group, activation=activation,
@@ -540,17 +576,19 @@ def moe_decode_gate_up(xp, ids, gate_c, gate_s, up_c, up_s, gate_b=None, up_b=No
                       f"{name}: biases must be contiguous f32 (G, FF)")
     for t in (ids, gate_c, gate_s, up_c, up_s, gate_b, up_b):
         _cuda.require(t is None or t.device == xp.device, f"{name}: operands on different devices")
-    _cuda.require(activation in ACTIVATIONS and 2 * k <= SMEM_LIMIT,
+    plan = gate_up_plan(p, k, f)
+    _cuda.require(activation in ACTIVATIONS and 2 * k + 8 * plan["cols"] <= SMEM_LIMIT,
                   f"{name}: activation {activation!r}, K {k}")
     h = torch.empty((p, f), dtype=torch.bfloat16, device=xp.device)
     fn = _cuda.function("moe_decode", "ik_moe_decode_gate_up",
                         [_cuda.P] * 6 + [_cuda.I] + [_cuda.P] * 3 + [_cuda.I] * 5
-                        + [_cuda.F, _cuda.P])
+                        + [_cuda.F, _cuda.I, _cuda.I, _cuda.P])
     rc = fn(xp.data_ptr(), ids.data_ptr(), gate_c.data_ptr(), gate_s.data_ptr(),
             up_c.data_ptr(), up_s.data_ptr(), int(gate_s.dtype == torch.bfloat16),
             None if gate_b is None else gate_b.data_ptr(),
             None if up_b is None else up_b.data_ptr(), h.data_ptr(),
-            p, k, f, group, ACTIVATIONS[activation], float(act_limit), _cuda.stream_ptr(xp))
+            p, k, f, group, ACTIVATIONS[activation], float(act_limit), plan["cols"],
+            plan["lanes"], _cuda.stream_ptr(xp))
     moe_decode_gate_up.launches += 1
     _cuda.check(rc, name)
     return h
