@@ -74,10 +74,11 @@ IK_DEV FaKeyRange fa_key_range(int q_first, int nrows, const FaMask& mk) {
 // this lane's partial row sums, and the key bounds [lo, hi) of its rows.
 // QREG: Q's fragments in registers (else read from shared memory by
 // ldmatrix in every round: at D = 256, where the accumulator takes 128
-// registers a lane, and in blocks too large for the registers).
-template <int D, int KT, bool CAP, bool QREG = (D <= 128)>
+// registers a lane).
+template <int D, int KT, bool CAP>
 struct FaPrefillWarp {
   static constexpr int LD = D + 8;
+  static constexpr bool QREG = D <= 128;
   uint32_t qf[QREG ? D / 16 : 1][4];
   float o[D / 8][4];
   float m[2], l[2];

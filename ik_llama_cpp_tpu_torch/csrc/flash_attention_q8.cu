@@ -31,9 +31,10 @@
 //   shared store each: K as the raw codes (exact in bf16, converted with
 //   no conversion instruction), V as bf16(code * v_scale); K's B fragments
 //   then come from ldmatrix, V's from ldmatrix.trans, as in B;
-// - a block may take NH heads of one GQA group (4 * NH warps) and unpack
-//   each tile once for all of them (prefill_q8_heads in
-//   ops/flash_attention.py chooses; PERF.md has both forms' times).
+// - a block takes two heads of one GQA group (eight warps) where the group
+//   and the head dims allow it, else one, and unpacks each tile once for
+//   all of its heads (prefill_q8_heads in ops/flash_attention.py chooses;
+//   PERF.md has the times of blocks of one, two and four heads).
 // The TPU kernel's whole-row-axis scale blocks and its 128-row tile rule
 // are tiling rules of that chip and are not carried over.
 #include "fa_prefill.cuh"
@@ -185,7 +186,7 @@ fa_q8_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__ k,
   if (kr.ntiles > 0) stage(0, kr.start);
   cp_async_commit();
 
-  FaPrefillWarp<D, KT, CAP, (D <= 128 && NH < 4)> w;
+  FaPrefillWarp<D, KT, CAP> w;
   w.init(sq + (hh * BQ + wrow) * LD, qpos + row0 + wrow, nrows - wrow, mk);
   cp_async_wait<0>();          // the query tiles and the first codes
   __syncthreads();
@@ -248,8 +249,8 @@ cudaError_t by_dim(const FaQuantArgs& a, int vec16) {
 }  // namespace
 
 // The signature of ik_flash_attention_decode_q with heads in place of the
-// split arguments; codec must be 0 (q8). heads: query heads a block (1, 2
-// or 4; a divisor of H / Hkv; 1 above head dim 128).
+// split arguments; codec must be 0 (q8). heads: query heads a block (1 or
+// 2; a divisor of H / Hkv; 1 above head dim 128).
 extern "C" int ik_flash_attention_q8(
     const void* q, const void* k, const void* k_s, const void* v, const void* v_s,
     const void* q_pos0, const void* kv_len, const void* sinks, void* out, int heads, int codec,
@@ -261,7 +262,7 @@ extern "C" int ik_flash_attention_q8(
                {sqb, sqt, sqh, skb, sks, skh, svb, svs, svh, sksb, skss, svsb, svss},
                scale, softcap, swa, chunk, static_cast<cudaStream_t>(stream)};
   const int dmax = Dk > Dv ? Dk : Dv;
-  if (codec != KVQ_Q8 || (heads != 1 && heads != 2 && heads != 4) || (H / Hkv) % heads ||
+  if (codec != KVQ_Q8 || (heads != 1 && heads != 2) || (H / Hkv) % heads ||
       (heads > 1 && dmax > 128))
     return static_cast<int>(cudaErrorInvalidValue);
   // 16-byte copies where every row of both caches starts 16-byte aligned
@@ -271,9 +272,7 @@ extern "C" int ik_flash_attention_q8(
       static_cast<unsigned long long>(skb | sks | skh | svb | svs | svh);
   const int vec16 = (al & 15) == 0;
   cudaError_t e;
-  if (heads == 4)
-    e = by_dim<4>(a, vec16);
-  else if (heads == 2)
+  if (heads == 2)
     e = by_dim<2>(a, vec16);
   else if (dmax <= 128)
     e = by_dim<1>(a, vec16);

@@ -337,10 +337,10 @@ def flash_attention_decode_q8(q, k_q, k_s, v_q, v_s, q_pos0, kv_len, *,
 flash_attention_decode_q8.launches = 0
 
 
-# Query heads of one GQA group that a block of kernel 6 takes (1, 2 or 4):
-# each key tile is unpacked once for all of them. 2 walks long key ranges
-# fastest; 4 (16 warps) spills at the 128 registers a thread such a block
-# allows (chip_smoke.py's phase 3 times all three; PERF.md).
+# Query heads of one GQA group that a block of kernel 6 takes where the
+# shape allows it: each key tile is unpacked once for both. It walks long
+# key ranges faster than a block of one head, and a block of four (16 warps)
+# spilled at the 128 registers a thread such a block allows (PERF.md).
 Q8_HEADS = 2
 
 
