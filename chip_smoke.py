@@ -13,7 +13,9 @@ Phases (all by default; any failure exits non-zero):
      their library calls also under the older zero_() flush), the launch
      plan of kernels 8 and 13 and their time by columns a block, the K
      split of kernels A, D and 15 at M <= 16 against their time, kernel
-     12's plan and its time by columns a block, kernel 6's time by query
+     12's plan and its time by columns a block (kernel 7's the same),
+     kernel 10 held to its plain version's bits with its time by tokens a
+     sweep, kernel 6's time by query
      heads a block (rows 6L and 2L: the last chunk of phase 9's long fill
      over a q8 and a bf16 cache), kernel A's host cost a call at M = 1,
      the tile widths of the tiled A, D and 15 at M = 512 against their
@@ -22,7 +24,9 @@ Phases (all by default; any failure exits non-zero):
      attention kernels C and 5 and kernel 14's work plan beside their
      cases. With phase 12 also run, row 14p follows it: kernel 14 at the
      group sizes phase 12's router gave (the layer-0 call against its
-     plain version and library call, every layer's call timed alone)
+     plain version and library call, every layer's call timed alone);
+     with phase 7, rows 9p and 10p: kernel 9 at its router's buckets and
+     kernel 10 at their overflow, the same way
   4. end to end at full width (L32 E4096 H32 KV8 FF14336 V32000, Q4_0
      planar weights, Q8_0 tied head, random weights from a seed): load
      through Runtime.from_gguf, prefill 512 tokens, decode 64 greedily,
@@ -41,7 +45,8 @@ Phases (all by default; any failure exits non-zero):
      D128, 128 experts top-8 FF768, V151936; Q4_0 attention and experts,
      Q8_0 embedding and untied head, random blocks from a seed): load,
      prefill 512, decode 64, with every kernel launch counted, then the
-     decode profile (kernel 8's share of a step)
+     decode profile (kernels 7's and 8's share of a step) and a prefill
+     chunk's (kernels 9 and 10; it fails if 10 launched but shows no time)
   8. MoE parity at depth 2: kernel path against the plain path on the card
   9. quantized KV cache end to end at the full width of phase 4: q8 (prefill
      512, decode 64, launch counts, decode profile), then q4, q6, nl4, q8
@@ -365,15 +370,40 @@ def forced_cols(MD, cols: int):
 
 
 @contextmanager
-def forced_gate_up_cols(MD, cols: int):
-    """The launches of kernel 12 with ``cols`` columns a block
-    (``gate_up_plan`` then picks the lanes a row for that)."""
-    plan = MD.gate_up_plan
-    MD.gate_up_plan = lambda *shape: plan(*shape, cols=cols)
+def forced_gate_up_cols(MD, cols: int, plan_name: str = "gate_up_plan"):
+    """The launches of kernel 12 (``gate_up_plan``) or kernel 7
+    (``gate_up_i8_plan``) with ``cols`` columns a block (the plan then
+    picks the lanes a row for that)."""
+    plan = getattr(MD, plan_name)
+    setattr(MD, plan_name, lambda *shape: plan(*shape, cols=cols))
     try:
         yield
     finally:
-        MD.gate_up_plan = plan
+        setattr(MD, plan_name, plan)
+
+
+def gate_up_sweep(timer, MD, what: str, p: int, k: int, ff: int, fn,
+                  plan_name: str = "gate_up_plan") -> None:
+    """ms a call of kernel 7 or 12 by the columns a block and the lanes a
+    row the plan gives them (* = the plan's own)."""
+    want = getattr(MD, plan_name)(p, k, ff)["cols"]
+    row = []
+    for cols in (2, 4, 8, 16, 32):
+        with forced_gate_up_cols(MD, cols, plan_name):
+            lanes = getattr(MD, plan_name)(p, k, ff)["lanes"]
+            row.append(f"{cols}x{lanes}{'*' if cols == want else ''} {timer(fn, 5):.4f}")
+    log(f"    {what}: ms by columns a block x lanes a row: " + ", ".join(row))
+
+
+@contextmanager
+def forced_i8_tm(MQ, tm: int):
+    """The launches of kernel 10 with sweeps of ``tm`` tokens."""
+    plan = MQ.ragged_i8_plan
+    MQ.ragged_i8_plan = lambda m, n, k, g, sms=MQ._cuda.DEFAULT_SMS: plan(m, n, k, g, sms, tm=tm)
+    try:
+        yield
+    finally:
+        MQ.ragged_i8_plan = plan
 
 
 @contextmanager
@@ -718,7 +748,9 @@ def phase_moe_kernels(torch, timer, results, c=MOE, dev="cuda") -> bool:
         xq, xs = quantize_activations(x)
         a7 = (xq, xs.t(), ids, gate, gsw, up, usw)
         got, ref = MD.moe_decode_gate_up_i8(*a7), MD.moe_decode_gate_up_i8_ref(*a7)
+        rep = bool(torch.equal(got, MD.moe_decode_gate_up_i8(*a7)))
         sync(torch)
+        ok &= rep
         err = float((got.float() - ref.float()).abs().max())
         # h is bf16: two bf16 ulps at the largest output
         tol = 2.0 ** -7 * float(ref.float().abs().max())
@@ -730,7 +762,11 @@ def phase_moe_kernels(torch, timer, results, c=MOE, dev="cuda") -> bool:
         ok &= _record(results, "moe_decode_gate_up_i8", f"P={p} K={e_} FF={ff} G={g_}",
                       err, tol, timer(lambda: MD.moe_decode_gate_up_i8(*a7)),
                       timer(lambda: MD.moe_decode_gate_up_i8_ref(*a7), 3),
-                      timer(lambda: torch.bmm(xb, wb)), bnd)
+                      timer(lambda: torch.bmm(xb, wb)), bnd,
+                      note=f" | {plan_text(MD.gate_up_i8_plan(p, e_, ff))}; bit-identical to "
+                           f"plain: {bool(torch.equal(got, ref))}; repeats bit for bit: {rep}")
+        gate_up_sweep(timer, MD, f"kernel 7 P={p}", p, e_, ff,
+                      lambda: MD.moe_decode_gate_up_i8(*a7), "gate_up_i8_plan")
         del wb
         hq, hs = quantize_activations(ref)
         a8 = (hq, hs.t(), ids, down, dsw)
@@ -777,8 +813,9 @@ def phase_moe_kernels(torch, timer, results, c=MOE, dev="cuda") -> bool:
         del xg
 
     m = PREFILL * topk                          # the rows of a 512-token chunk
-    log("[3] kernel 10 (ragged_qmatmul_i8) vs plain; library = bf16 grouped product over "
-        "the live experts (torch._grouped_mm of the dequantized rows and experts)")
+    log("[3] kernel 10 (ragged_qmatmul_i8, ragged_i8_wgmma_kernel) vs plain: the plain "
+        "version's bits and a repeat; library = bf16 grouped product over the live experts "
+        "(torch._grouped_mm of the dequantized rows and experts)")
     skew = rng.multinomial(m, (1.0 / np.arange(1, g_ + 1)) / np.sum(1.0 / np.arange(1, g_ + 1)))
     size_sets = {"skewed": rng.permutation(skew), "zero": np.zeros(g_, np.int64),
                  "mid-tile": np.full(g_, m // g_)}    # 32-row groups: every other start is mid-tile
@@ -789,27 +826,62 @@ def phase_moe_kernels(torch, timer, results, c=MOE, dev="cuda") -> bool:
         xb = (xq.float() * torch.repeat_interleave(xs, 256, dim=1)).to(bf16)
         wg = k_major((w.float() * torch.repeat_interleave(sw, 256, dim=1)).to(bf16))
         for name, sizes in size_sets.items():
-            gs = torch.from_numpy(sizes.astype(np.int32)).to(dev)
-            total, ne = int(sizes.sum()), int((sizes > 0).sum())
-            a10 = (xq, xs.t(), w, sw, gs)
-            got = MQ.ragged_qmatmul_i8(*a10)
-            ref = MQ.ragged_qmatmul_i8_ref(xq, xs, w, sw, gs)
-            sync(torch)
-            err = float((got[:total] - ref[:total]).abs().max()) if total else 0.0
-            tol = 1e-5 * (float(ref[:total].abs().max()) if total else 0.0) + 1e-6
-            nk = k // 256
-            bnd = bound_ms(total * k + total * nk * 4 + ne * (k * n + nk * n * 4)
-                           + total * n * 4 + g_ * 4, 2.0 * total * k * n, INT8_OPS)
-            ok &= _record(results, "ragged_qmatmul_i8", f"M={m} K={k} N={n} {name}", err, tol,
-                          timer(lambda: MQ.ragged_qmatmul_i8(*a10)),
-                          timer(lambda: MQ.ragged_qmatmul_i8_ref(xq, xs, w, sw, gs), 3),
-                          time_grouped(timer, xb, wg, gs, f"kernel 10 K={k} N={n} {name}"), bnd)
+            ok &= ragged_i8_case(torch, timer, results, xq, xs, w, sw, xb, wg, sizes,
+                                 f"M={m} K={k} N={n} {name}", sweep=name != "zero")
             if (k, name) == (e_, "skewed"):
+                gs = torch.from_numpy(sizes.astype(np.int32)).to(dev)
+                a10 = (xq, xs.t(), w, sw, gs)
                 flush_check(timer, f"10 M={m} K={k} N={n} {name}",
                             kernel=lambda: MQ.ragged_qmatmul_i8(*a10),
                             library=lambda: grouped_library(xb, wg, gs))
         del wg
     return ok
+
+
+def ragged_i8_case(torch, timer, results, xq, xs, w, sw, xb, wg, sizes, case: str,
+                   sweep: bool = True) -> bool:
+    """One kernel 10 case: xq int8 (M, K), xs f32 (M, K/256), w codes (G, K,
+    N), sw (G, K/256, N), xb and wg the yardstick's dequantized rows and
+    experts (k_major), sizes the group sizes (numpy). The live rows must be
+    the plain version's bits and two calls must repeat them; the error is
+    logged against the float32 reassociation bound of the first port's
+    check. ``sweep`` also times the kernel by the tokens of a sweep."""
+    from ik_llama_cpp_tpu_torch.ops import moe_qmm as MQ
+    (m, k), (g_, _, n) = xq.shape, w.shape
+    gs = torch.from_numpy(np.asarray(sizes).astype(np.int32)).to(xq.device)
+    total, ne = int(np.sum(sizes)), int((np.asarray(sizes) > 0).sum())
+    a10 = (xq, xs.t(), w, sw, gs)
+    got = MQ.ragged_qmatmul_i8(*a10)
+    again = MQ.ragged_qmatmul_i8(*a10)
+    ref = MQ.ragged_qmatmul_i8_ref(xq, xs, w, sw, gs)
+    sync(torch)
+    same = bool(torch.equal(got[:total], ref[:total]))
+    rep = bool(torch.equal(got[:total], again[:total]))
+    err = float((got[:total] - ref[:total]).abs().max()) if total else 0.0
+    tol = 1e-5 * (float(ref[:total].abs().max()) if total else 0.0) + 1e-6
+    nk = k // 256
+    bnd = bound_ms(total * k + total * nk * 4 + ne * (k * n + nk * n * 4)
+                   + total * n * 4 + g_ * 4, 2.0 * total * k * n, INT8_OPS)
+    plan = MQ.ragged_i8_plan(m, n, k, g_, MQ._cuda.sm_count(xq))
+    ok = _record(results, "ragged_qmatmul_i8", case, err, tol,
+                 timer(lambda: MQ.ragged_qmatmul_i8(*a10)),
+                 timer(lambda: MQ.ragged_qmatmul_i8_ref(xq, xs, w, sw, gs), 3),
+                 time_grouped(timer, xb, wg, gs, f"kernel 10 {case}"),
+                 bnd, note=f" | plan: sweeps of {plan['tn']} columns by {plan['tm']} tokens "
+                           f"on {plan['blocks']} blocks; {ne} experts with rows, at most "
+                           f"{int(np.max(sizes)) if g_ else 0}; bit-identical to plain: {same}; "
+                           f"repeats bit for bit: {rep}")
+    if sweep:
+        row = []
+        for tm in MQ.RAGGED_I8_TMS:
+            with forced_i8_tm(MQ, tm):
+                t = timer(lambda: MQ.ragged_qmatmul_i8(*a10), 5)
+                same_tm = bool(torch.equal(MQ.ragged_qmatmul_i8(*a10)[:total], got[:total]))
+            row.append(f"{tm}{'*' if tm == plan['tm'] else ''} {t:.4f}"
+                       f"{'' if same_tm else ' (other bits!)'}")
+            ok &= same_tm
+        log(f"    kernel 10 {case}: ms by tokens a sweep: " + ", ".join(row))
+    return ok and same and rep
 
 
 def ragged_case(torch, timer, results, x, codes, sc, wg, sizes, name: str) -> bool:
@@ -916,12 +988,8 @@ def phase_planar_moe_kernels(torch, timer, results, dev="cuda") -> bool:
                       timer(lambda: MD.moe_decode_gate_up_ref(*a12, group=group), 3),
                       timer(lambda: torch.bmm(xb, wb)), bnd,
                       note=f" | {plan_text(plan)}; repeats bit for bit: {rep}")
-        row = []
-        for cols in (2, 4, 8, 16, 32):
-            with forced_gate_up_cols(MD, cols):
-                row.append(f"{cols}{'*' if cols == plan['cols'] else ''} "
-                           f"{timer(lambda: MD.moe_decode_gate_up(*a12, group=group), 5):.4f}")
-        log(f"    kernel 12 P={p}: ms by columns a block: " + ", ".join(row))
+        gate_up_sweep(timer, MD, f"kernel 12 P={p}", p, k, ff,
+                      lambda: MD.moe_decode_gate_up(*a12, group=group))
         del wb, gate, up
 
     log("[3] kernel 13 (moe_decode_down, planar) vs plain; library = bf16 torch.bmm over "
@@ -1984,9 +2052,12 @@ def phase_moe(torch, gguf: Path, launches: dict, phases: set, c=MOE,
         launches.update({k: counts[k] for k in ("moe_decode_gate_up_i8", "moe_decode_down_i8",
                                                 "fused_moe_prefill_i8", "ragged_qmatmul_i8")})
         prof = profile_decode(torch, rt, kv, n_past + DECODE + 1, toks[:, -1:], tag="7")
-        two_kernel_ms = kernel_ms(prof, "gate_up_kernel", "down_i8_kernel")
+        two_kernel_ms = kernel_ms(prof, "gate_up_i8_kernel", "down_i8_kernel")
         step_ms = sum(prof.values())
-        k8 = kernel_ms(prof, "down_i8_kernel")
+        k7, k8 = kernel_ms(prof, "gate_up_i8_kernel"), kernel_ms(prof, "down_i8_kernel")
+        log(f"[7] kernel 7 (moe_decode_gate_up_i8, gate_up_i8_kernel): {k7:.3f} ms a decode "
+            f"step of {step_ms:.3f} ms of kernels ({100 * k7 / step_ms:.1f}%), "
+            f"{counts['moe_decode_gate_up_i8'] / DECODE:g} launches a token")
         log(f"[7] kernel 8 (moe_decode_down_i8, down_i8_kernel): {k8:.3f} ms a decode step "
             f"of {step_ms:.3f} ms of kernels ({100 * k8 / step_ms:.1f}%), "
             f"{counts['moe_decode_down_i8'] / DECODE:g} launches a token")
@@ -1997,13 +2068,21 @@ def phase_moe(torch, gguf: Path, launches: dict, phases: set, c=MOE,
                               f"one {PREFILL}-token prefill chunk", "chunk", "7")
         log(f"[7] prefill chunk: kernel A {a_ms(prof)}")
         k9 = kernel_ms(prof, "fused_prefill_i8_kernel")
-        k10 = kernel_ms(prof, "ragged_kernel(signed char")
+        k10 = kernel_ms(prof, "ragged_i8_wgmma_kernel")
         log(f"[7] prefill chunk: kernel 9 (fused_moe_prefill_i8, fused_prefill_i8_kernel) "
             f"{k9:.3f} ms, {counts['fused_moe_prefill_i8']} launches; kernel 10 (the overflow "
-            f"pass) {k10:.3f} ms; {sum(prof.values()):.3f} ms of kernels")
+            f"pass, ragged_i8_wgmma_kernel) {k10:.3f} ms, {counts['ragged_qmatmul_i8']} "
+            f"launches; {sum(prof.values()):.3f} ms of kernels")
+        if counts["ragged_qmatmul_i8"] > 0 and k10 <= 0:
+            log("[7] FAIL: kernel 10 launched but the chunk's profile holds no time of it")
+            ok = False
         del kv
         sizes = router_sizes(torch, rt, ids, "_fused_prefill_try", 1)
         log_buckets(sizes)
+        dump = ROOT / "build" / "qwen3moe_router_sizes.json"
+        dump.write_text(json.dumps(sizes))
+        log(f"[7] the router's group sizes a layer written to {dump} "
+            f"(scripts/compare_trees.py time10p replays row 10p from them)")
         if replay is not None:
             replay.update(sizes=sizes, chunk_ms={"9": k9, "10": k10})
         log(f"[7] MoE end to end: {time.perf_counter() - t_phase:.1f} s")
@@ -2176,6 +2255,52 @@ def phase_replay_9p(torch, timer, results, sizes: list, chunk_ms: dict, c=MOE) -
     return ok
 
 
+def phase_replay_10p(torch, timer, results, sizes: list, chunk_ms: dict, c=MOE) -> bool:
+    """Row 10p of phase 3, after phase 7: kernel 10 at the overflow of
+    phase 7's router (each expert's rows past kernel 9's bucket capacity,
+    which _fused_prefill_try sends through three kernel-10 calls a layer:
+    gate and up at K 2048 N 768, down at K 768 N 2048), on random codes
+    from a seed at that shape: layer 0's gate call against its plain
+    version (bits and a repeat), the library call and its bound, then every
+    layer's three calls timed alone, summed beside the profiled chunk's
+    kernel-10 time."""
+    from ik_llama_cpp_tpu_torch.ops import moe_qmm as MQ
+    from ik_llama_cpp_tpu_torch.ops.moe import fused_capacity
+    g_, e_, ff = c["G"], c["E"], c["FF"]
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    m = int(np.sum(sizes[0]))
+    r = fused_capacity(m, g_)
+    over = [np.maximum(np.asarray(gs) - r, 0) for gs in sizes]
+    calls = []
+    for k, n in ((e_, ff), (e_, ff), (ff, e_)):
+        w = torch.randint(-127, 128, (g_, n, k), generator=gen, device="cuda",
+                          dtype=torch.int8).transpose(1, 2)
+        sw = torch.rand((g_, k // 256, n), generator=gen, device="cuda") * 2e-3 + 1e-5
+        xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+        xs = torch.rand((m, k // 256), generator=gen, device="cuda") * 1e-2 + 1e-4
+        calls.append((xq, xs, w, sw))
+    xq, xs, w, sw = calls[0]
+    log(f"[3] 10p: kernel 10 at the overflow of phase 7's router (layer 0 of {len(sizes)}): "
+        f"{int(over[0].sum())} of {m} rows past capacity {r}, "
+        f"{int((over[0] > 0).sum())} experts with rows")
+    xb = (xq.float() * torch.repeat_interleave(xs, 256, dim=1)).to(bf16)
+    wg = k_major((w.float() * torch.repeat_interleave(sw, 256, dim=1)).to(bf16))
+    ok = ragged_i8_case(torch, timer, results, xq, xs, w, sw, xb, wg, over[0],
+                        f"M={m} K={e_} N={ff} phase-7 router overflow, layer 0")
+    del xb, wg
+    kern = 0.0
+    for o in over:
+        gs = torch.from_numpy(o.astype(np.int32)).cuda()
+        for xq, xs, w, sw in calls:
+            kern += timer(lambda: MQ.ragged_qmatmul_i8(xq, xs.t(), w, sw, gs), 5)
+    log(f"[3] 10p: the {len(sizes)} layers' {3 * len(sizes)} calls timed alone (clean flush "
+        f"each): kernel 10 {kern:.3f} ms; the profiled chunk's kernel 10 "
+        f"{chunk_ms['10']:.3f} ms")
+    del calls
+    return ok
+
+
 def router_sizes(torch, rt, ids, fn: str, pos: int) -> list:
     """The group sizes that the function ``fn`` of ops/moe.py is given (its
     argument ``pos``) in one prefill chunk of ``ids``, one list a call (a
@@ -2315,7 +2440,7 @@ def phase_q2moe(torch, gguf: Path, launches: dict, phases: set, c=Q2MOE,
             f"expert mean {per.mean():.1f}, max {int(per.max())}; layer 0 {sizes[0]}")
         if replay is not None:
             replay.update(sizes=sizes, chunk_ms={"14": k14, "10": kernel_ms(
-                prof, "ragged_kernel(signed char")})
+                prof, "ragged_i8_wgmma_kernel")})
         log(f"[12] mixed-format MoE end to end: {time.perf_counter() - t_phase:.1f} s")
     if 13 in phases:
         t0 = time.perf_counter()
@@ -2802,6 +2927,8 @@ def main() -> int:
             ok &= timed("13b", phase_planar_moe_parity, torch, moe_gguf)
         if 3 in phases and replay9:
             ok &= timed("3 9p", phase_replay_9p, torch, timer, results, replay9["sizes"],
+                        replay9["chunk_ms"])
+            ok &= timed("3 10p", phase_replay_10p, torch, timer, results, replay9["sizes"],
                         replay9["chunk_ms"])
     if 9 in phases:
         ok &= timed("9", phase_kvq, torch, gguf, launches)

@@ -24,13 +24,14 @@
 // (dq_wgmma.cuh: out^T = W^T x^T, the weights the wgmma A operand
 // dequantized in registers, x the TMA-fed B operand, a ring of 64-deep
 // stages under mbarriers, one producer thread, two consumer warpgroups)
-// over a grouped work list: the block prefix-sums group_sizes in shared
-// memory and walks sweeps (expert with rows, 128-column tile, TM of its
-// rows: 64 or 128, from M / G) on a persistent grid sized from M, N and G
-// alone (no host read, no step table); the sweeps of an (expert, column
-// tile) are consecutive, so neighbouring blocks run them at once and each
-// expert's codes come from device memory about once a column tile, shared
-// in L2; only the expert's own rows are stored. K is never split and no sums
+// over the grouped work list of csrc/moe_grouped.cuh (shared with kernel
+// 10): the block prefix-sums group_sizes in shared memory and walks sweeps
+// (expert with rows, 128-column tile, TM of its rows: 64 or 128, from M /
+// G) on a persistent grid sized from M, N and G alone (no host read, no
+// step table); the sweeps of an (expert, column tile) are consecutive, so
+// neighbouring blocks run them at once and each expert's codes come from
+// device memory about once a column tile, shared in L2; only the expert's
+// own rows are stored. K is never split and no sums
 // meet in atomics: a call repeats bit for bit. The code tile is K-major
 // (KMajorCodes): TMA loads 128 columns of 64 code bytes in its 64-byte
 // swizzle, and each thread takes its fragment's codes with 16-bit shared
@@ -39,16 +40,15 @@
 //
 // ragged_kernel, for the shapes TMA cannot address (scale rows that are
 // not a multiple of 16 bytes, groups that neither divide 64 nor are a
-// multiple of it): the first port's row map of kernel 10 (a grid of
-// (N tiles, row tiles); each block runs one K sweep per group that owns
+// multiple of it): the first port's design (a grid of (N tiles, row
+// tiles); each block runs one K sweep per group that owns
 // some of its rows, a 64-deep slice of 64 columns dequantized to bf16 in
 // shared memory for mma.sync, the next slice's loads in flight).
 #include "dq_wgmma.cuh"
 #include "moe_common.cuh"
+#include "moe_grouped.cuh"
 
 namespace {
-
-constexpr int MAXG = 1024;         // groups the prefix sums hold
 
 // ------------------------------------------------------------ wgmma form --
 IK_DEV uint32_t ld_u16(const unsigned char* p) {
@@ -91,16 +91,9 @@ struct KMajorCodes {
   }
 };
 
-// The work of kernel 14: sweeps (expert with rows, 128-column tile, TM of
-// the expert's rows), numbered experts first, then columns, then tokens,
-// and taken round robin by the blocks: the sweeps of one (expert, column
-// tile) are consecutive, so neighbouring blocks run them at once and read
-// the tile's codes from device memory about once, sharing them in L2, and
-// a large expert's sweeps spread over as many blocks as it has token
-// tiles. end: each expert's end row (the prefix sums of the group sizes,
-// clamped to M); live: the experts with rows, n_live of them; first: the
-// number of token tiles of the live experts before each (n_live + 1
-// entries). Shared memory, filled by rows_map.
+// The work of kernel 14: the grouped sweeps of csrc/moe_grouped.cuh over
+// 128-column tiles, as dq_wgmma_body's Sweeps. end, live, first, n_live:
+// the map rows_map leaves in shared memory.
 struct GroupedItems {
   static constexpr int SMEM = (3 * MAXG + 8) * 4;
   const int* end;
@@ -109,61 +102,12 @@ struct GroupedItems {
   const int* n_live;
   template <int TM, class Fn>
   IK_DEV void each(const dqw::Args& a, Fn&& fn) const {
-    const int tiles_n = (a.N + dqw::TN - 1) / dqw::TN, total = first[*n_live] * tiles_n;
-    int i = 0;
-    for (int u = blockIdx.x; u < total; u += gridDim.x) {
-      while (first[i + 1] * tiles_n <= u) ++i;
-      const int e = live[i], te = first[i + 1] - first[i], r = u - first[i] * tiles_n;
-      const int m0 = (e ? end[e - 1] : 0) + (r % te) * TM;
-      fn(dqw::Sweep{m0, min(m0 + TM, end[e]), (r / te) * dqw::TN, e * a.N, e * (a.K / a.G)});
-    }
+    grouped_sweeps<TM>(end, live, first, *n_live, (a.N + dqw::TN - 1) / dqw::TN,
+                       [&](int e, int m0, int m_end, int tile) {
+                         fn(dqw::Sweep{m0, m_end, tile * dqw::TN, e * a.N, e * (a.K / a.G)});
+                       });
   }
 };
-
-// GroupedItems' arrays from the G group sizes: every thread loads, warp 0
-// scans 32 groups at a time (rows, then token tiles of TM). Visible to the
-// block after its next barrier.
-template <int TM>
-IK_DEV void rows_map(const int* __restrict__ gsz, int G, int M, int* end, int* live, int* first,
-                     int* n_live) {
-  for (int i = threadIdx.x; i < G; i += blockDim.x) end[i] = gsz[i];
-  __syncthreads();
-  if (threadIdx.x >= 32) return;
-  const int lane = threadIdx.x;
-  int carry = 0, tcarry = 0, n = 0;
-  for (int base = 0; base < G; base += 32) {
-    const int e = base + lane;
-    const int c = e < G ? end[e] : 0;
-    int x = c;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, x, o);
-      if (lane >= o) x += y;
-    }
-    const int stop = min(carry + x, M), start = min(carry + x - c, M);
-    const int tiles = e < G ? (stop - start + TM - 1) / TM : 0;
-    int tx = tiles;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, tx, o);
-      if (lane >= o) tx += y;
-    }
-    if (e < G) end[e] = stop;
-    const unsigned mask = __ballot_sync(0xffffffffu, tiles > 0);
-    if (tiles > 0) {
-      const int at = n + __popc(mask & ((1u << lane) - 1u));
-      live[at] = e;
-      first[at] = tcarry + tx - tiles;
-    }
-    n += __popc(mask);
-    carry = __shfl_sync(0xffffffffu, carry + x, 31);
-    tcarry = __shfl_sync(0xffffffffu, tcarry + tx, 31);
-  }
-  if (lane == 0) {
-    *n_live = n;
-    first[n] = tcarry;
-  }
-}
 
 template <int TM, bool F32>
 __global__ void __launch_bounds__(dqw::THREADS, 1)

@@ -4,21 +4,39 @@
 // Replaces ik_llama_cpp_tpu/ops/moe_qmm.py:ragged_qmatmul_i8 and
 // :fused_moe_prefill_i8 (the Pallas kernels of the MoE prefill).
 //
-// Codes are stored (G, N, K) so that both mma.sync operands are
-// K-contiguous; activation scales are read through strides (the JAX layout
-// keeps them transposed). Every 256-deep supergroup's int32 products are
-// exact; its float correction part * (sx * sw) is added in supergroup order
-// with no contraction into FMA, the order and rounding of the plain
-// versions.
+// Codes are stored (G, N, K) so that both MMA operands are K-contiguous;
+// activation scales are read through strides (the JAX layout keeps them
+// transposed). Every 256-deep supergroup's int32 products are exact; its
+// float correction part * (sx * sw) is added in supergroup order with no
+// contraction into FMA, the order and rounding of the plain versions, so
+// both kernels give the plain versions' bits.
 //
-// Kernel 10, ragged: out[m, n] = sum_g xs[m, g] sw[e(m), g, n] dot_g(xq[m], w[e(m), n])
-// with e(m) the group that owns sorted row m. Bound by int8 tensor-core work
-// for long groups and by the expert bytes for short ones. The grid is
-// (N tiles, row tiles) from M alone; each block prefix-sums group_sizes in
-// shared memory, skips out when its rows are past the last group (so an
-// empty overflow pass costs one launch and no host sync), and runs one K
-// sweep per group that owns some of its rows, storing only those rows.
-// Rows at or past sum(group_sizes) are never written.
+// Kernel 10, ragged_i8_wgmma_kernel: out[m, n] = sum_g xs[m, g] sw[e(m), g, n]
+// dot_g(xq[m], w[e(m), n]) with e(m) the group that owns sorted row m.
+// Bound by the live experts' code bytes at the models' sizes (phase 3's
+// skewed row: 128 experts of 2048 x 768 codes, 201 MB of the 225 MB moved,
+// against 2 x 4096 x 2048 x 768 int8 operations, a tenth of that time).
+// The design joins two of the port's: the grouped work list of kernel 14
+// (csrc/moe_grouped.cuh: a persistent grid sized from M, N and G walks
+// sweeps of (expert with rows, 128 columns, TM of its rows) read from the
+// group sizes on the device, an expert's sweeps adjacent so that its codes
+// come from device memory about once a column tile and are shared in L2;
+// no host read, no step table; an empty overflow pass costs one launch)
+// and kernel A's int8 warpgroup MMA (qmatmul_i8.cu: wgmma.mma_async
+// m64nTMk32 s32.s8.s8 with both operands K-major in 128-byte swizzled
+// shared memory, a ring of 128-deep stages loaded by TMA under full/empty
+// mbarriers from one producer warp, each supergroup's xs and sw slices by
+// cp.async into its first stage; two consumer warpgroups). The product is
+// computed as out^T = W^T x^T, kernel 14's orientation: the expert's 128
+// columns are the m64 operand of two warpgroups and the sweep's TM tokens
+// (64 or 128, ops/moe_qmm.ragged_i8_plan) the wgmma N dimension, so a
+// short group (tens of rows, often one) wastes little of a tile. One TMA
+// map over the codes as (G N, K) rows reaches any expert's tile with no
+// copy. Each supergroup's int32 sums start from zero and are folded by
+// sg_corr in supergroup order; K is never split and no sums meet in
+// atomics: a call repeats bit for bit. Only the expert's own tokens are
+// stored (a token tile may hold the next expert's rows, which TMA loads
+// but nobody stores); rows at or past sum(group_sizes) are never written.
 //
 // Kernel 9, fused: per live expert slot s < n_live (read on the device) and
 // 64-row block of its capacity bucket, gate and up, the activation, bf16
@@ -46,153 +64,195 @@
 // first stage is awaited. Every sum keeps the order of the plain version:
 // an item changes who computes a column, not how. The counters are one
 // zeroed int32 buffer a device that the last block to finish resets.
-#include "moe_common.cuh"
 #include "hopper.cuh"
+#include "moe_common.cuh"
+#include "moe_grouped.cuh"
 
 namespace {
 
-constexpr int LDS = MOE_SG + 16;   // padded shared row: conflict-free fragment loads
-constexpr int NT = 256;            // threads a block (8 warps)
-constexpr int TILE = 64;           // rows / columns of a staged tile
-constexpr int MAXG = 1024;         // groups the ragged kernel's prefix sum holds
 constexpr unsigned FULL = 0xffffffffu;
 
-// cp.async of `rows` rows x 256 bytes from src (row stride ld bytes) into a
-// padded tile; rows at or past `valid` repeat row valid - 1.
-IK_DEV void stage_rows(int8_t* dst, const int8_t* src, size_t ld, int rows, int valid, int tid) {
-  for (int c = tid; c < rows * 16; c += NT) {
-    const int r = c >> 4, col = (c & 15) * 16;
-    cp_async16(dst + r * LDS + col, src + (size_t)min(r, valid - 1) * ld + col);
-  }
-}
-
-// Exact int32 products of one 256-deep stage for a warp's MI x NI tiles of
-// 16 x 8: a is the warp's first A row (lda bytes a row), b its first B row
-// (one row per output column, ldb bytes a row).
-template <int MI, int NI>
-IK_DEV void mma_stage(int (&part)[MI][NI][4], const int8_t* a, int lda,
-                      const int8_t* b, int ldb, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NI; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) part[i][j][e] = 0;
-#pragma unroll
-  for (int kk = 0; kk < MOE_SG; kk += 32) {
-    uint32_t af[MI][4], bf[NI][2];
-#pragma unroll
-    for (int i = 0; i < MI; ++i) {
-      const int8_t* p = a + (i * 16 + g) * lda + kk + t * 4;
-      af[i][0] = ld32(p);
-      af[i][1] = ld32(p + 8 * lda);
-      af[i][2] = ld32(p + 16);
-      af[i][3] = ld32(p + 8 * lda + 16);
-    }
-#pragma unroll
-    for (int j = 0; j < NI; ++j) {
-      const int8_t* p = b + (j * 8 + g) * ldb + kk + t * 4;
-      bf[j][0] = ld32(p);
-      bf[j][1] = ld32(p + 16);
-    }
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int j = 0; j < NI; ++j) mma_s8_16832(part[i][j], af[i], bf[j]);
-  }
-}
-
 // ------------------------------------------------------------- kernel 10 --
-// 64 x 64 tiles, warps 2 (rows) x 4 (columns) of 32 x 16.
-__global__ void __launch_bounds__(NT)
-ragged_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xst, int s_sg,
-              int s_m, const int8_t* __restrict__ codes, const float* __restrict__ sw,
-              const int* __restrict__ gsz, float* __restrict__ out, int M, int N, int K,
-              int G) {
-  extern __shared__ __align__(16) int8_t smem[];   // [2][A 64 rows, B 64 rows][LDS]
-  __shared__ int s_end[MAXG];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g8 = lane >> 2, t4 = lane & 3;
-  const int wm = (warp >> 2) * 32, wn = (warp & 3) * 16;
-  const int m0 = blockIdx.y * TILE, n0 = blockIdx.x * TILE;
-  const int nsg = K / MOE_SG;
-  for (int i = tid; i < G; i += NT) s_end[i] = gsz[i];
-  __syncthreads();
-  if (tid == 0)
-    for (int i = 1; i < G; ++i) s_end[i] += s_end[i - 1];
-  __syncthreads();
-  const int rows_end = min(s_end[G - 1], M);
-  if (m0 >= rows_end) return;
-  const int m1 = min(m0 + TILE, rows_end);
-  int grp = 0;
-  while (s_end[grp] <= m0) ++grp;
+namespace grouped10 {
 
-  for (; grp < G; ++grp) {
-    const int start = grp ? s_end[grp - 1] : 0, end = s_end[grp];
-    if (start >= m1) break;
-    if (end == start) continue;
-    const int lo = max(start, m0), hi = min(end, m1);
-    const int8_t* bsrc = codes + ((size_t)grp * N + n0) * K;
-    const float* swg = sw + (size_t)grp * nsg * N;
-    auto load = [&](int slot, int s) {
-      int8_t* st = smem + slot * 2 * TILE * LDS;
-      stage_rows(st, xq + (size_t)m0 * K + s * MOE_SG, K, TILE, M - m0, tid);
-      stage_rows(st + TILE * LDS, bsrc + s * MOE_SG, K, TILE, N - n0, tid);
-    };
-    float acc[2][2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-    load(0, 0);
-    cp_async_commit();
-    for (int s = 0; s < nsg; ++s) {
-      if (s + 1 < nsg) {
-        load((s + 1) & 1, s + 1);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const int8_t* st = smem + (s & 1) * 2 * TILE * LDS;
-      int part[2][2][4];
-      mma_stage<2, 2>(part, st + wm * LDS, LDS, st + (TILE + wn) * LDS, LDS, lane);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r0 = min(m0 + wm + i * 16 + g8, M - 1), r1 = min(r0 + 8, M - 1);
-        const float xs0 = xst[(size_t)s * s_sg + (size_t)r0 * s_m];
-        const float xs1 = xst[(size_t)s * s_sg + (size_t)r1 * s_m];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int c0 = min(n0 + wn + j * 8 + 2 * t4, N - 1), c1 = min(c0 + 1, N - 1);
-          const float sw0 = swg[(size_t)s * N + c0], sw1 = swg[(size_t)s * N + c1];
-          acc[i][j][0] = sg_corr(acc[i][j][0], part[i][j][0], xs0, sw0);
-          acc[i][j][1] = sg_corr(acc[i][j][1], part[i][j][1], xs0, sw1);
-          acc[i][j][2] = sg_corr(acc[i][j][2], part[i][j][2], xs1, sw0);
-          acc[i][j][3] = sg_corr(acc[i][j][3], part[i][j][3], xs1, sw1);
-        }
-      }
-      __syncthreads();
+constexpr int TN = 128;          // expert columns of a sweep: two consumer warpgroups of 64
+constexpr int BK = 128;          // K of a stage: one 128-byte swizzled row a tile row
+constexpr int THREADS = 384;     // the producer warpgroup, then two consumer warpgroups
+constexpr int STATIC_SMEM = (3 * MAXG + 2) * 4;   // the rows map (rows_map)
+
+// A stage: the code tile [TN][BK], the token tile [TM][BK] and the
+// supergroup's scales (xs of the TM tokens, then sw of the TN columns),
+// as many stages as fit up to 8.
+template <int TM>
+struct Layout {
+  static constexpr int A = TN * BK, B = TM * BK;      // bytes of a stage's tiles
+  static constexpr int SC = TM + TN;                  // floats of a stage's scales
+  static constexpr int STAGE = A + B + SC * 4;
+  static constexpr int FIT = (MOE_SMEM_MAX - STATIC_SMEM - 1024 - 16 * 8) / STAGE;
+  static constexpr int STAGES = FIT < 8 ? FIT : 8;
+  static constexpr int BYTES = STAGES * STAGE + 2 * STAGES * 8 + 1024;
+};
+
+// out^T = W^T x^T over the grouped sweeps of csrc/moe_grouped.cuh: the
+// expert's TN columns are the wgmma A operand (two warpgroups of 64), the
+// sweep's TM tokens its N dimension.
+template <int TM>
+__global__ void __launch_bounds__(THREADS, 1)
+ragged_i8_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                       const __grid_constant__ CUtensorMap map_w,
+                       const float* __restrict__ xst, int s_sg, int s_m,
+                       const float* __restrict__ sw, const int* __restrict__ gsz,
+                       float* __restrict__ out, int M, int N, int K, int G) {
+  using L = Layout<TM>;
+  __shared__ int s_end[MAXG], s_live[MAXG], s_first[MAXG + 1], s_n;
+  rows_map<TM>(gsz, G, M, s_end, s_live, s_first, &s_n);
+  extern __shared__ unsigned char smem_raw[];
+  // 1024-byte aligned stages: the swizzle pattern repeats every 8 rows
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  int8_t* sa = reinterpret_cast<int8_t*>(base);                  // [STAGES][TN][BK]
+  int8_t* sb = sa + L::STAGES * L::A;                             // [STAGES][TM][BK]
+  float* ssc = reinterpret_cast<float*>(sb + L::STAGES * L::B);   // [STAGES][xs TM | sw TN]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ssc + L::STAGES * L::SC);
+  uint64_t* empty = full + L::STAGES;
+
+  const int tid = threadIdx.x, wg = tid / 128, warp = tid / 32, lane = tid & 31;
+  const int nsg = K / MOE_SG, nkb = K / BK, tiles_n = (N + TN - 1) / TN;
+
+  if (tid == 0) {
+    // full: the producer lane 0's expect_tx arrive + the 32 lanes' cp.async
+    // arrives; empty: the 8 consumer warps
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(&full[s], 33);
+      mbar_init(&empty[s], 8);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();                 // the barriers and the rows map
+
+  if (wg == 0) {
+    // producer: one warp keeps the ring full, running on into the next sweep
+    setmaxnreg_dec<40>();
+    if (warp == 0) {
+      int it = 0;
+      grouped_sweeps<TM>(s_end, s_live, s_first, s_n, tiles_n, [&](int e, int m0, int, int tile) {
+        const int n0 = tile * TN;
+        for (int kb = 0; kb < nkb; ++kb, ++it) {
+          const int s = it % L::STAGES;
+          mbar_wait(&empty[s], ((it / L::STAGES) & 1) ^ 1);
+          if (lane == 0) {
+            mbar_expect_tx(&full[s], L::A + L::B);
+            tma_load_2d(sa + s * L::A, &map_w, &full[s], kb * BK, e * N + n0);
+            tma_load_2d(sb + s * L::B, &map_x, &full[s], kb * BK, m0);
+          }
+          if ((kb & 1) == 0) {      // the supergroup's scales ride with its first half
+            const int sg = kb >> 1;
+            float* sc = ssc + s * L::SC;
+            for (int r = lane; r < TM; r += 32)
+              cp_async4(sc + r, xst + (size_t)sg * s_sg + (size_t)min(m0 + r, M - 1) * s_m);
+            const float* swr = sw + ((size_t)e * nsg + sg) * N;
+            for (int c = lane; c < TN; c += 32) cp_async4(sc + TM + c, swr + min(n0 + c, N - 1));
+          }
+          mbar_arrive_cp_async(&full[s]);
+        }
+      });
+      cp_async_wait<0>();
+    }
+  } else {
+    // consumers: warpgroup c owns expert columns 64c .. 64c + 63 of the
+    // sweep's tile; the thread's A rows are columns xr and xr + 8
+    setmaxnreg_inc<232>();
+    constexpr int NR = TM / 2;          // accumulator registers a thread
+    const int c = wg - 1, w = warp & 3, g = lane >> 2, t = lane & 3;
+    const int xr = c * 64 + w * 16 + g;
+    int part[NR];
+    float acc[NR];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < NR; ++i) part[i] = 0;
+    int it = 0;
+    grouped_sweeps<TM>(s_end, s_live, s_first, s_n, tiles_n, [&](int e, int m0, int m_end,
+                                                                 int tile) {
+      const int n0 = tile * TN;
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = n0 + wn + j * 8 + 2 * t4;
+      for (int i = 0; i < NR; ++i) acc[i] = 0.f;
+      for (int sg = 0; sg < nsg; ++sg, it += 2) {
+        const int s0 = it % L::STAGES, s1 = (it + 1) % L::STAGES;
+        mbar_wait(&full[s0], (it / L::STAGES) & 1);
+        mbar_wait(&full[s1], ((it + 1) / L::STAGES) & 1);
+        // the supergroup's exact int32 sums, from zero
+        fence_regs<NR>(part);
+        wgmma_fence();
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int r = m0 + wm + i * 16 + g8 + h * 8;
-          if (r < lo || r >= hi) continue;
-          if (c < N) out[(size_t)r * N + c] = acc[i][j][2 * h];
-          if (c + 1 < N) out[(size_t)r * N + c + 1] = acc[i][j][2 * h + 1];
+          const int s = h ? s1 : s0;
+          const uint64_t da = desc_sw128(sa + s * L::A + c * 64 * BK);
+          const uint64_t db = desc_sw128(sb + s * L::B);
+#pragma unroll
+          for (int kk = 0; kk < BK / 32; ++kk)
+            wgmma_s8<TM>(part, da + 2 * kk, db + 2 * kk, (h | kk) != 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<NR>(part);
+        // acc + part * (xs[m, sg] * sw[e, sg, n]), rounded step by step
+        // (sg_corr), supergroup by supergroup: the plain version's order
+        const float* sc = ssc + s0 * L::SC;
+        const float w0 = sc[TM + xr], w1 = sc[TM + xr + 8];
+#pragma unroll
+        for (int j = 0; j < TM / 8; ++j) {
+          const float x0 = sc[8 * j + 2 * t], x1 = sc[8 * j + 2 * t + 1];
+          acc[4 * j + 0] = sg_corr(acc[4 * j + 0], part[4 * j + 0], x0, w0);
+          acc[4 * j + 1] = sg_corr(acc[4 * j + 1], part[4 * j + 1], x1, w0);
+          acc[4 * j + 2] = sg_corr(acc[4 * j + 2], part[4 * j + 2], x0, w1);
+          acc[4 * j + 3] = sg_corr(acc[4 * j + 3], part[4 * j + 3], x1, w1);
+        }
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive(&empty[s0]);
+          mbar_arrive(&empty[s1]);
         }
       }
+      // acc[4j + e]: column xr + 8 (e >> 1), token 8j + 2t + (e & 1); only
+      // the expert's own tokens are stored
+#pragma unroll
+      for (int j = 0; j < TM / 8; ++j) {
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const int m = m0 + 8 * j + 2 * t + p;
+          if (m >= m_end) continue;
+          float* o = out + (size_t)m * N + n0;
+          if (n0 + xr < N) o[xr] = acc[4 * j + p];
+          if (n0 + xr + 8 < N) o[xr + 8] = acc[4 * j + 2 + p];
+        }
+      }
+    });
   }
 }
+
+// The two tensor maps (the tokens (M, K) and the codes as (G N, K) rows,
+// both K-contiguous bytes in the 128-byte swizzle; rows past either read
+// as zeros) and the launch.
+template <int TM>
+cudaError_t launch(const void* xq, const float* xst, int s_sg, int s_m, const void* codes,
+                   const float* sw, const int* gsz, float* out, int M, int N, int K, int G,
+                   int blocks, cudaStream_t s) {
+  using L = Layout<TM>;
+  static_assert(L::STAGES >= 2 && L::BYTES + STATIC_SMEM <= MOE_SMEM_MAX,
+                "shared memory of one block");
+  auto kern = ragged_i8_wgmma_kernel<TM>;
+  static bool smem_set = false;
+  cudaError_t e = set_smem(kern, L::BYTES, smem_set);
+  if (e != cudaSuccess) return e;
+  CUtensorMap mx, mw;
+  const auto u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  const auto sw128 = CU_TENSOR_MAP_SWIZZLE_128B;
+  if ((e = tensor_map_2d(&mx, xq, u8, K, M, K, BK, TM, sw128)) != cudaSuccess ||
+      (e = tensor_map_2d(&mw, codes, u8, K, (uint64_t)G * N, K, BK, TN, sw128)) != cudaSuccess)
+    return e;
+  kern<<<blocks, THREADS, L::BYTES, s>>>(mx, mw, xst, s_sg, s_m, sw, gsz, out, M, N, K, G);
+  return cudaGetLastError();
+}
+
+}  // namespace grouped10
 
 // -------------------------------------------------------------- kernel 9 --
 namespace fused9 {
@@ -619,24 +679,27 @@ cudaError_t launch(const void* xg, const void* gate, const void* up, const void*
 
 }  // namespace
 
+// K % 256 == 0, M >= 1, 1 <= G <= 1024; tile_m (the tokens of a sweep, 64
+// or 128) and blocks (the persistent grid) from ops/moe_qmm.ragged_i8_plan.
 extern "C" int ik_ragged_qmatmul_i8(const void* xq, const void* xst, int s_sg, int s_m,
                                     const void* codes, const void* sw, const void* gsz,
-                                    void* out, int M, int N, int K, int G, void* stream) {
-  // the prefix sum's static shared memory counts against the same limit,
-  // so the dynamic limit is exactly what the tiles need
-  constexpr int smem = 2 * 2 * TILE * LDS;
-  static bool smem_set = false;
-  cudaError_t e = set_smem(ragged_kernel, smem, smem_set);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (G > MAXG) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((N + TILE - 1) / TILE, (M + TILE - 1) / TILE);
-  ragged_kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(xq), static_cast<const float*>(xst), s_sg, s_m,
-      static_cast<const int8_t*>(codes), static_cast<const float*>(sw),
-      static_cast<const int*>(gsz), static_cast<float*>(out), M, N, K, G);
-  return static_cast<int>(cudaGetLastError());
+                                    void* out, int M, int N, int K, int G, int tile_m,
+                                    int blocks, void* stream) {
+  if (K % MOE_SG || K < MOE_SG || M < 1 || N < 1 || G < 1 || G > MAXG || blocks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto x = static_cast<const float*>(xst);
+  auto w = static_cast<const float*>(sw);
+  auto gs = static_cast<const int*>(gsz);
+  auto o = static_cast<float*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  switch (tile_m) {
+    case 64: e = grouped10::launch<64>(xq, x, s_sg, s_m, codes, w, gs, o, M, N, K, G, blocks, s); break;
+    case 128: e = grouped10::launch<128>(xq, x, s_sg, s_m, codes, w, gs, o, M, N, K, G, blocks, s); break;
+    default: e = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(e);
 }
-
 
 // R % 8 == 0, K and F multiples of 256; hb a bf16 (G, R, F), hq an int8
 // (G, R, F) and hs an f32 (G, R, F/256) scratch; counters 2 + G *

@@ -175,37 +175,56 @@ def down_plan(t: int, top_k: int, f: int, e: int, group: int | None = None,
             "passes": -(-rows // (DOWN_THREADS // lanes)), "chunks": -(-nch // lanes)}
 
 
-GATE_UP_THREADS = 256     # threads of a kernel-12 block (8 warps)
-GATE_UP_COLS = 4          # adjacent FF columns a kernel-12 block takes at least
-GATE_UP_LANES = 8         # lanes a row of kernel 12 takes at most
+GATE_UP_THREADS = 256     # threads of a kernel-7 or kernel-12 block (8 warps)
+GATE_UP_COLS = 4          # adjacent FF columns a block takes at least
+GATE_UP_LANES = 8         # lanes a row from which the columns that fill a block are set
+
+
+def _gate_up_rows(p: int, k: int, ff: int, cols: int | None, most: int) -> dict:
+    """The block shape of kernels 7 and 12: ``cols`` the least power of two
+    from GATE_UP_COLS up that fills the block at GATE_UP_LANES lanes a row
+    (at most the row's chunks), unless forced; ``lanes`` the most, up to
+    ``most``, that keeps the block's 2 * cols rows in one pass."""
+    nch = k // 16
+    if cols is None:
+        fill = min(GATE_UP_LANES, nch)
+        cols = GATE_UP_COLS
+        while 2 * cols * fill < GATE_UP_THREADS:
+            cols *= 2
+    rows = 2 * cols
+    lanes = 1
+    while 2 * lanes <= min(most, nch) and 2 * lanes * rows <= GATE_UP_THREADS:
+        lanes *= 2
+    tiles = -(-ff // cols)
+    return {"cols": cols, "lanes": lanes, "tiles": tiles, "blocks": tiles * p,
+            "passes": -(-rows // (GATE_UP_THREADS // lanes)), "chunks": -(-nch // lanes)}
 
 
 def gate_up_plan(p: int, k: int, ff: int, cols: int | None = None) -> dict:
     """Launch shape of kernel 12 (planar gate/up): a block takes one pair
     over ``cols`` adjacent FF columns, its 2 * cols gate and up rows of k
-    codes, which its GATE_UP_THREADS threads split ``lanes`` lanes a row,
-    all rows in one pass; a lane streams its ``chunks`` 16-byte chunks
-    through a ring of 4 loads in flight. ``cols`` is the least power of two
-    from GATE_UP_COLS up that fills the block at the most lanes a row
-    (GATE_UP_LANES, and at most the row's chunks); ``lanes`` the most that
-    keeps the rows in one pass. At K 2048: 16 columns, 8 lanes a row, 16
-    chunks a lane (16 columns a block timed fastest, chip_smoke.py's
-    column sweep). The C entry point lays out and sizes the block's shared
-    memory (the pair's bf16 row and the 2 * cols dots) and refuses a shape
-    that does not fit."""
-    nch = k // 16
-    most = min(GATE_UP_LANES, nch)
-    if cols is None:
-        cols = GATE_UP_COLS
-        while 2 * cols * most < GATE_UP_THREADS:
-            cols *= 2
-    rows = 2 * cols
-    lanes = 1
-    while 2 * lanes <= min(32, nch) and 2 * lanes * rows <= GATE_UP_THREADS:
-        lanes *= 2
-    tiles = -(-ff // cols)
-    return {"cols": cols, "lanes": lanes, "tiles": tiles, "blocks": tiles * p,
-            "passes": -(-rows // (GATE_UP_THREADS // lanes)), "chunks": -(-nch // lanes)}
+    codes, which its GATE_UP_THREADS threads split ``lanes`` lanes a row
+    (up to 32), all rows in one pass; a lane streams its ``chunks`` 16-byte
+    chunks through a ring of 4 loads in flight. At K 2048: 16 columns, 8
+    lanes a row, 16 chunks a lane (16 columns a block timed fastest,
+    chip_smoke.py's column sweep). The C entry point lays out and sizes the
+    block's shared memory (the pair's bf16 row and the 2 * cols dots) and
+    refuses a shape that does not fit."""
+    return _gate_up_rows(p, k, ff, cols, 32)
+
+
+def gate_up_i8_plan(p: int, k: int, ff: int, cols: int | None = None) -> dict:
+    """Launch shape of kernel 7 (int8 gate/up), kernel 12's plan with at
+    most 16 lanes a row, so that a lane's chunks never straddle a 256-deep
+    supergroup (it holds 16 / lanes chunks of each, and a shuffle over the
+    row's lanes forms each supergroup's exact sum): at K 2048 16 columns, 8
+    lanes a row, 16 chunks a lane. ``cols`` is forced by chip_smoke.py's
+    column sweep. The C entry point sizes the block's shared memory (the
+    pair's xq row and scales, the weight scales and the sums) and refuses a
+    shape that does not fit."""
+    _cuda.require(k % SUPERGROUP == 0 and k >= SUPERGROUP,
+                  f"gate_up_i8_plan: K={k} must be a positive multiple of 256")
+    return _gate_up_rows(p, k, ff, cols, 16)
 
 
 def moe_decode_gate_up_i8(xq, xst, ids, gate_c, gate_sw, up_c, up_sw,
@@ -215,11 +234,15 @@ def moe_decode_gate_up_i8(xq, xst, ids, gate_c, gate_sw, up_c, up_sw,
     (K/256, P), ids int32 (P,) -> h bf16 (P, FF). Optional per-expert
     biases gate_b / up_b f32 (G, FF).
 
-    CUDA kernel ``csrc/moe_decode_i8.cu``, which replaces the Pallas kernel
-    ops/moe_decode.py:moe_decode_gate_up_i8 of the JAX package. Bound by
-    the routed experts' code bytes: a grid of (FF tiles, pairs), each block
-    reads its own ids[p] (no scalar prefetch on the GPU) and streams its
-    pair's gate and up rows with 16-byte loads into __dp4a."""
+    CUDA kernel ``csrc/moe_decode_i8.cu`` (``gate_up_i8_kernel``), which
+    replaces the Pallas kernel ops/moe_decode.py:moe_decode_gate_up_i8 of
+    the JAX package. Bound by the routed experts' code bytes: a block takes
+    one pair's gate and up rows over a few FF columns (``gate_up_i8_plan``),
+    all in flight at once, each lane streaming its 16-byte loads through a
+    ring of 4 into __dp4a against the pair's int8 row in shared memory; a
+    shuffle over a row's lanes forms each supergroup's exact sum, and one
+    thread a column adds the corrections in supergroup order, the bias and
+    the activation."""
     if xq.device.type == "cpu":
         return moe_decode_gate_up_i8_ref(xq, xst, ids, gate_c, gate_sw, up_c, up_sw,
                                          gate_b, up_b, activation=activation,
@@ -237,15 +260,17 @@ def moe_decode_gate_up_i8(xq, xst, ids, gate_c, gate_sw, up_c, up_sw,
     for t in (xst, ids, gate_c, gate_sw, up_c, up_sw, gate_b, up_b):
         _cuda.require(t is None or t.device == xq.device, f"{name}: operands on different devices")
     _cuda.require(activation in ACTIVATIONS, f"{name}: activation {activation!r}")
+    plan = gate_up_i8_plan(p, k, f)
     h = torch.empty((p, f), dtype=torch.bfloat16, device=xq.device)
     fn = _cuda.function("moe_decode_i8", "ik_moe_decode_gate_up_i8",
                         [_cuda.P, _cuda.P, _cuda.I, _cuda.I] + [_cuda.P] * 8
-                        + [_cuda.I] * 4 + [_cuda.F, _cuda.P])
+                        + [_cuda.I] * 4 + [_cuda.F] + [_cuda.I] * 2 + [_cuda.P])
     rc = fn(xq.data_ptr(), xst.data_ptr(), xst.stride(0), xst.stride(1), ids.data_ptr(),
             gate_c.data_ptr(), gate_sw.data_ptr(), up_c.data_ptr(), up_sw.data_ptr(),
             None if gate_b is None else gate_b.data_ptr(),
             None if up_b is None else up_b.data_ptr(), h.data_ptr(),
-            p, k, f, ACTIVATIONS[activation], float(act_limit), _cuda.stream_ptr(xq))
+            p, k, f, ACTIVATIONS[activation], float(act_limit), plan["cols"], plan["lanes"],
+            _cuda.stream_ptr(xq))
     moe_decode_gate_up_i8.launches += 1
     _cuda.check(rc, name)
     return h

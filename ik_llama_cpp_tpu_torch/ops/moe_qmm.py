@@ -65,19 +65,58 @@ def ragged_qmatmul_i8_ref(xq, xs, codes, sw, group_sizes):
     return out
 
 
+# Kernel 10 (csrc/moe_qmm_i8.cu, ragged_i8_wgmma_kernel): sweeps of 128
+# expert columns by 64 or 128 of the expert's tokens; a stage is 128 deep
+# (two a supergroup).
+RAGGED_I8_TN = 128
+RAGGED_I8_TMS = (64, 128)
+
+
+def ragged_i8_plan(m: int, n: int, k: int, g: int, sms: int = _cuda.DEFAULT_SMS,
+                   tm: int | None = None) -> dict:
+    """The launch of kernel 10, a pure function of the shapes and the SM
+    count, chosen before the launch (group_sizes stay on the device).
+
+    Sweeps of RAGGED_I8_TN expert columns by ``tm`` tokens of one expert
+    (the wgmma N dimension: 64 where the experts average up to 96 rows,
+    M / G, else 128; either when forced), ``n_tiles`` column
+    tiles, on a persistent grid of ``blocks``: one an SM, or fewer where the
+    most sweeps a call can have (``sweeps``: every column tile of
+    ceil(M / tm) + min(G, M) token tiles) are fewer. The sweeps are numbered
+    over the experts with rows in order, then column tiles, then token
+    tiles, and block b takes sweeps b, b + blocks, ...
+    (tests/test_torch_moe_qmm_i8_grouped.py models it). Every shape with K
+    a multiple of 256 and 1 <= G <= 1024 is taken: TMA loads the tokens and
+    the codes (K-contiguous rows of K bytes) and cp.async the scales, so no
+    shape needs another kernel. Refuses (ValueError) any other."""
+    _cuda.require(m >= 1 and n >= 1 and 1 <= g <= 1024 and k >= SUPERGROUP
+                  and k % SUPERGROUP == 0 and sms > 0,
+                  f"ragged_i8_plan: M={m} N={n} K={k} G={g} (K a multiple of 256, "
+                  "1 <= G <= 1024)")
+    if tm is None:
+        tm = 64 if m <= 96 * g else 128
+    _cuda.require(tm in RAGGED_I8_TMS, f"ragged_i8_plan: tm {tm} not in {RAGGED_I8_TMS}")
+    n_tiles = -(-n // RAGGED_I8_TN)
+    sweeps = n_tiles * (-(-m // tm) + min(g, m))
+    return {"tm": tm, "tn": RAGGED_I8_TN, "n_tiles": n_tiles, "sweeps": sweeps,
+            "blocks": min(sweeps, sms)}
+
+
 def ragged_qmatmul_i8(xq, xst, codes, sw, group_sizes):
     """Grouped int8 GEMM: xq int8 (M, K) sorted by group, xst f32 (K/256, M),
     codes int8 (G, K, N), sw f32 (G, K/256, N), group_sizes int32 (G,) ->
     f32 (M, N). On the card rows at or past sum(group_sizes) are left
     unwritten (whatever ``torch.empty`` held); no caller reads them.
 
-    CUDA kernel ``csrc/moe_qmm_i8.cu``, which replaces the Pallas kernel
-    ops/moe_qmm.py:ragged_qmatmul_i8 of the JAX package. Bound by int8
-    tensor-core work when the groups are long and by the expert bytes when
-    they are short: a grid of (N tiles, row tiles) sized from M alone;
-    each block finds the experts that own its rows from the group sizes on
-    the device, so an empty call (the overflow pass) exits at once with no
-    host sync."""
+    CUDA kernel ``csrc/moe_qmm_i8.cu`` (``ragged_i8_wgmma_kernel``), which
+    replaces the Pallas kernel ops/moe_qmm.py:ragged_qmatmul_i8 of the JAX
+    package. Bound by the live experts' code bytes at the models' sizes:
+    kernel 14's grouped sweeps (expert, 128 columns, ``tm`` of its tokens)
+    on a persistent grid that reads the group sizes on the device (no host
+    sync; an empty overflow pass costs one launch), each sweep an int8
+    warpgroup MMA of the expert's columns against its tokens fed by a TMA
+    ring (``ragged_i8_plan``); the supergroup corrections are added in the
+    plain version's order and rounding, so the live rows are its bits."""
     if xq.device.type == "cpu":
         return ragged_qmatmul_i8_ref(xq, xst.t(), codes, sw, group_sizes)
     name = "ragged_qmatmul_i8"
@@ -93,13 +132,14 @@ def ragged_qmatmul_i8(xq, xst, codes, sw, group_sizes):
                   f"{name}: group_sizes must be contiguous int32 (G,), G <= 1024")
     for t in (xst, codes, sw, group_sizes):
         _cuda.require(t.device == xq.device, f"{name}: operands on different devices")
+    plan = ragged_i8_plan(m, n, k, g, _cuda.sm_count(xq))
     out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
     fn = _cuda.function("moe_qmm_i8", "ik_ragged_qmatmul_i8",
                         [_cuda.P, _cuda.P, _cuda.I, _cuda.I] + [_cuda.P] * 4
-                        + [_cuda.I] * 4 + [_cuda.P])
+                        + [_cuda.I] * 6 + [_cuda.P])
     rc = fn(xq.data_ptr(), xst.data_ptr(), xst.stride(0), xst.stride(1),
             codes.data_ptr(), sw.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
-            m, n, k, g, _cuda.stream_ptr(xq))
+            m, n, k, g, plan["tm"], plan["blocks"], _cuda.stream_ptr(xq))
     ragged_qmatmul_i8.launches += 1
     _cuda.check(rc, name)
     return out
