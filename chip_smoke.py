@@ -370,40 +370,29 @@ def forced_cols(MD, cols: int):
 
 
 @contextmanager
-def forced_gate_up_cols(MD, cols: int, plan_name: str = "gate_up_plan"):
-    """The launches of kernel 12 (``gate_up_plan``) or kernel 7
+def forced_gate_up_cols(MD, cols: int):
+    """The launches of kernels 12 (``gate_up_plan``) and 7
     (``gate_up_i8_plan``) with ``cols`` columns a block (the plan then
     picks the lanes a row for that)."""
-    plan = getattr(MD, plan_name)
-    setattr(MD, plan_name, lambda *shape: plan(*shape, cols=cols))
+    plans = MD.gate_up_plan, MD.gate_up_i8_plan
+    MD.gate_up_plan = lambda *shape: plans[0](*shape, cols=cols)
+    MD.gate_up_i8_plan = lambda *shape: plans[1](*shape, cols=cols)
     try:
         yield
     finally:
-        setattr(MD, plan_name, plan)
+        MD.gate_up_plan, MD.gate_up_i8_plan = plans
 
 
-def gate_up_sweep(timer, MD, what: str, p: int, k: int, ff: int, fn,
-                  plan_name: str = "gate_up_plan") -> None:
-    """ms a call of kernel 7 or 12 by the columns a block and the lanes a
-    row the plan gives them (* = the plan's own)."""
-    want = getattr(MD, plan_name)(p, k, ff)["cols"]
+def gate_up_sweep(timer, MD, plan, what: str, p: int, k: int, ff: int, fn) -> None:
+    """ms a call of kernel 7 or 12 (``fn``) by the columns a block and the
+    lanes a row its ``plan`` gives them (* = the plan's own)."""
+    want = plan(p, k, ff)["cols"]
     row = []
     for cols in (2, 4, 8, 16, 32):
-        with forced_gate_up_cols(MD, cols, plan_name):
-            lanes = getattr(MD, plan_name)(p, k, ff)["lanes"]
+        lanes = plan(p, k, ff, cols=cols)["lanes"]
+        with forced_gate_up_cols(MD, cols):
             row.append(f"{cols}x{lanes}{'*' if cols == want else ''} {timer(fn, 5):.4f}")
     log(f"    {what}: ms by columns a block x lanes a row: " + ", ".join(row))
-
-
-@contextmanager
-def forced_i8_tm(MQ, tm: int):
-    """The launches of kernel 10 with sweeps of ``tm`` tokens."""
-    plan = MQ.ragged_i8_plan
-    MQ.ragged_i8_plan = lambda m, n, k, g, sms=MQ._cuda.DEFAULT_SMS: plan(m, n, k, g, sms, tm=tm)
-    try:
-        yield
-    finally:
-        MQ.ragged_i8_plan = plan
 
 
 @contextmanager
@@ -765,8 +754,8 @@ def phase_moe_kernels(torch, timer, results, c=MOE, dev="cuda") -> bool:
                       timer(lambda: torch.bmm(xb, wb)), bnd,
                       note=f" | {plan_text(MD.gate_up_i8_plan(p, e_, ff))}; bit-identical to "
                            f"plain: {bool(torch.equal(got, ref))}; repeats bit for bit: {rep}")
-        gate_up_sweep(timer, MD, f"kernel 7 P={p}", p, e_, ff,
-                      lambda: MD.moe_decode_gate_up_i8(*a7), "gate_up_i8_plan")
+        gate_up_sweep(timer, MD, MD.gate_up_i8_plan, f"kernel 7 P={p}", p, e_, ff,
+                      lambda: MD.moe_decode_gate_up_i8(*a7))
         del wb
         hq, hs = quantize_activations(ref)
         a8 = (hq, hs.t(), ids, down, dsw)
@@ -827,7 +816,7 @@ def phase_moe_kernels(torch, timer, results, c=MOE, dev="cuda") -> bool:
         wg = k_major((w.float() * torch.repeat_interleave(sw, 256, dim=1)).to(bf16))
         for name, sizes in size_sets.items():
             ok &= ragged_i8_case(torch, timer, results, xq, xs, w, sw, xb, wg, sizes,
-                                 f"M={m} K={k} N={n} {name}", sweep=name != "zero")
+                                 f"M={m} K={k} N={n} {name}")
             if (k, name) == (e_, "skewed"):
                 gs = torch.from_numpy(sizes.astype(np.int32)).to(dev)
                 a10 = (xq, xs.t(), w, sw, gs)
@@ -838,14 +827,13 @@ def phase_moe_kernels(torch, timer, results, c=MOE, dev="cuda") -> bool:
     return ok
 
 
-def ragged_i8_case(torch, timer, results, xq, xs, w, sw, xb, wg, sizes, case: str,
-                   sweep: bool = True) -> bool:
+def ragged_i8_case(torch, timer, results, xq, xs, w, sw, xb, wg, sizes, case: str) -> bool:
     """One kernel 10 case: xq int8 (M, K), xs f32 (M, K/256), w codes (G, K,
     N), sw (G, K/256, N), xb and wg the yardstick's dequantized rows and
     experts (k_major), sizes the group sizes (numpy). The live rows must be
     the plain version's bits and two calls must repeat them; the error is
     logged against the float32 reassociation bound of the first port's
-    check. ``sweep`` also times the kernel by the tokens of a sweep."""
+    check."""
     from ik_llama_cpp_tpu_torch.ops import moe_qmm as MQ
     (m, k), (g_, _, n) = xq.shape, w.shape
     gs = torch.from_numpy(np.asarray(sizes).astype(np.int32)).to(xq.device)
@@ -871,16 +859,6 @@ def ragged_i8_case(torch, timer, results, xq, xs, w, sw, xb, wg, sizes, case: st
                            f"on {plan['blocks']} blocks; {ne} experts with rows, at most "
                            f"{int(np.max(sizes)) if g_ else 0}; bit-identical to plain: {same}; "
                            f"repeats bit for bit: {rep}")
-    if sweep:
-        row = []
-        for tm in MQ.RAGGED_I8_TMS:
-            with forced_i8_tm(MQ, tm):
-                t = timer(lambda: MQ.ragged_qmatmul_i8(*a10), 5)
-                same_tm = bool(torch.equal(MQ.ragged_qmatmul_i8(*a10)[:total], got[:total]))
-            row.append(f"{tm}{'*' if tm == plan['tm'] else ''} {t:.4f}"
-                       f"{'' if same_tm else ' (other bits!)'}")
-            ok &= same_tm
-        log(f"    kernel 10 {case}: ms by tokens a sweep: " + ", ".join(row))
     return ok and same and rep
 
 
@@ -988,7 +966,7 @@ def phase_planar_moe_kernels(torch, timer, results, dev="cuda") -> bool:
                       timer(lambda: MD.moe_decode_gate_up_ref(*a12, group=group), 3),
                       timer(lambda: torch.bmm(xb, wb)), bnd,
                       note=f" | {plan_text(plan)}; repeats bit for bit: {rep}")
-        gate_up_sweep(timer, MD, f"kernel 12 P={p}", p, k, ff,
+        gate_up_sweep(timer, MD, MD.gate_up_plan, f"kernel 12 P={p}", p, k, ff,
                       lambda: MD.moe_decode_gate_up(*a12, group=group))
         del wb, gate, up
 
@@ -2255,19 +2233,14 @@ def phase_replay_9p(torch, timer, results, sizes: list, chunk_ms: dict, c=MOE) -
     return ok
 
 
-def phase_replay_10p(torch, timer, results, sizes: list, chunk_ms: dict, c=MOE) -> bool:
-    """Row 10p of phase 3, after phase 7: kernel 10 at the overflow of
-    phase 7's router (each expert's rows past kernel 9's bucket capacity,
-    which _fused_prefill_try sends through three kernel-10 calls a layer:
-    gate and up at K 2048 N 768, down at K 768 N 2048), on random codes
-    from a seed at that shape: layer 0's gate call against its plain
-    version (bits and a repeat), the library call and its bound, then every
-    layer's three calls timed alone, summed beside the profiled chunk's
-    kernel-10 time."""
-    from ik_llama_cpp_tpu_torch.ops import moe_qmm as MQ
+def replay_10p_inputs(torch, sizes: list, c=MOE):
+    """Row 10p's inputs: each layer's rows past kernel 9's bucket capacity
+    (``over``, one array a layer) at phase 7's router sizes, and the three
+    kernel-10 calls a layer of _fused_prefill_try's overflow pass (gate and
+    up at K E N FF, down at K FF N E) on random codes from seed 10. Returns
+    (m, capacity, over, calls)."""
     from ik_llama_cpp_tpu_torch.ops.moe import fused_capacity
     g_, e_, ff = c["G"], c["E"], c["FF"]
-    bf16 = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(10)
     m = int(np.sum(sizes[0]))
     r = fused_capacity(m, g_)
@@ -2280,20 +2253,38 @@ def phase_replay_10p(torch, timer, results, sizes: list, chunk_ms: dict, c=MOE) 
         xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
         xs = torch.rand((m, k // 256), generator=gen, device="cuda") * 1e-2 + 1e-4
         calls.append((xq, xs, w, sw))
-    xq, xs, w, sw = calls[0]
-    log(f"[3] 10p: kernel 10 at the overflow of phase 7's router (layer 0 of {len(sizes)}): "
-        f"{int(over[0].sum())} of {m} rows past capacity {r}, "
-        f"{int((over[0] > 0).sum())} experts with rows")
-    xb = (xq.float() * torch.repeat_interleave(xs, 256, dim=1)).to(bf16)
-    wg = k_major((w.float() * torch.repeat_interleave(sw, 256, dim=1)).to(bf16))
-    ok = ragged_i8_case(torch, timer, results, xq, xs, w, sw, xb, wg, over[0],
-                        f"M={m} K={e_} N={ff} phase-7 router overflow, layer 0")
-    del xb, wg
+    return m, r, over, calls
+
+
+def time_10p_layers(torch, timer, over: list, calls: list) -> float:
+    """ms of every layer's three kernel-10 calls of row 10p, each timed
+    alone (a clean L2 flush each), summed."""
+    from ik_llama_cpp_tpu_torch.ops import moe_qmm as MQ
     kern = 0.0
     for o in over:
         gs = torch.from_numpy(o.astype(np.int32)).cuda()
         for xq, xs, w, sw in calls:
             kern += timer(lambda: MQ.ragged_qmatmul_i8(xq, xs.t(), w, sw, gs), 5)
+    return kern
+
+
+def phase_replay_10p(torch, timer, results, sizes: list, chunk_ms: dict, c=MOE) -> bool:
+    """Row 10p of phase 3, after phase 7: kernel 10 at the overflow of
+    phase 7's router (replay_10p_inputs), layer 0's gate call against its
+    plain version (bits and a repeat), the library call and its bound, then
+    every layer's three calls timed alone, summed beside the profiled
+    chunk's kernel-10 time."""
+    m, r, over, calls = replay_10p_inputs(torch, sizes, c)
+    xq, xs, w, sw = calls[0]
+    log(f"[3] 10p: kernel 10 at the overflow of phase 7's router (layer 0 of {len(sizes)}): "
+        f"{int(over[0].sum())} of {m} rows past capacity {r}, "
+        f"{int((over[0] > 0).sum())} experts with rows")
+    xb = (xq.float() * torch.repeat_interleave(xs, 256, dim=1)).to(torch.bfloat16)
+    wg = k_major((w.float() * torch.repeat_interleave(sw, 256, dim=1)).to(torch.bfloat16))
+    ok = ragged_i8_case(torch, timer, results, xq, xs, w, sw, xb, wg, over[0],
+                        f"M={m} K={c['E']} N={c['FF']} phase-7 router overflow, layer 0")
+    del xb, wg
+    kern = time_10p_layers(torch, timer, over, calls)
     log(f"[3] 10p: the {len(sizes)} layers' {3 * len(sizes)} calls timed alone (clean flush "
         f"each): kernel 10 {kern:.3f} ms; the profiled chunk's kernel 10 "
         f"{chunk_ms['10']:.3f} ms")

@@ -147,7 +147,7 @@ IK_DEV void wgmma_s8_n192(int* d, uint64_t da, uint64_t db, int scale_d) {
 
 // The int8 warpgroup MMA of a 64-row A tile against BN rows of B, both
 // K-major in shared memory (128-byte swizzle descriptors): kernel A's tiled
-// form (BN = 64, 128, 192) and kernel 10 (BN = 64, 128 tokens).
+// form (BN = 64, 128, 192) and kernel 10 (BN = 64 tokens).
 template <int BN>
 IK_DEV void wgmma_s8(int* d, uint64_t da, uint64_t db, int scale_d) {
   if constexpr (BN == 192) wgmma_s8_n192(d, da, db, scale_d);

@@ -28,8 +28,9 @@
 // mbarriers from one producer warp, each supergroup's xs and sw slices by
 // cp.async into its first stage; two consumer warpgroups). The product is
 // computed as out^T = W^T x^T, kernel 14's orientation: the expert's 128
-// columns are the m64 operand of two warpgroups and the sweep's TM tokens
-// (64 or 128, ops/moe_qmm.ragged_i8_plan) the wgmma N dimension, so a
+// columns are the m64 operand of two warpgroups and the sweep's 64 tokens
+// the wgmma N dimension (a token tile of 128 measured slower at every
+// shape tried), so a
 // short group (tens of rows, often one) wastes little of a tile. One TMA
 // map over the codes as (G N, K) rows reaches any expert's tile with no
 // copy. Each supergroup's int32 sums start from zero and are folded by
@@ -76,6 +77,7 @@ constexpr unsigned FULL = 0xffffffffu;
 namespace grouped10 {
 
 constexpr int TN = 128;          // expert columns of a sweep: two consumer warpgroups of 64
+constexpr int TM = 64;           // tokens of a sweep: the wgmma N dimension
 constexpr int BK = 128;          // K of a stage: one 128-byte swizzled row a tile row
 constexpr int THREADS = 384;     // the producer warpgroup, then two consumer warpgroups
 constexpr int STATIC_SMEM = (3 * MAXG + 2) * 4;   // the rows map (rows_map)
@@ -83,7 +85,6 @@ constexpr int STATIC_SMEM = (3 * MAXG + 2) * 4;   // the rows map (rows_map)
 // A stage: the code tile [TN][BK], the token tile [TM][BK] and the
 // supergroup's scales (xs of the TM tokens, then sw of the TN columns),
 // as many stages as fit up to 8.
-template <int TM>
 struct Layout {
   static constexpr int A = TN * BK, B = TM * BK;      // bytes of a stage's tiles
   static constexpr int SC = TM + TN;                  // floats of a stage's scales
@@ -96,14 +97,13 @@ struct Layout {
 // out^T = W^T x^T over the grouped sweeps of csrc/moe_grouped.cuh: the
 // expert's TN columns are the wgmma A operand (two warpgroups of 64), the
 // sweep's TM tokens its N dimension.
-template <int TM>
 __global__ void __launch_bounds__(THREADS, 1)
 ragged_i8_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
                        const __grid_constant__ CUtensorMap map_w,
                        const float* __restrict__ xst, int s_sg, int s_m,
                        const float* __restrict__ sw, const int* __restrict__ gsz,
                        float* __restrict__ out, int M, int N, int K, int G) {
-  using L = Layout<TM>;
+  using L = Layout;
   __shared__ int s_end[MAXG], s_live[MAXG], s_first[MAXG + 1], s_n;
   rows_map<TM>(gsz, G, M, s_end, s_live, s_first, &s_n);
   extern __shared__ unsigned char smem_raw[];
@@ -231,14 +231,13 @@ ragged_i8_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
 // The two tensor maps (the tokens (M, K) and the codes as (G N, K) rows,
 // both K-contiguous bytes in the 128-byte swizzle; rows past either read
 // as zeros) and the launch.
-template <int TM>
 cudaError_t launch(const void* xq, const float* xst, int s_sg, int s_m, const void* codes,
                    const float* sw, const int* gsz, float* out, int M, int N, int K, int G,
                    int blocks, cudaStream_t s) {
-  using L = Layout<TM>;
+  using L = Layout;
   static_assert(L::STAGES >= 2 && L::BYTES + STATIC_SMEM <= MOE_SMEM_MAX,
                 "shared memory of one block");
-  auto kern = ragged_i8_wgmma_kernel<TM>;
+  auto kern = ragged_i8_wgmma_kernel;
   static bool smem_set = false;
   cudaError_t e = set_smem(kern, L::BYTES, smem_set);
   if (e != cudaSuccess) return e;
@@ -679,12 +678,12 @@ cudaError_t launch(const void* xg, const void* gate, const void* up, const void*
 
 }  // namespace
 
-// K % 256 == 0, M >= 1, 1 <= G <= 1024; tile_m (the tokens of a sweep, 64
-// or 128) and blocks (the persistent grid) from ops/moe_qmm.ragged_i8_plan.
+// K % 256 == 0, M >= 1, 1 <= G <= 1024; blocks (the persistent grid) from
+// ops/moe_qmm.ragged_i8_plan.
 extern "C" int ik_ragged_qmatmul_i8(const void* xq, const void* xst, int s_sg, int s_m,
                                     const void* codes, const void* sw, const void* gsz,
-                                    void* out, int M, int N, int K, int G, int tile_m,
-                                    int blocks, void* stream) {
+                                    void* out, int M, int N, int K, int G, int blocks,
+                                    void* stream) {
   if (K % MOE_SG || K < MOE_SG || M < 1 || N < 1 || G < 1 || G > MAXG || blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   auto x = static_cast<const float*>(xst);
@@ -692,13 +691,8 @@ extern "C" int ik_ragged_qmatmul_i8(const void* xq, const void* xst, int s_sg, i
   auto gs = static_cast<const int*>(gsz);
   auto o = static_cast<float*>(out);
   const auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  switch (tile_m) {
-    case 64: e = grouped10::launch<64>(xq, x, s_sg, s_m, codes, w, gs, o, M, N, K, G, blocks, s); break;
-    case 128: e = grouped10::launch<128>(xq, x, s_sg, s_m, codes, w, gs, o, M, N, K, G, blocks, s); break;
-    default: e = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(e);
+  return static_cast<int>(
+      grouped10::launch(xq, x, s_sg, s_m, codes, w, gs, o, M, N, K, G, blocks, s));
 }
 
 // R % 8 == 0, K and F multiples of 256; hb a bf16 (G, R, F), hq an int8

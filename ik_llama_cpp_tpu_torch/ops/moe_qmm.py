@@ -66,23 +66,21 @@ def ragged_qmatmul_i8_ref(xq, xs, codes, sw, group_sizes):
 
 
 # Kernel 10 (csrc/moe_qmm_i8.cu, ragged_i8_wgmma_kernel): sweeps of 128
-# expert columns by 64 or 128 of the expert's tokens; a stage is 128 deep
-# (two a supergroup).
+# expert columns by 64 of the expert's tokens; a stage is 128 deep (two a
+# supergroup).
 RAGGED_I8_TN = 128
-RAGGED_I8_TMS = (64, 128)
+RAGGED_I8_TM = 64
 
 
-def ragged_i8_plan(m: int, n: int, k: int, g: int, sms: int = _cuda.DEFAULT_SMS,
-                   tm: int | None = None) -> dict:
+def ragged_i8_plan(m: int, n: int, k: int, g: int, sms: int = _cuda.DEFAULT_SMS) -> dict:
     """The launch of kernel 10, a pure function of the shapes and the SM
     count, chosen before the launch (group_sizes stay on the device).
 
-    Sweeps of RAGGED_I8_TN expert columns by ``tm`` tokens of one expert
-    (the wgmma N dimension: 64 where the experts average up to 96 rows,
-    M / G, else 128; either when forced), ``n_tiles`` column
-    tiles, on a persistent grid of ``blocks``: one an SM, or fewer where the
-    most sweeps a call can have (``sweeps``: every column tile of
-    ceil(M / tm) + min(G, M) token tiles) are fewer. The sweeps are numbered
+    Sweeps of RAGGED_I8_TN expert columns by RAGGED_I8_TM tokens of one
+    expert (``tm``, the wgmma N dimension), ``n_tiles`` column tiles, on a
+    persistent grid of ``blocks``: one an SM, or fewer where the most
+    sweeps a call can have (``sweeps``: every column tile of ceil(M / tm) +
+    min(G, M) token tiles) are fewer. The sweeps are numbered
     over the experts with rows in order, then column tiles, then token
     tiles, and block b takes sweeps b, b + blocks, ...
     (tests/test_torch_moe_qmm_i8_grouped.py models it). Every shape with K
@@ -93,9 +91,7 @@ def ragged_i8_plan(m: int, n: int, k: int, g: int, sms: int = _cuda.DEFAULT_SMS,
                   and k % SUPERGROUP == 0 and sms > 0,
                   f"ragged_i8_plan: M={m} N={n} K={k} G={g} (K a multiple of 256, "
                   "1 <= G <= 1024)")
-    if tm is None:
-        tm = 64 if m <= 96 * g else 128
-    _cuda.require(tm in RAGGED_I8_TMS, f"ragged_i8_plan: tm {tm} not in {RAGGED_I8_TMS}")
+    tm = RAGGED_I8_TM
     n_tiles = -(-n // RAGGED_I8_TN)
     sweeps = n_tiles * (-(-m // tm) + min(g, m))
     return {"tm": tm, "tn": RAGGED_I8_TN, "n_tiles": n_tiles, "sweeps": sweeps,
@@ -111,7 +107,7 @@ def ragged_qmatmul_i8(xq, xst, codes, sw, group_sizes):
     CUDA kernel ``csrc/moe_qmm_i8.cu`` (``ragged_i8_wgmma_kernel``), which
     replaces the Pallas kernel ops/moe_qmm.py:ragged_qmatmul_i8 of the JAX
     package. Bound by the live experts' code bytes at the models' sizes:
-    kernel 14's grouped sweeps (expert, 128 columns, ``tm`` of its tokens)
+    kernel 14's grouped sweeps (expert, 128 columns, 64 of its tokens)
     on a persistent grid that reads the group sizes on the device (no host
     sync; an empty overflow pass costs one launch), each sweep an int8
     warpgroup MMA of the expert's columns against its tokens fed by a TMA
@@ -136,10 +132,10 @@ def ragged_qmatmul_i8(xq, xst, codes, sw, group_sizes):
     out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
     fn = _cuda.function("moe_qmm_i8", "ik_ragged_qmatmul_i8",
                         [_cuda.P, _cuda.P, _cuda.I, _cuda.I] + [_cuda.P] * 4
-                        + [_cuda.I] * 6 + [_cuda.P])
+                        + [_cuda.I] * 5 + [_cuda.P])
     rc = fn(xq.data_ptr(), xst.data_ptr(), xst.stride(0), xst.stride(1),
             codes.data_ptr(), sw.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
-            m, n, k, g, plan["tm"], plan["blocks"], _cuda.stream_ptr(xq))
+            m, n, k, g, plan["blocks"], _cuda.stream_ptr(xq))
     ragged_qmatmul_i8.launches += 1
     _cuda.check(rc, name)
     return out

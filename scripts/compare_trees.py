@@ -16,9 +16,10 @@ any differ. Run ``save`` once for each tree, each in its own process, on
 one card. ``time10p`` times the tree's kernel 10 at row 10p of
 chip_smoke.py (the overflow of kernel 9's buckets at the router's group
 sizes that phase 7 writes to build/qwen3moe_router_sizes.json, on the
-same seeded inputs as chip_smoke.phase_replay_10p): layer 0's gate call
-and every layer's three calls, each timed alone after chip_smoke's clean
-L2 flush, printed as one JSON line with the card's name and power limit.
+same seeded inputs and timing loop as chip_smoke.phase_replay_10p, from
+this checkout's chip_smoke.py): layer 0's gate call and every layer's three
+calls, each timed alone after a clean L2 flush, printed as one JSON line
+with the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -79,37 +80,21 @@ def cases(torch, MD, MQ):
 
 
 def time10p(torch, sizes: list, tree: Path) -> dict:
-    """Row 10p's timings of the tree's kernel 10 (chip_smoke.phase_replay_10p's inputs)."""
+    """Row 10p's timings of the tree's kernel 10, on the inputs and with
+    the timing loop of this checkout's chip_smoke.py (replay_10p_inputs,
+    time_10p_layers)."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(      # this checkout's, whatever tree is timed
         "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
     CS = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(CS)
     from ik_llama_cpp_tpu_torch.ops import moe_qmm as MQ
-    from ik_llama_cpp_tpu_torch.ops.moe import fused_capacity
-    c = CS.MOE
-    g_, e_, ff = c["G"], c["E"], c["FF"]
-    gen = torch.Generator(device="cuda").manual_seed(10)
-    m = int(np.sum(sizes[0]))
-    r = fused_capacity(m, g_)
-    over = [np.maximum(np.asarray(gs) - r, 0) for gs in sizes]
-    calls = []
-    for k, n in ((e_, ff), (e_, ff), (ff, e_)):
-        w = torch.randint(-127, 128, (g_, n, k), generator=gen, device="cuda",
-                          dtype=torch.int8).transpose(1, 2)
-        sw = torch.rand((g_, k // 256, n), generator=gen, device="cuda") * 2e-3 + 1e-5
-        xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
-        xs = torch.rand((m, k // 256), generator=gen, device="cuda") * 1e-2 + 1e-4
-        calls.append((xq, xs, w, sw))
+    _, _, over, calls = CS.replay_10p_inputs(torch, sizes)
     timer = CS.Timer(torch, reps=10)
     xq, xs, w, sw = calls[0]
     gs0 = torch.from_numpy(over[0].astype(np.int32)).cuda()
     layer0 = timer(lambda: MQ.ragged_qmatmul_i8(xq, xs.t(), w, sw, gs0))
-    total = 0.0
-    for o in over:
-        gs = torch.from_numpy(o.astype(np.int32)).cuda()
-        for xq, xs, w, sw in calls:
-            total += timer(lambda: MQ.ragged_qmatmul_i8(xq, xs.t(), w, sw, gs), 5)
+    total = CS.time_10p_layers(torch, timer, over, calls)
     smi = CS.subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                              "--format=csv,noheader"], capture_output=True, text=True)
     return {"tree": str(tree), "package": MQ.__file__, "layer0_ms": layer0,

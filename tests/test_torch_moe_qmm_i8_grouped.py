@@ -5,7 +5,7 @@ the JAX package, and the kernel against its plain version on the card
 (skipped without one).
 
 The kernel computes each supergroup's exact int32 sums with the int8
-warpgroup MMA, a sweep of ``tm`` tokens by 128 expert columns at a time, and
+warpgroup MMA, a sweep of 64 tokens by 128 expert columns at a time, and
 folds them as acc + part * (xs * sw), rounded at each step, in supergroup
 order: the plain version's expression and order. So the model, and the
 kernel, give ``ragged_qmatmul_i8_ref``'s bits; against the JAX oracle they
@@ -34,13 +34,13 @@ SMS = _cuda.DEFAULT_SMS
     (2048, 1408, 2048, 60),     # Qwen1.5-MoE-A2.7B gate/up (phase 12)
     (40000, 512, 1024, 8), (1, 128, 256, 1), (17, 96, 512, 1024), (300, 1000, 256, 5)])
 def test_plan_fills_the_card(m, n, k, g):
-    """A pure function of the shapes and the SM count: 64 tokens a sweep
-    where the experts average up to 96 rows (M / G), else 128; 128 columns;
+    """A pure function of the shapes and the SM count: 64 tokens a sweep,
+    128 columns;
     the grid one block an SM, or the most sweeps a call can have where
     those are fewer; no group sizes give more sweeps than it counts."""
     plan = TQ.ragged_i8_plan(m, n, k, g, SMS)
     assert plan == TQ.ragged_i8_plan(m, n, k, g, SMS)
-    assert plan["tm"] == (64 if m <= 96 * g else 128)
+    assert plan["tm"] == TQ.RAGGED_I8_TM == 64
     assert plan["tn"] == TQ.RAGGED_I8_TN and plan["n_tiles"] == -(-n // TQ.RAGGED_I8_TN)
     assert plan["sweeps"] == plan["n_tiles"] * (-(-m // plan["tm"]) + min(g, m))
     assert plan["blocks"] == min(plan["sweeps"], SMS)
@@ -52,43 +52,46 @@ def test_plan_fills_the_card(m, n, k, g):
             assert sum(map(len, got)) <= plan["sweeps"]
 
 
-@pytest.mark.parametrize("tm", TQ.RAGGED_I8_TMS)
-def test_plan_takes_a_forced_token_tile(tm):
-    """chip_smoke.py's sweep forces 64 or 128 tokens a sweep."""
-    plan = TQ.ragged_i8_plan(4096, 768, 2048, 128, SMS, tm=tm)
-    assert plan["tm"] == tm and plan["sweeps"] == 6 * (4096 // tm + 128)
+@pytest.mark.parametrize("m,g,sweeps", [
+    (4096, 128, 6 * (4096 // 64 + 128)),     # 32 rows an expert, phase 3's row 10
+    (40000, 8, 6 * (-(-40000 // 64) + 8))])  # 5,000 rows an expert
+def test_plan_token_tile_is_the_kernels_one_form(m, g, sweeps):
+    """The kernel has one form, 64 tokens a sweep, however many rows the
+    experts average; the most sweeps count its token tiles."""
+    plan = TQ.ragged_i8_plan(m, 768, 2048, g, SMS)
+    assert plan["tm"] == 64 and plan["sweeps"] == sweeps
 
 
-@pytest.mark.parametrize("m,n,k,g,tm", [
-    (64, 128, 128, 4, None),          # K not a multiple of 256
-    (64, 128, 384, 4, None),
-    (64, 128, 0, 4, None),
-    (64, 128, 256, 1025, None),       # more groups than the rows map holds
-    (64, 128, 256, 0, None),
-    (0, 128, 256, 4, None),           # no rows
-    (64, 0, 256, 4, None),
-    (64, 128, 256, 4, 48),            # sweep widths the kernel has no form of
-    (64, 128, 256, 4, 32)])
-def test_plan_refuses_what_the_kernel_does_not_take(m, n, k, g, tm):
+@pytest.mark.parametrize("m,n,k,g,sms", [
+    (64, 128, 128, 4, SMS),           # K not a multiple of 256
+    (64, 128, 384, 4, SMS),
+    (64, 128, 0, 4, SMS),
+    (64, 128, 256, 1025, SMS),        # more groups than the rows map holds
+    (64, 128, 256, 0, SMS),
+    (64, 128, 256, -1, SMS),
+    (0, 128, 256, 4, SMS),            # no rows
+    (64, 0, 256, 4, SMS),
+    (64, 128, 256, 4, 0)])            # no SMs to launch on
+def test_plan_refuses_what_the_kernel_does_not_take(m, n, k, g, sms):
     with pytest.raises(ValueError):
-        TQ.ragged_i8_plan(m, n, k, g, SMS, tm=tm)
+        TQ.ragged_i8_plan(m, n, k, g, sms)
 
 
 # --------------------------------------------------------- the work list --
 @pytest.mark.parametrize("kind", ["random", "skewed", "zero", "one", "sparse", "past_m"])
-@pytest.mark.parametrize("m,n,g,tm,blocks", [
-    (4096, 768, 128, None, 132),       # row 10 and the overflow pass
-    (4096, 2048, 128, 128, 132),       # the down shape at 128 tokens a sweep
-    (2048, 1408, 60, None, 132),       # Qwen1.5-MoE-A2.7B
-    (300, 768, 16, 128, 7), (20, 384, 8, None, 1)])
-def test_sweeps_store_every_live_row_once(kind, m, n, g, tm, blocks):
+@pytest.mark.parametrize("m,n,g,blocks", [
+    (4096, 768, 128, 132),       # row 10 and the overflow pass
+    (4096, 2048, 128, 132),      # the down shape
+    (2048, 1408, 60, 132),       # Qwen1.5-MoE-A2.7B
+    (300, 768, 16, 7), (20, 384, 8, 1)])
+def test_sweeps_store_every_live_row_once(kind, m, n, g, blocks):
     """Every live row is stored exactly once in each column tile, by a
     sweep of its own expert (a token tile that runs into the next expert's
     rows stores only its own); an expert's sweeps of a column tile are
     consecutive, token tiles in order; each block takes every blocks-th
     sweep; empty experts and rows past the live ones get nothing."""
     gs = sizes(kind, m, g, seed=m + g + 1)
-    plan = dict(TQ.ragged_i8_plan(m, n, 2048, g, SMS, tm=tm), blocks=blocks)
+    plan = dict(TQ.ragged_i8_plan(m, n, 2048, g, SMS), blocks=blocks)
     got = ragged_items(plan, gs, m)
     ends = np.minimum(np.cumsum(gs), m)
     starts = np.concatenate([[0], ends[:-1]])
@@ -171,19 +174,17 @@ MODEL_CASES = [(256, 512, 256, 8, "skewed"), (96, 256, 128, 12, "one_row"),
 
 @pytest.mark.parametrize("m,k,n,g,kind", MODEL_CASES)
 def test_sweep_model_gives_the_plain_bits(m, k, n, g, kind):
-    """At the plan's token tile and at every forced one, the model of the
-    kernel's sweeps and fold gives the plain version's bits on every live
-    row, and the JAX oracle within rtol 1e-5, atol 1e-5."""
+    """The model of the kernel's sweeps and fold gives the plain version's
+    bits on every live row, and the JAX oracle within rtol 1e-5, atol
+    1e-5."""
     xq, xs, codes, sw = i8_case(m, k, n, g, seed=m + n)
     gs = case_sizes(kind, m, g, seed=m).astype(np.int32)
     live = min(int(gs.sum()), m)
     tc, tsw, tgs = torch.from_numpy(codes), torch.from_numpy(sw), torch.from_numpy(gs)
     ref = TQ.ragged_qmatmul_i8_ref(xq, xs, tc, tsw, tgs)
-    plan_tm = TQ.ragged_i8_plan(m, n, k, g, SMS)["tm"]
-    for tm in sorted({plan_tm, *TQ.RAGGED_I8_TMS}):
-        got = sweep_model(xq, xs, tc, tsw, gs, tm)
-        assert torch.equal(got[:live], ref[:live]), tm
-        assert torch.isnan(got[live:]).all()
+    got = sweep_model(xq, xs, tc, tsw, gs, TQ.ragged_i8_plan(m, n, k, g, SMS)["tm"])
+    assert torch.equal(got[:live], ref[:live])
+    assert torch.isnan(got[live:]).all()
     jref = JQ.ragged_qmatmul_i8_ref(jnp.asarray(xq.numpy()), jnp.asarray(xs.numpy()),
                                     jnp.asarray(codes), jnp.asarray(sw), jnp.asarray(gs))
     np.testing.assert_allclose(got[:live].numpy(), np.asarray(jref)[:live], rtol=1e-5, atol=1e-5)
@@ -219,8 +220,8 @@ def t_codes(codes):
 @needs_cuda
 @pytest.mark.parametrize("m,k,n,g,kind", CARD)
 def test_kernel_gives_the_plain_bits(m, k, n, g, kind):
-    """Kernel 10 against its plain version on every live row, bit for bit,
-    at the plan's token tile and at every forced one; two calls repeat."""
+    """Kernel 10 against its plain version on every live row, bit for bit;
+    two calls repeat."""
     xq, xs, codes, sw = i8_case(m, k, n, g, seed=m + k)
     gs = torch.from_numpy(case_sizes(kind, m, g, seed=m).astype(np.int32)).cuda()
     live = min(int(gs.sum()), m)
@@ -229,10 +230,3 @@ def test_kernel_gives_the_plain_bits(m, k, n, g, kind):
     got = TQ.ragged_qmatmul_i8(xq, xs.t(), c, s, gs)
     assert torch.equal(got[:live], ref[:live])
     assert torch.equal(TQ.ragged_qmatmul_i8(xq, xs.t(), c, s, gs)[:live], got[:live])
-    plan = TQ.ragged_i8_plan
-    try:
-        for tm in TQ.RAGGED_I8_TMS:
-            TQ.ragged_i8_plan = lambda *a, tm=tm: plan(*a, tm=tm)
-            assert torch.equal(TQ.ragged_qmatmul_i8(xq, xs.t(), c, s, gs)[:live], ref[:live]), tm
-    finally:
-        TQ.ragged_i8_plan = plan
