@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13,14,15]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16]
 
 Phases (all by default; any failure exits non-zero):
   1. device: the card's name and power limit; TF32 off for the plain versions
@@ -83,6 +83,15 @@ Phases (all by default; any failure exits non-zero):
  15. the dequant microbenchmark tool (tools/perf_dequant) at its default
      shape: the planar GEMM with f32 and bf16 scales, its pair form, and a
      bf16 torch.matmul
+ 16. the text-serving path at the full width of phase 4 (its file carries a
+     SentencePiece vocabulary of 32,000 pieces): a BatchEngine of 4 slots
+     over one bf16 cache answers six text requests at once through the
+     Server's request methods (no HTTP): prompts of 20 to 600 tokens, three
+     greedy (one with a stop string, one streamed) and three sampled (one
+     a chat through the built-in llama-3 template); the launches of kernels
+     A, B and C counted over the run, requests/s and tokens/s over all
+     slots, and each greedy request replayed at B = 1 on the kernel path
+     and the plain path over its own history
 The line before the last lists every ported kernel as JSON; the last line is
 {"ok": true, "device": {...}}. Without CUDA, or without the package beside
 this file, it exits non-zero and prints no result.
@@ -110,7 +119,7 @@ BF16_FLOPS = 989e12        # dense bf16 tensor-core flop/s
 E, H, HKV, FF, V, NL = 4096, 32, 8, 14336, 32000, 32
 D = E // H
 PREFILL, DECODE = 512, 64
-GGUF_VERSION = "port-1"
+GGUF_VERSION = "port-2"
 # Qwen3-30B-A3B (the published config.json of Qwen/Qwen3-30B-A3B)
 MOE = dict(ARCH="qwen3moe", L=48, E=2048, H=32, HKV=4, D=128, G=128, TOPK=8, FF=768,
            V=151936)
@@ -1433,9 +1442,58 @@ def sync(torch) -> None:
         torch.cuda.synchronize()
 
 
+WORDS = ("the of and to in is was for on that with as by at from his her they have had "
+         "not are this which but be were one all their there been has when who will more "
+         "no if out so said what up its about into than them can only other new some could "
+         "time these two may then do first any my now such like our over man me even most "
+         "made after also did many before must through back years where much your way well "
+         "down should because each just those people how too little state good very make "
+         "world still own see men work long get here between both life being under never "
+         "day same another know while last might us great old year off come since against "
+         "go came right used take three model server token prompt answer question kernel "
+         "request slot batch cache layer weight random seed text word").split()
+
+
+def spm_vocab(n: int):
+    """A synthetic SentencePiece vocabulary of n pieces (tokens, scores,
+    types): <unk> <s> </s>, the 256 <0xXX> byte tokens, the printable ASCII
+    characters and U+2581, every prefix of each WORDS entry with its
+    U+2581 word-start mark and every substring of each word, then
+    two- and three-letter pieces drawn from seed 0 up to n. Any text
+    round-trips: what no piece covers falls back to byte tokens."""
+    rng = np.random.default_rng(0)
+    tokens = ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
+    types = [2, 3, 3] + [6] * 256
+    pieces = ["\u2581"] + [chr(c) for c in range(33, 127)]
+    for w in WORDS:
+        mw = "\u2581" + w
+        pieces += [mw[:i] for i in range(2, len(mw) + 1)]
+        pieces += [w[i:j] for i in range(len(w)) for j in range(i + 2, len(w) + 1)]
+    seen = set(tokens)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    while len(seen) < n:
+        for p in pieces:
+            if p not in seen and len(tokens) < n:
+                seen.add(p)
+                tokens.append(p)
+                types.append(1)
+        size = int(rng.integers(2, 4))
+        piece = "".join(rng.choice(letters, size))
+        pieces = [piece, "\u2581" + piece]
+    scores = [0.0] * 259 + [-float(i) for i in range(n - 259)]
+    return tokens, scores, types
+
+
+def smoke_text(rng, n_words: int) -> str:
+    """n_words words of WORDS drawn from rng, with a full stop now and then."""
+    words = [str(w) for w in rng.choice(WORDS, n_words)]
+    return " ".join(w + ("." if i % 11 == 10 else "") for i, w in enumerate(words))
+
+
 def build_gguf(path: Path) -> Path:
     """The full-width llama layer as GGUF (one block; Q4_0 planar weights, a
-    Q8_0 tied head), random weights from seed 0; cached beside a .meta."""
+    Q8_0 tied head), random weights from seed 0 and the SentencePiece
+    vocabulary of spm_vocab; cached beside a .meta."""
     from ik_llama_cpp_tpu_torch.gguf.constants import GGMLType
     from ik_llama_cpp_tpu_torch.gguf.writer import GGUFWriter
     from ik_llama_cpp_tpu_torch.quant.quantize import quantize
@@ -1453,11 +1511,11 @@ def build_gguf(path: Path) -> Path:
                      ("rope.freq_base", 500000.0), ("rope.dimension_count", D),
                      ("vocab_size", V)):
         w.add(f"llama.{key}", val)
+    tokens, scores, types = spm_vocab(V)
     w.add("tokenizer.ggml.model", "llama")
-    w.add("tokenizer.ggml.tokens", ["<unk>", "<s>", "</s>"]
-          + [f"<t{i}>" for i in range(V - 3)])
-    w.add("tokenizer.ggml.scores", np.zeros(V, np.float32))
-    w.add("tokenizer.ggml.token_type", np.asarray([2, 3, 3] + [1] * (V - 3), np.int32))
+    w.add("tokenizer.ggml.tokens", tokens)
+    w.add("tokenizer.ggml.scores", np.asarray(scores, np.float32))
+    w.add("tokenizer.ggml.token_type", np.asarray(types, np.int32))
     w.add("tokenizer.ggml.bos_token_id", 1)
     w.add("tokenizer.ggml.eos_token_id", 2)
 
@@ -2495,6 +2553,229 @@ def phase_perf_dequant(torch, launches: dict) -> bool:
     return ok
 
 
+SERVER_SLOTS = 4
+
+
+def server_requests() -> list:
+    """Phase 16's six requests: (name, Server method, body). Prompts of
+    about 20 to 600 tokens from seed 16; three greedy requests (one with a
+    stop string, one streamed), three sampled at temp 0.8, top_k 40 with
+    fixed seeds (one a chat through the built-in llama-3 template)."""
+    rng = np.random.default_rng(16)
+    text = lambda n: smoke_text(rng, n)
+    greedy = dict(temperature=0.0, return_tokens=True)
+    sampled = dict(temperature=0.8, top_k=40, top_p=1.0, min_p=0.0)
+    return [
+        ("greedy 600", "completion", dict(prompt=text(540), n_predict=48, **greedy)),
+        ("greedy stop", "completion", dict(prompt=text(36), n_predict=40, stop=["x"],
+                                           **greedy)),
+        ("greedy stream", "completion_stream", dict(prompt=text(120), n_predict=56,
+                                                    stream=True, **greedy)),
+        ("sampled chat", "oai_chat", dict(messages=[
+            {"role": "system", "content": text(12)},
+            {"role": "user", "content": text(40)}], max_tokens=32, seed=1, **sampled)),
+        ("sampled 300", "oai_completions", dict(prompt=text(270), max_tokens=64, seed=2,
+                                                **sampled)),
+        ("sampled 20", "completion", dict(prompt=text(18), n_predict=40, seed=3, **sampled)),
+    ]
+
+
+def serve_all(srv, reqs) -> dict:
+    """Every request from a thread of its own, all at once; {name: (result
+    or the stream's events, error text)}."""
+    import threading
+    out = {}
+
+    def run(name, method, body):
+        try:
+            res = getattr(srv, method)(body)
+            out[name] = (list(res) if method.endswith("_stream") else res, None)
+        except Exception as e:          # noqa: BLE001 - reported as a failed request
+            out[name] = (None, f"{type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=run, args=r) for r in reqs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return out
+
+
+def greedy_ids(method: str, res) -> list:
+    """The generated ids of a greedy request (``return_tokens``)."""
+    return res[-1]["data"]["tokens"] if method == "completion_stream" else res["tokens"]
+
+
+def replay_verdict(torch, rt, prompt: list, gen: list):
+    """Phase 16's one-history parity: prompt + generated ids through
+    Runtime.eval_tokens at B = 1 on the kernel path and on the plain path.
+    The logits of every generation step agree within 5% of the largest
+    (parity_verdict), and every token the engine emitted is the kernel
+    replay's argmax, or its runner-up within 1% of the largest logit of
+    the top 2 (the engine ran these rows at B = 4)."""
+    ids = prompt + gen[:-1]
+    cap = len(ids) + 16
+    lk = rt.eval_tokens(ids, rt.new_cache(1, cap), 0, all_logits=True)[0][len(prompt) - 1:]
+    with plain_path():
+        lp = rt.eval_tokens(ids, rt.new_cache(1, cap), 0, all_logits=True)[0][len(prompt) - 1:]
+    ok, text = parity_verdict(lk, lp)
+    top2 = lk.topk(2, dim=1)
+    bad = []
+    for i, tok in enumerate(gen):
+        best, second = int(top2.indices[i, 0]), int(top2.indices[i, 1])
+        gap = float(top2.values[i, 0] - top2.values[i, 1])
+        if tok != best and not (tok == second and gap <= 1e-2 * float(top2.values[i, 0].abs())):
+            bad.append((i, tok, best, round(gap, 4)))
+    return ok and not bad, text + (f"; emitted tokens off the replay's top: {bad}" if bad
+                                   else f"; all {len(gen)} emitted tokens are the replay's picks")
+
+
+def span_cost(torch, rt, capacity: int = 2048, bucket: int = 512) -> str:
+    """What a prefill round of slots 0 and 2 costs at the server's default
+    capacity, on a cache of 4 rows: the engine's one forward over the span
+    of rows 0-2 (row 1 writes junk), beside one forward over two adjacent
+    rows, a forward for each of the two slots, and the gather of the two
+    rows and their scatter back that a copy would add (ms by CUDA events,
+    median of 3 after a warm call)."""
+    from ik_llama_cpp_tpu_torch.models import llama as llama_mod
+    from ik_llama_cpp_tpu_torch.server.engine import _cache_tensors, cache_rows
+    kv = rt.new_cache(4, capacity)
+    toks = torch.from_numpy(np.random.default_rng(16).integers(
+        0, V, (3, bucket), dtype=np.int64)).to(rt.device)
+    fwd = lambda t, lo, n: llama_mod.forward(rt.params, rt.cfg, t, cache_rows(kv, lo, n),
+                                             [0] * n)
+    sel = torch.tensor([0, 2], device=rt.device)
+
+    def copy_rows():
+        for t in _cache_tensors(kv):
+            t.index_copy_(1, sel, t.index_select(1, sel))
+
+    def ms(fn):
+        fn()
+        ts = []
+        for _ in range(3):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            ts.append(s.elapsed_time(e))
+        return statistics.median(ts)
+
+    two = ms(lambda: fwd(toks[:2], 0, 2))
+    span = ms(lambda: fwd(toks, 0, 3))
+    apart = ms(lambda: (fwd(toks[:1], 0, 1), fwd(toks[2:], 2, 1)))
+    gather = ms(copy_rows)
+    row = sum(t[:, 0].numel() * t.element_size() for t in _cache_tensors(kv))
+    n_rows = kv.capacity
+    del kv
+    torch.cuda.empty_cache()
+    return (f"prefill of slots 0 and 2 at bucket {bucket}, {n_rows} cache rows "
+            f"({row / 2**20:.0f} MiB a slot): span of rows 0-2 {span:.2f} ms, two adjacent "
+            f"rows {two:.2f} ms, a forward a slot {apart:.2f} ms; a gather and scatter "
+            f"back of the two rows {gather:.2f} ms and {2 * row / 2**20:.0f} MiB")
+
+
+def phase_server(torch, gguf: Path) -> bool:
+    """Phase 16: the text-serving path at the full width of phase 4 (L32):
+    a BatchEngine of SERVER_SLOTS slots over one bf16 cache, driven through
+    the Server's request methods (no HTTP) with six text requests at once,
+    every kernel launch of the run counted; then each greedy request's
+    one-history parity."""
+    from ik_llama_cpp_tpu_torch.runtime.generate import Runtime
+    from ik_llama_cpp_tpu_torch.server.app import Server
+    from ik_llama_cpp_tpu_torch.server.engine import BatchEngine
+    t_phase = time.perf_counter()
+    rt = clone_layers(Runtime.from_gguf(gguf, fuse=True), NL)
+    eng = BatchEngine(rt, n_slots=SERVER_SLOTS, capacity=1024)
+    srv = Server(eng, model_name="smoke8b", template="llama3")
+    reqs = server_requests()
+    eng.start()
+    srv.completion(dict(prompt="warm up", n_predict=4, temperature=0.0))
+    sync(torch)
+    log(f"[16] loaded L{NL} and served one warm-up request in "
+        f"{time.perf_counter() - t_phase:.1f} s; {SERVER_SLOTS} slots, capacity 1024")
+    steps0, fwd0, gen0 = eng.n_decode_steps, eng.n_prefill_forwards, eng.n_tokens_predicted
+    prompt0 = eng.n_prompt_tokens_processed
+    reset_counts()
+    t0 = time.perf_counter()
+    out = serve_all(srv, reqs)
+    sync(torch)
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    alive, failed = eng.alive, eng.n_failed
+    eng.stop()
+    steps, fwds = eng.n_decode_steps - steps0, eng.n_prefill_forwards - fwd0
+    n_gen = eng.n_tokens_predicted - gen0
+    n_prompt = eng.n_prompt_tokens_processed - prompt0
+    ok = alive and failed == 0 and all(err is None for _, err in out.values())
+    tok = rt.tokenizer
+    for name, method, body in reqs:
+        res, err = out[name]
+        if err is not None:
+            log(f"[16] {name}: FAILED: {err}")
+            continue
+        if method == "completion_stream":
+            text = "".join(ev["data"]["content"] for ev in res)
+            good = res[-1]["data"]["stop"] and res[-1]["data"]["tokens_predicted"] > 0
+        elif method == "oai_chat":
+            text = res["choices"][0]["message"]["content"] or ""
+            good = (res["choices"][0]["message"]["role"] == "assistant"
+                    and res["usage"]["completion_tokens"] > 0)
+        elif method == "oai_completions":
+            text = res["choices"][0]["text"]
+            good = res["usage"]["completion_tokens"] > 0
+        else:
+            text = res["content"]
+            good = res["tokens_predicted"] > 0
+        if body.get("stop"):
+            good = good and not any(st in text for st in body["stop"])
+        if body.get("return_tokens"):
+            gen = greedy_ids(method, res)
+            good = good and all(0 <= t < V for t in gen)
+        ok &= good
+        log(f"[16] {name} ({method}): {len(text)} chars {text[:60]!r}: "
+            f"{'ok' if good else 'FAIL'}")
+    per = 4 * NL + 1
+    want_a = per * (steps + fwds)
+    ab = (counts["qmatmul_i8"] > 0 and counts["flash_attention"] > 0
+          and counts["flash_attention_decode"] > 0)
+    exact = (counts["qmatmul_i8"] == want_a
+             and counts["flash_attention"] + counts["flash_attention_decode"]
+             == NL * (steps + fwds)
+             and counts["flash_attention_decode"] >= NL * steps)
+    others = {k: v for k, v in counts.items()
+              if v and k not in ("qmatmul_i8", "flash_attention", "flash_attention_decode")}
+    ok &= ab and exact and not others
+    log(f"[16] {len(reqs)} requests on {SERVER_SLOTS} slots: {n_prompt} prompt tokens, "
+        f"{n_gen} generated tokens in {secs:.2f} s = {n_gen / secs:.2f} tok/s over all slots, "
+        f"{len(reqs) / secs:.3f} requests/s; {steps} decode steps at B = {SERVER_SLOTS} "
+        f"({eng.n_topk_steps} with the top-k readback in all), {fwds} prefill forwards; "
+        f"failed requests {failed}, engine thread alive {alive}")
+    log(f"[16] launches A {counts['qmatmul_i8']} (want {per} a forward = {want_a}), "
+        f"B {counts['flash_attention']}, C {counts['flash_attention_decode']} "
+        f"(B + C = {NL} a forward, C >= {NL} a decode step); a decode step at "
+        f"B = {SERVER_SLOTS}: A {per}, C {NL}; other kernels {others}: "
+        f"{'ok' if ab and exact and not others else 'FAIL'}")
+    t1 = time.perf_counter()
+    for name, method, body in reqs:
+        res, err = out[name]
+        if err is not None or not body.get("return_tokens"):
+            continue
+        good, text = replay_verdict(torch, rt, tok.encode(body["prompt"]),
+                                    greedy_ids(method, res))
+        ok &= good
+        log(f"[16] {name} replay at B = 1, kernel path vs plain path: {text}: "
+            f"{'ok' if good else 'FAIL'}")
+    log(f"[16] parity {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    log(f"[16] {span_cost(torch, rt)} ({time.perf_counter() - t1:.1f} s)")
+    log(f"[16] text-serving path: {time.perf_counter() - t_phase:.1f} s in all")
+    del rt, eng, srv
+    torch.cuda.empty_cache()
+    return bool(ok)
+
+
 def _linear_kinds(rt) -> list:
     return sorted({type(v).__name__ for b in rt.params["blocks"] for v in b.values()
                    if hasattr(v, "forward")})
@@ -2861,7 +3142,7 @@ def summary(results, launches) -> list:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
     try:
@@ -2897,7 +3178,7 @@ def main() -> int:
         ok &= timed("3 planar moe", phase_planar_moe_kernels, torch, timer, results)
         timed("3 flush", flush_verdict, timer)
     gguf = None
-    if phases & {4, 5, 6, 9, 10, 11}:
+    if phases & {4, 5, 6, 9, 10, 11, 16}:
         t0 = time.perf_counter()
         gguf = timed("4 file", build_gguf, ROOT / "build" / "smoke8b.gguf")
         log(f"[4] model file ready in {time.perf_counter() - t0:.1f} s: {gguf}")
@@ -2938,14 +3219,16 @@ def main() -> int:
                         replay["chunk_ms"])
     if 15 in phases:
         ok &= timed("15", phase_perf_dequant, torch, launches)
+    if 16 in phases:
+        ok &= timed("16", phase_server, torch, gguf)
     kernels = summary(results, launches)
-    if phases >= {3, 4, 6, 7, 9, 11, 12, 14, 15}:
+    if phases >= {3, 4, 6, 7, 9, 11, 12, 14, 15, 16}:
         for k in kernels:
             if k["launches"] <= 0:
                 log(f"chip_smoke: kernel {k['name']} was never launched on its path")
                 ok = False
-    log("[16] seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in spent.items()))
-    log(f"[16] total {time.perf_counter() - t_start:.1f} s")
+    log("[end] seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in spent.items()))
+    log(f"[end] total {time.perf_counter() - t_start:.1f} s")
     if not ok:
         fail("a phase failed (see above)")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -113,6 +113,13 @@ class QuantExpertWeights:
         return self.gate_group == self.up_group == self.down_group == SUPERGROUP
 
 
+def _fused_enabled() -> bool:
+    """IK_MOE_FUSED=0 opts out of the capacity-bucketed fused prefill
+    (kernel 9) in favour of the ragged chain; read at call time, on by
+    default as in the JAX package."""
+    return os.environ.get("IK_MOE_FUSED", "1") not in ("0", "false", "")
+
+
 def _fused_tg_enabled() -> bool:
     """IK_MOE_FUSED_TG=1 opts into the single-kernel decode (kernel 11);
     read at call time, off by default as in the JAX package."""
@@ -129,15 +136,15 @@ def _fused_prefill_try(xs, group_sizes, experts: QuantExpertWeights,
                        activation: str, act_limit: float):
     """Capacity-bucketed whole-FFN prefill (kernel 9) with the ragged
     overflow pass (kernel 10, three launches). Returns y f32 (M, E) for the
-    sorted rows, or None when a projection is not supergroup, the fused
-    kernel does not take the shapes or the experts carry gate/up biases;
-    the caller then runs the ragged chain. The same routing by shape as the
+    sorted rows, or None when IK_MOE_FUSED=0, a projection is not
+    supergroup, the fused kernel does not take the shapes or the experts
+    carry gate/up biases; the caller then runs the ragged chain. The same routing by shape as the
     JAX package's, with the kernel's own shape rule."""
     m, k = xs.shape
     g, _, f = experts.gate.shape
     r = fused_capacity(m, g)
-    if (not experts.supergroup or experts.gate_b is not None or experts.up_b is not None
-            or not fused_prefill_fits(r, k, f)):
+    if (not _fused_enabled() or not experts.supergroup or experts.gate_b is not None
+            or experts.up_b is not None or not fused_prefill_fits(r, k, f)):
         return None
     dev = xs.device
     gs = group_sizes.to(torch.int32)

@@ -1,4 +1,5 @@
-"""Model runtime: load a GGUF, prefill in bucketed chunks, greedy decode.
+"""Model runtime: load a GGUF, prefill in bucketed chunks, greedy or sampled
+decode, text in and out through the GGUF's tokenizer.
 
 The torch counterpart of the JAX package's ``runtime/generate.py:Runtime``
 for the llama, qwen3moe and qwen2moe paths (MoE experts in any of their
@@ -22,6 +23,8 @@ from ..gguf.reader import load_gguf
 from ..models import llama as llama_mod
 from ..models.config import ModelConfig, config_from_gguf
 from ..models.llama import KVCache, MixedKVCache
+from .sampling import SamplerParams, SamplerState, sample as sample_token
+from .tokenizer import Tokenizer, tokenizer_from_gguf
 
 PREFILL_BUCKETS = (8, 16, 32, 64, 128, 256, 512)
 
@@ -64,7 +67,7 @@ class Runtime:
     cfg: ModelConfig
     params: dict
     device: torch.device
-    eos_id: int = -1
+    tokenizer: Tokenizer | None = None
     # KV cache type: False (bf16) | True / 'q8' | 'q4' | 'q6' | 'nl4' /
     # 'iq4_nl' | a per-layer dict {"type", "first", "n_first", "last", "n_last"}
     kv_quant: "bool | str | dict" = False
@@ -88,9 +91,12 @@ class Runtime:
             cfg = replace(cfg, k_hadamard=k_hadamard, v_hadamard=v_hadamard)
         params = llama_mod.load_llama_params(gg, cfg, dev, use_quant=use_quant,
                                              fuse=fuse)
-        eos = int(gg.metadata.get("tokenizer.ggml.eos_token_id", -1))
-        return cls(cfg=cfg, params=params, device=dev, eos_id=eos,
-                   kv_quant=kv_quant)
+        return cls(cfg=cfg, params=params, device=dev,
+                   tokenizer=tokenizer_from_gguf(gg.metadata), kv_quant=kv_quant)
+
+    @property
+    def eos_id(self) -> int:
+        return self.tokenizer.eos_id if self.tokenizer is not None else -1
 
     def new_cache(self, batch: int = 1, capacity: int = 512):
         # room for a bucket-padded write at the last row, rounded to 256
@@ -137,18 +143,24 @@ class Runtime:
             return torch.cat(out_chunks, dim=0), kv, n_past
         return logits[0, last_len - 1:last_len], kv, n_past
 
-    def generate(self, prompt, max_new_tokens: int = 32, sampler=None,
+    def generate(self, prompt, max_new_tokens: int = 32,
+                 sampler: SamplerParams | None = None, seed: int = 0,
                  capacity: int = 512, stop_at_eos: bool = True):
-        """Greedy generation, one eval_tokens call per token. Returns
-        (prompt_ids, generated_ids)."""
-        if sampler is not None and getattr(sampler, "temp", 0.0) > 0.0:
-            llama_mod._later("sampled generation", "sampling")
+        """Greedy generation (no sampler, or temp 0) or sampled through the
+        host sampler chain with ``np.random.default_rng(seed)``, one
+        eval_tokens call per token. Returns (prompt_ids, generated_ids)."""
         ids = self._ids(prompt)
         kv = self.new_cache(1, capacity)
         logits, kv, n_past = self.eval_tokens(ids, kv, 0)
+        rng = np.random.default_rng(seed)
+        state = SamplerState()
         out = []
         for _ in range(max_new_tokens):
-            tok = int(torch.argmax(logits[-1]))
+            if sampler is None:
+                tok = int(torch.argmax(logits[-1]))
+            else:
+                tok = int(sample_token(logits[-1].cpu().numpy(), sampler, rng,
+                                       history=ids + out, state=state))
             out.append(tok)
             if stop_at_eos and tok == self.eos_id:
                 break
@@ -194,10 +206,14 @@ class Runtime:
             out = out[: out.index(self.eos_id) + 1]
         return ids, out
 
-    @staticmethod
-    def _ids(prompt) -> list[int]:
+    def _ids(self, prompt) -> list[int]:
+        """Token ids of a prompt: a str is encoded with the tokenizer (BOS
+        by its rule), a sequence of ids is taken as it is."""
         if isinstance(prompt, str):
-            raise NotImplementedError(
-                "string prompts need the tokenizer, which is a later slice of "
-                "the PyTorch port: pass token ids")
+            if self.tokenizer is None:
+                raise ValueError("this runtime has no tokenizer: pass token ids")
+            return self.tokenizer.encode(prompt)
         return [int(t) for t in prompt]
+
+    def detokenize(self, ids) -> str:
+        return self.tokenizer.decode([int(t) for t in ids])

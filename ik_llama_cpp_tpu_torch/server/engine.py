@@ -1,0 +1,686 @@
+"""Continuous-batching slot engine — the analogue of the reference server's
+update_slots loop (examples/server/server-context.cpp:4859).
+
+The torch port of the JAX package's ``server/engine.py``. A fixed array of
+slots shares one KV cache of ``n_slots`` rows. New prompts are prefilled
+chunk by chunk into their slot's row; then every generating slot advances
+together in one decode step over all rows, each row at its own position.
+Sampling, stop strings and streaming run on the host, per slot.
+
+The forward writes K/V rows into the cache in place. A prefill round runs
+on a view of a span of adjacent rows (``narrow`` on the batch axis), so
+its writes land in the shared cache with no copy. A row in the span, or in
+the decode step, that has no token of its own writes junk where nothing
+is read: past an idle slot's cached tokens, or at a busy slot's next
+position, which its own next forward overwrites.
+
+An exception in the engine thread fails the requests it was serving: each
+carries the error text (``Request.error``) and ``n_failed`` counts them;
+the engine keeps serving.
+
+Speculative drafting, slot save/restore, the llguidance grammar kinds, lazy
+grammars, the allowlist, expiring logit biases, banned phrases, the
+reasoning budget, post-sampling probabilities and tensor/pipeline parallel
+serving are later slices: asking for one raises NotImplementedError.
+"""
+from __future__ import annotations
+
+import queue
+import threading
+import time
+import traceback
+from dataclasses import dataclass, field
+from enum import Enum
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from ..models import llama as llama_mod
+from ..models.llama import KVCache, MixedKVCache
+from ..runtime.generate import PREFILL_BUCKETS, Runtime, _bucket, _chunk_limit
+from ..runtime.sampling import (SamplerParams, SamplerState,
+                                sample as sample_token, sample_topk,
+                                topk_chain_compatible)
+
+TOPK_FETCH = 128   # top-k readback width (>= top_k + the penalty window)
+
+
+class SlotState(Enum):
+    IDLE = 0
+    QUEUED = 1
+    PREFILL = 2
+    GENERATING = 3
+
+
+@dataclass
+class Request:
+    prompt_ids: list[int]
+    n_predict: int = 128
+    sampler: SamplerParams = field(default_factory=lambda: SamplerParams(temp=0.8))
+    seed: int = 0
+    stop: list[str] = field(default_factory=list)
+    grammar: str | None = None         # GBNF text (constrained decoding)
+    grammar_kind: str = "gbnf"         # other kinds: a later slice
+    stream_queue: Optional[queue.Queue] = None  # receives (token_id, text, done)
+    id: int = 0
+    cancelled: bool = False       # client disconnect -> slot release
+    # n_probs > 0: per emitted token append {"id", "logprob", "top":
+    # [(id, logprob) x n_probs]} to probs_out
+    n_probs: int = 0
+    probs_out: list = field(default_factory=list)
+    # context-shift tuning (-1 = engine defaults)
+    n_keep: int = -1
+    n_discard: int = -1
+    cache_prompt: bool = True     # false disables prefix reuse
+    # later slices: asking for one raises at submit
+    grammar_lazy: bool = False
+    banned: bool = False          # banned strings or regexes (rewind)
+    reasoning_budget: int = -1
+    post_sampling_probs: bool = False
+    allow_rules: list = field(default_factory=list)
+    expiring_logit_bias: Any = None
+    # set when the engine failed this request: the error's text
+    error: str | None = None
+
+
+@dataclass
+class Slot:
+    idx: int
+    state: SlotState = SlotState.IDLE
+    req: Optional[Request] = None
+    tokens: list[int] = field(default_factory=list)   # prompt + generated
+    cache_tokens: list[int] = field(default_factory=list)  # tokens with KV rows
+    n_prompt: int = 0
+    n_past: int = 0
+    n_decoded: int = 0
+    n_shifts: int = 0
+    rng: Any = None
+    sampler_state: Any = None
+    text: str = ""
+    n_streamed: int = 0         # chars of .text already sent to the stream
+    pending: bytes = b""        # partial UTF-8 tail awaiting continuation
+    grammar: Any = None         # per-request GrammarSampler (stateful)
+    t_start: float = 0.0
+    t_first_token: float = 0.0
+
+
+def _partial_stop_holdback(text: str, stops) -> int:
+    """Length of the longest suffix of ``text`` that is a proper prefix of
+    any stop string (the reference's find_partial_stop_string) — that many
+    chars must be withheld from the stream until disambiguated."""
+    hb = 0
+    for s in stops:
+        if not s:
+            continue
+        for ln in range(min(len(s) - 1, len(text)), hb, -1):
+            if text.endswith(s[:ln]):
+                hb = ln
+                break
+    return hb
+
+
+class HostPromptCache:
+    """RAM tier of evicted slot KV states — the ``--cache-ram`` (-cram)
+    analogue (server_prompt_cache, reference server-task.h:431,
+    server-task.cpp:1084 similarity-matched load). Evicted/replaced slot
+    rows are parked in host RAM; at slot admission the store is searched
+    for the entry with the longest reusable prefix of the new prompt.
+    Bounded by MiB and/or tokens with oldest-first eviction."""
+
+    def __init__(self, limit_mib: int = 2048, limit_tokens: int = 0,
+                 min_reusable_fraction: float = 0.1):
+        self.limit_bytes = 0 if limit_mib < 0 else limit_mib * (1 << 20)
+        self.limit_tokens = limit_tokens
+        self.min_frac = min_reusable_fraction
+        self.entries: list[dict] = []           # oldest first
+        self.n_hits = 0
+        self.n_saves = 0
+
+    @property
+    def size_bytes(self) -> int:
+        return sum(e["bytes"] for e in self.entries)
+
+    @property
+    def n_tokens(self) -> int:
+        return sum(len(e["tokens"]) for e in self.entries)
+
+    def save(self, tokens: list[int], arrays: dict) -> None:
+        """Park a slot state (host arrays, trimmed to len(tokens))."""
+        if not tokens:
+            return
+        nbytes = sum(a.nbytes for a in arrays.values() if a is not None)
+        self.entries.append({"tokens": list(tokens), "arrays": arrays,
+                             "bytes": nbytes})
+        self.n_saves += 1
+        self.update()
+
+    def best_match(self, new_tokens: list[int], beat: int = 0):
+        """Entry with the longest common prefix vs ``new_tokens`` that (a)
+        reuses at least min_frac of the cached prompt (reference f_keep
+        test) and (b) beats ``beat`` (the slot's own local prefix).
+        Returns (entry, lcp) or (None, 0); a hit REMOVES the entry."""
+        best, best_lcp = None, beat
+        for e in self.entries:
+            lcp = 0
+            for a, b in zip(e["tokens"], new_tokens):
+                if a != b:
+                    break
+                lcp += 1
+            if lcp <= best_lcp:
+                continue
+            if lcp / max(1, len(e["tokens"])) < self.min_frac:
+                continue
+            best, best_lcp = e, lcp
+        if best is None:
+            return None, 0
+        self.entries.remove(best)
+        self.n_hits += 1
+        return best, best_lcp
+
+    def update(self) -> None:
+        """Evict oldest entries until within the size/token limits."""
+        while self.entries and (
+                (self.limit_bytes and self.size_bytes > self.limit_bytes)
+                or (self.limit_tokens and self.n_tokens > self.limit_tokens)):
+            self.entries.pop(0)
+
+
+# ------------------------------------------------------------ cache rows
+_MIXED_FIELDS = ("k_ovr", "v_ovr", "ks_ovr", "vs_ovr",
+                 "k_mid", "v_mid", "ks_mid", "vs_mid")
+
+
+def _cache_tensors(kv) -> list:
+    """The cache's tensors, each with the batch on axis 1."""
+    if isinstance(kv, MixedKVCache):
+        return [getattr(kv, f) for f in _MIXED_FIELDS]
+    return [t for t in (kv.k, kv.v, kv.k_scale, kv.v_scale) if t is not None]
+
+
+def _like(kv, tensors: list):
+    """A cache of kv's type over ``tensors`` (in _cache_tensors order)."""
+    if isinstance(kv, MixedKVCache):
+        return MixedKVCache(*tensors, layer_map=kv.layer_map)
+    return KVCache(*tensors)
+
+
+def cache_rows(kv, start: int, n: int = 1):
+    """Rows [start, start + n) of a shared cache as a cache of the same type
+    whose tensors are views: writes through it land in ``kv``. Each layer's
+    slab of a view is contiguous, as the attention kernels need."""
+    return _like(kv, [t.narrow(1, start, n) for t in _cache_tensors(kv)])
+
+
+def topk_readback(last_logits: torch.Tensor, k: int):
+    """The top-k of each row's logits (values descending, ids) and the row's
+    log-sum-exp over the whole vocabulary, read back to the host: B x (K+1)
+    floats a step instead of B x V. ``last_logits`` (B, V)."""
+    row = last_logits.float()
+    vals, idx = torch.topk(row, k, dim=-1)
+    lse = torch.logsumexp(row, dim=-1)
+    return vals.cpu().numpy(), idx.cpu().numpy(), lse.cpu().numpy()
+
+
+class BatchEngine:
+    """Owns the model and the shared KV cache; runs the slot loop in a
+    thread."""
+
+    def __init__(self, runtime: Runtime, n_slots: int = 4, capacity: int = 2048,
+                 spec: str | None = None, spec_n: int = 8,
+                 cache_ram_mib: int = 0):
+        if spec:
+            llama_mod._later("speculative drafting in the server", "runtime extras")
+        self.rt = runtime
+        self.cfg = runtime.cfg
+        self.device = runtime.device
+        if self.device.type == "cuda" and self.device.index is None:
+            # the loop thread gets the card by its index, fixed here
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.n_slots = n_slots
+        self.capacity = capacity
+        self.kv = runtime.new_cache(n_slots, capacity)
+        # RAM prompt-cache tier (0 = disabled, -1 = unlimited, else MiB)
+        self.prompt_cache = (HostPromptCache(cache_ram_mib)
+                             if cache_ram_mib != 0 else None)
+        self.slots = [Slot(i) for i in range(n_slots)]
+        self.requests: queue.Queue[Request] = queue.Queue()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._submit_lock = threading.Lock()     # submit() runs on many threads
+        # metrics
+        self.n_prompt_tokens_processed = 0
+        self.n_prompt_tokens_cached = 0
+        self.n_tokens_predicted = 0
+        self.n_topk_steps = 0
+        self.n_decode_steps = 0
+        self.n_prefill_forwards = 0
+        self.n_requests = 0
+        self.n_failed = 0
+
+    # ---------------------------------------------------------------- loop
+    def start(self):
+        self._thread = threading.Thread(target=self.run_loop, daemon=True)
+        self._thread.start()
+
+    def stop(self):
+        self._stop.set()
+        if self._thread:
+            self._thread.join(timeout=30)
+
+    @property
+    def alive(self) -> bool:
+        return self._thread is not None and self._thread.is_alive()
+
+    def submit(self, req: Request):
+        later = [(req.allow_rules, "the unicode-script allowlist"),
+                 (req.expiring_logit_bias is not None, "expiring logit biases"),
+                 (req.grammar and req.grammar_kind not in ("gbnf", "grammar"),
+                  f"{req.grammar_kind!r} grammars (llguidance)"),
+                 (req.grammar_lazy, "lazy grammars (grammar triggers)"),
+                 (req.banned, "banned strings and the rewind"),
+                 (req.reasoning_budget >= 0, "the reasoning budget"),
+                 (req.post_sampling_probs, "post-sampling probabilities")]
+        for asked, what in later:
+            if asked:
+                llama_mod._later(what, "server extras")
+        with self._submit_lock:
+            self.n_requests += 1
+        self.requests.put(req)
+
+    def _forward(self, toks: np.ndarray, kv, n_past) -> torch.Tensor:
+        return llama_mod.forward(self.rt.params, self.cfg,
+                                 torch.from_numpy(toks).to(self.device), kv, n_past)
+
+    def _slot_state_to_host(self, slot) -> dict | None:
+        """One slot's filled KV rows on the host (RAM-cache save)."""
+        n = len(slot.cache_tokens)
+        if n == 0:
+            return None
+        return {str(i): t[:, slot.idx, :n].to("cpu", copy=True)
+                for i, t in enumerate(_cache_tensors(self.kv))}
+
+    def _restore_slot_state(self, slot, entry) -> None:
+        a = entry["arrays"]
+        n = min(len(entry["tokens"]), self.capacity - 1)
+        for i, t in enumerate(_cache_tensors(self.kv)):
+            t[:, slot.idx, :n] = a[str(i)][:, :n].to(t.device)
+        slot.cache_tokens = entry["tokens"][:n]
+
+    def _admit(self):
+        for slot in self.slots:
+            if slot.state != SlotState.IDLE:
+                continue
+            try:
+                req = self.requests.get_nowait()
+            except queue.Empty:
+                return
+            slot.req = req
+            # the prompt's tail, leaving room for n_predict tokens; at least
+            # half the context when n_predict alone would fill it
+            keep = max(self.capacity // 2, self.capacity - req.n_predict - 1)
+            slot.tokens = list(req.prompt_ids)[-keep:]
+            slot.n_prompt = len(slot.tokens)
+            if not slot.tokens:
+                self._fail(slot, "ValueError: empty prompt")
+                continue
+            # prompt-cache reuse: skip the common prefix with the slot's
+            # previous contents — at least one token is evaluated again
+            prefix = 0
+            if req.cache_prompt:
+                for a, b in zip(slot.cache_tokens, slot.tokens):
+                    if a != b:
+                        break
+                    prefix += 1
+            if self.prompt_cache is not None and req.cache_prompt:
+                # RAM tier: a parked state with a longer reusable prefix than
+                # the slot's own rows; park the current occupant before its
+                # rows are overwritten
+                entry, lcp = self.prompt_cache.best_match(slot.tokens,
+                                                          beat=prefix)
+                diverges = prefix < len(slot.cache_tokens)
+                if entry is not None or diverges:
+                    state = self._slot_state_to_host(slot)
+                    if state is not None:
+                        self.prompt_cache.save(slot.cache_tokens, state)
+                if entry is not None:
+                    self._restore_slot_state(slot, entry)
+                    prefix = lcp
+            slot.n_past = min(prefix, slot.n_prompt - 1)
+            self.n_prompt_tokens_cached += slot.n_past
+            slot.n_decoded = 0
+            slot.n_shifts = 0
+            slot.text = ""
+            slot.n_streamed = 0
+            slot.pending = b""
+            slot.rng = np.random.default_rng(req.seed)
+            slot.sampler_state = SamplerState()
+            slot.grammar = None
+            if req.grammar:
+                from ..runtime.grammar import Grammar, GrammarSampler
+                slot.grammar = GrammarSampler(Grammar(req.grammar),
+                                              self.rt.tokenizer)
+            slot.state = SlotState.PREFILL
+            slot.t_start = time.time()
+            slot.t_first_token = 0.0
+
+    def _room(self, s: Slot, n: int) -> bool:
+        """Whether row ``s`` can take an n-token write in a prefill forward:
+        a busy slot at its next position, an idle one anywhere (_junk_row)."""
+        return s.state == SlotState.IDLE or s.n_past + n <= self.kv.capacity
+
+    def _junk_row(self, s: Slot, n: int) -> int:
+        """Where a row with no token of its own in a forward writes its n
+        junk rows: past an idle slot's cached tokens, whose tail gives way
+        at the cache's end; at a busy slot's next position, which its own
+        next forward overwrites before anything reads it."""
+        if s.state != SlotState.IDLE:
+            return s.n_past
+        at = min(len(s.cache_tokens), self.kv.capacity - n)
+        del s.cache_tokens[at:]
+        return at
+
+    def _spans(self, slots: list, chunks: dict) -> list:
+        """The prefilling slots in spans of adjacent rows, each one forward
+        at one bucket: a span takes the next slot when every row from its
+        first to that slot, the rows between included, has room for the
+        bucket."""
+        spans = []
+        for s in sorted(slots, key=lambda s: s.idx):
+            if spans:
+                span = spans[-1] + [s]
+                b = max(_bucket(len(chunks[m.idx])) for m in span)
+                if all(self._room(r, b) for r in self.slots[span[0].idx:s.idx + 1]):
+                    spans[-1] = span
+                    continue
+            spans.append([s])
+        return spans
+
+    def _do_prefill_batch(self, slots: list):
+        """One chunk for each PREFILL slot, in one forward over each span of
+        adjacent rows (the analogue of update_slots packing every prompt
+        chunk into one llama_batch, server-context.cpp:4131-4206); a slot
+        whose prompt ends emits its first token."""
+        chunks = {}
+        for s in slots:
+            n = min(PREFILL_BUCKETS[-1], _chunk_limit(self.kv, s.n_past))
+            chunks[s.idx] = s.tokens[s.n_past:s.n_prompt][:n]
+        for span in self._spans(slots, chunks):
+            lo, hi = span[0].idx, span[-1].idx + 1
+            b = max(_bucket(len(chunks[s.idx])) for s in span)
+            toks = np.zeros((hi - lo, b), np.int64)
+            ids = {s.idx for s in span}
+            n_past = [s.n_past if s.idx in ids else self._junk_row(s, b)
+                      for s in self.slots[lo:hi]]
+            for s in span:
+                toks[s.idx - lo, :len(chunks[s.idx])] = chunks[s.idx]
+            logits = self._forward(toks, cache_rows(self.kv, lo, hi - lo), n_past)
+            self.n_prefill_forwards += 1
+            rows = torch.tensor([s.idx - lo for s in span], device=logits.device)
+            last = torch.tensor([len(chunks[s.idx]) - 1 for s in span],
+                                device=logits.device)
+            for s, lg in zip(span, logits[rows, last].cpu().numpy()):
+                n = len(chunks[s.idx])
+                s.n_past += n
+                self.n_prompt_tokens_processed += n
+                if s.n_past >= s.n_prompt:
+                    s.state = SlotState.GENERATING
+                    if s.t_first_token == 0.0:
+                        s.t_first_token = time.time()
+                    self._emit_token(s, lg)
+
+    def _fail(self, slot: Slot, msg: str) -> None:
+        """Fail the slot's request: it carries ``msg`` and ends its stream."""
+        req = slot.req
+        if req is not None:
+            req.error = msg
+            self.n_failed += 1
+            if req.stream_queue is not None:
+                req.stream_queue.put((-1, "", True))
+        slot.req = None
+        slot.state = SlotState.IDLE
+        slot.cache_tokens = []      # its rows may be half written
+
+    def _emit_token(self, slot: Slot, logits: np.ndarray | None, topk=None):
+        req = slot.req
+        if topk is not None:
+            # top-k readback: only (vals, ids, lse) left the card;
+            # _slot_topk_ok guaranteed exactness
+            vals, tidx, _lse = topk
+            tok = sample_topk(vals, tidx, _lse, req.sampler, slot.rng,
+                              history=slot.tokens, state=slot.sampler_state)
+        elif slot.grammar is not None:
+            # constrained decoding: chain once, grammar-mask the surviving
+            # candidates; the sampler's state advances with the accepted text
+            try:
+                tok = slot.grammar.filter_and_pick(
+                    logits, req.sampler, slot.rng, history=slot.tokens,
+                    state=slot.sampler_state)
+            except RuntimeError as e:
+                # the grammar dead-ends against the vocab: fail THIS request
+                self._fail(slot, f"grammar: {e}")
+                return
+        else:
+            tok = sample_token(logits, req.sampler, slot.rng,
+                               history=slot.tokens, state=slot.sampler_state)
+        slot.tokens.append(int(tok))
+        slot.n_decoded += 1
+        self.n_tokens_predicted += 1
+        if req.n_probs > 0:
+            # log-softmax over the raw logits (pre-sampling probabilities,
+            # the reference's default n_probs mode)
+            lg = np.asarray(logits, np.float32).reshape(-1)
+            lse = float(np.logaddexp.reduce(lg))
+            n = min(req.n_probs, len(lg))
+            top_ids = np.argpartition(-lg, n - 1)[:n]
+            top_ids = top_ids[np.argsort(-lg[top_ids])]
+            req.probs_out.append({
+                "id": int(tok), "logprob": float(lg[int(tok)] - lse),
+                "top": [(int(t), float(lg[t] - lse)) for t in top_ids]})
+        # streaming-safe detok: buffer bytes until they form valid UTF-8
+        raw = slot.pending + self.rt.tokenizer.decode_bytes([int(tok)])
+        try:
+            piece = raw.decode("utf-8")
+            slot.pending = b""
+        except UnicodeDecodeError as e:
+            if e.reason.startswith("unexpected end") or e.start > 0 and \
+                    len(raw) - e.start < 4:
+                piece = raw[: e.start].decode("utf-8", errors="replace")
+                slot.pending = raw[e.start:]
+            else:
+                piece = raw.decode("utf-8", errors="replace")
+                slot.pending = b""
+        done = False
+        if tok == self.rt.tokenizer.eos_id:
+            done = True
+            piece = ""            # the eos token's own text is never emitted
+        slot.text += piece
+        if req.cancelled:
+            done = True
+        if slot.n_decoded >= req.n_predict:
+            done = True
+        for stop_s in req.stop:
+            if stop_s and stop_s in slot.text:
+                slot.text = slot.text.split(stop_s)[0]
+                done = True
+        if req.stream_queue is not None:
+            # stream from the (possibly stop-trimmed) accumulated text, and
+            # hold back any suffix that could be the start of a stop string
+            # (find_partial_stop_string) so that a stop string split across
+            # tokens never reaches a streaming client
+            safe = len(slot.text)
+            if not done:
+                safe -= _partial_stop_holdback(slot.text, req.stop)
+            out = slot.text[slot.n_streamed: safe] if safe > slot.n_streamed \
+                else ""
+            slot.n_streamed += len(out)
+            req.stream_queue.put((int(tok), out, done))
+        if done:
+            # the last token has no KV row yet: the cache holds n_past rows
+            slot.cache_tokens = slot.tokens[:slot.n_past]
+            slot.state = SlotState.IDLE
+            slot.req = None
+
+    def _slot_topk_ok(self, s: Slot) -> bool:
+        """Eligibility for the top-k readback decode: the sampler chain must
+        be prefetch-exact and the fetch must cover top_k + every distinct
+        penalized token (penalties only lower logits, so coverage implies
+        identical candidate membership)."""
+        req = s.req
+        p = req.sampler
+        if s.grammar is not None or req.n_probs > 0:
+            return False
+        if not topk_chain_compatible(p):
+            return False
+        if p.penalty_repeat != 1.0 or p.penalty_freq != 0.0 \
+                or p.penalty_present != 0.0:
+            # exactness relies on penalties only LOWERING logits
+            if p.penalty_repeat < 1.0 or p.penalty_freq < 0.0 \
+                    or p.penalty_present < 0.0:
+                return False
+            window = p.penalty_last_n if p.penalty_last_n > 0 \
+                else len(s.tokens)
+            need = max(p.top_k, p.min_keep) + min(window, len(s.tokens))
+        else:
+            need = max(p.top_k, p.min_keep)
+        return need <= min(TOPK_FETCH, self.cfg.n_vocab)
+
+    def run_loop(self):
+        """Engine loop wrapper: an exception fails the requests the engine
+        was serving (each carries the error text, ``n_failed`` counts them)
+        and the engine keeps serving."""
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        while not self._stop.is_set():
+            try:
+                self._run_loop_inner()
+                return
+            except Exception as e:
+                traceback.print_exc()
+                msg = f"{type(e).__name__}: {e}"
+                for s in self.slots:
+                    if s.req is not None:
+                        self._fail(s, msg)
+
+    def step(self) -> bool:
+        """One round of the loop: admit, one prefill round, one decode step
+        of every generating slot. Returns False when there was nothing to
+        do."""
+        self._admit()
+        prefills = [s for s in self.slots if s.state == SlotState.PREFILL]
+        if prefills:
+            # one chunk round a loop iteration: ongoing decodes interleave
+            # between prompt chunks
+            self._do_prefill_batch(prefills)
+            self._admit()
+        gen = [s for s in self.slots if s.state == SlotState.GENERATING]
+        if not gen:
+            return bool(prefills)
+        self._decode(gen)
+        return True
+
+    def _run_loop_inner(self):
+        while not self._stop.is_set():
+            if not self.step():
+                time.sleep(0.002)
+
+    def _decode(self, gen: list):
+        """One decode step over every row, each at its own position."""
+        toks = np.zeros((self.n_slots, 1), np.int64)
+        n_past = [self._junk_row(s, 1) for s in self.slots]
+        for s in gen:
+            toks[s.idx, 0] = s.tokens[-1]
+            n_past[s.idx] = s.n_past
+        use_topk = all(self._slot_topk_ok(s) for s in gen)
+        logits = self._forward(toks, self.kv, n_past)[:, -1]
+        self.n_decode_steps += 1
+        if use_topk:
+            self.n_topk_steps += 1
+            vals, idx, lse = topk_readback(logits, min(TOPK_FETCH, self.cfg.n_vocab))
+        else:
+            logits_np = logits.cpu().numpy()
+        for s in gen:
+            s.n_past += 1
+            if s.n_past >= self.capacity - 1:
+                if not self._context_shift(s):
+                    continue          # re-prefilled: this step's logits go
+            if use_topk:
+                self._emit_token(s, None, topk=(vals[s.idx], idx[s.idx],
+                                                float(lse[s.idx])))
+            else:
+                self._emit_token(s, logits_np[s.idx])
+
+    def _context_shift(self, slot: Slot) -> bool:
+        """Out of cache: keep the prompt head, discard the oldest half of
+        the rest. A shiftable model with a bf16 cache K-shifts the slot's
+        row in place (runtime/kshift.k_shift on a view of the row) and
+        returns True: the step's logits still stand for the next token.
+        Otherwise the kept tokens are prefilled again (returns False)."""
+        from ..runtime.kshift import can_shift, k_shift
+        req = slot.req
+        n_keep = min(slot.n_prompt, self.capacity // 4)
+        if req is not None and req.n_keep >= 0:
+            # at least one token is always discarded
+            n_keep = max(0, min(req.n_keep, slot.n_past - 4))
+        n_rest = slot.n_past - n_keep
+        n_discard = max(1, n_rest // 2)
+        if req is not None and req.n_discard > 0:
+            n_discard = max(1, min(req.n_discard, n_rest))
+        kept = (slot.tokens[:n_keep]
+                + slot.tokens[n_keep + n_discard:])
+        slot.n_shifts += 1
+        if can_shift(self.cfg) and not self.rt.kv_quant:
+            _, new_past = k_shift(cache_rows(self.kv, slot.idx), self.cfg,
+                                  n_keep, n_discard, slot.n_past)
+            slot.tokens = kept
+            slot.n_past = new_past
+            slot.cache_tokens = kept[:new_past]
+            return True
+        slot.tokens = kept
+        slot.n_prompt = len(kept)       # everything kept is "prompt" now
+        slot.cache_tokens = []
+        slot.n_past = 0
+        slot.state = SlotState.PREFILL
+        return False
+
+    def save_slot(self, idx: int, path: str) -> dict:
+        llama_mod._later("slot save/restore", "runtime extras (state.py)")
+
+    def restore_slot(self, idx: int, path: str) -> dict:
+        llama_mod._later("slot save/restore", "runtime extras (state.py)")
+
+    def erase_slot(self, idx: int) -> dict:
+        slot = self.slots[idx]
+        n = len(slot.cache_tokens)
+        slot.cache_tokens = []
+        return {"id_slot": idx, "n_erased": n}
+
+    # ------------------------------------------------------------- metrics
+    def metrics_text(self) -> str:
+        lines = [
+            "# TYPE llamacpp:prompt_tokens_total counter",
+            f"llamacpp:prompt_tokens_total {self.n_prompt_tokens_processed}",
+            "# TYPE llamacpp:prompt_tokens_cached counter",
+            f"llamacpp:prompt_tokens_cached {self.n_prompt_tokens_cached}",
+            *([
+                "# TYPE llamacpp:prompt_cache_ram_hits counter",
+                f"llamacpp:prompt_cache_ram_hits {self.prompt_cache.n_hits}",
+                "# TYPE llamacpp:prompt_cache_ram_bytes gauge",
+                f"llamacpp:prompt_cache_ram_bytes {self.prompt_cache.size_bytes}",
+            ] if self.prompt_cache is not None else []),
+            "# TYPE llamacpp:tokens_predicted_total counter",
+            f"llamacpp:tokens_predicted_total {self.n_tokens_predicted}",
+            "# TYPE llamacpp:requests_total counter",
+            f"llamacpp:requests_total {self.n_requests}",
+            "# TYPE llamacpp:requests_failed_total counter",
+            f"llamacpp:requests_failed_total {self.n_failed}",
+            "# TYPE llamacpp:slots_idle gauge",
+            f"llamacpp:slots_idle {sum(1 for s in self.slots if s.state == SlotState.IDLE)}",
+            "# TYPE llamacpp:slots_processing gauge",
+            f"llamacpp:slots_processing {sum(1 for s in self.slots if s.state != SlotState.IDLE)}",
+            "# TYPE llamacpp:topk_decode_steps_total counter",
+            f"llamacpp:topk_decode_steps_total {self.n_topk_steps}",
+            "# TYPE llamacpp:decode_steps_total counter",
+            f"llamacpp:decode_steps_total {self.n_decode_steps}",
+        ]
+        return "\n".join(lines) + "\n"

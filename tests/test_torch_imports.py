@@ -32,6 +32,31 @@ def test_no_jax_imports(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def _module_level_imports(path: Path):
+    """Imports that run when the module is imported: those outside every
+    function body."""
+    def walk(node):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+                continue
+            if isinstance(child, ast.Import):
+                yield from (a.name for a in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.level == 0 and child.module:
+                yield child.module
+            yield from walk(child)
+    yield from walk(ast.parse(path.read_text(), filename=str(path)))
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_optional_packages_imported_at_use(path):
+    """The port never imports ``regex`` (the tokenizer's classes come from
+    unicodedata), and imports jinja2, aiohttp and triton only inside the
+    functions that need them: the card's machine may lack them."""
+    assert "regex" not in {m.split(".")[0] for m in _imported_modules(path)}
+    top = {m.split(".")[0] for m in _module_level_imports(path)}
+    assert not top & {"jinja2", "aiohttp", "triton"}, f"{path} imports {top}"
+
+
 def test_port_has_kernel_sources():
     srcs = {p.stem for p in (PORT / "csrc").glob("*.cu")}
     assert srcs == {"qmatmul_i8", "qmatmul", "qmatmul4", "flash_attention",
@@ -46,8 +71,9 @@ def test_port_files_cover_every_subpackage():
     """The scan above reaches every sub-package of the port, the tools too."""
     subs = {p.relative_to(PORT).parts[0] for p in _port_files()[:-1]
             if len(p.relative_to(PORT).parts) > 1}
-    assert subs == {"gguf", "models", "ops", "quant", "runtime", "tools"}
+    assert subs == {"gguf", "models", "ops", "quant", "runtime", "server", "tools"}
     assert PORT / "tools" / "perf_dequant.py" in _port_files()
+    assert PORT / "server" / "app.py" in _port_files()
 
 
 def test_runtime_defaults_to_cuda(tmp_path):

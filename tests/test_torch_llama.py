@@ -148,8 +148,10 @@ def test_later_slices_raise(tiny, tmp_path):
     tr = TRuntime.from_gguf(tiny, device="cpu")
     with pytest.raises(NotImplementedError, match="other-architectures"):
         TRuntime.from_gguf(tiny, device="cpu", swa_compress=True)
-    with pytest.raises(NotImplementedError, match="tokenizer"):
-        tr.generate("hello", 2)
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        TRuntime.from_gguf(tiny, device="cpu", tensor_parallel=2)
+    ids, out = tr.generate("hello", 2)       # text prompts: the tokenizer slice
+    assert ids == tr.tokenizer.encode("hello") and len(out) == 2
     moe = make_tiny_llama_gguf(tmp_path / "g.gguf", arch="gemma", n_layer=1)
     with pytest.raises(NotImplementedError, match="other-architectures"):
         TRuntime.from_gguf(moe, device="cpu")

@@ -99,6 +99,27 @@ def test_moe_ffn_ragged_chain_matches_jax(monkeypatch):
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-2 * np.abs(ref).max())
 
 
+@pytest.mark.parametrize("env", ["1", "0"])
+def test_moe_fused_env_selects_the_chain(monkeypatch, env):
+    """IK_MOE_FUSED=0 (read at call time, as the JAX package reads it)
+    takes the ragged chain instead of the fused prefill; either way the
+    output agrees with the JAX package's under the same variable."""
+    monkeypatch.setenv("IK_MOE_FUSED", env)
+    calls = []
+    for name in ("fused_moe_prefill_i8", "_ragged_chain"):
+        real = getattr(TM, name)
+        monkeypatch.setattr(TM, name, lambda *a, _n=name, _f=real, **kw:
+                            (calls.append(_n), _f(*a, **kw))[1])
+    rng = np.random.default_rng(9)
+    d = experts_np(g=8, k=512, f=256, seed=9)
+    x = rng.standard_normal((48, 512)).astype(np.float32)
+    logits = rng.standard_normal((48, 8)).astype(np.float32)
+    got = TM.moe_ffn(torch.from_numpy(x), torch.from_numpy(logits), to_torch(d), 2).numpy()
+    ref = np.asarray(JM.moe_ffn(jnp.asarray(x), jnp.asarray(logits), to_jax(d), 2))
+    assert calls == (["fused_moe_prefill_i8"] if env == "1" else ["_ragged_chain"])
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-2 * np.abs(ref).max())
+
+
 def test_greedy_tokens_match_jax_runtime(tiny_moe, i8_on):
     """The slice as a whole: the tiny qwen3moe GGUF through both runtimes
     with the int8 path on. 8 greedy steps give identical tokens; the
