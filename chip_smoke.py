@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17]
 
 Phases (all by default; any failure exits non-zero):
   1. device: the card's name and power limit; TF32 off for the plain versions
@@ -92,6 +92,19 @@ Phases (all by default; any failure exits non-zero):
      A, B and C counted over the run, requests/s and tokens/s over all
      slots, and each greedy request replayed at B = 1 on the kernel path
      and the plain path over its own history
+ 17. the llama-graph family: Gemma-3-12B at full width (gemma3: L48 E3840
+     H16 KV8 D256 FF15360, V262208 tied, a 1,024-key window on 40 layers,
+     QK-norms, sandwich norms, GELU; Q4_0 linears, a Q8_0 embedding, random
+     blocks from a seed, one block cloned to 48): a 3,999-token prefill in
+     chunks and 64 greedy decode steps at 4,000 cached tokens, with the
+     A/B/C launch counts and a decode profile; the same decode over
+     --swa-compress ring caches (cache bytes against the full cache, the
+     plain ring attention's ms a step); then one-history parities of the
+     kernel path against the plain path: Gemma-3-12B at depth 6 over 1,100
+     tokens, the Gemma-2-9B width (softcaps 50 / 30) and the gpt-oss-20b
+     width (sinks, router and expert biases, planar experts) at depth 2.
+     Phase 3 adds kernel A at the Gemma-3-12B shapes and kernels B and C at
+     head dim 256 with a 1,024-key window and softcap 50
 The line before the last lists every ported kernel as JSON; the last line is
 {"ok": true, "device": {...}}. Without CUDA, or without the package beside
 this file, it exits non-zero and prints no result.
@@ -132,6 +145,25 @@ Q2MOE = dict(ARCH="qwen2moe", L=24, E=2048, H=16, HKV=16, D=128, G=60, TOPK=4, F
 # and wo; Qwen1.5-MoE-A2.7B's fused qkv, q/k/v/wo, shared gate/up and down
 A_MOE_SHAPES = [(2048, 5120), (2048, 151936), (4096, 2048), (2048, 6144), (2048, 2048),
                 (2048, 11264), (5632, 2048)]
+# Gemma-3-12B (the text_config of google/gemma-3-12b-pt's config.json): 48
+# layers, a 1,024-key window on every layer but each sixth, head dim 256,
+# rope base 10,000 on the window layers and 1,000,000 scaled linearly by 8
+# on the global ones, QK-norms, sandwich norms, GELU, a tied head
+GEMMA3 = dict(ARCH="gemma3", L=48, E=3840, H=16, HKV=8, D=256, FF=15360, V=262208,
+              WINDOW=1024, CTX=131072, ROPE=1000000.0, ROPE_SCALE=8.0)
+# Gemma-2-9B (google/gemma-2-9b's config.json): a 4,096-key window on even
+# layers, attention softcap 50, final softcap 30
+GEMMA2 = dict(ARCH="gemma2", L=42, E=3584, H=16, HKV=8, D=256, FF=14336, V=256000,
+              WINDOW=4096, CTX=8192, ROPE=10000.0, SOFTCAP=50.0, FINAL_SOFTCAP=30.0)
+# gpt-oss-20b (openai/gpt-oss-20b's config.json): 32 experts top-4 with
+# router and expert biases, clamped SwiGLU, per-head sinks, a 128-key window
+# on even layers, yarn rope (factor 32 over 4,096), an untied head
+GPTOSS = dict(ARCH="gpt-oss", L=24, E=2880, H=64, HKV=8, D=64, G=32, TOPK=4, FF=2880,
+              V=201088, WINDOW=128, CTX=131072, ROPE=150000.0)
+FAMILY_GGUF_VERSION = "port-17"
+# kernel A's (K, N) on the Gemma-3-12B path: fused qkv, wo, fused gate/up,
+# down and the tied head (262,208 = 2,048 * 128 + 64 columns)
+A_GEMMA_SHAPES = [(3840, 8192), (4096, 3840), (3840, 30720), (15360, 3840), (3840, 262208)]
 
 
 def log(msg: str) -> None:
@@ -485,7 +517,7 @@ def phase_kernels(torch, timer, results) -> bool:
     # the dense decode linears and head at M 1, 8, 16 and the prefill chunk;
     # then at M = 1 the attention linears and heads of the two MoE models
     a_cases = [(k, n, (1, 8, 16, 512)) for k, n in shapes]
-    a_cases += [(k, n, (1, 512)) for k, n in A_MOE_SHAPES]
+    a_cases += [(k, n, (1, 512)) for k, n in A_MOE_SHAPES + A_GEMMA_SHAPES]
     for k, n, ms in a_cases:
         codes_t = torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
                                 dtype=torch.int8)
@@ -634,27 +666,31 @@ def phase_kernels(torch, timer, results) -> bool:
         log(f"    M={m} K={k} N={n}: " + ", ".join(row))
         del codes
 
-    scale_ = 1.0 / float(np.sqrt(D))
-
-    def attn_case(kernel, fn, b, t, s, qpos, kvlen, H=H, HKV=HKV):
-        q = torch.randn((b, t, H, D), generator=gen, device="cuda").to(torch.bfloat16)
-        kc = torch.randn((b, s, HKV, D), generator=gen, device="cuda").to(torch.bfloat16)
-        vc = torch.randn((b, s, HKV, D), generator=gen, device="cuda").to(torch.bfloat16)
+    def attn_case(kernel, fn, b, t, s, qpos, kvlen, H=H, HKV=HKV, d=D, window=0,
+                  softcap=0.0):
+        scale_ = 1.0 / float(np.sqrt(d))
+        kw = dict(scale=scale_, swa_window=window, softcap=softcap)
+        q = torch.randn((b, t, H, d), generator=gen, device="cuda").to(torch.bfloat16)
+        kc = torch.randn((b, s, HKV, d), generator=gen, device="cuda").to(torch.bfloat16)
+        vc = torch.randn((b, s, HKV, d), generator=gen, device="cuda").to(torch.bfloat16)
         qp = torch.tensor(qpos, dtype=torch.int32, device="cuda")
         kl = torch.tensor(kvlen, dtype=torch.int32, device="cuda")
-        got = fn(q, kc, vc, qp, kl, scale=scale_)
-        ref = FA.attention_ref(q, kc, vc, qp, kl, scale=scale_)
+        got = fn(q, kc, vc, qp, kl, **kw)
+        ref = FA.attention_ref(q, kc, vc, qp, kl, **kw)
         torch.cuda.synchronize()
         err = float((got.float() - ref.float()).abs().max())
         # p is rounded to bf16 before the PV product and the output is bf16:
         # two bf16 ulps at the largest output
         tol = 2.0 ** -7 * float(ref.float().abs().max())
-        # library: SDPA on the live rows with an explicit mask (not timed:
-        # the mask, the GQA repeat)
+        # library: SDPA on the live rows with an explicit mask, the window
+        # in it but no softcap, which SDPA has not (not timed: the mask, the
+        # GQA repeat)
         pos = torch.arange(s, device="cuda")
         qpos_t = qp[:, None] + torch.arange(t, device="cuda")[None, :]
         mask = (pos[None, None, :] <= qpos_t[:, :, None]) & \
             (pos[None, None, :] < kl[:, None, None])
+        if window:
+            mask &= pos[None, None, :] > qpos_t[:, :, None] - window
         kr = kc.repeat_interleave(H // HKV, dim=2).transpose(1, 2)
         vr = vc.repeat_interleave(H // HKV, dim=2).transpose(1, 2)
         qt = q.transpose(1, 2)
@@ -662,16 +698,20 @@ def phase_kernels(torch, timer, results) -> bool:
         lib = timer(lambda: F.scaled_dot_product_attention(qt, kr, vr, attn_mask=m4,
                                                            scale=scale_))
         live = int(mask.sum())               # (query, key) pairs this run needs
-        keys = sum(min(kvlen[i], qpos[i] + t) for i in range(b))
-        bnd = bound_ms(2 * (b * t * H * D * 2) + 2 * keys * HKV * D * 2,
-                       4.0 * H * D * live, BF16_FLOPS)
+        keys = int(mask.any(dim=1).sum())    # keys at least one query reads
+        bnd = bound_ms(2 * (b * t * H * d * 2) + 2 * keys * HKV * d * 2,
+                       4.0 * H * d * live, BF16_FLOPS)
         case = (f"B={b} T={t} S={s} q_pos0={qpos} kv_len={kvlen}"
-                + ("" if (H, HKV) == (32, 8) else f" H={H} HKV={HKV}"))
+                + ("" if (H, HKV) == (32, 8) else f" H={H} HKV={HKV}")
+                + ("" if d == D else f" D={d}") + (f" window={window}" if window else "")
+                + (f" softcap={softcap:g}" if softcap else ""))
         note = ""
         if fn is FA.flash_attention_decode:
-            again = bool(torch.equal(got, fn(q, kc, vc, qp, kl, scale=scale_)))
-            plan = FA.decode_split_plan(b, t, H, HKV, s, D, D, sms)
-            blocks = [len(FA.decode_key_ranges(plan, 0, min(kvlen[i], qpos[i] + t)))
+            again = bool(torch.equal(got, fn(q, kc, vc, qp, kl, **kw)))
+            plan = FA.decode_split_plan(b, t, H, HKV, s, d, d, sms)
+            blocks = [len(FA.decode_key_ranges(plan, max(0, qpos[i] + 1 - window)
+                                               if window else 0,
+                                               min(kvlen[i], qpos[i] + t)))
                       for i in range(b)]
             note = (f" | plan: {plan['splits']} splits x {plan['groups']} groups, "
                     f"round {plan['round']} keys, blocks working a group {blocks}; "
@@ -679,9 +719,8 @@ def phase_kernels(torch, timer, results) -> bool:
             if not again:
                 err = float("inf")
         return _record(results, kernel, case, err, tol,
-                       timer(lambda: fn(q, kc, vc, qp, kl, scale=scale_)),
-                       timer(lambda: FA.attention_ref(q, kc, vc, qp, kl,
-                                                      scale=scale_), 3),
+                       timer(lambda: fn(q, kc, vc, qp, kl, **kw)),
+                       timer(lambda: FA.attention_ref(q, kc, vc, qp, kl, **kw), 3),
                        lib, bnd, note=note)
 
     log("[3] kernel B (flash_attention, prefill) vs plain; library = SDPA")
@@ -706,6 +745,16 @@ def phase_kernels(torch, timer, results) -> bool:
     # no grouped queries (Qwen1.5-MoE-A2.7B): one query row per KV head
     ok &= attn_case("flash_attention_decode", FA.flash_attention_decode, 1, 1, 1024,
                     [512], [513], H=Q2MOE["H"], HKV=Q2MOE["HKV"])
+    # the gemma sliding-window layers (phase 17): head dim 256, window 1,024
+    # and Gemma-2's softcap of 50 at 4,000 keys; B at the long fill's last
+    # chunk, C at the decode step after it
+    g = dict(H=GEMMA3["H"], HKV=GEMMA3["HKV"], d=GEMMA3["D"], window=GEMMA3["WINDOW"],
+             softcap=50.0)
+    log("[3] kernels B and C at head dim 256 with a 1,024-key window and softcap 50 "
+        "(gemma's sliding-window layers); library = SDPA with the window, no softcap")
+    ok &= attn_case("flash_attention", FA.flash_attention, 1, 512, 4096, [3488], [4000], **g)
+    ok &= attn_case("flash_attention_decode", FA.flash_attention_decode, 1, 1, 4096,
+                    [3999], [4000], **g)
     return ok
 
 
@@ -1143,8 +1192,17 @@ def phase_quantizers(torch) -> bool:
         (qc, sc), (qg, sg) = fn(arg), fn(arg.cuda())
         if not (torch.equal(sc, sg.cpu()) and torch.equal(qc, qg.cpu())):
             bad.append(name)
+    # the loader's supergroup recode on the card against the numpy recode
+    from ik_llama_cpp_tpu_torch.ops.qmatmul import requant_rows, requant_supergroup
+    rng = np.random.default_rng(5)
+    codes = rng.integers(-128, 128, (3000, 3840), dtype=np.int8)
+    scale = (rng.random((3000, 3840 // 32), dtype=np.float32) * 0.05).astype(np.float32)
+    q8, sw = requant_rows(codes, scale, 32, "cuda", chunk=1024)
+    nq, nsw = requant_supergroup(codes.T, scale.T, group=32)
+    if not (np.array_equal(q8.cpu().numpy(), nq.T) and np.array_equal(sw.cpu().numpy(), nsw.T)):
+        bad.append("requant_rows")
     log(f"[3] quantizers on the card against the CPU, codes and scales bit for bit "
-        f"({', '.join(fns)}): {'ok' if not bad else 'FAIL ' + str(bad)}")
+        f"({', '.join(fns)}, requant_rows): {'ok' if not bad else 'FAIL ' + str(bad)}")
     return not bad
 
 
@@ -1750,12 +1808,12 @@ def timed_run(torch, rt, ids, n_decode: int = DECODE):
 
 
 def profile_decode(torch, rt, kv, n_past: int, tok, steps: int = 8, tag: str = "4",
-                   top: int = 12) -> dict:
+                   top: int = 12, host: bool = True) -> dict:
     """Device time by kernel over a few decode steps (torch.profiler), and
     the share of the wall time the card was busy."""
     rt._decode_loop(tok, kv, n_past, 2)                  # warm
     return profile_window(torch, lambda: rt._decode_loop(tok, kv, n_past, steps), steps,
-                          f"{steps} decode steps", "step", tag, top)
+                          f"{steps} decode steps", "step", tag, top, host=host)
 
 
 def profile_window(torch, fn, steps: int, what: str, unit: str, tag: str,
@@ -3070,6 +3128,281 @@ def phase_int4(torch, gguf: Path, launches: dict) -> bool:
     return ok and good
 
 
+# --------------------------------------------------- phase 17: the family --
+LONG17, DECODE17 = 4000, 64      # phase 17's cached tokens and decode steps
+
+
+def build_family_gguf(path: Path, c: dict) -> Path:
+    """One block of architecture c["ARCH"] at the width ``c`` (Q4_0 block
+    linears and experts, Q8_0 embedding and head, tied on the gemmas;
+    unit norms; gemma3: QK-norms, linear rope scaling on the global layers;
+    gemma2: softcaps; gpt-oss: q/k/v/o biases, sinks, an f32 router with its
+    bias and per-expert biases, yarn rope), random blocks from seed 0;
+    cached beside a .meta. The sliding-window layout comes from the
+    config, so the block clones to any depth (``clone_family``)."""
+    from ik_llama_cpp_tpu_torch.gguf.constants import GGMLType
+    from ik_llama_cpp_tpu_torch.gguf.writer import GGUFWriter
+    meta = json.dumps(dict(v=FAMILY_GGUF_VERSION, **c))
+    mpath = path.with_suffix(".meta")
+    if path.exists() and mpath.exists() and mpath.read_text() == meta:
+        return path
+    path.parent.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(0)
+    arch, e, h, hkv, d, ff, v = (c[k] for k in ("ARCH", "E", "H", "HKV", "D", "FF", "V"))
+    w = GGUFWriter(str(path), arch=arch)
+    kv = {"block_count": 1, "context_length": c["CTX"], "embedding_length": e,
+          "feed_forward_length": ff, "attention.head_count": h,
+          "attention.head_count_kv": hkv, "attention.key_length": d,
+          "attention.value_length": d, "attention.layer_norm_rms_epsilon": 1e-6,
+          "attention.sliding_window": c["WINDOW"], "rope.freq_base": c["ROPE"],
+          "rope.dimension_count": d, "vocab_size": v}
+    if arch == "gemma3":
+        kv.update({"rope.scaling.type": "linear", "rope.scaling.factor": c["ROPE_SCALE"]})
+    if arch == "gemma2":
+        kv.update({"attn_logit_softcapping": c["SOFTCAP"],
+                   "final_logit_softcapping": c["FINAL_SOFTCAP"]})
+    if arch == "gpt-oss":
+        kv.update({"expert_count": c["G"], "expert_used_count": c["TOPK"],
+                   "expert_feed_forward_length": ff, "rope.scaling.type": "yarn",
+                   "rope.scaling.factor": 32.0,
+                   "rope.scaling.original_context_length": 4096})
+    for key, val in kv.items():
+        w.add(f"{arch}.{key}", val)
+    w.add("tokenizer.ggml.model", "gpt2")
+    w.add("tokenizer.ggml.tokens", [f"<t{i}>" for i in range(v)])
+    w.add("tokenizer.ggml.token_type", np.ones(v, np.int32))
+    w.add("tokenizer.ggml.eos_token_id", 2)
+
+    def q(name, rows, cols, ttype=GGMLType.Q4_0, n=1):
+        w.add_tensor(name, _rand_blocks(rng, n * rows, cols, ttype),
+                     shape=(cols, rows) if n == 1 else (cols, rows, n), ggml_type=ttype)
+
+    def small(name, *shape, std=0.1):
+        w.add_tensor(name, (rng.standard_normal(shape) * std).astype(np.float32))
+
+    def ones(name, n):
+        w.add_tensor(name, np.ones(n, np.float32))
+
+    q("token_embd.weight", v, e, GGMLType.Q8_0)
+    ones("output_norm.weight", e)
+    p = "blk.0."
+    ones(p + "attn_norm.weight", e)
+    q(p + "attn_q.weight", h * d, e)
+    q(p + "attn_k.weight", hkv * d, e)
+    q(p + "attn_v.weight", hkv * d, e)
+    q(p + "attn_output.weight", e, h * d)
+    if arch == "gpt-oss":
+        q("output.weight", v, e, GGMLType.Q8_0)
+        for name, width in (("attn_q", h * d), ("attn_k", hkv * d), ("attn_v", hkv * d),
+                            ("attn_output", e)):
+            small(p + name + ".bias", width)
+        small(p + "attn_sinks.weight", h, std=1.0)
+        ones(p + "post_attention_norm.weight", e)          # gpt-oss's pre-FFN norm
+        w.add_tensor(p + "ffn_gate_inp.weight",
+                     rng.standard_normal((c["G"], e), dtype=np.float32) / np.float32(np.sqrt(e)))
+        small(p + "ffn_gate_inp.bias", c["G"])
+        q(p + "ffn_gate_exps.weight", ff, e, n=c["G"])
+        q(p + "ffn_up_exps.weight", ff, e, n=c["G"])
+        q(p + "ffn_down_exps.weight", e, ff, n=c["G"])
+        for name, width in (("ffn_gate_exps", ff), ("ffn_up_exps", ff), ("ffn_down_exps", e)):
+            small(p + name + ".bias", c["G"], width, std=0.01)
+    else:
+        if arch == "gemma3":
+            ones(p + "attn_q_norm.weight", d)
+            ones(p + "attn_k_norm.weight", d)
+        for name in ("post_attention_norm", "ffn_norm", "post_ffw_norm"):
+            ones(p + name + ".weight", e)
+        q(p + "ffn_gate.weight", ff, e)
+        q(p + "ffn_up.weight", ff, e)
+        q(p + "ffn_down.weight", e, ff)
+    w.write()
+    mpath.write_text(meta)
+    return path
+
+
+def family_cfg(gguf: Path, n_layer: int):
+    """The file's config made anew at depth n_layer, so that the per-layer
+    sliding-window layout is the model's at that depth."""
+    from ik_llama_cpp_tpu_torch.gguf.reader import load_gguf
+    from ik_llama_cpp_tpu_torch.models.config import config_from_gguf
+    md = dict(load_gguf(gguf).metadata)
+    md[f"{md['general.architecture']}.block_count"] = n_layer
+    return config_from_gguf(md)
+
+
+def clone_family(rt, gguf: Path, n_layer: int):
+    """Block 0 cloned into n_layer distinct blocks, with family_cfg."""
+    blk0 = rt.params["blocks"][0]
+    rt.params["blocks"] = [blk0] + [copy.deepcopy(blk0) for _ in range(n_layer - 1)]
+    rt.cfg = family_cfg(gguf, n_layer)
+    return rt
+
+
+def load_family(torch, c: dict, n_layer: int, tag: str):
+    """The file of ``c`` built (or found) under build/, loaded through
+    Runtime.from_gguf and cloned to n_layer; returns (runtime, load s)."""
+    from ik_llama_cpp_tpu_torch.runtime.generate import Runtime
+    t0 = time.perf_counter()
+    gguf = build_family_gguf(ROOT / "build" / f"smoke_{c['ARCH']}.gguf", c)
+    t1 = time.perf_counter()
+    rt = clone_family(Runtime.from_gguf(gguf, fuse=True), gguf, n_layer)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t1
+    kinds = sorted(set(_linear_kinds(rt)) | {type(rt.params["output"]).__name__})
+    log(f"[17] {tag}: {c['ARCH']} L{n_layer} E{c['E']} H{c['H']} KV{c['HKV']} D{c['D']} "
+        f"FF{c['FF']} V{c['V']}: file ready in {t1 - t0:.1f} s, loaded in {load_s:.1f} s; "
+        f"window {rt.cfg.swa_window} on {sum(map(rt.cfg.layer_is_swa, range(n_layer)))} of "
+        f"{n_layer} layers; linears {kinds}; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return rt, load_s
+
+
+def family_parity(torch, rt, n_prompt: int, tag: str, seed: int) -> bool:
+    """The kernel path against the plain path over one token history (the
+    rule of phases 6, 10, 11 and 13: every step's logits within 5% of the
+    largest logit)."""
+    t0 = time.perf_counter()
+    ids = [int(x) for x in np.random.default_rng(seed).integers(3, rt.cfg.n_vocab, n_prompt)]
+    reset_counts()
+    _, lk, lp, kvk, kvp, _ = forced_parity(torch, rt, ids, 16)
+    counts = {k: n for k, n in read_counts().items() if n}
+    good, text = parity_verdict(lk, lp)
+    log(f"[17] parity {tag}, {n_prompt}-token prompt and 16 steps: {text}: "
+        f"{'ok' if good else 'FAIL'}; kernel launches {counts} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del kvk, kvp
+    return good and bool(counts)
+
+
+def ring_attention_ms(torch, rt, kv, n_past: int) -> float:
+    """The plain ring attention of one decode step: ``attend`` over every
+    ring layer's slots at n_past, timed with CUDA events (ms a step)."""
+    from ik_llama_cpp_tpu_torch.models import llama
+    from ik_llama_cpp_tpu_torch.ops.attention import attend
+    cfg, ring = rt.cfg, kv.swa_cap
+    q = torch.randn((1, 1, cfg.n_head, cfg.head_dim), device="cuda").to(torch.bfloat16)
+    kv_len = torch.tensor([n_past + 1], dtype=torch.int32, device="cuda")
+    q_pos = kv_len[:, None] - 1
+    layers = [i for i in range(cfg.n_layer) if kv.ring(i)]
+
+    def step():
+        for i in layers:
+            attend(q, kv.k[i], kv.v[i], q_pos=q_pos, kv_len=kv_len,
+                   scale=cfg.f_attention_scale, swa_window=cfg.swa_window,
+                   key_positions=llama._ring_positions(kv_len, ring))
+    step()
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(5):
+        step()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / 5
+
+
+def phase_family(torch, launches: dict) -> bool:
+    """Phase 17: the llama-graph family. Gemma-3-12B at full width (L48): a
+    3,999-token prefill in chunks and 64 greedy decode steps at 4,000
+    cached tokens over a bf16 cache, launch counts and a decode profile;
+    the same over --swa-compress ring caches; then three one-history
+    parities: Gemma-3-12B at depth 6 over 1,100 tokens, the Gemma-2-9B
+    width and the gpt-oss-20b width at depth 2."""
+    c = GEMMA3
+    t_phase = time.perf_counter()
+    rt, load_s = load_family(torch, c, c["L"], "full width")
+    nl = c["L"]
+    ids = [int(x) for x in np.random.default_rng(17).integers(3, c["V"], LONG17 - 1)]
+    rt.eval_tokens(ids[:8], rt.new_cache(1, 64), 0)                  # warm-up
+    kv = rt.new_cache(1, LONG17 + DECODE17)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, kv, n_past = rt.eval_tokens(ids, kv, 0)
+    first = torch.argmax(logits[-1]).reshape(1, 1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    counts_pre = read_counts()
+    reset_counts()
+    toks = rt._decode_loop(first, kv, n_past, DECODE17)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = read_counts()
+    chunks = -(-len(ids) // 512)
+    per = 4 * nl + 1                 # fused qkv, wo, fused gate/up, down a layer; the head
+    want_pre = {"qmatmul_i8": per * chunks, "flash_attention": nl * chunks}
+    want_dec = {"qmatmul_i8": per * DECODE17, "flash_attention_decode": nl * DECODE17}
+    got_pre = {k: n for k, n in counts_pre.items() if n}
+    got_dec = {k: n for k, n in counts.items() if n}
+    for k in ("qmatmul_i8", "flash_attention", "flash_attention_decode"):
+        launches[k] = launches.get(k, 0) + counts_pre[k] + counts[k]
+    finite = bool(torch.isfinite(logits).all())
+    ok = got_pre == want_pre and got_dec == want_dec and finite and \
+        bool(((toks >= 0) & (toks < c["V"])).all())
+    log(f"[17] prefill {len(ids)} tokens in {chunks} chunks: {(t1 - t0) * 1e3:.1f} ms = "
+        f"{len(ids) / (t1 - t0):.1f} tok/s; decode {DECODE17} tokens at {n_past + 1}-"
+        f"{n_past + DECODE17} cached: {(t2 - t1) * 1e3:.1f} ms = "
+        f"{DECODE17 / (t2 - t1):.2f} tok/s; load {load_s:.1f} s")
+    log(f"[17] launches: prefill {got_pre} (expected {want_pre}), decode {got_dec} "
+        f"(expected {want_dec}): A {got_dec.get('qmatmul_i8', 0) / DECODE17:g} and C "
+        f"{got_dec.get('flash_attention_decode', 0) / DECODE17:g} a step; logits finite "
+        f"{finite}: {'ok' if ok else 'FAIL'}")
+    prof = profile_decode(torch, rt, kv, n_past + DECODE17, toks[:, -1:], tag="17", top=8,
+                          host=False)
+    log(f"[17] decode step at {n_past + DECODE17} cached: kernel A {a_ms(prof)}; "
+        f"{c_ms(prof)}; all kernels {sum(prof.values()):.3f} ms")
+    full_bytes = _cache_bytes(kv)
+    del kv, logits
+    torch.cuda.empty_cache()
+
+    # the same decode over ring caches on the 40 window layers
+    rt.swa_compress = True
+    kvr = rt.new_cache(1, LONG17 + DECODE17)
+    reset_counts()
+    lr, kvr, n_r = rt.eval_tokens(ids, kvr, 0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    toks_r = rt._decode_loop(torch.argmax(lr[-1]).reshape(1, 1), kvr, n_r, DECODE17)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts_r = {k: n for k, n in read_counts().items() if n}
+    ring_ms = ring_attention_ms(torch, rt, kvr, n_r + DECODE17)
+    same = int((toks_r == toks).sum())
+    ring_ok = (type(kvr).__name__ == "SwaKVCache" and bool(torch.isfinite(lr).all())
+               and counts_r.get("flash_attention_decode", 0) == (nl - 40) * DECODE17)
+    log(f"[17] ring caches: {sum(m < 0 for m in kvr.layer_map)} ring layers of "
+        f"{kvr.swa_cap} rows, {sum(m >= 0 for m in kvr.layer_map)} full of {kvr.capacity}: "
+        f"{_cache_bytes(kvr) / 2**30:.3f} GiB against {full_bytes / 2**30:.3f} GiB; decode "
+        f"{DECODE17} tokens {(t2 - t1) * 1e3:.1f} ms = {DECODE17 / (t2 - t1):.2f} tok/s; the "
+        f"plain ring attention {ring_ms:.3f} ms a step (40 layers); greedy tokens the full "
+        f"cache's at {same} of {DECODE17} steps; launches {counts_r}: "
+        f"{'ok' if ring_ok else 'FAIL'}")
+    prof = profile_decode(torch, rt, kvr, n_r + DECODE17, toks_r[:, -1:], tag="17 ring", top=8,
+                          host=False)
+    log(f"[17] ring decode step: kernel A {a_ms(prof)}; {c_ms(prof)}; all kernels "
+        f"{sum(prof.values()):.3f} ms")
+    rt.swa_compress = False
+    del kvr, lr
+    ok &= ring_ok
+    log(f"[17] Gemma-3-12B at L{nl}, bf16 and ring caches: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    # one-history parities: Gemma-3-12B at depth 6 (five window layers, one
+    # global) over a prompt longer than its window
+    rt.params["blocks"] = rt.params["blocks"][:6]
+    rt.cfg = family_cfg(ROOT / "build" / "smoke_gemma3.gguf", 6)
+    ok &= family_parity(torch, rt, 1100, "Gemma-3-12B at depth 6", 18)
+    del rt
+    torch.cuda.empty_cache()
+    for cfg_, n_prompt, seed, tag in ((GEMMA2, 1100, 19, "Gemma-2-9B width at depth 2"),
+                                      (GPTOSS, 300, 20, "gpt-oss-20b width at depth 2")):
+        rt, _ = load_family(torch, cfg_, 2, tag)
+        ok &= family_parity(torch, rt, n_prompt, tag, seed)
+        del rt
+        torch.cuda.empty_cache()
+    return ok
+
+
 KERNELS = {
     "qmatmul_i8": ("ik_llama_cpp_tpu_torch/csrc/qmatmul_i8.cu",
                    "ik_llama_cpp_tpu/ops/qmatmul.py:474", "M=1 K=4096 N=28672"),
@@ -3142,7 +3475,7 @@ def summary(results, launches) -> list:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
     try:
@@ -3221,6 +3554,8 @@ def main() -> int:
         ok &= timed("15", phase_perf_dequant, torch, launches)
     if 16 in phases:
         ok &= timed("16", phase_server, torch, gguf)
+    if 17 in phases:
+        ok &= timed("17", phase_family, torch, launches)
     kernels = summary(results, launches)
     if phases >= {3, 4, 6, 7, 9, 11, 12, 14, 15, 16}:
         for k in kernels:

@@ -24,7 +24,7 @@ from ..gguf.reader import GGUFTensorInfo
 from ..quant.dequant import dequantize
 from ..quant.planar import PLANAR_FNS, planar_decode
 from ..ops.qmatmul import (SUPERGROUP, pack_int4, qmatmul, qmatmul4, qmatmul_i8,
-                           quantize_activations, requant_supergroup)
+                           quantize_activations, requant_rows)
 
 
 class QLinear(nn.Module):
@@ -172,9 +172,8 @@ def load_linear(info: GGUFTensorInfo, device, *, use_quant: bool = True):
             return QLinearI4(_t(packed, device), _t(pw.scale.T, device, torch.bfloat16),
                              bias, group=pw.group, lut16=lut)
         if i8_enabled(device) and k % SUPERGROUP == 0:
-            q8, sw = requant_supergroup(pw.codes.T, pw.scale.T, group=pw.group)
-            codes_t = _t(q8.T, device)                           # (N, K)
-            return QLinearI8(codes_t.t(), _t(sw, device), bias, group=pw.group)
+            codes_t, sw = requant_rows(pw.codes, pw.scale, pw.group, device)   # (N, K)
+            return QLinearI8(codes_t.t(), sw.t().contiguous(), bias, group=pw.group)
         return QLinear(_t(pw.codes.T, device), _t(pw.scale.T, device, torch.bfloat16),
                        bias, group=pw.group)
     w = dequant_tensor(info).reshape(n, k).T
@@ -184,6 +183,26 @@ def load_linear(info: GGUFTensorInfo, device, *, use_quant: bool = True):
 def load_dense(info: GGUFTensorInfo, device) -> torch.Tensor:
     """Norm weights and biases: float32."""
     return _t(dequant_tensor(info), device, torch.float32)
+
+
+def scale_linear(lin, s: torch.Tensor):
+    """Fold a scalar or per-output-channel (N,) multiplier into a linear:
+    the load-time form of bitnet's post-matmul scale by its ``*.scale``
+    tensors. Each scale array (or the dense weight) is multiplied in
+    float32 and stored back in its own dtype, as the JAX loader does."""
+    s = s.float().reshape(-1)
+    mul = s[None, :] if s.numel() > 1 else s[0]
+
+    def fold(a):
+        return None if a is None else (a.float() * mul).to(a.dtype)
+
+    if isinstance(lin, QLinearI4):
+        return QLinearI4(lin.packed, fold(lin.scale), fold(lin.bias), lin.group, lin.lut16)
+    if isinstance(lin, QLinearI8):
+        return QLinearI8(lin.codes, fold(lin.sw), fold(lin.gbias), lin.group)
+    if isinstance(lin, QLinear):
+        return QLinear(lin.codes, fold(lin.scale), fold(lin.bias), lin.group)
+    return DenseLinear(fold(lin.w))
 
 
 def fuse_linears(linears: list):

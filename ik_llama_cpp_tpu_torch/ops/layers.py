@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 ROPE_TYPE_NORM = 0   # consecutive pairs (original llama GGUF convention)
@@ -98,8 +99,30 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     return out.to(x.dtype)
 
 
+def imrope_text_mask(sections, n_rot: int) -> np.ndarray:
+    """Per-dim-pair rotation mask of interleaved mrope (qwen3vl) for text
+    tokens: each pair (sector = pair % sum(sections)) goes round-robin to
+    the t/h/w streams, and unmatched sectors to the "extra" stream, whose
+    text position is 0 (ggml_mrope_cache_init; llama.cpp feeds text
+    positions [t, t, t, 0]). Returns a bool (n_rot // 2,) mask: True =
+    rotate by the token position, False = no rotation."""
+    s = list(sections) + [0] * (4 - len(sections))
+    sect_dims = s[0] + s[1] + s[2] + s[3]
+    mask = np.zeros(n_rot // 2, dtype=bool)
+    for j in range(n_rot // 2):
+        sector = j % max(sect_dims, 1)
+        mask[j] = ((sector % 3 == 1 and sector < 3 * s[1])
+                   or (sector % 3 == 2 and sector < 3 * s[2])
+                   or (sector % 3 == 0 and sector < 3 * s[0]))
+    return mask
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
+
+
+def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    return silu(gate.float()).to(gate.dtype) * up
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,8 @@ launches its CUDA kernel (``csrc/``) for tensors on the card; there is no
 fallback from one to the other. ``qmatmul_ref``, ``qmatmul_i8_ref`` and
 ``quantize_activations`` carry the numerics contracts of the JAX package's
 ``ops/qmatmul.py``; ``requant_supergroup`` and ``pack_int4`` are its numpy
-load-time recodes.
+load-time recodes, and ``requant_rows`` is ``requant_supergroup`` in torch
+on the load's device, bit for bit.
 """
 from __future__ import annotations
 
@@ -384,6 +385,29 @@ def requant_supergroup(codes: np.ndarray, scale: np.ndarray,
     s_safe = np.where(s > 0, s, 1.0)
     q8 = np.rint(wg / s_safe[:, None, :]).astype(np.int8).reshape(k, n)
     return q8, s.astype(np.float32)
+
+
+def requant_rows(codes: np.ndarray, scale: np.ndarray, group: int, device,
+                 chunk: int = 8192):
+    """``requant_supergroup`` on rows, in torch on ``device``: planar codes
+    (R, K) int8 and scales (R, K/group) -> (int8 (R, K), f32 (R, K/256))
+    tensors on ``device``, the transposes of requant_supergroup's results bit
+    for bit (the same float32 products, absmax, true divisions and round
+    half to even). On the card it takes a load's recode off the host; rows
+    go over in chunks of ``chunk`` to bound the float32 intermediates."""
+    r, k = codes.shape
+    q8 = torch.empty((r, k), dtype=torch.int8, device=device)
+    sw = torch.empty((r, k // SUPERGROUP), dtype=torch.float32, device=device)
+    for lo in range(0, r, chunk):
+        c = torch.from_numpy(np.ascontiguousarray(codes[lo:lo + chunk])).to(device)
+        s = torch.from_numpy(np.ascontiguousarray(scale[lo:lo + chunk], np.float32)).to(device)
+        wg = (c.float() * s.repeat_interleave(group, dim=1)).reshape(
+            c.shape[0], k // SUPERGROUP, SUPERGROUP)
+        sg = true_div(wg.abs().amax(dim=2), 127.0)
+        safe = torch.where(sg > 0, sg, torch.ones_like(sg))
+        q8[lo:lo + chunk] = torch.round(wg / safe[..., None]).to(torch.int8).reshape(-1, k)
+        sw[lo:lo + chunk] = sg
+    return q8, sw
 
 
 _DIVISORS: dict = {}

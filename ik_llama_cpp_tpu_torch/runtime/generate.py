@@ -2,9 +2,10 @@
 decode, text in and out through the GGUF's tokenizer.
 
 The torch counterpart of the JAX package's ``runtime/generate.py:Runtime``
-for the llama, qwen3moe and qwen2moe paths (MoE experts in any of their
-loaded forms: int8 per supergroup, planar, mixed or bf16; shared experts),
-with a bf16 or quantized KV cache.
+for every architecture of its dense family (``models/llama.py:ARCHS``; MoE
+experts in any of their loaded forms: int8 per supergroup, planar, mixed or
+bf16; shared experts), with a bf16 or quantized KV cache, or ring caches on
+the sliding-window layers (``swa_compress``).
 PyTorch runs eagerly, so there are no compiled step functions; the prefill
 buckets and the chunk limit are kept so that cache rows and chunking match
 the JAX runtime exactly.
@@ -14,19 +15,58 @@ never falls back to the CPU on its own.
 """
 from __future__ import annotations
 
+import collections
+import logging
 from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 
-from ..gguf.reader import load_gguf
+from ..gguf.reader import GGUFModel, load_gguf
 from ..models import llama as llama_mod
 from ..models.config import ModelConfig, config_from_gguf
-from ..models.llama import KVCache, MixedKVCache
+from ..models.llama import KVCache, MixedKVCache, SwaKVCache
 from .sampling import SamplerParams, SamplerState, sample as sample_token
 from .tokenizer import Tokenizer, tokenizer_from_gguf
 
 PREFILL_BUCKETS = (8, 16, 32, 64, 128, 256, 512)
+
+
+def _log_model_load(gg: GGUFModel, cfg: ModelConfig) -> None:
+    """Reference-style load log: tensor counts and sizes by type, and the
+    model's shape."""
+    log = logging.getLogger("ik_llama_cpp_tpu_torch")
+    counts: dict = collections.Counter()
+    nbytes: dict = collections.Counter()
+    for info in gg.tensors.values():
+        counts[info.ggml_type.name] += 1
+        nbytes[info.ggml_type.name] += len(info.data)
+    for tname in sorted(counts):
+        log.info("model tensors: %-8s %4d tensors  %8.2f MiB",
+                 tname, counts[tname], nbytes[tname] / (1 << 20))
+    log.info("model: arch=%s layers=%d embd=%d heads=%d/%d ff=%d vocab=%d "
+             "ctx_train=%d  file=%.2f MiB", cfg.arch, cfg.n_layer, cfg.n_embd,
+             cfg.n_head, cfg.n_head_kv, cfg.n_ff, cfg.n_vocab, cfg.n_ctx_train,
+             sum(nbytes.values()) / (1 << 20))
+
+
+def _gptj_unsupported(*args, **kwargs):
+    raise NotImplementedError(
+        "gptj is vestigial in the reference too: its tensor map holds only "
+        "token_embd and there is no graph builder (llama-model.cpp:171, no "
+        "build_gptj in src/graphs/) — every attempt to load a GPT-J GGUF "
+        "fails there as well, as it does in the JAX package.")
+
+
+# every architecture of the dense family runs the one llama graph
+FORWARDS = {a: llama_mod.forward for a in llama_mod.ARCHS}
+LOADERS = {a: llama_mod.load_llama_params for a in llama_mod.ARCHS}
+CACHES = {a: KVCache.create for a in llama_mod.ARCHS}
+FORWARDS["gptj"] = LOADERS["gptj"] = CACHES["gptj"] = _gptj_unsupported
+# architectures with a forward of their own in the JAX package
+OWN_FORWARD = ("deepseek2", "mistral4", "glm-dsa", "deepseek4", "mamba", "qwen3next",
+               "qwen35", "qwen35moe", "gemma4", "gemma4_mtp", "gemma4-assistant",
+               "openpangu", "bert", "nomic-bert", "jina-bert-v2", "t5", "dflash")
 
 
 def _bucket(n: int) -> int:
@@ -71,6 +111,8 @@ class Runtime:
     # KV cache type: False (bf16) | True / 'q8' | 'q4' | 'q6' | 'nl4' /
     # 'iq4_nl' | a per-layer dict {"type", "first", "n_first", "last", "n_last"}
     kv_quant: "bool | str | dict" = False
+    # ring caches on the sliding-window layers (--swa-compress)
+    swa_compress: bool = False
 
     @classmethod
     def from_gguf(cls, path, device=None, *, use_quant: bool = True,
@@ -79,20 +121,27 @@ class Runtime:
                   k_hadamard: bool = False, v_hadamard: bool = False):
         """``kv_quant`` picks the cache type of ``new_cache``; ``k_hadamard``
         / ``v_hadamard`` (-khad / -vhad) rotate K (with q) and V by a
-        head-dim Hadamard before the cache write."""
+        head-dim Hadamard before the cache write; ``swa_compress`` gives
+        ``new_cache`` ring caches on the sliding-window layers where they
+        take effect (a bf16 cache longer than window + margin + 128)."""
         dev = resolve_device(device)
-        if swa_compress:
-            llama_mod._later("SWA ring caches (--swa-compress)", "other-architectures")
         if tensor_parallel > 1 or layer_split > 1:
-            llama_mod._later("tensor / pipeline parallel serving", "multi-GPU")
+            llama_mod._later("tensor / pipeline parallel serving", "multi-GPU (item 11)")
         gg = load_gguf(path)
         cfg = config_from_gguf(gg.metadata)
         if k_hadamard or v_hadamard:
             cfg = replace(cfg, k_hadamard=k_hadamard, v_hadamard=v_hadamard)
-        params = llama_mod.load_llama_params(gg, cfg, dev, use_quant=use_quant,
-                                             fuse=fuse)
+        loader = LOADERS.get(cfg.arch)
+        if loader is None:
+            if cfg.arch in OWN_FORWARD:
+                llama_mod._later(f"architecture {cfg.arch!r}, which has a forward of "
+                                 "its own", "other architectures (item 8)")
+            raise NotImplementedError(f"arch {cfg.arch!r} not supported yet")
+        params = loader(gg, cfg, dev, use_quant=use_quant, fuse=fuse)
+        _log_model_load(gg, cfg)
         return cls(cfg=cfg, params=params, device=dev,
-                   tokenizer=tokenizer_from_gguf(gg.metadata), kv_quant=kv_quant)
+                   tokenizer=tokenizer_from_gguf(gg.metadata), kv_quant=kv_quant,
+                   swa_compress=swa_compress)
 
     @property
     def eos_id(self) -> int:
@@ -117,7 +166,16 @@ class Runtime:
                     mid=quant.get("type", "q4"), override=ovr,
                     n_first=n_first, n_last=n_last)
             quant = ovr      # every layer overridden: a plain cache of that codec
-        return KVCache.create(self.cfg, batch, capacity, self.device, quant=quant)
+        if self.swa_compress:
+            # ring caches on the sliding-window layers, as the JAX runtime
+            # makes them: bf16 only, and only where the ring is shorter than
+            # the cache; otherwise the plain cache
+            margin = PREFILL_BUCKETS[-1] + 64
+            if (not quant and self.cfg.swa_window > 0
+                    and self.cfg.swa_window + margin + 128 < capacity):
+                return SwaKVCache.create(self.cfg, batch, capacity, self.device,
+                                         margin=margin)
+        return CACHES[self.cfg.arch](self.cfg, batch, capacity, self.device, quant=quant)
 
     def eval_tokens(self, ids: list[int], kv, n_past: int = 0, *,
                     all_logits: bool = False):
@@ -132,8 +190,8 @@ class Runtime:
             chunk = ids[i:i + _chunk_limit(kv, n_past)]
             padded = torch.zeros((1, _bucket(len(chunk))), dtype=torch.int64)
             padded[0, :len(chunk)] = torch.as_tensor(chunk, dtype=torch.int64)
-            logits = llama_mod.forward(self.params, self.cfg,
-                                       padded.to(self.device), kv, n_past)
+            logits = FORWARDS[self.cfg.arch](self.params, self.cfg,
+                                             padded.to(self.device), kv, n_past)
             if all_logits:
                 out_chunks.append(logits[0, :len(chunk)])
             last_len = len(chunk)
@@ -178,11 +236,10 @@ class Runtime:
                                      device=self.device))
         toks = torch.empty((b, n_steps), dtype=torch.int64, device=self.device)
         tok = tok0
+        forward = FORWARDS[self.cfg.arch]
         for s in range(n_steps):
-            logits = llama_mod.forward(self.params, self.cfg, tok, kv,
-                                       n_past + s,
-                                       npv=pos[s:s + 1].expand(b),
-                                       logits_last_only=True)
+            logits = forward(self.params, self.cfg, tok, kv, n_past + s,
+                             npv=pos[s:s + 1].expand(b), logits_last_only=True)
             nxt = torch.argmax(logits[:, -1], dim=-1)
             toks[:, s] = nxt
             tok = nxt[:, None]

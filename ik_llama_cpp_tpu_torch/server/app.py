@@ -14,9 +14,10 @@ The torch port of the JAX package's ``server/app.py``, split in two:
 
 Endpoints: /health /props /v1/models /metrics /slots /tokenize /detokenize
 /completion(s) /v1/completions /v1/chat/completions /v1/responses
-/apply-template. The other routes of the JAX server (embeddings, rerank,
-infill, slot save/restore, LoRA, control vectors, sessions, the Anthropic
-API, multimodal, the profiler) are later slices of the port.
+/apply-template and the control vectors' GET /control-vectors and POST
+/control-vectors/load, /unload and /apply. The other routes of the JAX
+server (embeddings, rerank, infill, slot save/restore, LoRA, sessions, the
+Anthropic API, multimodal, the profiler) are later slices of the port.
 
 Run: python -m ik_llama_cpp_tpu_torch.server --gguf model.gguf --port 8080
 """
@@ -27,6 +28,7 @@ import json
 import queue
 import time
 import uuid
+from pathlib import Path
 from typing import Iterator
 
 import numpy as np
@@ -162,6 +164,9 @@ class Server:
         self.api_key = api_key
         # a built-in template name or jinja source; default: the GGUF's own
         self.template = template or getattr(self.rt.tokenizer, "chat_template", None)
+        # loaded control vectors: {"path", "scale", "layer_start",
+        # "layer_end" (1-indexed, inclusive), "applied"}
+        self.control_vectors: list[dict] = []
 
     # ------------------------------------------------------ engine bridge
     def _open(self, prompt_ids: list[int], body: dict,
@@ -297,7 +302,98 @@ class Server:
         return [{"id": s.idx, "state": s.state.name, "n_past": s.n_past,
                  "n_decoded": s.n_decoded} for s in self.engine.slots]
 
+    def cvec_list(self) -> list:
+        """GET /control-vectors (server.cpp:1639)."""
+        return [{"id": i, "path": cv["path"], "scale": cv["scale"],
+                 "layer_start": cv["layer_start"], "layer_end": cv["layer_end"],
+                 "applied": cv["applied"]} for i, cv in enumerate(self.control_vectors)]
+
     # ------------------------------------------------------------ POST
+    def _reapply_cvec(self) -> None:
+        """Rebuild the summed steering array from every loaded vector whose
+        scale is not 0 (the layer range is 1-indexed and inclusive, as the
+        reference's direction.<il> names are) and rebind ``rt.params`` to a
+        copy that holds it: the engine thread may be reading the old dict
+        for a step at this moment."""
+        from ..runtime.cvector import (apply_control_vector, load_control_vector,
+                                       remove_control_vector)
+        cfg = self.rt.cfg
+        total = None
+        for cv in self.control_vectors:
+            cv["applied"] = cv["scale"] != 0.0
+            if cv["applied"]:
+                dense = load_control_vector(cv["path"], cfg.n_layer, cfg.n_embd,
+                                            scale=cv["scale"],
+                                            layer_start=cv["layer_start"] - 1,
+                                            layer_end=cv["layer_end"])
+                total = dense if total is None else total + dense
+        params = dict(self.rt.params)
+        if total is None:
+            remove_control_vector(params)
+        else:
+            apply_control_vector(params, total, self.rt.device)
+        self.rt.params = params
+
+    @staticmethod
+    def _cvec_error(message: str) -> RequestError:
+        e = RequestError(400, message)
+        e.payload = {"success": False, "error": message}
+        return e
+
+    def cvec_load(self, body: dict) -> dict:
+        """POST /control-vectors/load {"path", "scale"?, "layer_start"?,
+        "layer_end"?} (server-context.cpp:3081). Loading a path again
+        updates its parameters."""
+        path = body.get("path")
+        if not path or not Path(path).is_file():
+            raise self._cvec_error("control vector file not found")
+        entry = {"path": path, "scale": float(body.get("scale", 1.0)),
+                 "layer_start": int(body.get("layer_start", 1)),
+                 "layer_end": int(body.get("layer_end", self.rt.cfg.n_layer)),
+                 "applied": False}
+        try:
+            for cv in self.control_vectors:
+                if cv["path"] == path:
+                    cv.update(entry)
+                    break
+            else:
+                self.control_vectors.append(entry)
+            self._reapply_cvec()
+        except (OSError, ValueError, KeyError) as e:
+            raise self._cvec_error(str(e)) from e
+        return {"success": True,
+                "id": [cv["path"] for cv in self.control_vectors].index(path)}
+
+    def _cvec_id_ok(self, cid) -> bool:
+        return isinstance(cid, int) and 0 <= cid < len(self.control_vectors)
+
+    def cvec_unload(self, body: dict) -> dict:
+        """POST /control-vectors/unload {"id"} (server-context.cpp:3158)."""
+        cid = body.get("id")
+        if not self._cvec_id_ok(cid):
+            raise self._cvec_error("Missing or invalid 'id' field")
+        self.control_vectors.pop(cid)
+        self._reapply_cvec()
+        return {"success": True}
+
+    def cvec_apply(self, body) -> dict:
+        """POST /control-vectors/apply [{"id", "scale", "layer_start"?,
+        "layer_end"?}, ...]: every scale goes to 0, then the given ones are
+        set (server.cpp:1690). A bad id changes nothing."""
+        entries = body if isinstance(body, list) else [body]
+        if not all(self._cvec_id_ok(entry.get("id")) for entry in entries):
+            raise self._cvec_error("Invalid control vector id")
+        for cv in self.control_vectors:
+            cv["scale"] = 0.0
+        for entry in entries:
+            cv = self.control_vectors[entry["id"]]
+            cv["scale"] = float(entry.get("scale", 0.0))
+            for key in ("layer_start", "layer_end"):
+                if key in entry:
+                    cv[key] = int(entry[key])
+        self._reapply_cvec()
+        return {"success": True}
+
     def tokenize(self, body: dict) -> dict:
         ids = self.rt.tokenizer.encode(body.get("content", ""),
                                        add_bos=bool(body.get("add_special", False)))
@@ -508,13 +604,17 @@ class Server:
 
 
 GET_ROUTES = {"/health": "health", "/props": "props", "/v1/models": "models",
-              "/models": "models", "/metrics": "metrics", "/slots": "slots"}
+              "/models": "models", "/metrics": "metrics", "/slots": "slots",
+              "/control-vectors": "cvec_list"}
 POST_ROUTES = {"/tokenize": "tokenize", "/detokenize": "detokenize",
                "/apply-template": "apply_template",
                "/completion": "completion", "/completions": "completion",
                "/v1/completions": "oai_completions",
                "/v1/chat/completions": "oai_chat", "/chat/completions": "oai_chat",
-               "/v1/responses": "oai_responses", "/responses": "oai_responses"}
+               "/v1/responses": "oai_responses", "/responses": "oai_responses",
+               "/control-vectors/load": "cvec_load",
+               "/control-vectors/unload": "cvec_unload",
+               "/control-vectors/apply": "cvec_apply"}
 
 
 def sse(item) -> bytes:
@@ -574,7 +674,8 @@ def make_app(srv: Server):
         body = await request.json()
         name = POST_ROUTES[request.path]
         loop = asyncio.get_running_loop()
-        streamed = body.get("stream") and hasattr(srv, name + "_stream")
+        streamed = (isinstance(body, dict) and body.get("stream")
+                    and hasattr(srv, name + "_stream"))
         holder: dict = {}
         try:
             if not streamed:
@@ -621,6 +722,9 @@ def main(argv=None):
     ap.add_argument("--cache-type", choices=["bf16", "q8", "q6", "q4", "iq4_nl"],
                     default="bf16", help="KV cache type (-ctk/-ctv analogue)")
     ap.add_argument("--api-key", help="require this key (Bearer or x-api-key)")
+    ap.add_argument("--control-vector", action="append", default=[],
+                    help="control-vector GGUF (repeatable); PATH or PATH:SCALE, "
+                         "applied at startup")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the model and the cache (cpu for tests)")
     args = ap.parse_args(argv)
@@ -631,6 +735,14 @@ def main(argv=None):
                          cache_ram_mib=args.cache_ram)
     engine.start()
     srv = Server(engine, model_name=str(args.gguf), api_key=args.api_key)
+    for spec in args.control_vector:
+        path, _, scale = spec.rpartition(":")
+        if not (path and scale.replace(".", "").replace("-", "").isdigit()):
+            path, scale = spec, "1.0"
+        srv.control_vectors.append({"path": path, "scale": float(scale), "layer_start": 1,
+                                    "layer_end": rt.cfg.n_layer, "applied": False})
+    if srv.control_vectors:
+        srv._reapply_cvec()
     try:
         web.run_app(make_app(srv), host=args.host, port=args.port)
     finally:

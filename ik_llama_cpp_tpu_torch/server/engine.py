@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from ..models import llama as llama_mod
-from ..models.llama import KVCache, MixedKVCache
+from ..models.llama import KVCache, MixedKVCache, SwaKVCache
 from ..runtime.generate import PREFILL_BUCKETS, Runtime, _bucket, _chunk_limit
 from ..runtime.sampling import (SamplerParams, SamplerState,
                                 sample as sample_token, sample_topk,
@@ -230,7 +230,7 @@ class BatchEngine:
                  spec: str | None = None, spec_n: int = 8,
                  cache_ram_mib: int = 0):
         if spec:
-            llama_mod._later("speculative drafting in the server", "runtime extras")
+            llama_mod._later("speculative drafting in the server", "runtime extras (item 7)")
         self.rt = runtime
         self.cfg = runtime.cfg
         self.device = runtime.device
@@ -240,6 +240,9 @@ class BatchEngine:
         self.n_slots = n_slots
         self.capacity = capacity
         self.kv = runtime.new_cache(n_slots, capacity)
+        if isinstance(self.kv, SwaKVCache):
+            llama_mod._later("ring caches (--swa-compress) in the server",
+                             "server extras (item 7)")
         # RAM prompt-cache tier (0 = disabled, -1 = unlimited, else MiB)
         self.prompt_cache = (HostPromptCache(cache_ram_mib)
                              if cache_ram_mib != 0 else None)
@@ -283,7 +286,7 @@ class BatchEngine:
                  (req.post_sampling_probs, "post-sampling probabilities")]
         for asked, what in later:
             if asked:
-                llama_mod._later(what, "server extras")
+                llama_mod._later(what, "server extras (item 7)")
         with self._submit_lock:
             self.n_requests += 1
         self.requests.put(req)
@@ -644,10 +647,10 @@ class BatchEngine:
         return False
 
     def save_slot(self, idx: int, path: str) -> dict:
-        llama_mod._later("slot save/restore", "runtime extras (state.py)")
+        llama_mod._later("slot save/restore", "runtime extras (item 7: state.py)")
 
     def restore_slot(self, idx: int, path: str) -> dict:
-        llama_mod._later("slot save/restore", "runtime extras (state.py)")
+        llama_mod._later("slot save/restore", "runtime extras (item 7: state.py)")
 
     def erase_slot(self, idx: int) -> dict:
         slot = self.slots[idx]

@@ -81,9 +81,9 @@ def kv_spec(args):
 def main(argv=None):
     args = parse_args(argv)
     if args.lookahead:
-        llama_mod._later("lookahead decoding", "runtime extras")
+        llama_mod._later("lookahead decoding", "runtime extras (item 7)")
     if args.prompt_cache:
-        llama_mod._later("the prompt-cache session file", "runtime extras (state.py)")
+        llama_mod._later("the prompt-cache session file", "runtime extras (item 7: state.py)")
     if args.i8_mxu:
         from ..models.weights import set_i8_mxu
         set_i8_mxu(True)

@@ -145,16 +145,26 @@ def test_kv_cache_rows_land_in_place(tiny):
 
 
 def test_later_slices_raise(tiny, tmp_path):
+    """What still waits raises and names its queue item: multi-GPU serving,
+    the architectures with a forward of their own, the JAX forward's extra
+    inputs. What this slice ported loads: --swa-compress on a model with no
+    sliding window gives the plain cache (as the JAX runtime does), and a
+    gemma file (another architecture of the llama graph) runs."""
     tr = TRuntime.from_gguf(tiny, device="cpu")
-    with pytest.raises(NotImplementedError, match="other-architectures"):
-        TRuntime.from_gguf(tiny, device="cpu", swa_compress=True)
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         TRuntime.from_gguf(tiny, device="cpu", tensor_parallel=2)
     ids, out = tr.generate("hello", 2)       # text prompts: the tokenizer slice
     assert ids == tr.tokenizer.encode("hello") and len(out) == 2
-    moe = make_tiny_llama_gguf(tmp_path / "g.gguf", arch="gemma", n_layer=1)
-    with pytest.raises(NotImplementedError, match="other-architectures"):
-        TRuntime.from_gguf(moe, device="cpu")
+    ring = TRuntime.from_gguf(tiny, device="cpu", swa_compress=True)
+    assert type(ring.new_cache(1, 2048)) is TLM.KVCache
+    gemma = make_tiny_llama_gguf(tmp_path / "g.gguf", arch="gemma", n_layer=1)
+    assert len(TRuntime.from_gguf(gemma, device="cpu").generate([5, 6, 7], 2)[1]) == 2
+    from fixtures import make_tiny_mamba_gguf
+    with pytest.raises(NotImplementedError, match=r"item 8"):
+        TRuntime.from_gguf(make_tiny_mamba_gguf(tmp_path / "m.gguf"), device="cpu")
+    with pytest.raises(NotImplementedError, match=r"item 7"):
+        TLM.forward(tr.params, tr.cfg, torch.zeros((1, 8), dtype=torch.int64),
+                    tr.new_cache(1, 16), 0, inputs_embeds=torch.zeros(1, 8, 64))
 
 
 @needs_cuda

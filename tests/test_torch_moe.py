@@ -250,8 +250,9 @@ def test_fused_decode_env_runs(tiny_moe, i8_on, monkeypatch):
 
 
 def test_later_moe_slices_raise(tmp_path, monkeypatch):
-    """What still waits: MoE architectures other than qwen3moe / qwen2moe
-    (here a mixtral-style llama file) and expert parallelism."""
+    """What still waits: expert parallelism. A mixtral-style llama file (the
+    tiny MoE file under the llama architecture), which earlier slices
+    refused, now loads and runs the routed experts."""
     import fixtures
     from ik_llama_cpp_tpu.gguf.writer import GGUFWriter
 
@@ -265,8 +266,9 @@ def test_later_moe_slices_raise(tmp_path, monkeypatch):
     path = tmp_path / "mixtral.gguf"
     monkeypatch.setattr(fixtures, "GGUFWriter", LlamaArchWriter)
     make_tiny_moe_gguf(path, n_layer=1)
-    with pytest.raises(NotImplementedError, match="mixtral-style"):
-        TRuntime.from_gguf(path, device="cpu")
+    rt = TRuntime.from_gguf(path, device="cpu")
+    assert rt.cfg.arch == "llama" and "experts" in rt.params["blocks"][0]
+    assert len(rt.generate_greedy_on_device(PROMPT, 2, stop_at_eos=False)[1]) == 2
     d = experts_np(g=8, k=512, f=256)
     with pytest.raises(TypeError, match="ep_axis"):
         TM.moe_ffn(torch.zeros(2, 512), torch.zeros(2, 8), to_torch(d), 2, ep_axis="e")

@@ -37,6 +37,22 @@ def test_requant_supergroup_is_the_jax_recode():
     np.testing.assert_array_equal(sw, jsw)
 
 
+@pytest.mark.parametrize("group", [16, 32, 256])
+def test_requant_rows_is_the_jax_recode_transposed(group):
+    """The loader's torch recode (rows, in chunks) gives the numpy recode's
+    bits: Q4_0-like and Q8_0-like codes, an all-zero supergroup, ties."""
+    rng = np.random.default_rng(group)
+    n, k = 300, 768
+    codes = rng.integers(-128, 128, (n, k), dtype=np.int8)
+    codes[3, 256:512] = 0
+    codes[5, :256] = np.tile(np.asarray([127, -127, 64, -64], np.int8), 64)
+    scale = (rng.random((n, k // group), dtype=np.float32) * 0.05).astype(np.float32)
+    q8, sw = TQ.requant_rows(codes, scale, group, "cpu", chunk=128)
+    jq, jsw = JQ.requant_supergroup(codes.T, scale.T, group=group)
+    np.testing.assert_array_equal(q8.numpy(), jq.T)
+    np.testing.assert_array_equal(sw.numpy(), jsw.T)
+
+
 @pytest.mark.parametrize("m", [1, 5, 24, 300])
 def test_quantize_activations_bit_exact(m):
     rng = np.random.default_rng(m)
