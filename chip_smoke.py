@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18]
 
 Phases (all by default; any failure exits non-zero):
   1. device: the card's name and power limit; TF32 off for the plain versions
@@ -105,6 +105,23 @@ Phases (all by default; any failure exits non-zero):
      width (sinks, router and expert biases, planar experts) at depth 2.
      Phase 3 adds kernel A at the Gemma-3-12B shapes and kernels B and C at
      head dim 256 with a 1,024-key window and softcap 50
+ 18. the DeepSeek-2 family: DeepSeek-V2-Lite at full width (deepseek2: L27
+     E2048 H16, kv-lora 512, nope 128 / rope 64 / v 128, 64 experts top-6
+     FF1408 softmax-routed, 2 shared experts, a dense lead of FF10944,
+     V102400, YaRN 40; Q4_0 linears and experts, Q8_0 embedding and head,
+     random blocks from seed 0, its MoE block cloned to 26 layers) on the
+     MLA latent cache: the load, a 3,999-token prefill in chunks and 64
+     greedy decode steps at 4,000 cached tokens, the launches a step by
+     kernel (the MLA form of kernel B 27 a chunk and 27 a step), decode and
+     prefill profiles, the cache's bytes beside the per-head cache's, two
+     greedy requests on a 2-slot BatchEngine replayed at B = 1; then
+     one-history parities at depth 2: (a) those widths, (b) DeepSeek-V3's
+     routing (sigmoid, selection bias, normalized top-k, scale 2.5) with a
+     1536 q-lora, (c) mla=False, (d) glm-dsa's lightning indexer (64 heads
+     of 128, top-k 2,048) over 2,100 tokens. Phase 3 adds rows 2m and 2md
+     (the MLA form at the last chunk of that fill and the decode step after
+     it, with its key split against its time) and 2k (kernel B at the
+     mla=False heads)
 The line before the last lists every ported kernel as JSON; the last line is
 {"ok": true, "device": {...}}. Without CUDA, or without the package beside
 this file, it exits non-zero and prints no result.
@@ -164,6 +181,24 @@ FAMILY_GGUF_VERSION = "port-17"
 # kernel A's (K, N) on the Gemma-3-12B path: fused qkv, wo, fused gate/up,
 # down and the tied head (262,208 = 2,048 * 128 + 64 columns)
 A_GEMMA_SHAPES = [(3840, 8192), (4096, 3840), (3840, 30720), (15360, 3840), (3840, 262208)]
+# DeepSeek-V2-Lite (deepseek-ai/DeepSeek-V2-Lite's config.json): 27 layers,
+# hidden 2048, 16 heads, kv_lora_rank 512 and no q-lora, qk_nope 128 /
+# qk_rope 64 / v 128, 64 routed experts top-6 of FF 1408 with softmax
+# routing and unnormalized weights, 2 shared experts, one leading dense
+# layer of FF 10944, vocab 102400, YaRN factor 40 over 4,096 positions with
+# mscale_all_dim 0.707 (GGUF's yarn_log_multiplier 0.0707), rope base 10,000
+DSV2 = dict(ARCH="deepseek2", TAG="dsv2lite", L=27, E=2048, H=16, NOPE=128, ROPE=64, DV=128,
+            LORA_KV=512, LORA_Q=0, G=64, TOPK=6, FF=1408, NSH=2, FFD=10944, V=102400,
+            GATING=1, NORM=False, SCALE=1.0, BIAS=False)
+# (b) DeepSeek-V3's routing at the V2-Lite widths: sigmoid gating, a
+# selection bias, normalized top-k weights scaled by 2.5, a q-lora of 1536
+DSV3R = dict(DSV2, TAG="dsv3route", LORA_Q=1536, GATING=2, NORM=True, SCALE=2.5, BIAS=True)
+# (d) glm-dsa at the same widths: (b)'s routing and q-lora, the pre-split
+# attn_k_b / attn_v_b, and the lightning indexer (64 heads of 128, top-k
+# 2,048) on every layer
+GLMDSA = dict(DSV3R, ARCH="glm-dsa", TAG="glmdsa", IDX_H=64, IDX_D=128, IDX_K=2048)
+DS_GGUF_VERSION = "port-18"
+LONG18, DECODE18 = 4000, 64      # phase 18's cached tokens and decode steps
 
 
 def log(msg: str) -> None:
@@ -755,7 +790,113 @@ def phase_kernels(torch, timer, results) -> bool:
     ok &= attn_case("flash_attention", FA.flash_attention, 1, 512, 4096, [3488], [4000], **g)
     ok &= attn_case("flash_attention_decode", FA.flash_attention_decode, 1, 1, 4096,
                     [3999], [4000], **g)
+
+    # DeepSeek-V2-Lite's attention (phase 18): rows 2m (the last chunk of a
+    # 3,999-token fill) and 2md (the decode step after it) of the MLA form,
+    # 16 heads over the one latent head, v the first 512 columns of k; row
+    # 2k, kernel B at the mla=False path's 16 / 16 heads of 192 / 128
+    ds = dict(h=DSV2["H"], dk=DSV2["LORA_KV"] + DSV2["ROPE"], dv=DSV2["LORA_KV"])
+    log("[3] the MLA form of kernel B (flash_attention_mla: DeepSeek-V2-Lite's latent "
+        "cache) and B at its mla=False heads; library = SDPA with enable_gqa")
+    ok &= mla_case(torch, timer, results, gen, "flash_attention_mla", 1, 512, 4096, [3488],
+                   [4000], hkv=1, **ds)
+    ok &= mla_case(torch, timer, results, gen, "flash_attention_mla", 1, 1, 4096, [3999],
+                   [4000], hkv=1, **ds)
+    ok &= mla_case(torch, timer, results, gen, "flash_attention_mla", 2, 1, 4096, [1500, 3999],
+                   [1501, 4000], hkv=1, **ds)
+    ok &= mla_case(torch, timer, results, gen, "flash_attention", 1, 512, 4096, [3488], [4000],
+                   h=DSV2["H"], hkv=DSV2["H"], dk=DSV2["NOPE"] + DSV2["ROPE"], dv=DSV2["DV"])
+    log("[3] 2md: the MLA form's key split against its time at T = 1, 4,000 keys (ms a "
+        "call by blocks a row tile; * = mla_split_plan's choice)")
+    q = torch.randn((1, 1, ds["h"], ds["dk"]), generator=gen, device="cuda").to(torch.bfloat16)
+    kc = torch.randn((1, 4096, 1, ds["dk"]), generator=gen, device="cuda").to(torch.bfloat16)
+    qp = torch.tensor([3999], dtype=torch.int32, device="cuda")
+    kl = torch.tensor([4000], dtype=torch.int32, device="cuda")
+    plan = FA.mla_split_plan(1, 1, ds["h"], 4096, sms)["splits"]
+    row = []
+    for sp in (1, 2, 4, 8, 16, 32, 64):
+        with forced_mla_splits(FA, sp):
+            row.append(f"{sp}{'*' if sp == plan else ''} "
+                       f"{timer(lambda: FA.flash_attention(q, kc, kc[..., :ds['dv']], qp, kl, scale=0.07), 5):.4f}")
+    log("    " + ", ".join(row))
     return ok
+
+
+@contextmanager
+def forced_mla_splits(FA, splits: int):
+    """The MLA form's launches with ``splits`` blocks a row tile."""
+    saved = FA.mla_split_plan
+    FA.mla_split_plan = lambda b, t, h, s, sms=132: dict(saved(b, t, h, s, sms), splits=splits)
+    try:
+        yield
+    finally:
+        FA.mla_split_plan = saved
+
+
+def sdpa_library(torch, timer, q, k, v, mask, scale: float):
+    """One SDPA call of the same function (the kv heads shared by
+    enable_gqa, the causal / fill mask explicit): the time of the first
+    backend of cuDNN, memory-efficient and math that takes the shapes
+    (Dk != Dv and a head dim of 576 rule some out), and its name."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qt, kt, vt, m4 = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), mask[:, None]
+    for be in (SDPBackend.CUDNN_ATTENTION, SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        def call(be=be):
+            with sdpa_kernel([be]):
+                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m4, scale=scale,
+                                                      enable_gqa=True)
+        try:
+            call()
+            torch.cuda.synchronize()
+        except RuntimeError:            # the backend refuses these shapes: the next one
+            continue
+        return timer(call), be.name
+    return None, "none"
+
+
+def mla_case(torch, timer, results, gen, kernel, b, t, s, qpos, kvlen, *, h, hkv, dk, dv):
+    """``flash_attention`` at DeepSeek-V2-Lite's heads against its plain
+    version: the MLA form (hkv 1, v a view of k's first dv columns) or
+    kernel B (hkv = h); with the library call, the bound and (MLA form)
+    its split plan and a bit-for-bit repeat."""
+    from ik_llama_cpp_tpu_torch.ops import flash_attention as FA
+    scale_ = 1.0 / float(np.sqrt(DSV2["NOPE"] + DSV2["ROPE"]))
+    q = torch.randn((b, t, h, dk), generator=gen, device="cuda").to(torch.bfloat16)
+    kc = torch.randn((b, s, hkv, dk), generator=gen, device="cuda").to(torch.bfloat16)
+    vc = (kc[..., :dv] if hkv == 1 else
+          torch.randn((b, s, hkv, dv), generator=gen, device="cuda").to(torch.bfloat16))
+    qp = torch.tensor(qpos, dtype=torch.int32, device="cuda")
+    kl = torch.tensor(kvlen, dtype=torch.int32, device="cuda")
+    fn = lambda: FA.flash_attention(q, kc, vc, qp, kl, scale=scale_)
+    ref_fn = lambda: FA.attention_ref(q, kc, vc, qp, kl, scale=scale_)
+    got, ref = fn(), ref_fn()
+    torch.cuda.synchronize()
+    err = float((got.float() - ref.float()).abs().max())
+    tol = 2.0 ** -7 * float(ref.float().abs().max())    # p in bf16 before PV: two ulps
+    pos = torch.arange(s, device="cuda")
+    qpos_t = qp[:, None] + torch.arange(t, device="cuda")[None, :]
+    mask = (pos[None, None, :] <= qpos_t[:, :, None]) & (pos[None, None, :] < kl[:, None, None])
+    lib, backend = sdpa_library(torch, timer, q, kc, vc, mask, scale_)
+    live = int(mask.sum()) * h               # (query row, key) pairs this run needs
+    keys = int(mask.any(dim=1).sum())        # keys at least one query reads
+    kv_bytes = keys * hkv * (dk if hkv == 1 else dk + dv) * 2   # v is inside k's rows
+    bnd = bound_ms(b * t * h * (dk + dv) * 2 + kv_bytes, 2.0 * live * (dk + dv), BF16_FLOPS)
+    case = f"B={b} T={t} S={s} q_pos0={qpos} kv_len={kvlen} H={h} HKV={hkv} Dk={dk} Dv={dv}"
+    note = f" | library backend {backend}"
+    if kernel == "flash_attention_mla":
+        again = bool(torch.equal(got, fn()))
+        plan = FA.mla_split_plan(b, t, h, s, _sms(torch))
+        note += (f"; plan: {plan['tiles']} row tiles x {plan['splits']} splits; "
+                 f"repeats bit for bit: {again}")
+        if not again:
+            err = float("inf")
+    return _record(results, kernel, case, err, tol, timer(fn), timer(ref_fn, 3), lib, bnd,
+                   note=note)
+
+
+def _sms(torch) -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def phase_moe_kernels(torch, timer, results, c=MOE, dev="cuda") -> bool:
@@ -1717,6 +1858,8 @@ def counters():
     out["qmatmul4_wgmma"] = (QM.qmatmul4, "wgmma_launches")
     # ... and kernel 14's (the mma.sync form runs only shapes TMA cannot address)
     out["ragged_qmatmul_wgmma"] = (MQ.ragged_qmatmul, "wgmma_launches")
+    # the MLA form of kernel B (the DeepSeek-2 family's latent cache)
+    out["flash_attention_mla"] = (FA.flash_attention, "mla_launches")
     return out
 
 
@@ -1855,13 +1998,13 @@ def kernel_ms(prof: dict, *names: str) -> float:
 @contextmanager
 def plain_path():
     """Route the model through the plain versions on the same tensors."""
-    from ik_llama_cpp_tpu_torch.models import llama, weights
+    from ik_llama_cpp_tpu_torch.models import deepseek2, llama, weights
     from ik_llama_cpp_tpu_torch.ops import flash_attention as FA
     from ik_llama_cpp_tpu_torch.ops import moe
     from ik_llama_cpp_tpu_torch.ops import moe_decode as MD
     from ik_llama_cpp_tpu_torch.ops import moe_qmm as MQ
     from ik_llama_cpp_tpu_torch.ops import qmatmul as QM
-    saved = (weights.qmatmul_i8, weights.qmatmul, llama.flash_attention,
+    saved = (deepseek2.flash_attention, weights.qmatmul_i8, weights.qmatmul, llama.flash_attention,
              llama.flash_attention_decode, MD.moe_decode_gate_up_i8,
              MD.moe_decode_down_i8, moe.fused_moe_prefill_i8, moe.ragged_qmatmul_i8,
              weights.qmatmul4, llama.flash_attention_decode_q8, llama.flash_attention_q8,
@@ -1870,6 +2013,7 @@ def plain_path():
     weights.qmatmul_i8, weights.qmatmul = QM.qmatmul_i8_ref, QM.qmatmul_ref
     weights.qmatmul4 = QM.qmatmul4_ref
     llama.flash_attention = llama.flash_attention_decode = FA.attention_ref
+    deepseek2.flash_attention = FA.attention_ref
     llama.flash_attention_decode_q8 = llama.flash_attention_q8 = FA.attention_quant_ref
     MD.moe_decode_gate_up_i8 = MD.moe_decode_gate_up_i8_ref
     MD.moe_decode_down_i8 = MD.moe_decode_down_i8_ref
@@ -1881,7 +2025,7 @@ def plain_path():
     try:
         yield
     finally:
-        (weights.qmatmul_i8, weights.qmatmul, llama.flash_attention,
+        (deepseek2.flash_attention, weights.qmatmul_i8, weights.qmatmul, llama.flash_attention,
          llama.flash_attention_decode, MD.moe_decode_gate_up_i8,
          MD.moe_decode_down_i8, moe.fused_moe_prefill_i8, moe.ragged_qmatmul_i8,
          weights.qmatmul4, llama.flash_attention_decode_q8,
@@ -1892,15 +2036,11 @@ def plain_path():
 def greedy_from(torch, rt, kv, n, last_logits, steps):
     """steps greedy tokens from a filled cache; returns (tokens, the logits
     each token was picked from plus the last step's)."""
-    from ik_llama_cpp_tpu_torch.models import llama
     outs, toks = [last_logits], []
     for s in range(steps):
         tok = int(torch.argmax(outs[-1]))
         toks.append(tok)
-        lg = llama.forward(rt.params, rt.cfg,
-                           torch.tensor([[tok]], device="cuda"), kv, n + s,
-                           logits_last_only=True)
-        outs.append(lg[0, -1])
+        outs.append(llama_step(torch, rt, torch.tensor([[tok]], device=rt.device), kv, n + s))
     return toks, torch.stack(outs)
 
 
@@ -1916,7 +2056,7 @@ def forced_logits(torch, rt, kv, n, last_logits, toks):
     same history for both paths, whatever each would have picked."""
     outs = [last_logits]
     for s, tok in enumerate(toks):
-        outs.append(llama_step(torch, rt, torch.tensor([[tok]], device="cuda"), kv, n + s))
+        outs.append(llama_step(torch, rt, torch.tensor([[tok]], device=rt.device), kv, n + s))
     return torch.stack(outs)
 
 
@@ -2993,9 +3133,12 @@ def kvq_long_context(torch, rt, base_cfg, rng) -> bool:
 
 
 def llama_step(torch, rt, tok, kv, n_past):
-    """One decode step of token ``tok`` (1, 1) at n_past: its logits (V,)."""
-    from ik_llama_cpp_tpu_torch.models import llama
-    return llama.forward(rt.params, rt.cfg, tok, kv, n_past, logits_last_only=True)[0, -1]
+    """One decode step of token ``tok`` (1, 1) at n_past: its logits (V,),
+    through the model's own forward (the llama graph or the DeepSeek-2
+    family's)."""
+    from ik_llama_cpp_tpu_torch.runtime.generate import FORWARDS
+    return FORWARDS[rt.cfg.arch](rt.params, rt.cfg, tok, kv, n_past,
+                                 logits_last_only=True)[0, -1]
 
 
 def _differing(torch, a, b, n: int, layer: int | None = None):
@@ -3257,7 +3400,7 @@ def load_family(torch, c: dict, n_layer: int, tag: str):
     return rt, load_s
 
 
-def family_parity(torch, rt, n_prompt: int, tag: str, seed: int) -> bool:
+def family_parity(torch, rt, n_prompt: int, tag: str, seed: int, phase: str = "17") -> bool:
     """The kernel path against the plain path over one token history (the
     rule of phases 6, 10, 11 and 13: every step's logits within 5% of the
     largest logit)."""
@@ -3267,7 +3410,7 @@ def family_parity(torch, rt, n_prompt: int, tag: str, seed: int) -> bool:
     _, lk, lp, kvk, kvp, _ = forced_parity(torch, rt, ids, 16)
     counts = {k: n for k, n in read_counts().items() if n}
     good, text = parity_verdict(lk, lp)
-    log(f"[17] parity {tag}, {n_prompt}-token prompt and 16 steps: {text}: "
+    log(f"[{phase}] parity {tag}, {n_prompt}-token prompt and 16 steps: {text}: "
         f"{'ok' if good else 'FAIL'}; kernel launches {counts} "
         f"({time.perf_counter() - t0:.1f} s)")
     del kvk, kvp
@@ -3403,6 +3546,318 @@ def phase_family(torch, launches: dict) -> bool:
     return ok
 
 
+def build_ds_gguf(path: Path, c: dict) -> Path:
+    """Two blocks of the DeepSeek-2 family at the width ``c``: the dense
+    lead and one MoE layer (Q4_0 attention, FFN, experts and shared
+    experts; Q8_0 embedding and untied head; an f32 router, with a
+    selection bias where c["BIAS"]; unit norms; YaRN rope). glm-dsa: the
+    pre-split attn_k_b / attn_v_b (Q4_0) and a Q8_0 lightning indexer on
+    both blocks. Random blocks from seed 0, cached beside a .meta; the MoE
+    block clones to any depth (``load_ds``)."""
+    from ik_llama_cpp_tpu_torch.gguf.constants import GGMLType
+    from ik_llama_cpp_tpu_torch.gguf.writer import GGUFWriter
+    meta = json.dumps(dict(v=DS_GGUF_VERSION, **c))
+    mpath = path.with_suffix(".meta")
+    if path.exists() and mpath.exists() and mpath.read_text() == meta:
+        return path
+    path.parent.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(0)
+    arch, e, h, v = c["ARCH"], c["E"], c["H"], c["V"]
+    nope, rope, dv, lkv, lq = c["NOPE"], c["ROPE"], c["DV"], c["LORA_KV"], c["LORA_Q"]
+    g, ff, ffs, ffd = c["G"], c["FF"], c["NSH"] * c["FF"], c["FFD"]
+    w = GGUFWriter(str(path), arch=arch)
+    kv = {"block_count": 2, "context_length": 163840, "embedding_length": e,
+          "feed_forward_length": ffd, "attention.head_count": h,
+          "attention.head_count_kv": h, "attention.key_length": nope + rope,
+          "attention.value_length": dv, "attention.layer_norm_rms_epsilon": 1e-6,
+          "attention.kv_lora_rank": lkv, "rope.freq_base": 10000.0,
+          "rope.dimension_count": rope, "rope.scaling.type": "yarn",
+          "rope.scaling.factor": 40.0, "rope.scaling.original_context_length": 4096,
+          "rope.scaling.yarn_log_multiplier": 0.0707, "leading_dense_block_count": 1,
+          "expert_count": g, "expert_used_count": c["TOPK"],
+          "expert_shared_count": c["NSH"], "expert_feed_forward_length": ff,
+          "expert_weights_scale": c["SCALE"], "expert_weights_norm": c["NORM"],
+          "expert_gating_func": c["GATING"], "vocab_size": v}
+    if lq:
+        kv["attention.q_lora_rank"] = lq
+    if "IDX_H" in c:
+        kv.update({"attention.indexer.head_count": c["IDX_H"],
+                   "attention.indexer.key_length": c["IDX_D"],
+                   "attention.indexer.top_k": c["IDX_K"]})
+    for key, val in kv.items():
+        w.add(f"{arch}.{key}", val)
+    w.add("tokenizer.ggml.model", "gpt2")
+    w.add("tokenizer.ggml.tokens", [f"<t{i}>" for i in range(v)])
+    w.add("tokenizer.ggml.token_type", np.ones(v, np.int32))
+    w.add("tokenizer.ggml.eos_token_id", 2)
+
+    def q(name, rows, cols, ttype=GGMLType.Q4_0, n=1):
+        w.add_tensor(name, _rand_blocks(rng, n * rows, cols, ttype),
+                     shape=(cols, rows) if n == 1 else (cols, rows, n), ggml_type=ttype)
+
+    def ones(name, n):
+        w.add_tensor(name, np.ones(n, np.float32))
+
+    q("token_embd.weight", v, e, GGMLType.Q8_0)
+    q("output.weight", v, e, GGMLType.Q8_0)
+    ones("output_norm.weight", e)
+    for i in range(2):
+        p = f"blk.{i}."
+        for name, n in (("attn_norm", e), ("attn_kv_a_norm", lkv), ("ffn_norm", e)):
+            ones(p + name + ".weight", n)
+        if lq:
+            q(p + "attn_q_a.weight", lq, e)
+            ones(p + "attn_q_a_norm.weight", lq)
+            q(p + "attn_q_b.weight", h * (nope + rope), lq)
+        else:
+            q(p + "attn_q.weight", h * (nope + rope), e)
+        q(p + "attn_kv_a_mqa.weight", lkv + rope, e)
+        if arch == "glm-dsa":
+            q(p + "attn_k_b.weight", lkv, nope, n=h)     # ne (nope, lora_kv, h)
+            q(p + "attn_v_b.weight", dv, lkv, n=h)       # ne (lora_kv, dv, h)
+            q(p + "indexer.attn_q_b.weight", c["IDX_H"] * c["IDX_D"], lq, GGMLType.Q8_0)
+            q(p + "indexer.attn_k.weight", c["IDX_D"], e, GGMLType.Q8_0)
+            ones(p + "indexer.k_norm.weight", c["IDX_D"])
+            w.add_tensor(p + "indexer.k_norm.bias",
+                         (rng.standard_normal(c["IDX_D"]) * 0.05).astype(np.float32))
+            q(p + "indexer.proj.weight", c["IDX_H"], e, GGMLType.Q8_0)
+        else:
+            q(p + "attn_kv_b.weight", h * (nope + dv), lkv)
+        q(p + "attn_output.weight", e, h * dv)
+        if i == 0:
+            q(p + "ffn_gate.weight", ffd, e)
+            q(p + "ffn_up.weight", ffd, e)
+            q(p + "ffn_down.weight", e, ffd)
+            continue
+        w.add_tensor(p + "ffn_gate_inp.weight",
+                     rng.standard_normal((g, e), dtype=np.float32) / np.float32(np.sqrt(e)))
+        if c["BIAS"]:
+            w.add_tensor(p + "exp_probs_b.bias",
+                         (rng.standard_normal(g) * 0.05).astype(np.float32))
+        q(p + "ffn_gate_exps.weight", ff, e, n=g)
+        q(p + "ffn_up_exps.weight", ff, e, n=g)
+        q(p + "ffn_down_exps.weight", e, ff, n=g)
+        q(p + "ffn_gate_shexp.weight", ffs, e)
+        q(p + "ffn_up_shexp.weight", ffs, e)
+        q(p + "ffn_down_shexp.weight", e, ffs)
+    w.write()
+    mpath.write_text(meta)
+    return path
+
+
+def load_ds(torch, c: dict, n_layer: int, tag: str, mla: bool = True, device="cuda"):
+    """c's file built (or found) under build/ and loaded: through
+    Runtime.from_gguf (the latent cache), or with mla=False through the
+    loader's per-head form; its MoE block cloned into distinct blocks to
+    n_layer layers behind the dense lead. Returns (runtime, load s)."""
+    from ik_llama_cpp_tpu_torch.gguf.reader import load_gguf
+    from ik_llama_cpp_tpu_torch.models import deepseek2
+    from ik_llama_cpp_tpu_torch.models.config import config_from_gguf
+    from ik_llama_cpp_tpu_torch.runtime.generate import Runtime
+    t0 = time.perf_counter()
+    gguf = build_ds_gguf(ROOT / "build" / f"smoke_{c['TAG']}.gguf", c)
+    t1 = time.perf_counter()
+    if mla:
+        rt = Runtime.from_gguf(gguf, device, fuse=True)
+    else:
+        gg = load_gguf(gguf)
+        cfg = config_from_gguf(gg.metadata)
+        rt = Runtime(cfg=cfg, params=deepseek2.load_deepseek2_params(
+            gg, cfg, torch.device(device), mla=False), device=torch.device(device))
+    blocks = rt.params["blocks"]
+    rt.params["blocks"] = blocks[:2] + [copy.deepcopy(blocks[1]) for _ in range(n_layer - 2)]
+    rt.cfg = replace(rt.cfg, n_layer=n_layer)
+    if rt.device.type == "cuda":
+        torch.cuda.synchronize()
+    load_s = time.perf_counter() - t1
+    kinds = sorted(set(_linear_kinds(rt)) | {type(rt.params["output"]).__name__})
+    experts = blocks[1]["experts"]
+    forms = {p: ("supergroup int8" if getattr(experts, p + "_group") == 256 else
+                 f"planar group {getattr(experts, p + '_group')}")
+             for p in ("gate", "up", "down")} if hasattr(experts, "gate_group") else "bf16"
+    log(f"[18] {tag}: {c['ARCH']} L{n_layer} E{c['E']} H{c['H']} kv-lora {c['LORA_KV']} "
+        f"q-lora {c['LORA_Q']} G{c['G']} top-{c['TOPK']} FF{c['FF']} V{c['V']} "
+        f"(mla={mla}): file ready in {t1 - t0:.1f} s, loaded in {load_s:.1f} s; linears "
+        f"{kinds}; experts {forms}" + (f"; device memory "
+                                       f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB"
+                                       if rt.device.type == "cuda" else ""))
+    return rt, load_s
+
+
+def serve_two(torch, rt, seed: int, n_predict: int = 24):
+    """Two greedy requests at once on a 2-slot BatchEngine (the second in
+    slot 1, a row view of the shared latent cache), stepped in this
+    thread; then each replayed at B = 1 (replay_verdict). Returns (ok,
+    text)."""
+    import queue
+    from ik_llama_cpp_tpu_torch.runtime.sampling import SamplerParams
+    from ik_llama_cpp_tpu_torch.server.engine import BatchEngine, Request
+    rng = np.random.default_rng(seed)
+    prompts = [[int(x) for x in rng.integers(3, rt.cfg.n_vocab, n)] for n in (300, 120)]
+    eng = BatchEngine(rt, n_slots=2, capacity=1024)
+    qs = []
+    t0 = time.perf_counter()
+    for p in prompts:
+        r = Request(prompt_ids=p, n_predict=n_predict, sampler=SamplerParams(temp=0.0))
+        r.stream_queue = queue.Queue()
+        eng.submit(r)
+        qs.append(r.stream_queue)
+    while eng.step():
+        pass
+    wall = time.perf_counter() - t0
+    gens = []
+    for q_ in qs:
+        toks = []
+        while True:
+            tok, _, done = q_.get(timeout=0)
+            if tok >= 0:
+                toks.append(tok)
+            if done:
+                break
+        gens.append(toks)
+    ok = eng.n_failed == 0 and eng.slots[1].cache_tokens[:len(prompts[1])] == prompts[1]
+    texts = []
+    for p, gen_ in zip(prompts, gens):
+        good, text = replay_verdict(torch, rt, p, gen_)
+        ok &= good and len(gen_) > 0
+        texts.append(f"{len(p)}-token prompt, {len(gen_)} tokens: {text}")
+    del eng
+    return ok, (f"2 requests in {wall:.2f} s ({sum(map(len, gens)) / wall:.1f} tok/s over "
+                f"both slots, slot 1 served the second): " + " | ".join(texts))
+
+
+def event_ms(torch, fn, reps: int = 5) -> float:
+    """Median CUDA-event ms of ``fn`` over reps calls after a warm call,
+    each enqueued while the card sleeps for about half a millisecond, so
+    that the host's launch cost stays out of the device time (as Timer)."""
+    fn()
+    ts = []
+    for _ in range(reps):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        ts.append(s.elapsed_time(e))
+    return statistics.median(ts)
+
+
+def absorb_ms(torch, blk: dict, t: int) -> tuple:
+    """A layer's two absorb products at T tokens as models/deepseek2 runs
+    them (q_nope @ wk_b and attn @ wv_b in float32, with the weights' bf16
+    to float32 casts): (ms, ms)."""
+    h, nope, lora = blk["wk_b"].shape
+    q = torch.randn((1, t, h, nope), device="cuda")
+    a = torch.randn((1, t, h, lora), device="cuda").to(torch.bfloat16)
+    return (event_ms(torch, lambda: torch.einsum("bthd,hdl->bthl", q.float(),
+                                                  blk["wk_b"].float())),
+            event_ms(torch, lambda: torch.einsum("bthl,hlv->bthv", a.float(),
+                                                 blk["wv_b"].float())))
+
+
+def phase_deepseek(torch, launches: dict, card: str) -> bool:
+    """Phase 18: the DeepSeek-2 family. DeepSeek-V2-Lite at full width
+    (L27) on the latent cache: the load, a 3,999-token prefill in 512-token
+    chunks and 64 greedy decode steps at 4,000 cached tokens, the launches
+    a step by kernel, decode and prefill profiles, the cache's bytes beside
+    the per-head cache's, two requests on a 2-slot BatchEngine; then four
+    one-history parities at depth 2: (a) the V2-Lite widths, (b)
+    DeepSeek-V3's routing with a q-lora, (c) mla=False, (d) glm-dsa's
+    indexer over a 2,100-token prompt."""
+    c = DSV2
+    nl = c["L"]
+    t_phase = time.perf_counter()
+    rt, load_s = load_ds(torch, c, nl, "full width")
+    ids = [int(x) for x in np.random.default_rng(18).integers(3, c["V"], LONG18 - 1)]
+    rt.eval_tokens(ids[:8], rt.new_cache(1, 64), 0)                  # warm-up
+    kv = rt.new_cache(1, LONG18 + DECODE18)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, kv, n_past = rt.eval_tokens(ids, kv, 0)
+    first = torch.argmax(logits[-1]).reshape(1, 1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    counts_pre = read_counts()
+    reset_counts()
+    toks = rt._decode_loop(first, kv, n_past, DECODE18)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = read_counts()
+    chunks = -(-len(ids) // 512)
+    for k in counts:
+        launches[k] = launches.get(k, 0) + counts_pre[k] + counts[k]
+    got_pre = {k: n for k, n in counts_pre.items() if n}
+    got_dec = {k: n for k, n in counts.items() if n}
+    # the absorb path's attention: the MLA form once a layer a forward, at
+    # every T; no other attention kernel
+    want_attn = lambda n: {"flash_attention": nl * n, "flash_attention_mla": nl * n}
+    attn_keys = ("flash_attention", "flash_attention_mla", "flash_attention_decode",
+                 "flash_attention_q8", "flash_attention_decode_q8")
+    attn_ok = ({k: got_pre[k] for k in attn_keys if k in got_pre} == want_attn(chunks)
+               and {k: got_dec[k] for k in attn_keys if k in got_dec} == want_attn(DECODE18))
+    finite = bool(torch.isfinite(logits).all())
+    ok = attn_ok and finite and bool(((toks >= 0) & (toks < c["V"])).all())
+    log(f"[18] on {card}: prefill {len(ids)} tokens in {chunks} chunks: "
+        f"{(t1 - t0) * 1e3:.1f} ms = {len(ids) / (t1 - t0):.1f} tok/s; decode {DECODE18} "
+        f"tokens at {n_past + 1}-{n_past + DECODE18} cached: {(t2 - t1) * 1e3:.1f} ms = "
+        f"{DECODE18 / (t2 - t1):.2f} tok/s; load {load_s:.1f} s")
+    log(f"[18] launches a prefill chunk: "
+        f"{ {k: round(n / chunks, 2) for k, n in got_pre.items()} }; a decode step: "
+        f"{ {k: round(n / DECODE18, 2) for k, n in got_dec.items()} }; the MLA form "
+        f"{got_pre.get('flash_attention_mla', 0) / chunks:g} a chunk and "
+        f"{got_dec.get('flash_attention_mla', 0) / DECODE18:g} a step (expected {nl}), no "
+        f"other attention kernel: {attn_ok}; logits finite {finite}: {'ok' if ok else 'FAIL'}")
+    prof = profile_decode(torch, rt, kv, n_past + DECODE18, toks[:, -1:], tag="18", top=10,
+                          host=False)
+    log(f"[18] decode step at {n_past + DECODE18} cached: the MLA form (fa_mla_kernel) "
+        f"{kernel_ms(prof, 'fa_mla_kernel'):.3f} ms; kernel A {a_ms(prof)}; all kernels "
+        f"{sum(prof.values()):.3f} ms")
+    tail = ids[-(len(ids) % 512 or 512):]
+    prof = profile_window(torch, lambda: rt.eval_tokens(tail, kv, len(ids) - len(tail)), 1,
+                          f"the last prefill chunk ({len(tail)} tokens at "
+                          f"{len(ids) - len(tail)} cached)", "chunk", "18", top=10, host=False)
+    log(f"[18] last prefill chunk: the MLA form {kernel_ms(prof, 'fa_mla_kernel'):.3f} ms; "
+        f"kernel A {a_ms(prof)}; all kernels {sum(prof.values()):.3f} ms")
+    ab1, ab512 = absorb_ms(torch, rt.params["blocks"][1], 1), \
+        absorb_ms(torch, rt.params["blocks"][1], 512)
+    log(f"[18] the absorb products a layer (q_nope @ wk_b, attn @ wv_b; plain f32 einsums): "
+        f"T=1 {ab1[0]:.4f} + {ab1[1]:.4f} ms, {nl * sum(ab1):.3f} ms a decode step; T=512 "
+        f"{ab512[0]:.4f} + {ab512[1]:.4f} ms, {nl * sum(ab512):.3f} ms a chunk")
+    cap = kv.capacity
+    latent = _cache_bytes(kv)
+    per_head = nl * cap * c["H"] * (c["NOPE"] + c["ROPE"] + c["DV"]) * 2
+    log(f"[18] cache at capacity {cap}: latent {latent / 2**20:.1f} MiB ({tuple(kv.k.shape)} "
+        f"bf16, no second tensor) against the mla=False per-head cache "
+        f"{per_head / 2**20:.1f} MiB ({nl} x {cap} x {c['H']} x "
+        f"({c['NOPE'] + c['ROPE']} + {c['DV']}) bf16, reckoned from shapes): "
+        f"{per_head / latent:.2f}x")
+    del kv, logits
+    torch.cuda.empty_cache()
+    good, text = serve_two(torch, rt, 181)
+    log(f"[18] BatchEngine at L{nl}: {text}: {'ok' if good else 'FAIL'}")
+    ok &= good
+    log(f"[18] DeepSeek-V2-Lite at L{nl}: {time.perf_counter() - t_phase:.1f} s")
+
+    # one-history parities at depth 2: (a) the loaded model's dense lead and
+    # first MoE layer
+    rt.params["blocks"] = rt.params["blocks"][:2]
+    rt.cfg = replace(rt.cfg, n_layer=2)
+    ok &= family_parity(torch, rt, 300, "(a) DeepSeek-V2-Lite widths at depth 2", 21, "18")
+    del rt
+    torch.cuda.empty_cache()
+    for cfg_, mla, n_prompt, seed, tag in (
+            (DSV3R, True, 300, 22, "(b) DeepSeek-V3 routing, q-lora 1536, at depth 2"),
+            (DSV2, False, 300, 23, "(c) mla=False (kernel B at 16 / 16 heads of 192 / 128)"),
+            (GLMDSA, True, 2100, 24, "(d) glm-dsa, indexer top-k 2,048 of 2,100 keys")):
+        rt, _ = load_ds(torch, cfg_, 2, tag, mla=mla)
+        ok &= family_parity(torch, rt, n_prompt, tag, seed, "18")
+        del rt
+        torch.cuda.empty_cache()
+    return ok
+
+
 KERNELS = {
     "qmatmul_i8": ("ik_llama_cpp_tpu_torch/csrc/qmatmul_i8.cu",
                    "ik_llama_cpp_tpu/ops/qmatmul.py:474", "M=1 K=4096 N=28672"),
@@ -3452,6 +3907,10 @@ KERNELS = {
                        "M=2048 K=1408 N=2048 G=60 group=32 random"),
     "qmatmul_pair": ("ik_llama_cpp_tpu_torch/csrc/qmatmul.cu",
                      "ik_llama_cpp_tpu/tools/perf_dequant.py:69", "M=16 K=4096 N=14336"),
+    "flash_attention_mla": ("ik_llama_cpp_tpu_torch/csrc/flash_attention_mla.cu",
+                            "ik_llama_cpp_tpu/ops/flash_attention.py:136",
+                            "B=1 T=512 S=4096 q_pos0=[3488] kv_len=[4000] H=16 HKV=1 Dk=576 "
+                            "Dv=512"),
 }
 
 
@@ -3475,7 +3934,7 @@ def summary(results, launches) -> list:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
     try:
@@ -3556,8 +4015,10 @@ def main() -> int:
         ok &= timed("16", phase_server, torch, gguf)
     if 17 in phases:
         ok &= timed("17", phase_family, torch, launches)
+    if 18 in phases:
+        ok &= timed("18", phase_deepseek, torch, launches, dev["smi"])
     kernels = summary(results, launches)
-    if phases >= {3, 4, 6, 7, 9, 11, 12, 14, 15, 16}:
+    if phases >= {3, 4, 6, 7, 9, 11, 12, 14, 15, 16, 18}:
         for k in kernels:
             if k["launches"] <= 0:
                 log(f"chip_smoke: kernel {k['name']} was never launched on its path")

@@ -24,7 +24,10 @@ Scales, group biases, dense weights and the token embedding are stored in
 bf16 as the JAX loaders store them; other float arrays keep float32. Expert
 codes are stored (G, N, K) and held as their (G, K, N) view, as the port's
 loader holds them; expert scales keep the dtype they come in (f32 for
-supergroup codes, bf16 for planar ones).
+supergroup codes, bf16 for planar ones). The DeepSeek-2 family's tree
+(``models/deepseek2.py``) comes across the same way: its absorb arrays
+wk_b / wv_b in bf16, glm-dsa's rebuilt wkv_b and the indexer's linears as
+DenseLinear, the indexer's LayerNorm and the selection bias in float32.
 """
 from __future__ import annotations
 
@@ -102,7 +105,9 @@ def params_from_numpy(tree, device, *, _key: str = ""):
 def kv_from_numpy(k, v, k_scale=None, v_scale=None, *, device) -> KVCache:
     """A KV cache of the JAX package, fetched to numpy, as the port's: bf16
     k/v (L, B, S, Hkv, D), or codes (int8 / uint8, any of the four codecs)
-    with their float32 scale stacks (L, B, S, Hkv). The arrays are copied,
+    with their float32 scale stacks (L, B, S, Hkv); an MLA latent cache's
+    (L, 1, 1, 1, 1) placeholder v comes across as it is (the DeepSeek-2
+    forward does not read it). The arrays are copied,
     so the port's in-place row writes do not touch the caller's. ``device``
     has no default: the port's entry points run on the card unless the
     caller names the CPU."""

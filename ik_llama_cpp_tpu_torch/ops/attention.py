@@ -7,10 +7,12 @@ causal masking against the cache fill level, sliding window, chunked
 attention, per-head sinks, ALiBi position biases and explicit per-slot key
 positions (a ring cache's slots).
 
-Besides being the oracle, it is the model's attention on two routes where
+Besides being the oracle, it is the model's attention on three routes where
 the JAX package runs XLA's ``attend`` and no Pallas kernel either: ALiBi
 models and attention over a ``--swa-compress`` ring cache
-(``models/llama.py``). Those two routes are plain PyTorch on the card too.
+(``models/llama.py``), and the DSA sparse attention of glm-dsa under its
+indexer's allow mask (``models/deepseek2.py``). Those routes are plain
+PyTorch on the card too.
 """
 from __future__ import annotations
 
@@ -35,13 +37,16 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            q_pos: torch.Tensor, kv_len: torch.Tensor, scale: float,
            softcap: float = 0.0, swa_window: int = 0, sinks=None,
            attn_chunk: int = 0, alibi=None,
-           key_positions: torch.Tensor | None = None) -> torch.Tensor:
+           key_positions: torch.Tensor | None = None,
+           allow_mask: torch.Tensor | None = None) -> torch.Tensor:
     """q: (B, T, H, Dk); k: (B, S, Hkv, Dk); v: (B, S, Hkv, Dv).
 
     q_pos: (B, T) absolute query positions; kv_len: (B,) valid cache rows.
     alibi: (H,) slopes; each score gains -slope * |key pos - query pos|.
     key_positions: (B, S) the absolute position each slot holds, -1 for an
     unwritten slot (ring caches); kv_len is then not read.
+    allow_mask: (B, T, S) bool, ANDed into the mask: the per-(query, key)
+    top-k allow set of the DSA lightning indexer (models/deepseek2.py).
     Returns (B, T, H, Dv) in q.dtype."""
     b, t, h, d = q.shape
     s = k.shape[1]
@@ -65,6 +70,8 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if attn_chunk > 0:
         mask &= key_pos >= torch.div(qp, attn_chunk,
                                      rounding_mode="floor") * attn_chunk
+    if allow_mask is not None:
+        mask = mask & allow_mask.to(torch.bool)
     if alibi is not None:
         dist = (key_pos - qp).abs().float()                      # (B, T, S)
         slopes = torch.as_tensor(alibi, dtype=torch.float32, device=q.device)

@@ -8,7 +8,10 @@ chunks and per-head sinks; the result is (B, T, H, Dv) in q's dtype.
 
 A CPU tensor takes the plain version (``ops/attention.attend``); a CUDA
 tensor launches the kernel (``csrc/flash_attention.cu`` for prefill,
-``csrc/flash_attention_decode.cu`` for T <= 16) or raises.
+``csrc/flash_attention_decode.cu`` for T <= 16) or raises. The prefill
+wrapper has a second form for one kv head of head dims above 256, the MLA
+latent cache of the DeepSeek-2 family (``csrc/flash_attention_mla.cu``,
+any T).
 
 Two more wrappers take a quantized cache (``ops/kv_quant.py``): codes
 k_q/v_q (B, S, Hkv, W) with float32 row scales k_s/v_s (B, S, Hkv).
@@ -96,6 +99,89 @@ def _launch(symbol, lib, q, k, v, q_pos0, kv_len, scale, softcap, swa_window,
     return rc, out
 
 
+# The MLA form of the prefill kernel (csrc/flash_attention_mla.cu): blocks
+# of 64 query rows (row = t * H + h), 32-key tiles (16 where v does not
+# alias k), head dims up to 576 / 512, each row tile's live keys split over
+# up to MLA_MAX_SPLITS blocks where the row tiles leave SMs idle.
+MLA_BM, MLA_KT, MLA_MAX_SPLITS = 64, 32, 32
+MLA_DK, MLA_DV = 576, 512
+
+
+def mla_form(q, k, v) -> bool:
+    """Whether ``flash_attention`` takes its MLA form: one kv head and a
+    head dim above kernel B's 256."""
+    return k.dim() == 4 and k.shape[2] == 1 and max(q.shape[3], v.shape[3]) > 256
+
+
+def mla_split_plan(b: int, t: int, h: int, s: int, sms: int = _cuda.DEFAULT_SMS) -> dict:
+    """The MLA kernel's launch, a pure function of the shapes and the SM
+    count: ``tiles`` row tiles of MLA_BM query rows a batch, ``groups`` =
+    B x tiles, and ``splits`` blocks a group: as many as leave no SM idle
+    for one block a group, no more than a capacity of S keys gives four
+    tiles each, at most MLA_MAX_SPLITS (1 at T = 512, where the 128 row
+    tiles fill the card)."""
+    if not (b > 0 and t > 0 and h > 0 and s > 0 and sms > 0):
+        raise ValueError(f"flash_attention (MLA form): B={b} T={t} H={h} S={s}")
+    tiles = -(-t * h // MLA_BM)
+    groups = b * tiles
+    splits = max(1, min(sms // groups, -(-s // (4 * MLA_KT)), MLA_MAX_SPLITS))
+    return {"tiles": tiles, "groups": groups, "splits": splits}
+
+
+def mla_key_ranges(splits: int, key_end: int, kt: int = MLA_KT) -> list:
+    """The blocks' key ranges [lo, hi) of one row tile whose live keys are
+    [0, key_end), in split order, as the kernel derives them from kv_len
+    and q_pos0: one range where there is one split or the keys fit one
+    tile; else chunks of a whole number of ``kt``-key tiles; blocks past
+    the last chunk do nothing."""
+    if splits == 1 or key_end <= kt:
+        return [(0, key_end)]
+    per = -(-key_end // splits)
+    per = max(-(-per // kt) * kt, kt)
+    return [(lo, min(lo + per, key_end)) for lo in range(0, key_end, per)]
+
+
+def _flash_attention_mla(q, k, v, q_pos0, kv_len, scale: float):
+    """Checks and launches the MLA kernel; returns (rc, out)."""
+    lib = "flash_attention_mla"
+    b, t, h, dk = q.shape
+    _, s, hkv, dk2 = k.shape
+    dv = v.shape[3]
+    _cuda.require(dk == dk2 and hkv == 1 and v.shape[:3] == k.shape[:3] and k.shape[0] == b,
+                  f"{lib}: shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    _cuda.require(dk % 8 == 0 and dv % 8 == 0 and dk <= MLA_DK and dv <= MLA_DV,
+                  f"{lib}: head dims ({dk}, {dv}) must be multiples of 8 up to "
+                  f"({MLA_DK}, {MLA_DV})")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        _cuda.require(x.dtype == torch.bfloat16, f"{lib}: {name} must be bf16")
+        _cuda.require(x.device == q.device, f"{lib}: {name} on another device")
+        _cuda.require(x.stride(3) == 1 and all(st % 8 == 0 for st in x.stride()[:3])
+                      and x.data_ptr() % 16 == 0,
+                      f"{lib}: {name} needs a unit last stride and 16-byte aligned rows")
+    # v a view of k's first dv columns: the kernel reads each key row once
+    alias = int(v.data_ptr() == k.data_ptr() and v.stride() == k.stride() and dv <= dk)
+    plan = mla_split_plan(b, t, h, s, _cuda.sm_count(q))
+    splits = plan["splits"]
+    part = counters = None
+    if splits > 1:
+        part = torch.empty(plan["groups"] * splits * MLA_BM * (dv + 2), dtype=torch.float32,
+                           device=q.device)
+        counters = _cuda.zeroed_counters(q.device, "mla attention", plan["groups"])
+    # every buffer the kernel reads is held by a name until the launch
+    qp = _vec(q_pos0, b, q.device)
+    kl = _vec(kv_len, b, q.device)
+    out = torch.empty((b, t, h, dv), dtype=torch.bfloat16, device=q.device)
+    fn = _cuda.function(lib, "ik_flash_attention_mla",
+                        [_cuda.P] * 8 + [_cuda.I] * 7 + [_cuda.L] * 7 + [_cuda.F, _cuda.P])
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(), kl.data_ptr(),
+            out.data_ptr(),
+            None if part is None else part.data_ptr(),
+            None if counters is None else counters.data_ptr(), splits, alias, b, t, h, dk, dv,
+            *q.stride()[:3], k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+            float(scale), _cuda.stream_ptr(q))
+    return rc, out
+
+
 def flash_attention(q, k, v, q_pos0, kv_len, *, scale: float,
                     softcap: float = 0.0, swa_window: int = 0,
                     attn_chunk: int = 0, sinks=None):
@@ -108,11 +194,30 @@ def flash_attention(q, k, v, q_pos0, kv_len, *, scale: float,
     skipping DMAs, with the next key tile in flight (cp.async) while the
     current one is multiplied, K and V row-major read by ldmatrix, Q held
     in registers at head dims up to 128, and the longest query tiles
-    launched first."""
+    launched first.
+
+    One kv head at head dims above 256 (``mla_form``: the DeepSeek-2
+    family's latent cache, q (B, T, H, 576) over k (B, S, 1, 576) and v its
+    first 512 columns) takes the MLA form, ``csrc/flash_attention_mla.cu``,
+    at any T: the heads of a few positions packed into a block's rows so
+    that the latent head is read once for all of them, the 512 output
+    columns split over two warps a row group, and the keys split over
+    blocks where few rows leave SMs idle (``mla_split_plan``). It takes the
+    causal mask alone and raises on a softcap, window, chunk or sinks.
+    ``flash_attention.mla_launches`` counts its part of ``launches``."""
     if q.device.type == "cpu":
         return attention_ref(q, k, v, q_pos0, kv_len, scale=scale,
                              softcap=softcap, swa_window=swa_window,
                              attn_chunk=attn_chunk, sinks=sinks)
+    if mla_form(q, k, v):
+        _cuda.require(softcap == 0.0 and swa_window == 0 and attn_chunk == 0 and sinks is None,
+                      "flash_attention (MLA form): the causal mask only (no softcap, "
+                      "window, chunk or sinks)")
+        rc, out = _flash_attention_mla(q, k, v, q_pos0, kv_len, scale)
+        flash_attention.launches += 1
+        flash_attention.mla_launches += 1
+        _cuda.check(rc, "flash_attention (MLA form)")
+        return out
     rc, out = _launch("ik_flash_attention", "flash_attention", q, k, v,
                       q_pos0, kv_len, scale, softcap, swa_window, attn_chunk,
                       sinks)
@@ -122,6 +227,7 @@ def flash_attention(q, k, v, q_pos0, kv_len, *, scale: float,
 
 
 flash_attention.launches = 0      # kernel launches, counted where they happen
+flash_attention.mla_launches = 0  # ... of them the MLA form's
 
 
 # The decode kernel (csrc/flash_attention_decode.cu): 32-key tiles, 8 warps

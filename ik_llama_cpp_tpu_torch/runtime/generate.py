@@ -5,7 +5,8 @@ The torch counterpart of the JAX package's ``runtime/generate.py:Runtime``
 for every architecture of its dense family (``models/llama.py:ARCHS``; MoE
 experts in any of their loaded forms: int8 per supergroup, planar, mixed or
 bf16; shared experts), with a bf16 or quantized KV cache, or ring caches on
-the sliding-window layers (``swa_compress``).
+the sliding-window layers (``swa_compress``), and for the DeepSeek-2 family
+(``models/deepseek2.py:ARCHS``), loaded with the MLA latent cache.
 PyTorch runs eagerly, so there are no compiled step functions; the prefill
 buckets and the chunk limit are kept so that cache rows and chunking match
 the JAX runtime exactly.
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from ..gguf.reader import GGUFModel, load_gguf
+from ..models import deepseek2 as ds2_mod
 from ..models import llama as llama_mod
 from ..models.config import ModelConfig, config_from_gguf
 from ..models.llama import KVCache, MixedKVCache, SwaKVCache
@@ -63,8 +65,13 @@ FORWARDS = {a: llama_mod.forward for a in llama_mod.ARCHS}
 LOADERS = {a: llama_mod.load_llama_params for a in llama_mod.ARCHS}
 CACHES = {a: KVCache.create for a in llama_mod.ARCHS}
 FORWARDS["gptj"] = LOADERS["gptj"] = CACHES["gptj"] = _gptj_unsupported
-# architectures with a forward of their own in the JAX package
-OWN_FORWARD = ("deepseek2", "mistral4", "glm-dsa", "deepseek4", "mamba", "qwen3next",
+# the DeepSeek-2 family: MLA attention, the latent cache by default
+for _a in ds2_mod.ARCHS:
+    FORWARDS[_a] = ds2_mod.forward
+    LOADERS[_a] = ds2_mod.load_deepseek2_params
+    CACHES[_a] = ds2_mod.make_cache
+# architectures with a forward of their own in the JAX package, not ported yet
+OWN_FORWARD = ("deepseek4", "mamba", "qwen3next",
                "qwen35", "qwen35moe", "gemma4", "gemma4_mtp", "gemma4-assistant",
                "openpangu", "bert", "nomic-bert", "jina-bert-v2", "t5", "dflash")
 
@@ -137,7 +144,10 @@ class Runtime:
                 llama_mod._later(f"architecture {cfg.arch!r}, which has a forward of "
                                  "its own", "other architectures (item 8)")
             raise NotImplementedError(f"arch {cfg.arch!r} not supported yet")
-        params = loader(gg, cfg, dev, use_quant=use_quant, fuse=fuse)
+        # the DeepSeek-2 family loads the latent cache's absorb projections
+        # (its graph has no q/k/v or gate/up pair to fuse)
+        kw = {"mla": True} if cfg.arch in ds2_mod.ARCHS else {"fuse": fuse}
+        params = loader(gg, cfg, dev, use_quant=use_quant, **kw)
         _log_model_load(gg, cfg)
         return cls(cfg=cfg, params=params, device=dev,
                    tokenizer=tokenizer_from_gguf(gg.metadata), kv_quant=kv_quant,
@@ -154,6 +164,11 @@ class Runtime:
         b0 = max(PREFILL_BUCKETS[0], 256)
         capacity = -(-(capacity + PREFILL_BUCKETS[0] - 1) // b0) * b0
         quant = self.kv_quant
+        if self.cfg.arch in ds2_mod.ARCHS:
+            # the latent cache where the model was loaded for it (bf16; the
+            # JAX runtime gives this family no other cache type either)
+            return ds2_mod.make_cache(self.cfg, batch, capacity, self.device,
+                                      mla="wk_b" in self.params["blocks"][0], quant=quant)
         if isinstance(quant, dict):
             # per-layer first/last codec overrides, e.g. {"type": "q4",
             # "first": "q8", "n_first": 1, "last": "q8", "n_last": 1}

@@ -38,7 +38,7 @@ import torch
 
 from ..models import llama as llama_mod
 from ..models.llama import KVCache, MixedKVCache, SwaKVCache
-from ..runtime.generate import PREFILL_BUCKETS, Runtime, _bucket, _chunk_limit
+from ..runtime.generate import FORWARDS, PREFILL_BUCKETS, Runtime, _bucket, _chunk_limit
 from ..runtime.sampling import (SamplerParams, SamplerState,
                                 sample as sample_token, sample_topk,
                                 topk_chain_compatible)
@@ -191,18 +191,24 @@ _MIXED_FIELDS = ("k_ovr", "v_ovr", "ks_ovr", "vs_ovr",
                  "k_mid", "v_mid", "ks_mid", "vs_mid")
 
 
+_KV_FIELDS = ("k", "v", "k_scale", "v_scale")
+
+
 def _cache_tensors(kv) -> list:
-    """The cache's tensors, each with the batch on axis 1."""
+    """The cache's tensors, each with the batch on axis 1 (a field that is
+    None, as the latent cache's v of a model without an indexer, is
+    left out)."""
     if isinstance(kv, MixedKVCache):
         return [getattr(kv, f) for f in _MIXED_FIELDS]
-    return [t for t in (kv.k, kv.v, kv.k_scale, kv.v_scale) if t is not None]
+    return [t for t in (getattr(kv, f) for f in _KV_FIELDS) if t is not None]
 
 
 def _like(kv, tensors: list):
     """A cache of kv's type over ``tensors`` (in _cache_tensors order)."""
     if isinstance(kv, MixedKVCache):
         return MixedKVCache(*tensors, layer_map=kv.layer_map)
-    return KVCache(*tensors)
+    it = iter(tensors)
+    return KVCache(**{f: None if getattr(kv, f) is None else next(it) for f in _KV_FIELDS})
 
 
 def cache_rows(kv, start: int, n: int = 1):
@@ -292,8 +298,8 @@ class BatchEngine:
         self.requests.put(req)
 
     def _forward(self, toks: np.ndarray, kv, n_past) -> torch.Tensor:
-        return llama_mod.forward(self.rt.params, self.cfg,
-                                 torch.from_numpy(toks).to(self.device), kv, n_past)
+        return FORWARDS[self.cfg.arch](self.rt.params, self.cfg,
+                                       torch.from_numpy(toks).to(self.device), kv, n_past)
 
     def _slot_state_to_host(self, slot) -> dict | None:
         """One slot's filled KV rows on the host (RAM-cache save)."""

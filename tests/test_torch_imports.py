@@ -62,7 +62,7 @@ def test_port_has_kernel_sources():
     assert srcs == {"qmatmul_i8", "qmatmul", "qmatmul4", "flash_attention",
                     "flash_attention_decode", "flash_attention_decode_q",
                     "flash_attention_q8", "moe_decode_i8", "moe_qmm_i8", "moe_decode",
-                    "moe_decode_fused_i8", "moe_qmm"}
+                    "moe_decode_fused_i8", "moe_qmm", "flash_attention_mla"}
     from ik_llama_cpp_tpu_torch.ops import _cuda
     assert set(_cuda.SOURCES) == srcs
 
