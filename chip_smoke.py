@@ -118,10 +118,12 @@ Phases (all by default; any failure exits non-zero):
      one-history parities at depth 2: (a) those widths, (b) DeepSeek-V3's
      routing (sigmoid, selection bias, normalized top-k, scale 2.5) with a
      1536 q-lora, (c) mla=False, (d) glm-dsa's lightning indexer (64 heads
-     of 128, top-k 2,048) over 2,100 tokens. Phase 3 adds rows 2m and 2md
-     (the MLA form at the last chunk of that fill and the decode step after
-     it, with its key split against its time) and 2k (kernel B at the
-     mla=False heads)
+     of 128, top-k 2,048) over 2,100 tokens. Phase 3 adds rows 2m, 2md and
+     2md2 (the MLA form's wgmma kernel at the last chunk of that fill, its
+     decode kernel at the decode step after it and at two slots, with the
+     decode kernel's key splits against its time), 2m128 and 2md128 (the
+     same at DeepSeek-V3's 128 heads) and 2k (kernel B at the mla=False
+     heads)
 The line before the last lists every ported kernel as JSON; the last line is
 {"ok": true, "device": {...}}. Without CUDA, or without the package beside
 this file, it exits non-zero and prints no result.
@@ -199,6 +201,7 @@ DSV3R = dict(DSV2, TAG="dsv3route", LORA_Q=1536, GATING=2, NORM=True, SCALE=2.5,
 GLMDSA = dict(DSV3R, ARCH="glm-dsa", TAG="glmdsa", IDX_H=64, IDX_D=128, IDX_K=2048)
 DS_GGUF_VERSION = "port-18"
 LONG18, DECODE18 = 4000, 64      # phase 18's cached tokens and decode steps
+DSV3_H = 128                     # DeepSeek-V3's query heads over the same 576 / 512 latent head
 
 
 def log(msg: str) -> None:
@@ -792,45 +795,65 @@ def phase_kernels(torch, timer, results) -> bool:
                     [3999], [4000], **g)
 
     # DeepSeek-V2-Lite's attention (phase 18): rows 2m (the last chunk of a
-    # 3,999-token fill) and 2md (the decode step after it) of the MLA form,
-    # 16 heads over the one latent head, v the first 512 columns of k; row
+    # 3,999-token fill: the wgmma form) and 2md / 2md2 (the decode step after
+    # it, one and two slots: the decode form) of the MLA form, 16 heads over
+    # the one latent head, v the first 512 columns of k; rows 2m128 / 2md128
+    # the same at DeepSeek-V3's 128 heads (random tensors, no model); row
     # 2k, kernel B at the mla=False path's 16 / 16 heads of 192 / 128
-    ds = dict(h=DSV2["H"], dk=DSV2["LORA_KV"] + DSV2["ROPE"], dv=DSV2["LORA_KV"])
-    log("[3] the MLA form of kernel B (flash_attention_mla: DeepSeek-V2-Lite's latent "
-        "cache) and B at its mla=False heads; library = SDPA with enable_gqa")
-    ok &= mla_case(torch, timer, results, gen, "flash_attention_mla", 1, 512, 4096, [3488],
-                   [4000], hkv=1, **ds)
-    ok &= mla_case(torch, timer, results, gen, "flash_attention_mla", 1, 1, 4096, [3999],
-                   [4000], hkv=1, **ds)
+    ds = dict(hkv=1, dk=DSV2["LORA_KV"] + DSV2["ROPE"], dv=DSV2["LORA_KV"])
+    log("[3] the MLA form of kernel B (flash_attention_mla: DeepSeek-V2-Lite's and "
+        "DeepSeek-V3's heads over the latent cache) and B at its mla=False heads; "
+        "library = SDPA with enable_gqa")
+    for h in (DSV2["H"], DSV3_H):
+        ok &= mla_case(torch, timer, results, gen, "flash_attention_mla", 1, 512, 4096, [3488],
+                       [4000], h=h, **ds)
+        ok &= mla_case(torch, timer, results, gen, "flash_attention_mla", 1, 1, 4096, [3999],
+                       [4000], h=h, **ds)
     ok &= mla_case(torch, timer, results, gen, "flash_attention_mla", 2, 1, 4096, [1500, 3999],
-                   [1501, 4000], hkv=1, **ds)
+                   [1501, 4000], h=DSV2["H"], **ds)
     ok &= mla_case(torch, timer, results, gen, "flash_attention", 1, 512, 4096, [3488], [4000],
                    h=DSV2["H"], hkv=DSV2["H"], dk=DSV2["NOPE"] + DSV2["ROPE"], dv=DSV2["DV"])
-    log("[3] 2md: the MLA form's key split against its time at T = 1, 4,000 keys (ms a "
-        "call by blocks a row tile; * = mla_split_plan's choice)")
-    q = torch.randn((1, 1, ds["h"], ds["dk"]), generator=gen, device="cuda").to(torch.bfloat16)
-    kc = torch.randn((1, 4096, 1, ds["dk"]), generator=gen, device="cuda").to(torch.bfloat16)
-    qp = torch.tensor([3999], dtype=torch.int32, device="cuda")
-    kl = torch.tensor([4000], dtype=torch.int32, device="cuda")
-    plan = FA.mla_split_plan(1, 1, ds["h"], 4096, sms)["splits"]
-    row = []
-    for sp in (1, 2, 4, 8, 16, 32, 64):
-        with forced_mla_splits(FA, sp):
-            row.append(f"{sp}{'*' if sp == plan else ''} "
-                       f"{timer(lambda: FA.flash_attention(q, kc, kc[..., :ds['dv']], qp, kl, scale=0.07), 5):.4f}")
-    log("    " + ", ".join(row))
+    mla_sweep(torch, timer, gen, ds, sms)
     return ok
 
 
+def mla_sweep(torch, timer, gen, ds: dict, sms: int) -> None:
+    """Rows 2md, 2md2 and 2md128 (T = 1 at 4,000 keys) by the decode
+    form's key splits: ms a call by blocks a row tile (* = mla_plan's
+    choice; a split call is a cooperative launch, so groups x splits stays
+    within the SMs). Row 2m takes one split: its 128 row tiles fill the
+    card."""
+    from ik_llama_cpp_tpu_torch.ops import flash_attention as FA
+    for what, b, t, h, qpos, kvlen, points in (
+            ("2md", 1, 1, DSV2["H"], [3999], [4000], (1, 8, 16, 32, 64, 96, 128)),
+            ("2md2", 2, 1, DSV2["H"], [1500, 3999], [1501, 4000], (1, 8, 16, 32, 48, 64)),
+            ("2md128", 1, 1, DSV3_H, [3999], [4000], (1, 4, 8, 12, 16))):
+        q = torch.randn((b, t, h, ds["dk"]), generator=gen, device="cuda").to(torch.bfloat16)
+        kc = torch.randn((b, 4096, 1, ds["dk"]), generator=gen, device="cuda").to(torch.bfloat16)
+        qp = torch.tensor(qpos, dtype=torch.int32, device="cuda")
+        kl = torch.tensor(kvlen, dtype=torch.int32, device="cuda")
+        plan = FA.mla_plan(b, t, h, 4096, sms)
+        row = []
+        for sp in points:
+            if sp > 1 and plan["groups"] * sp > sms:
+                continue
+            with forced_mla_plan(FA, splits=sp):
+                ms = timer(lambda: FA.flash_attention(q, kc, kc[..., :ds["dv"]], qp, kl,
+                                                      scale=0.07), 5)
+            row.append(f"{sp}{'*' if sp == plan['splits'] else ''} {ms:.4f}")
+        log(f"[3] {what}: the {plan['form']} form by key splits ({plan['tiles']} row tiles of "
+            f"{plan['rows']} a batch row, B={b}; ms a call): " + ", ".join(row))
+
+
 @contextmanager
-def forced_mla_splits(FA, splits: int):
-    """The MLA form's launches with ``splits`` blocks a row tile."""
-    saved = FA.mla_split_plan
-    FA.mla_split_plan = lambda b, t, h, s, sms=132: dict(saved(b, t, h, s, sms), splits=splits)
+def forced_mla_plan(FA, **knobs):
+    """The MLA form's launches with the plan's knobs (``splits``) forced."""
+    saved = FA.mla_plan
+    FA.mla_plan = lambda *a, **kw: dict(saved(*a, **kw), **knobs)
     try:
         yield
     finally:
-        FA.mla_split_plan = saved
+        FA.mla_plan = saved
 
 
 def sdpa_library(torch, timer, q, k, v, mask, scale: float):
@@ -856,10 +879,10 @@ def sdpa_library(torch, timer, q, k, v, mask, scale: float):
 
 
 def mla_case(torch, timer, results, gen, kernel, b, t, s, qpos, kvlen, *, h, hkv, dk, dv):
-    """``flash_attention`` at DeepSeek-V2-Lite's heads against its plain
+    """``flash_attention`` at a DeepSeek-2 family's heads against its plain
     version: the MLA form (hkv 1, v a view of k's first dv columns) or
     kernel B (hkv = h); with the library call, the bound and (MLA form)
-    its split plan and a bit-for-bit repeat."""
+    its plan and a bit-for-bit repeat."""
     from ik_llama_cpp_tpu_torch.ops import flash_attention as FA
     scale_ = 1.0 / float(np.sqrt(DSV2["NOPE"] + DSV2["ROPE"]))
     q = torch.randn((b, t, h, dk), generator=gen, device="cuda").to(torch.bfloat16)
@@ -886,9 +909,10 @@ def mla_case(torch, timer, results, gen, kernel, b, t, s, qpos, kvlen, *, h, hkv
     note = f" | library backend {backend}"
     if kernel == "flash_attention_mla":
         again = bool(torch.equal(got, fn()))
-        plan = FA.mla_split_plan(b, t, h, s, _sms(torch))
-        note += (f"; plan: {plan['tiles']} row tiles x {plan['splits']} splits; "
-                 f"repeats bit for bit: {again}")
+        plan = FA.mla_plan(b, t, h, s, _sms(torch))
+        note += (f"; plan: {plan['form']} form, {plan['tiles']} row tiles of {plan['rows']} "
+                 f"x {plan['splits']} splits, cluster {plan['cluster']}; repeats bit for bit: "
+                 f"{again}")
         if not again:
             err = float("inf")
     return _record(results, kernel, case, err, tol, timer(fn), timer(ref_fn, 3), lib, bnd,
@@ -3811,15 +3835,19 @@ def phase_deepseek(torch, launches: dict, card: str) -> bool:
         f"other attention kernel: {attn_ok}; logits finite {finite}: {'ok' if ok else 'FAIL'}")
     prof = profile_decode(torch, rt, kv, n_past + DECODE18, toks[:, -1:], tag="18", top=10,
                           host=False)
-    log(f"[18] decode step at {n_past + DECODE18} cached: the MLA form (fa_mla_kernel) "
-        f"{kernel_ms(prof, 'fa_mla_kernel'):.3f} ms; kernel A {a_ms(prof)}; all kernels "
-        f"{sum(prof.values()):.3f} ms")
+    mla_dec = kernel_ms(prof, "fa_mla_decode_kernel", "fa_mla_wgmma_kernel")
+    log(f"[18] decode step at {n_past + DECODE18} cached: the MLA form (fa_mla_decode_kernel) "
+        f"{mla_dec:.3f} ms; kernel A {a_ms(prof)}; all kernels {sum(prof.values()):.3f} ms")
     tail = ids[-(len(ids) % 512 or 512):]
     prof = profile_window(torch, lambda: rt.eval_tokens(tail, kv, len(ids) - len(tail)), 1,
                           f"the last prefill chunk ({len(tail)} tokens at "
                           f"{len(ids) - len(tail)} cached)", "chunk", "18", top=10, host=False)
-    log(f"[18] last prefill chunk: the MLA form {kernel_ms(prof, 'fa_mla_kernel'):.3f} ms; "
+    mla_pre = kernel_ms(prof, "fa_mla_decode_kernel", "fa_mla_wgmma_kernel")
+    log(f"[18] last prefill chunk: the MLA form (fa_mla_wgmma_kernel) {mla_pre:.3f} ms; "
         f"kernel A {a_ms(prof)}; all kernels {sum(prof.values()):.3f} ms")
+    if not (mla_dec > 0 and mla_pre > 0):
+        log("[18] FAIL: the MLA form launched but the profile shows none of its kernels' time")
+        ok = False
     ab1, ab512 = absorb_ms(torch, rt.params["blocks"][1], 1), \
         absorb_ms(torch, rt.params["blocks"][1], 512)
     log(f"[18] the absorb products a layer (q_nope @ wk_b, attn @ wv_b; plain f32 einsums): "

@@ -1,8 +1,9 @@
 // Hopper primitives of the port's tiled kernels (kernel A's
 // qmatmul_i8_wgmma_kernel, kernel D's qmatmul_wgmma_kernel, kernel 15's
-// qmatmul4_wgmma_kernel, kernels 9, 10 and 14): mbarriers, TMA loads and the
-// host-side tensor-map encoder, warpgroup MMA fences and waits, the int8
-// warpgroup MMA, the 128-byte swizzle descriptor, setmaxnreg. Compiled into each kernel library on its own.
+// qmatmul4_wgmma_kernel, kernels 9, 10 and 14, the MLA form of kernel B):
+// mbarriers, 2-D and 3-D TMA loads and the host-side tensor-map encoders,
+// warpgroup MMA fences and waits, the int8 warpgroup MMA, the 128-byte
+// swizzle descriptor, setmaxnreg. Compiled into each kernel library on its own.
 #pragma once
 
 #include <cuda.h>
@@ -55,6 +56,18 @@ IK_DEV void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* b, int c0, 
         "r"(c0), "r"(c1)
       : "memory");
 }
+// The (c0 = inner, c1, c2) box of a 3-D tensor map; the bytes land on b.
+IK_DEV void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* b, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(b)),
+        "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+// Orders this thread's generic-proxy shared-memory writes before later
+// async-proxy reads of them (a wgmma operand written by plain stores).
+IK_DEV void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
 template <int R>
 IK_DEV void setmaxnreg_inc() { asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R)); }
 template <int R>
@@ -203,6 +216,26 @@ cudaError_t tensor_map_2d(CUtensorMap* map, const void* ptr, CUtensorMapDataType
   const cuuint32_t box[2] = {box_inner, box_rows};
   const cuuint32_t estr[2] = {1, 1};
   const CUresult r = fn(map, dt, 2, const_cast<void*>(ptr), dims, strides, box, estr,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A 3-D (inner, rows, planes) tensor map: rows `row_bytes` and planes
+// `plane_bytes` apart (multiples of 16), boxes of box_inner x box_rows x 1;
+// what lies past the tensor reads as zeros.
+cudaError_t tensor_map_3d(CUtensorMap* map, const void* ptr, CUtensorMapDataType dt,
+                          uint64_t inner, uint64_t rows, uint64_t planes, uint64_t row_bytes,
+                          uint64_t plane_bytes, uint32_t box_inner, uint32_t box_rows,
+                          CUtensorMapSwizzle swizzle) {
+  EncodeTiled fn;
+  cudaError_t e = encoder(&fn);
+  if (e != cudaSuccess) return e;
+  const cuuint64_t dims[3] = {inner, rows, planes};
+  const cuuint64_t strides[2] = {row_bytes, plane_bytes};
+  const cuuint32_t box[3] = {box_inner, box_rows, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUresult r = fn(map, dt, 3, const_cast<void*>(ptr), dims, strides, box, estr,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

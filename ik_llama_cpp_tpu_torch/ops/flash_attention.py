@@ -99,12 +99,17 @@ def _launch(symbol, lib, q, k, v, q_pos0, kv_len, scale, softcap, swa_window,
     return rc, out
 
 
-# The MLA form of the prefill kernel (csrc/flash_attention_mla.cu): blocks
-# of 64 query rows (row = t * H + h), 32-key tiles (16 where v does not
-# alias k), head dims up to 576 / 512, each row tile's live keys split over
-# up to MLA_MAX_SPLITS blocks where the row tiles leave SMs idle.
-MLA_BM, MLA_KT, MLA_MAX_SPLITS = 64, 32, 32
+# The MLA form of the prefill kernel (csrc/flash_attention_mla.cu): head
+# dims up to 576 / 512 over one kv head, two kernels chosen by ``mla_plan``.
+# The decode kernel takes 16-row tiles and 32-key chunks where a batch row
+# has at most MLA_DECODE_MAX_ROWS query rows (T * H); the wgmma kernel takes
+# 64-row tiles and 64-key tiles (32 where v is not a view of k). Either
+# splits a row tile's live keys over blocks where the row tiles leave SMs
+# idle, the blocks of a split group merging their partials together.
 MLA_DK, MLA_DV = 576, 512
+MLA_DECODE_ROWS, MLA_DECODE_KT, MLA_DECODE_MAX_ROWS = 16, 32, 128
+MLA_WGMMA_ROWS, MLA_WGMMA_KT = 64, 64
+MLA_MAX_SPLITS = 256
 
 
 def mla_form(q, k, v) -> bool:
@@ -113,36 +118,52 @@ def mla_form(q, k, v) -> bool:
     return k.dim() == 4 and k.shape[2] == 1 and max(q.shape[3], v.shape[3]) > 256
 
 
-def mla_split_plan(b: int, t: int, h: int, s: int, sms: int = _cuda.DEFAULT_SMS) -> dict:
-    """The MLA kernel's launch, a pure function of the shapes and the SM
-    count: ``tiles`` row tiles of MLA_BM query rows a batch, ``groups`` =
-    B x tiles, and ``splits`` blocks a group: as many as leave no SM idle
-    for one block a group, no more than a capacity of S keys gives four
-    tiles each, at most MLA_MAX_SPLITS (1 at T = 512, where the 128 row
-    tiles fill the card)."""
-    if not (b > 0 and t > 0 and h > 0 and s > 0 and sms > 0):
+def mla_plan(b: int, t: int, h: int, s: int, sms: int = _cuda.DEFAULT_SMS, *,
+             alias: bool = True) -> dict:
+    """The MLA form's launch, a pure function of the shapes and the SM
+    count. ``form``: "decode" (``fa_mla_decode_kernel``) where a batch row's
+    T x H query rows are at most MLA_DECODE_MAX_ROWS (16 at a V2-Lite decode
+    step, 128 at DeepSeek-V3's), else "wgmma" (``fa_mla_wgmma_kernel``).
+    ``rows`` a row tile, ``kt`` keys a tile (the wgmma form takes 32 where v
+    is not a view of k: ``alias`` False), ``tiles`` row tiles a batch row,
+    ``groups`` = B x tiles, ``splits`` blocks a group: as many as leave no
+    SM idle, no more than give each block two key tiles of the S cache rows
+    at the decode form (the split sweep of chip_smoke.py's phase 3: 64
+    blocks of 2 chunks beat 128 of one at 4,000 keys) or one at the wgmma
+    form (1 at T = 512, where the 128 row tiles fill the card). A split call
+    is a cooperative launch, so its groups x splits blocks never pass the
+    SM count (one block an SM). ``cluster``: blocks of a thread-block
+    cluster, 1 (pairs of row tiles sharing each K tile by TMA multicast
+    halved the tiles' reads from L2 but ran slower at rows 2m and 2m128:
+    PERF.md)."""
+    if not (b > 0 and t > 0 and h > 0 and s > 0 and sms > 0) or b > 65535:
         raise ValueError(f"flash_attention (MLA form): B={b} T={t} H={h} S={s}")
-    tiles = -(-t * h // MLA_BM)
+    decode = t * h <= MLA_DECODE_MAX_ROWS
+    rows = MLA_DECODE_ROWS if decode else MLA_WGMMA_ROWS
+    kt = MLA_DECODE_KT if decode else (MLA_WGMMA_KT if alias else MLA_WGMMA_KT // 2)
+    tiles = -(-t * h // rows)
     groups = b * tiles
-    splits = max(1, min(sms // groups, -(-s // (4 * MLA_KT)), MLA_MAX_SPLITS))
-    return {"tiles": tiles, "groups": groups, "splits": splits}
+    per_split = 2 * kt if decode else kt
+    splits = max(1, min(sms // groups, -(-s // per_split), MLA_MAX_SPLITS))
+    return {"form": "decode" if decode else "wgmma", "rows": rows, "kt": kt, "tiles": tiles,
+            "groups": groups, "splits": splits, "cluster": 1}
 
 
-def mla_key_ranges(splits: int, key_end: int, kt: int = MLA_KT) -> list:
+def mla_key_ranges(plan: dict, key_end: int) -> list:
     """The blocks' key ranges [lo, hi) of one row tile whose live keys are
-    [0, key_end), in split order, as the kernel derives them from kv_len
-    and q_pos0: one range where there is one split or the keys fit one
-    tile; else chunks of a whole number of ``kt``-key tiles; blocks past
-    the last chunk do nothing."""
-    if splits == 1 or key_end <= kt:
+    [0, key_end), in split order, as the kernels derive them from kv_len and
+    q_pos0: chunks of ``per`` keys, a whole number of the plan's ``kt``-key
+    tiles (the last may be shorter); one range where that leaves one chunk;
+    blocks past the last chunk do nothing."""
+    splits, kt = plan["splits"], plan["kt"]
+    per = max(-(-(-(-key_end // splits)) // kt) * kt, kt)
+    if -(-key_end // per) <= 1:
         return [(0, key_end)]
-    per = -(-key_end // splits)
-    per = max(-(-per // kt) * kt, kt)
     return [(lo, min(lo + per, key_end)) for lo in range(0, key_end, per)]
 
 
 def _flash_attention_mla(q, k, v, q_pos0, kv_len, scale: float):
-    """Checks and launches the MLA kernel; returns (rc, out)."""
+    """Checks and launches the MLA form's kernel; returns (rc, out)."""
     lib = "flash_attention_mla"
     b, t, h, dk = q.shape
     _, s, hkv, dk2 = k.shape
@@ -158,26 +179,32 @@ def _flash_attention_mla(q, k, v, q_pos0, kv_len, scale: float):
         _cuda.require(x.stride(3) == 1 and all(st % 8 == 0 for st in x.stride()[:3])
                       and x.data_ptr() % 16 == 0,
                       f"{lib}: {name} needs a unit last stride and 16-byte aligned rows")
-    # v a view of k's first dv columns: the kernel reads each key row once
-    alias = int(v.data_ptr() == k.data_ptr() and v.stride() == k.stride() and dv <= dk)
-    plan = mla_split_plan(b, t, h, s, _cuda.sm_count(q))
+    # v a view of k's first dv columns: the kernels read each key row once
+    alias = v.data_ptr() == k.data_ptr() and v.stride() == k.stride() and dv <= dk
+    plan = mla_plan(b, t, h, s, _cuda.sm_count(q), alias=alias)
+    qst = q.stride()[:3]
+    if plan["form"] == "wgmma":
+        # TMA reads q as the (B * T * H, Dk) rows of one matrix
+        _cuda.require(q.is_contiguous(), f"{lib}: the wgmma form needs a contiguous q")
+        qst = (t * h * dk, h * dk, dk)
     splits = plan["splits"]
     part = counters = None
     if splits > 1:
-        part = torch.empty(plan["groups"] * splits * MLA_BM * (dv + 2), dtype=torch.float32,
-                           device=q.device)
-        counters = _cuda.zeroed_counters(q.device, "mla attention", plan["groups"])
+        part = torch.empty(plan["groups"] * splits * plan["rows"] * (dv + 2),
+                           dtype=torch.float32, device=q.device)
+        counters = _cuda.zeroed_counters(q.device, "mla merge", 2 * plan["groups"])
     # every buffer the kernel reads is held by a name until the launch
     qp = _vec(q_pos0, b, q.device)
     kl = _vec(kv_len, b, q.device)
     out = torch.empty((b, t, h, dv), dtype=torch.bfloat16, device=q.device)
     fn = _cuda.function(lib, "ik_flash_attention_mla",
-                        [_cuda.P] * 8 + [_cuda.I] * 7 + [_cuda.L] * 7 + [_cuda.F, _cuda.P])
+                        [_cuda.P] * 8 + [_cuda.I] * 9 + [_cuda.L] * 7 + [_cuda.F, _cuda.P])
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(), kl.data_ptr(),
             out.data_ptr(),
             None if part is None else part.data_ptr(),
-            None if counters is None else counters.data_ptr(), splits, alias, b, t, h, dk, dv,
-            *q.stride()[:3], k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+            None if counters is None else counters.data_ptr(),
+            0 if plan["form"] == "decode" else 1, splits, int(alias), b, t, h, s, dk, dv,
+            *qst, k.stride(0), k.stride(1), v.stride(0), v.stride(1),
             float(scale), _cuda.stream_ptr(q))
     return rc, out
 
@@ -200,11 +227,13 @@ def flash_attention(q, k, v, q_pos0, kv_len, *, scale: float,
     family's latent cache, q (B, T, H, 576) over k (B, S, 1, 576) and v its
     first 512 columns) takes the MLA form, ``csrc/flash_attention_mla.cu``,
     at any T: the heads of a few positions packed into a block's rows so
-    that the latent head is read once for all of them, the 512 output
-    columns split over two warps a row group, and the keys split over
-    blocks where few rows leave SMs idle (``mla_split_plan``). It takes the
-    causal mask alone and raises on a softcap, window, chunk or sinks.
-    ``flash_attention.mla_launches`` counts its part of ``launches``."""
+    that the latent head is read once for all of them. ``mla_plan`` picks
+    one of its two kernels: at prefill warpgroup MMAs over TMA tiles (64
+    rows, two consumer warpgroups of 256 output columns), at decode 16-row
+    tiles whose keys are split over every SM and merged by the group's
+    blocks together. It takes the causal mask alone and raises on a
+    softcap, window, chunk or sinks. ``flash_attention.mla_launches``
+    counts its part of ``launches``."""
     if q.device.type == "cpu":
         return attention_ref(q, k, v, q_pos0, kv_len, scale=scale,
                              softcap=softcap, swa_window=swa_window,
