@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19]
 
 Phases (all by default; any failure exits non-zero):
   1. device: the card's name and power limit; TF32 off for the plain versions
@@ -41,8 +41,9 @@ Phases (all by default; any failure exits non-zero):
      cloned to the full width of phase 4 (L32): prefill 512, decode 64,
      launch counts, a decode profile (the M <= 16 kernel a step, the idle
      share) and a prefill profile (the tiled kernel)
-  7. MoE end to end at the full width of Qwen3-30B-A3B (L48 E2048 H32 KV4
-     D128, 128 experts top-8 FF768, V151936; Q4_0 attention and experts,
+  7. MoE end to end at the full width of Qwen3-30B-A3B (E2048 H32 KV4
+     D128, 128 experts top-8 FF768, V151936, at 24 of its 48 layers, L7;
+     Q4_0 attention and experts,
      Q8_0 embedding and untied head, random blocks from a seed): load,
      prefill 512, decode 64, with every kernel launch counted, then the
      decode profile (kernels 7's and 8's share of a step) and a prefill
@@ -92,10 +93,11 @@ Phases (all by default; any failure exits non-zero):
      A, B and C counted over the run, requests/s and tokens/s over all
      slots, and each greedy request replayed at B = 1 on the kernel path
      and the plain path over its own history
- 17. the llama-graph family: Gemma-3-12B at full width (gemma3: L48 E3840
-     H16 KV8 D256 FF15360, V262208 tied, a 1,024-key window on 40 layers,
-     QK-norms, sandwich norms, GELU; Q4_0 linears, a Q8_0 embedding, random
-     blocks from a seed, one block cloned to 48): a 3,999-token prefill in
+ 17. the llama-graph family: Gemma-3-12B at full width (gemma3: E3840
+     H16 KV8 D256 FF15360, V262208 tied, a 1,024-key window on all layers
+     but each sixth, QK-norms, sandwich norms, GELU; Q4_0 linears, a Q8_0
+     embedding, random blocks from a seed, one block cloned to 24 of its 48
+     layers, L17): a 3,999-token prefill in
      chunks and 64 greedy decode steps at 4,000 cached tokens, with the
      A/B/C launch counts and a decode profile; the same decode over
      --swa-compress ring caches (cache bytes against the full cache, the
@@ -124,6 +126,21 @@ Phases (all by default; any failure exits non-zero):
      decode kernel's key splits against its time), 2m128 and 2md128 (the
      same at DeepSeek-V3's 128 heads) and 2k (kernel B at the mla=False
      heads)
+ 19. the hybrid gated-delta-net family: Qwen3-Next-80B-A3B at full width
+     (qwen3next: E2048, attention every 4th layer with 16 gated q heads over
+     2 kv heads of 256 and rope on 64 dims, delta-net layers of 16 k / 32 v
+     heads of 128 with conv kernel 4, 512 experts top-10 of FF 512 and a
+     sigmoid-gated shared expert, V151936; Q4_0 linears and experts, Q8_0
+     embedding and head, random blocks from seed 0; four blocks, three
+     delta-net and one attention, cloned to 24 layers) on the recurrent
+     HybridCache: a 1,024-token prefill in two chunks, 64 greedy decode
+     steps, the launches of kernels A, B, C, 7, 8, 9 and 10 a chunk and a
+     step, decode and prefill profiles, the delta-net recurrence's eager ms
+     a step (device and host), two greedy requests on a 2-slot BatchEngine
+     (the second submitted while the first decodes) replayed at B = 1, and
+     a one-history parity at depth 4. Phase 3 adds kernel A at the model's
+     linears and rows 2q and 3q (B and C at 16 / 2 heads of 256); with
+     phase 3 also run, row 9q follows: kernel 9 at the router's buckets
 The line before the last lists every ported kernel as JSON; the last line is
 {"ok": true, "device": {...}}. Without CUDA, or without the package beside
 this file, it exits non-zero and prints no result.
@@ -201,6 +218,27 @@ DSV3R = dict(DSV2, TAG="dsv3route", LORA_Q=1536, GATING=2, NORM=True, SCALE=2.5,
 GLMDSA = dict(DSV3R, ARCH="glm-dsa", TAG="glmdsa", IDX_H=64, IDX_D=128, IDX_K=2048)
 DS_GGUF_VERSION = "port-18"
 LONG18, DECODE18 = 4000, 64      # phase 18's cached tokens and decode steps
+# Qwen3-Next-80B-A3B (Qwen/Qwen3-Next-80B-A3B-Instruct's config.json): 48
+# layers, hidden 2048, full attention every 4th layer with 16 gated q heads
+# over 2 kv heads of 256 (rope on 64 dims, partial_rotary_factor 0.25, base
+# 1e7), gated delta-net linear attention on the others (16 k heads / 32 v
+# heads of 128, conv kernel 4), 512 experts top-10 of FF 512 and a
+# sigmoid-gated shared expert of FF 512, vocab 151,936, an untied head.
+# Phase 19 runs it at 24 layers: the int8 experts take ~1.64 GB a layer
+QNEXT = dict(ARCH="qwen3next", L=48, LRUN=24, E=2048, H=16, HKV=2, D=256, ROPE_DIM=64,
+             ROPE=1e7, HK=16, HV=32, DK=128, DV=128, CONV=4, G=512, TOPK=10, FF=512,
+             FFS=512, V=151936, CTX=262144)
+QNEXT_GGUF_VERSION = "port-20"
+PREFILL19, DECODE19 = 1024, 64   # phase 19's prefill (two chunks) and decode steps
+# phases 7 and 17 run their models' published widths at 24 of their 48
+# layers, so that the whole script stays inside its time limit beside
+# phase 19 (with both at 48 layers a full run took 1,068 s of its 1,200 on
+# an H100 80GB HBM3 at 700 W)
+L7 = L17 = 24
+# kernel A's (K, N) on the Qwen3-Next path: ssm_in, the gated wq, ssm_out
+# (and wo), the head, wk / wv and the shared expert's gate / up, its down
+A_QNEXT_SHAPES = [(2048, 12288), (2048, 8192), (4096, 2048), (2048, 151936), (2048, 512),
+                  (512, 2048)]
 DSV3_H = 128                     # DeepSeek-V3's query heads over the same 576 / 512 latent head
 
 
@@ -556,6 +594,7 @@ def phase_kernels(torch, timer, results) -> bool:
     # then at M = 1 the attention linears and heads of the two MoE models
     a_cases = [(k, n, (1, 8, 16, 512)) for k, n in shapes]
     a_cases += [(k, n, (1, 512)) for k, n in A_MOE_SHAPES + A_GEMMA_SHAPES]
+    a_cases += [(k, n, (1, 512)) for k, n in A_QNEXT_SHAPES if (k, n) not in A_MOE_SHAPES]
     for k, n, ms in a_cases:
         codes_t = torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
                                 dtype=torch.int8)
@@ -793,6 +832,15 @@ def phase_kernels(torch, timer, results) -> bool:
     ok &= attn_case("flash_attention", FA.flash_attention, 1, 512, 4096, [3488], [4000], **g)
     ok &= attn_case("flash_attention_decode", FA.flash_attention_decode, 1, 1, 4096,
                     [3999], [4000], **g)
+    # Qwen3-Next-80B-A3B's attention layers (phase 19): 16 gated q heads over
+    # 2 kv heads of 256, a GQA ratio of 8; row 2q, the second chunk of the
+    # 1,024-token prefill, and row 3q, the decode step over its 1,024 keys
+    qn = dict(H=QNEXT["H"], HKV=QNEXT["HKV"], d=QNEXT["D"])
+    log("[3] kernels B and C at 16 query heads over 2 kv heads of 256 (Qwen3-Next's "
+        "attention layers); library = SDPA")
+    ok &= attn_case("flash_attention", FA.flash_attention, 1, 512, 1024, [512], [1024], **qn)
+    ok &= attn_case("flash_attention_decode", FA.flash_attention_decode, 1, 1, 1024,
+                    [1023], [1024], **qn)
 
     # DeepSeek-V2-Lite's attention (phase 18): rows 2m (the last chunk of a
     # 3,999-token fill: the wgmma form) and 2md / 2md2 (the decode step after
@@ -2022,7 +2070,7 @@ def kernel_ms(prof: dict, *names: str) -> float:
 @contextmanager
 def plain_path():
     """Route the model through the plain versions on the same tensors."""
-    from ik_llama_cpp_tpu_torch.models import deepseek2, llama, weights
+    from ik_llama_cpp_tpu_torch.models import deepseek2, llama, qwen3next, weights
     from ik_llama_cpp_tpu_torch.ops import flash_attention as FA
     from ik_llama_cpp_tpu_torch.ops import moe
     from ik_llama_cpp_tpu_torch.ops import moe_decode as MD
@@ -2033,11 +2081,12 @@ def plain_path():
              MD.moe_decode_down_i8, moe.fused_moe_prefill_i8, moe.ragged_qmatmul_i8,
              weights.qmatmul4, llama.flash_attention_decode_q8, llama.flash_attention_q8,
              MD.moe_decode_gate_up, MD.moe_decode_down, MD.moe_decode_fused_i8,
-             moe.ragged_qmatmul)
+             moe.ragged_qmatmul, qwen3next.flash_attention, qwen3next.flash_attention_decode)
     weights.qmatmul_i8, weights.qmatmul = QM.qmatmul_i8_ref, QM.qmatmul_ref
     weights.qmatmul4 = QM.qmatmul4_ref
     llama.flash_attention = llama.flash_attention_decode = FA.attention_ref
     deepseek2.flash_attention = FA.attention_ref
+    qwen3next.flash_attention = qwen3next.flash_attention_decode = FA.attention_ref
     llama.flash_attention_decode_q8 = llama.flash_attention_q8 = FA.attention_quant_ref
     MD.moe_decode_gate_up_i8 = MD.moe_decode_gate_up_i8_ref
     MD.moe_decode_down_i8 = MD.moe_decode_down_i8_ref
@@ -2054,7 +2103,8 @@ def plain_path():
          MD.moe_decode_down_i8, moe.fused_moe_prefill_i8, moe.ragged_qmatmul_i8,
          weights.qmatmul4, llama.flash_attention_decode_q8,
          llama.flash_attention_q8, MD.moe_decode_gate_up, MD.moe_decode_down,
-         MD.moe_decode_fused_i8, moe.ragged_qmatmul) = saved
+         MD.moe_decode_fused_i8, moe.ragged_qmatmul, qwen3next.flash_attention,
+         qwen3next.flash_attention_decode) = saved
 
 
 def greedy_from(torch, rt, kv, n, last_logits, steps):
@@ -2287,7 +2337,7 @@ def phase_moe(torch, gguf: Path, launches: dict, phases: set, c=MOE,
     single-kernel decode over one history). ``replay`` gets phase 7's
     group sizes a layer and the chunk's kernel-9 and kernel-10 ms (row 9p)."""
     from ik_llama_cpp_tpu_torch.runtime.generate import Runtime
-    nl, v = c["L"], c["V"]
+    nl, v = L7, c["V"]
     t_phase = t0 = time.perf_counter()
     rt = clone_layers(Runtime.from_gguf(gguf, fuse=True), nl)
     torch.cuda.synchronize()
@@ -2399,7 +2449,7 @@ def phase_moe(torch, gguf: Path, launches: dict, phases: set, c=MOE,
     return ok
 
 
-def log_buckets(sizes: list) -> None:
+def log_buckets(sizes: list, tag: str = "7") -> None:
     """Per layer: the live experts, the rows a live expert puts in its
     bucket, and the rows past the capacity that go to kernel 10."""
     from ik_llama_cpp_tpu_torch.ops.moe import fused_capacity
@@ -2408,7 +2458,7 @@ def log_buckets(sizes: list) -> None:
     live = (per > 0).sum(1)
     in_bucket = np.minimum(per, r)
     over = np.maximum(per - r, 0).sum(1)
-    log(f"[7] kernel 9's buckets from the router, {len(sizes)} calls of {int(per[0].sum())} "
+    log(f"[{tag}] kernel 9's buckets from the router, {len(sizes)} calls of {int(per[0].sum())} "
         f"rows over {per.shape[1]} experts at capacity {r}: live experts "
         f"{int(live.min())}-{int(live.max())} a layer (mean {live.mean():.1f}); rows in a live "
         f"bucket mean {in_bucket.sum() / max(1, live.sum()):.1f}, max {int(in_bucket.max())}; "
@@ -2473,12 +2523,14 @@ def prefill_case(torch, timer, results, a9, n_live: int, r: int, c, case: str) -
     return ok and rep
 
 
-def phase_replay_9p(torch, timer, results, sizes: list, chunk_ms: dict, c=MOE) -> bool:
-    """Row 9p of phase 3, after phase 7: kernel 9 at the group sizes phase
-    7's router gave its prefill chunk (capped at the bucket capacity), on
-    random codes from a seed at that shape: layer 0's call against its plain
-    version, the library call and its bound, then every layer's call timed
-    alone, summed beside the profiled chunk's kernel-9 time."""
+def phase_replay_9p(torch, timer, results, sizes: list, chunk_ms: dict, c=MOE,
+                    row: str = "9p", phase: str = "7") -> bool:
+    """Row 9p of phase 3, after phase 7 (row 9q after phase 19): kernel 9 at
+    the group sizes the phase's router gave its prefill chunk (capped at
+    the bucket capacity), on random codes from a seed at that shape: layer
+    0's call against its plain version, the library call and its bound,
+    then every layer's call timed alone, summed beside the profiled chunk's
+    kernel-9 time."""
     from ik_llama_cpp_tpu_torch.ops import moe_qmm as MQ
     from ik_llama_cpp_tpu_torch.ops.moe import fused_capacity
     g_, e_, ff = c["G"], c["E"], c["FF"]
@@ -2496,17 +2548,17 @@ def phase_replay_9p(torch, timer, results, sizes: list, chunk_ms: dict, c=MOE) -
     m = int(np.sum(sizes[0]))
     r = fused_capacity(m, g_)
     xg, xst, eids, nl, n_live = fused_buckets(torch, sizes[0], g_, r, e_, gen)
-    log(f"[3] 9p: kernel 9 at the bucket sizes of phase 7's router (layer 0 of {len(sizes)}): "
-        f"n_live {n_live}, capacity {r}")
+    log(f"[3] {row}: kernel 9 at the bucket sizes of phase {phase}'s router (layer 0 of "
+        f"{len(sizes)}): n_live {n_live}, capacity {r}")
     a9 = (xg, xst, eids, nl) + w
     ok = prefill_case(torch, timer, results, a9, n_live, r, c,
-                      f"G={g_} R={r} K={e_} FF={ff} E={e_} phase-7 router, layer 0 "
+                      f"G={g_} R={r} K={e_} FF={ff} E={e_} phase-{phase} router, layer 0 "
                       f"(n_live={n_live})")
     kern = 0.0
     for gs in sizes:
         xg, xst, eids, nl, _ = fused_buckets(torch, gs, g_, r, e_, gen)
         kern += timer(lambda: MQ.fused_moe_prefill_i8(xg, xst, eids, nl, *w, capacity=r), 5)
-    log(f"[3] 9p: the {len(sizes)} layers' calls timed alone (clean flush each): kernel 9 "
+    log(f"[3] {row}: the {len(sizes)} layers' calls timed alone (clean flush each): kernel 9 "
         f"{kern:.3f} ms; the profiled chunk's kernel 9 {chunk_ms['9']:.3f} ms, kernel 10 "
         f"{chunk_ms['10']:.3f} ms")
     del w, xg
@@ -2828,18 +2880,29 @@ def greedy_ids(method: str, res) -> list:
     return res[-1]["data"]["tokens"] if method == "completion_stream" else res["tokens"]
 
 
-def replay_verdict(torch, rt, prompt: list, gen: list):
+def replay_verdict(torch, rt, prompt: list, gen: list, step_by_step: bool = False):
     """Phase 16's one-history parity: prompt + generated ids through
     Runtime.eval_tokens at B = 1 on the kernel path and on the plain path.
     The logits of every generation step agree within 5% of the largest
     (parity_verdict), and every token the engine emitted is the kernel
     replay's argmax, or its runner-up within 1% of the largest logit of
-    the top 2 (the engine ran these rows at B = 4)."""
+    the top 2 (the engine ran these rows at B = 4). ``step_by_step``
+    replays as the engine ran them: the prompt in chunks, then each
+    generated id a one-token step (a recurrent model's chunk rounds its
+    bf16 residual stream at other points than its steps, enough to move a
+    near-tied routing pick)."""
     ids = prompt + gen[:-1]
     cap = len(ids) + 16
-    lk = rt.eval_tokens(ids, rt.new_cache(1, cap), 0, all_logits=True)[0][len(prompt) - 1:]
+
+    def replay():
+        if not step_by_step:
+            return rt.eval_tokens(ids, rt.new_cache(1, cap), 0, all_logits=True)[0][len(prompt) - 1:]
+        lg, kv, n = rt.eval_tokens(prompt, rt.new_cache(1, cap), 0)
+        return forced_logits(torch, rt, kv, n, lg[-1], gen[:-1])
+
+    lk = replay()
     with plain_path():
-        lp = rt.eval_tokens(ids, rt.new_cache(1, cap), 0, all_logits=True)[0][len(prompt) - 1:]
+        lp = replay()
     ok, text = parity_verdict(lk, lp)
     top2 = lk.topk(2, dim=1)
     bad = []
@@ -3469,7 +3532,7 @@ def ring_attention_ms(torch, rt, kv, n_past: int) -> float:
 
 
 def phase_family(torch, launches: dict) -> bool:
-    """Phase 17: the llama-graph family. Gemma-3-12B at full width (L48): a
+    """Phase 17: the llama-graph family. Gemma-3-12B at full width (L17 layers): a
     3,999-token prefill in chunks and 64 greedy decode steps at 4,000
     cached tokens over a bf16 cache, launch counts and a decode profile;
     the same over --swa-compress ring caches; then three one-history
@@ -3477,8 +3540,9 @@ def phase_family(torch, launches: dict) -> bool:
     width and the gpt-oss-20b width at depth 2."""
     c = GEMMA3
     t_phase = time.perf_counter()
-    rt, load_s = load_family(torch, c, c["L"], "full width")
-    nl = c["L"]
+    rt, load_s = load_family(torch, c, L17, "full width")
+    nl = L17
+    n_ring = sum(map(rt.cfg.layer_is_swa, range(nl)))
     ids = [int(x) for x in np.random.default_rng(17).integers(3, c["V"], LONG17 - 1)]
     rt.eval_tokens(ids[:8], rt.new_cache(1, 64), 0)                  # warm-up
     kv = rt.new_cache(1, LONG17 + DECODE17)
@@ -3522,7 +3586,7 @@ def phase_family(torch, launches: dict) -> bool:
     del kv, logits
     torch.cuda.empty_cache()
 
-    # the same decode over ring caches on the 40 window layers
+    # the same decode over ring caches on the window layers
     rt.swa_compress = True
     kvr = rt.new_cache(1, LONG17 + DECODE17)
     reset_counts()
@@ -3536,12 +3600,12 @@ def phase_family(torch, launches: dict) -> bool:
     ring_ms = ring_attention_ms(torch, rt, kvr, n_r + DECODE17)
     same = int((toks_r == toks).sum())
     ring_ok = (type(kvr).__name__ == "SwaKVCache" and bool(torch.isfinite(lr).all())
-               and counts_r.get("flash_attention_decode", 0) == (nl - 40) * DECODE17)
+               and counts_r.get("flash_attention_decode", 0) == (nl - n_ring) * DECODE17)
     log(f"[17] ring caches: {sum(m < 0 for m in kvr.layer_map)} ring layers of "
         f"{kvr.swa_cap} rows, {sum(m >= 0 for m in kvr.layer_map)} full of {kvr.capacity}: "
         f"{_cache_bytes(kvr) / 2**30:.3f} GiB against {full_bytes / 2**30:.3f} GiB; decode "
         f"{DECODE17} tokens {(t2 - t1) * 1e3:.1f} ms = {DECODE17 / (t2 - t1):.2f} tok/s; the "
-        f"plain ring attention {ring_ms:.3f} ms a step (40 layers); greedy tokens the full "
+        f"plain ring attention {ring_ms:.3f} ms a step ({n_ring} layers); greedy tokens the full "
         f"cache's at {same} of {DECODE17} steps; launches {counts_r}: "
         f"{'ok' if ring_ok else 'FAIL'}")
     prof = profile_decode(torch, rt, kvr, n_r + DECODE17, toks_r[:, -1:], tag="17 ring", top=8,
@@ -3886,6 +3950,313 @@ def phase_deepseek(torch, launches: dict, card: str) -> bool:
     return ok
 
 
+# --------------------------------------------- phase 19: the hybrid family --
+def build_qnext_gguf(path: Path, c: dict) -> Path:
+    """Four blocks of Qwen3-Next at the width ``c``: three gated delta-net
+    layers and one full-attention layer (Q4_0 ssm_in, ssm_out, gated wq,
+    wk, wv, wo, experts and shared expert; an f32 conv kernel, ssm_ba,
+    routers and gates; Q8_0 embedding and untied head; unit norms; a
+    negative ssm_a). Random blocks from seed 0, cached beside a .meta; the
+    four clone to any depth that is a multiple of 4 (``load_qnext``)."""
+    from ik_llama_cpp_tpu_torch.gguf.constants import GGMLType
+    from ik_llama_cpp_tpu_torch.gguf.writer import GGUFWriter
+    meta = json.dumps(dict(v=QNEXT_GGUF_VERSION, **c))
+    mpath = path.with_suffix(".meta")
+    if path.exists() and mpath.exists() and mpath.read_text() == meta:
+        return path
+    path.parent.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(0)
+    arch, e, h, hkv, d, v = c["ARCH"], c["E"], c["H"], c["HKV"], c["D"], c["V"]
+    hk, hv, dk, dv, g, ff = c["HK"], c["HV"], c["DK"], c["DV"], c["G"], c["FF"]
+    key_dim, value_dim = hk * dk, hv * dv
+    conv_dim = 2 * key_dim + value_dim
+    w = GGUFWriter(str(path), arch=arch)
+    for key, val in (("block_count", 4), ("context_length", c["CTX"]),
+                     ("embedding_length", e), ("feed_forward_length", 5120),
+                     ("attention.head_count", h), ("attention.head_count_kv", hkv),
+                     ("attention.key_length", d), ("attention.value_length", d),
+                     ("attention.layer_norm_rms_epsilon", 1e-6),
+                     ("rope.freq_base", c["ROPE"]), ("rope.dimension_count", c["ROPE_DIM"]),
+                     ("ssm.conv_kernel", c["CONV"]), ("ssm.inner_size", value_dim),
+                     ("ssm.state_size", dk), ("ssm.time_step_rank", hv),
+                     ("ssm.group_count", hk), ("full_attention_interval", 4),
+                     ("expert_count", g), ("expert_used_count", c["TOPK"]),
+                     ("expert_feed_forward_length", ff),
+                     ("expert_shared_feed_forward_length", c["FFS"]), ("vocab_size", v)):
+        w.add(f"{arch}.{key}", val)
+    w.add("tokenizer.ggml.model", "gpt2")
+    w.add("tokenizer.ggml.tokens", [f"<t{i}>" for i in range(v)])
+    w.add("tokenizer.ggml.token_type", np.ones(v, np.int32))
+    w.add("tokenizer.ggml.eos_token_id", 2)
+
+    def q(name, rows, cols, ttype=GGMLType.Q4_0, n=1):
+        w.add_tensor(name, _rand_blocks(rng, n * rows, cols, ttype),
+                     shape=(cols, rows) if n == 1 else (cols, rows, n), ggml_type=ttype)
+
+    def f32(name, rows, cols):
+        w.add_tensor(name, rng.standard_normal((rows, cols), dtype=np.float32)
+                     / np.float32(np.sqrt(cols)))
+
+    def ones(name, n):
+        w.add_tensor(name, np.ones(n, np.float32))
+
+    q("token_embd.weight", v, e, GGMLType.Q8_0)
+    q("output.weight", v, e, GGMLType.Q8_0)
+    ones("output_norm.weight", e)
+    for i in range(4):
+        p = f"blk.{i}."
+        ones(p + "attn_norm.weight", e)
+        ones(p + "post_attention_norm.weight", e)
+        if i < 3:               # gated delta net: per-k-head [q|k|v|z], [b|a]
+            q(p + "ssm_in.weight", 2 * key_dim + 2 * value_dim, e)
+            f32(p + "ssm_conv1d.weight", conv_dim, c["CONV"])
+            w.add_tensor(p + "ssm_dt.bias", rng.standard_normal(hv, dtype=np.float32))
+            w.add_tensor(p + "ssm_a", -np.abs(rng.standard_normal(hv, dtype=np.float32)))
+            f32(p + "ssm_ba.weight", 2 * hv, e)
+            ones(p + "ssm_norm.weight", dv)
+            q(p + "ssm_out.weight", e, value_dim)
+        else:                   # full attention, per-head [q | gate]
+            q(p + "attn_q.weight", h * d * 2, e)
+            q(p + "attn_k.weight", hkv * d, e)
+            q(p + "attn_v.weight", hkv * d, e)
+            q(p + "attn_output.weight", e, h * d)
+            ones(p + "attn_q_norm.weight", d)
+            ones(p + "attn_k_norm.weight", d)
+        f32(p + "ffn_gate_inp.weight", g, e)
+        q(p + "ffn_gate_exps.weight", ff, e, n=g)
+        q(p + "ffn_up_exps.weight", ff, e, n=g)
+        q(p + "ffn_down_exps.weight", e, ff, n=g)
+        f32(p + "ffn_gate_inp_shexp.weight", 1, e)
+        q(p + "ffn_gate_shexp.weight", c["FFS"], e)
+        q(p + "ffn_up_shexp.weight", c["FFS"], e)
+        q(p + "ffn_down_shexp.weight", e, c["FFS"])
+    w.write()
+    mpath.write_text(meta)
+    return path
+
+
+def load_qnext(torch, c: dict, n_layer: int, device="cuda"):
+    """c's four-block file built (or found) under build/, loaded through
+    Runtime.from_gguf and cloned into distinct device blocks to n_layer
+    layers (block i a copy of block i % 4, so the attention layers stay
+    every 4th). Returns (runtime, file s, load s)."""
+    from ik_llama_cpp_tpu_torch.runtime.generate import Runtime
+    t0 = time.perf_counter()
+    gguf = build_qnext_gguf(ROOT / "build" / "smoke_qwen3next.gguf", c)
+    t1 = time.perf_counter()
+    rt = Runtime.from_gguf(gguf, device)
+    four = rt.params["blocks"]
+    rt.params["blocks"] = four + [copy.deepcopy(four[i % 4]) for i in range(4, n_layer)]
+    rt.cfg = replace(rt.cfg, n_layer=n_layer)
+    if rt.device.type == "cuda":
+        torch.cuda.synchronize()
+    return rt, t1 - t0, time.perf_counter() - t1
+
+
+def delta_net_ms(torch, c: dict, t: int, reps: int = 3) -> tuple:
+    """One delta-net layer's recurrence (ops/delta_net, plain PyTorch) at T
+    tokens on the card: (device ms a call, the sum of its kernels' times
+    under torch.profiler; launches a call; the host's wall ms a call
+    around a synchronize, unprofiled)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from ik_llama_cpp_tpu_torch.ops.delta_net import delta_net
+    gen = torch.Generator(device="cuda").manual_seed(19)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    q, k = rnd(1, t, c["HK"], c["DK"]), rnd(1, t, c["HK"], c["DK"])
+    v, beta, g = rnd(1, t, c["HV"], c["DV"]), rnd(1, t, c["HV"]), -rnd(1, t, c["HV"]).abs()
+    state = rnd(1, c["HV"], c["DV"], c["DV"]) * 0.01
+
+    def call():
+        return delta_net(q, k, v, g, beta, state)
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev = sum(e.self_device_time_total for e in rows) / 1e3 / reps
+    n = sum(e.count for e in rows) // reps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        call()
+    torch.cuda.synchronize()
+    return dev, n, (time.perf_counter() - t0) / reps * 1e3
+
+
+def serve_interleaved(torch, rt, seed: int, n_predict: int = 24):
+    """Two greedy requests on a 2-slot BatchEngine over the hybrid cache,
+    stepped in this thread: the second (700 tokens, two chunks) submitted
+    once the first decodes, so that its chunks run between the first's
+    decode steps with its own row at n_valid 0 in them; then each replayed
+    at B = 1 (replay_verdict). Returns (ok, text)."""
+    import queue
+    from ik_llama_cpp_tpu_torch.runtime.sampling import SamplerParams
+    from ik_llama_cpp_tpu_torch.server.engine import BatchEngine, Request, SlotState
+    rng = np.random.default_rng(seed)
+    prompts = [[int(x) for x in rng.integers(3, rt.cfg.n_vocab, n)] for n in (120, 700)]
+    eng = BatchEngine(rt, n_slots=2, capacity=1024)
+    reqs = []
+
+    def submit(p):
+        r = Request(prompt_ids=p, n_predict=n_predict, sampler=SamplerParams(temp=0.0))
+        r.stream_queue = queue.Queue()
+        eng.submit(r)
+        reqs.append(r)
+
+    t0 = time.perf_counter()
+    submit(prompts[0])
+    for _ in range(8):            # its prompt, then two decode steps
+        if eng.slots[0].state == SlotState.GENERATING and eng.slots[0].n_decoded >= 2:
+            break
+        eng.step()
+    submit(prompts[1])
+    interleaved = 0
+    while eng.step():
+        interleaved += eng.slots[1].state == SlotState.PREFILL and eng.slots[0].req is not None
+    wall = time.perf_counter() - t0
+    gens = []
+    for r in reqs:
+        toks = []
+        while True:
+            tok, _, done = r.stream_queue.get(timeout=0)
+            if tok >= 0:
+                toks.append(tok)
+            if done:
+                break
+        gens.append(toks)
+    ok = eng.n_failed == 0 and interleaved > 0
+    texts = []
+    for p, gen_ in zip(prompts, gens):
+        good, text = replay_verdict(torch, rt, p, gen_, step_by_step=True)
+        ok &= good and len(gen_) == n_predict
+        texts.append(f"{len(p)}-token prompt, {len(gen_)} tokens: {text}")
+    del eng
+    return ok, (f"2 requests in {wall:.2f} s ({sum(map(len, gens)) / wall:.1f} tok/s over both "
+                f"slots; the second's chunks beside the first's decode in {interleaved} loop "
+                f"rounds): " + " | ".join(texts))
+
+
+def phase_qnext(torch, launches: dict, card: str, replay: dict) -> bool:
+    """Phase 19: the hybrid gated-delta-net family. Qwen3-Next-80B-A3B at
+    full width, 24 layers (18 delta-net, 6 attention), on the recurrent
+    HybridCache: the load, a 1,024-token prefill in two chunks and 64
+    greedy decode steps with every kernel launch counted, decode and
+    prefill profiles, the delta-net recurrence's eager ms, two requests on
+    a 2-slot BatchEngine, then a one-history parity at depth 4. Fills
+    ``replay`` with the router's bucket sizes (row 9q)."""
+    from ik_llama_cpp_tpu_torch.models.qwen3next import _interval, is_recurrent
+    c = QNEXT
+    nl = c["LRUN"]
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rt, file_s, load_s = load_qnext(torch, c, nl)
+    n_delta = sum(is_recurrent(i, _interval(rt.cfg)) for i in range(nl))
+    kinds = sorted(set(_linear_kinds(rt)) | {type(rt.params["output"]).__name__})
+    experts = rt.params["blocks"][0]["experts"]
+    log(f"[19] qwen3next L{nl} ({n_delta} delta-net, {nl - n_delta} attention) E{c['E']} "
+        f"H{c['H']} KV{c['HKV']} D{c['D']} rope {c['ROPE_DIM']} dims; delta-net {c['HK']} k / "
+        f"{c['HV']} v heads of {c['DK']}; G{c['G']} top-{c['TOPK']} FF{c['FF']} + shared "
+        f"FF{c['FFS']}; V{c['V']}: file ready in {file_s:.1f} s, loaded and cloned in "
+        f"{load_s:.1f} s; linears {kinds}; experts group {experts.gate_group} / "
+        f"{experts.up_group} / {experts.down_group}; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    rng = np.random.default_rng(19)
+    rt.eval_tokens([int(x) for x in rng.integers(3, c["V"], 8)], rt.new_cache(1, 64), 0)
+    ids = [int(x) for x in rng.integers(3, c["V"], PREFILL19)]
+    kv = rt.new_cache(1, PREFILL19 + DECODE19 + 8)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, kv, n_past = rt.eval_tokens(ids, kv, 0)
+    first = torch.argmax(logits[-1]).reshape(1, 1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    counts_pre = read_counts()
+    reset_counts()
+    toks = rt._decode_loop(first, kv, n_past, DECODE19)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    chunks = -(-len(ids) // 512)
+    for k in counts:
+        launches[k] = launches.get(k, 0) + counts_pre[k] + counts[k]
+    n_attn = nl - n_delta
+    # A a layer: ssm_in + ssm_out or wq, wk, wv, wo; the shared expert's
+    # three; the head once a forward
+    per_a = 5 * n_delta + 7 * n_attn + 1
+    want_pre = {"qmatmul_i8": per_a * chunks, "flash_attention": n_attn * chunks,
+                "fused_moe_prefill_i8": nl * chunks, "ragged_qmatmul_i8": 3 * nl * chunks}
+    want_dec = {"qmatmul_i8": per_a * DECODE19, "flash_attention_decode": n_attn * DECODE19,
+                "moe_decode_gate_up_i8": nl * DECODE19, "moe_decode_down_i8": nl * DECODE19}
+    got_pre = {k: n for k, n in counts_pre.items() if n}
+    got_dec = {k: n for k, n in counts.items() if n}
+    launch_ok = got_pre == want_pre and got_dec == want_dec
+    finite = bool(torch.isfinite(logits).all())
+    ok = launch_ok and finite and bool(((toks >= 0) & (toks < c["V"])).all())
+    log(f"[19] on {card}: prefill {len(ids)} tokens in {chunks} chunks: "
+        f"{(t1 - t0) * 1e3:.1f} ms = {len(ids) / (t1 - t0):.1f} tok/s; decode {DECODE19} tokens "
+        f"at {n_past + 1}-{n_past + DECODE19} cached: {(t2 - t1) * 1e3:.1f} ms = "
+        f"{DECODE19 / (t2 - t1):.2f} tok/s; peak memory {peak:.2f} GiB")
+    log(f"[19] launches a prefill chunk: { {k: n / chunks for k, n in got_pre.items()} }; a "
+        f"decode step: { {k: n / DECODE19 for k, n in got_dec.items()} }; expected a chunk "
+        f"A {per_a} (5 x {n_delta} + 7 x {n_attn} + 1), B {n_attn}, 9 {nl}, 10 {3 * nl}; a step "
+        f"A {per_a}, C {n_attn}, 7 {nl}, 8 {nl}: {launch_ok}; logits finite {finite}: "
+        f"{'ok' if ok else 'FAIL'}")
+    prof = profile_decode(torch, rt, kv, n_past + DECODE19, toks[:, -1:], tag="19", top=12,
+                          host=False)
+    moe_dec = kernel_ms(prof, "gate_up_i8_kernel", "down_i8_kernel")
+    c_dec = kernel_ms(prof, "fa_decode_kernel<")
+    log(f"[19] decode step: kernel A {a_ms(prof)}; kernel C {c_dec:.3f} ms; kernels 7 + 8 "
+        f"{moe_dec:.3f} ms; all kernels {sum(prof.values()):.3f} ms")
+    dn1 = delta_net_ms(torch, c, 1)
+    dn512 = delta_net_ms(torch, c, 512, reps=2)
+    step_ms = (t2 - t1) * 1e3 / DECODE19
+    log(f"[19] the delta-net recurrence (ops/delta_net, plain PyTorch; {c['HV']} heads of "
+        f"{c['DV']}x{c['DK']} f32 state) at T=1: {dn1[0]:.4f} ms of kernels in {dn1[1]} "
+        f"launches, {dn1[2]:.3f} ms of host wall a call; over {n_delta} layers "
+        f"{n_delta * dn1[0]:.3f} ms of kernels and {n_delta * dn1[2]:.2f} ms of wall, "
+        f"{100 * n_delta * dn1[2] / step_ms:.1f}% of the {step_ms:.2f} ms decode step; at "
+        f"T=512: {dn512[0]:.2f} ms of kernels in {dn512[1]} launches, {dn512[2]:.1f} ms wall a "
+        f"call ({dn512[2] * 1e3 / 512:.1f} us a token), {n_delta * dn512[2]:.0f} ms a chunk")
+    tail = ids[-512:]
+    kv2 = rt.new_cache(1, PREFILL19 + 8)
+    rt.eval_tokens(ids[:-512], kv2, 0)
+    prof = profile_window(torch, lambda: rt.eval_tokens(tail, kv2, len(ids) - 512), 1,
+                          f"the second prefill chunk (512 tokens at {len(ids) - 512} cached)",
+                          "chunk", "19", top=12, host=False)
+    k9 = kernel_ms(prof, "fused_prefill_i8_kernel")
+    k10 = kernel_ms(prof, "ragged_i8_wgmma_kernel")
+    log(f"[19] second prefill chunk: kernel A {a_ms(prof)}; kernel B (fa_prefill_kernel) "
+        f"{kernel_ms(prof, 'fa_prefill_kernel'):.3f} ms; kernel 9 {k9:.3f} ms, kernel 10 "
+        f"{k10:.3f} ms; all kernels {sum(prof.values()):.3f} ms")
+    del kv, kv2, logits
+    sizes = router_sizes(torch, rt, ids[:512], "_fused_prefill_try", 1)
+    log_buckets(sizes, "19")
+    replay.update(sizes=sizes, chunk_ms={"9": k9, "10": k10})
+    torch.cuda.empty_cache()
+    good, text = serve_interleaved(torch, rt, 191)
+    log(f"[19] BatchEngine at L{nl}: {text}: {'ok' if good else 'FAIL'}")
+    ok &= good
+    log(f"[19] Qwen3-Next-80B-A3B at L{nl}: {time.perf_counter() - t_phase:.1f} s")
+    # one-history parity at depth 4: the file's three delta-net layers and
+    # its attention layer
+    rt.params["blocks"] = rt.params["blocks"][:4]
+    rt.cfg = replace(rt.cfg, n_layer=4)
+    torch.cuda.empty_cache()
+    ok &= family_parity(torch, rt, 300, "Qwen3-Next-80B-A3B widths at depth 4", 192, "19")
+    del rt
+    torch.cuda.empty_cache()
+    return ok
+
+
 KERNELS = {
     "qmatmul_i8": ("ik_llama_cpp_tpu_torch/csrc/qmatmul_i8.cu",
                    "ik_llama_cpp_tpu/ops/qmatmul.py:474", "M=1 K=4096 N=28672"),
@@ -3962,7 +4333,7 @@ def summary(results, launches) -> list:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
     try:
@@ -4045,8 +4416,14 @@ def main() -> int:
         ok &= timed("17", phase_family, torch, launches)
     if 18 in phases:
         ok &= timed("18", phase_deepseek, torch, launches, dev["smi"])
+    if 19 in phases:
+        replay19 = {}
+        ok &= timed("19", phase_qnext, torch, launches, dev["smi"], replay19)
+        if 3 in phases and replay19:
+            ok &= timed("3 9q", phase_replay_9p, torch, timer, results, replay19["sizes"],
+                        replay19["chunk_ms"], QNEXT, "9q", "19")
     kernels = summary(results, launches)
-    if phases >= {3, 4, 6, 7, 9, 11, 12, 14, 15, 16, 18}:
+    if phases >= {3, 4, 6, 7, 9, 11, 12, 14, 15, 16, 18, 19}:
         for k in kernels:
             if k["launches"] <= 0:
                 log(f"chip_smoke: kernel {k['name']} was never launched on its path")

@@ -27,7 +27,9 @@ loader holds them; expert scales keep the dtype they come in (f32 for
 supergroup codes, bf16 for planar ones). The DeepSeek-2 family's tree
 (``models/deepseek2.py``) comes across the same way: its absorb arrays
 wk_b / wv_b in bf16, glm-dsa's rebuilt wkv_b and the indexer's linears as
-DenseLinear, the indexer's LayerNorm and the selection bias in float32.
+DenseLinear, the indexer's LayerNorm and the selection bias in float32; so
+does the Qwen3-Next family's (``models/qwen3next.py``), whose conv kernels,
+gates and norms keep float32.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ import torch
 
 from ..ops.moe import ExpertWeights, QuantExpertWeights
 from .llama import KVCache
+from .qwen3next import HybridCache
 from .weights import DenseLinear, QLinear, QLinearI4, QLinearI8
 
 _BF16_KEYS = ("tok_embd",)
@@ -117,3 +120,13 @@ def kv_from_numpy(k, v, k_scale=None, v_scale=None, *, device) -> KVCache:
     return KVCache(_tensor(k, device), _tensor(v, device),
                    _tensor(k_scale, device, torch.float32),
                    _tensor(v_scale, device, torch.float32))
+
+
+def hybrid_from_numpy(k, v, conv, state, *, device) -> HybridCache:
+    """A ``HybridCache`` of the JAX package (the Qwen3-Next family), fetched
+    to numpy, as the port's: bf16 k/v (L, B, S, Hkv, D), float32 conv
+    (L, B, d_conv - 1, conv_dim) and state (L, B, Hv, Dv, Dv). The arrays
+    are copied; ``device`` has no default, as for ``kv_from_numpy``."""
+    return HybridCache(_tensor(k, device, torch.bfloat16), _tensor(v, device, torch.bfloat16),
+                       _tensor(conv, device, torch.float32),
+                       _tensor(state, device, torch.float32))

@@ -36,9 +36,9 @@ queue item in ROADMAP.md §1: the forward's extra inputs and outputs
 (embeddings in, explicit positions and tree masks, hidden states out) and
 the MTP layers' forward (item 7; their weights are loaded into
 ``params["mtp_blocks"]``), LoRA (item 6), the architectures with a forward
-of their own that are not ported yet (deepseek4, mamba, qwen3next, gemma4,
+of their own that are not ported yet (deepseek4, mamba, gemma4,
 openpangu, bert, t5, dflash; item 8; the DeepSeek-2 family runs
-``models/deepseek2.py``) and tensor / pipeline / sequence / expert
+``models/deepseek2.py``, the Qwen3-Next family ``models/qwen3next.py``) and tensor / pipeline / sequence / expert
 parallelism (item 11).
 """
 from __future__ import annotations

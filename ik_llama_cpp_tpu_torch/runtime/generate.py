@@ -6,7 +6,10 @@ for every architecture of its dense family (``models/llama.py:ARCHS``; MoE
 experts in any of their loaded forms: int8 per supergroup, planar, mixed or
 bf16; shared experts), with a bf16 or quantized KV cache, or ring caches on
 the sliding-window layers (``swa_compress``), and for the DeepSeek-2 family
-(``models/deepseek2.py:ARCHS``), loaded with the MLA latent cache.
+(``models/deepseek2.py:ARCHS``), loaded with the MLA latent cache, and for
+the hybrid delta-net family (``models/qwen3next.py:ARCHS``) on its
+recurrent cache: a recurrent model's padded chunk commits only its live
+tokens to the state (``n_valid``).
 PyTorch runs eagerly, so there are no compiled step functions; the prefill
 buckets and the chunk limit are kept so that cache rows and chunking match
 the JAX runtime exactly.
@@ -26,6 +29,7 @@ import torch
 from ..gguf.reader import GGUFModel, load_gguf
 from ..models import deepseek2 as ds2_mod
 from ..models import llama as llama_mod
+from ..models import qwen3next as q3n_mod
 from ..models.config import ModelConfig, config_from_gguf
 from ..models.llama import KVCache, MixedKVCache, SwaKVCache
 from .sampling import SamplerParams, SamplerState, sample as sample_token
@@ -70,9 +74,13 @@ for _a in ds2_mod.ARCHS:
     FORWARDS[_a] = ds2_mod.forward
     LOADERS[_a] = ds2_mod.load_deepseek2_params
     CACHES[_a] = ds2_mod.make_cache
+# the hybrid delta-net family: attention rows beside a recurrent state
+for _a in q3n_mod.ARCHS:
+    FORWARDS[_a] = q3n_mod.forward
+    LOADERS[_a] = q3n_mod.load_qwen3next_params
+    CACHES[_a] = q3n_mod.HybridCache.create
 # architectures with a forward of their own in the JAX package, not ported yet
-OWN_FORWARD = ("deepseek4", "mamba", "qwen3next",
-               "qwen35", "qwen35moe", "gemma4", "gemma4_mtp", "gemma4-assistant",
+OWN_FORWARD = ("deepseek4", "mamba", "gemma4", "gemma4_mtp", "gemma4-assistant",
                "openpangu", "bert", "nomic-bert", "jina-bert-v2", "t5", "dflash")
 
 
@@ -144,14 +152,30 @@ class Runtime:
                 llama_mod._later(f"architecture {cfg.arch!r}, which has a forward of "
                                  "its own", "other architectures (item 8)")
             raise NotImplementedError(f"arch {cfg.arch!r} not supported yet")
-        # the DeepSeek-2 family loads the latent cache's absorb projections
-        # (its graph has no q/k/v or gate/up pair to fuse)
-        kw = {"mla": True} if cfg.arch in ds2_mod.ARCHS else {"fuse": fuse}
+        # the DeepSeek-2 family loads the latent cache's absorb projections;
+        # neither it nor the hybrid family has a q/k/v or gate/up pair to fuse
+        kw = ({"mla": True} if cfg.arch in ds2_mod.ARCHS else
+              {} if cfg.arch in q3n_mod.ARCHS else {"fuse": fuse})
         params = loader(gg, cfg, dev, use_quant=use_quant, **kw)
         _log_model_load(gg, cfg)
         return cls(cfg=cfg, params=params, device=dev,
                    tokenizer=tokenizer_from_gguf(gg.metadata), kv_quant=kv_quant,
                    swa_compress=swa_compress)
+
+    @property
+    def recurrent(self) -> bool:
+        """A model with recurrent state (the delta-net family), which a
+        padded row must not advance and a cache row cannot be cut back."""
+        return self.cfg.arch in q3n_mod.ARCHS
+
+    @property
+    def needs_n_valid(self) -> bool:
+        """Padded prefill rows must not be committed to persistent state.
+        The JAX runtime adds ring caches (--swa-compress) here; the port's
+        rings take padded rows into slots outside every window of that
+        chunk and the next (ROADMAP.md §3), so only recurrent state needs
+        it."""
+        return self.recurrent
 
     @property
     def eos_id(self) -> int:
@@ -164,6 +188,9 @@ class Runtime:
         b0 = max(PREFILL_BUCKETS[0], 256)
         capacity = -(-(capacity + PREFILL_BUCKETS[0] - 1) // b0) * b0
         quant = self.kv_quant
+        if self.cfg.arch in q3n_mod.ARCHS:
+            return q3n_mod.HybridCache.create(self.cfg, batch, capacity, self.device,
+                                              quant=quant)
         if self.cfg.arch in ds2_mod.ARCHS:
             # the latent cache where the model was loaded for it (bf16; the
             # JAX runtime gives this family no other cache type either)
@@ -196,7 +223,10 @@ class Runtime:
                     all_logits: bool = False):
         """Evaluate ids in bucket-padded chunks; returns (logits, kv, n_past)
         with the logits of every position (all_logits) or of the last one,
-        as a float32 (n, V) tensor on the runtime's device."""
+        as a float32 (n, V) tensor on the runtime's device. A recurrent
+        model's forward takes each chunk's live length (``n_valid``), so its
+        state never sees the padding."""
+        fwd = FORWARDS[self.cfg.arch]
         out_chunks = []
         logits = None
         last_len = 0
@@ -205,8 +235,8 @@ class Runtime:
             chunk = ids[i:i + _chunk_limit(kv, n_past)]
             padded = torch.zeros((1, _bucket(len(chunk))), dtype=torch.int64)
             padded[0, :len(chunk)] = torch.as_tensor(chunk, dtype=torch.int64)
-            logits = FORWARDS[self.cfg.arch](self.params, self.cfg,
-                                             padded.to(self.device), kv, n_past)
+            kw = {"n_valid": len(chunk)} if self.needs_n_valid else {}
+            logits = fwd(self.params, self.cfg, padded.to(self.device), kv, n_past, **kw)
             if all_logits:
                 out_chunks.append(logits[0, :len(chunk)])
             last_len = len(chunk)

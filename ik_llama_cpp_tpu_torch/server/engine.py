@@ -14,6 +14,15 @@ the decode step, that has no token of its own writes junk where nothing
 is read: past an idle slot's cached tokens, or at a busy slot's next
 position, which its own next forward overwrites.
 
+A recurrent model (the delta-net family, ``HybridCache``) runs every
+forward with ``n_valid``: 0 for a row with no token of its own, so an idle
+or mid-prefill slot's conv tail and delta state stay exactly as they
+were. Its state has seen every cached token and cannot be cut back, so a
+slot's state is reused only when the new prompt strictly extends the
+slot's cached tokens; otherwise, and on a context shift's re-prefill, the
+slot's recurrent rows are zeroed and the prompt is prefilled from 0. The
+RAM prompt-cache tier is refused for such a model.
+
 An exception in the engine thread fails the requests it was serving: each
 carries the error text (``Request.error``) and ``n_failed`` counts them;
 the engine keeps serving.
@@ -38,6 +47,7 @@ import torch
 
 from ..models import llama as llama_mod
 from ..models.llama import KVCache, MixedKVCache, SwaKVCache
+from ..models.qwen3next import HybridCache
 from ..runtime.generate import FORWARDS, PREFILL_BUCKETS, Runtime, _bucket, _chunk_limit
 from ..runtime.sampling import (SamplerParams, SamplerState,
                                 sample as sample_token, sample_topk,
@@ -192,6 +202,7 @@ _MIXED_FIELDS = ("k_ovr", "v_ovr", "ks_ovr", "vs_ovr",
 
 
 _KV_FIELDS = ("k", "v", "k_scale", "v_scale")
+_HYBRID_FIELDS = ("k", "v", "conv", "state")
 
 
 def _cache_tensors(kv) -> list:
@@ -200,6 +211,8 @@ def _cache_tensors(kv) -> list:
     left out)."""
     if isinstance(kv, MixedKVCache):
         return [getattr(kv, f) for f in _MIXED_FIELDS]
+    if isinstance(kv, HybridCache):
+        return [getattr(kv, f) for f in _HYBRID_FIELDS]
     return [t for t in (getattr(kv, f) for f in _KV_FIELDS) if t is not None]
 
 
@@ -207,6 +220,8 @@ def _like(kv, tensors: list):
     """A cache of kv's type over ``tensors`` (in _cache_tensors order)."""
     if isinstance(kv, MixedKVCache):
         return MixedKVCache(*tensors, layer_map=kv.layer_map)
+    if isinstance(kv, HybridCache):
+        return HybridCache(*tensors)
     it = iter(tensors)
     return KVCache(**{f: None if getattr(kv, f) is None else next(it) for f in _KV_FIELDS})
 
@@ -248,6 +263,10 @@ class BatchEngine:
         self.kv = runtime.new_cache(n_slots, capacity)
         if isinstance(self.kv, SwaKVCache):
             llama_mod._later("ring caches (--swa-compress) in the server",
+                             "server extras (item 7)")
+        if cache_ram_mib != 0 and runtime.recurrent:
+            # a partial prefix match cannot restore a recurrent state
+            llama_mod._later("the RAM prompt-cache tier for a recurrent model",
                              "server extras (item 7)")
         # RAM prompt-cache tier (0 = disabled, -1 = unlimited, else MiB)
         self.prompt_cache = (HostPromptCache(cache_ram_mib)
@@ -297,9 +316,14 @@ class BatchEngine:
             self.n_requests += 1
         self.requests.put(req)
 
-    def _forward(self, toks: np.ndarray, kv, n_past) -> torch.Tensor:
+    def _forward(self, toks: np.ndarray, kv, n_past, n_valid: list) -> torch.Tensor:
+        """One forward over rows of the shared cache; ``n_valid`` (a length
+        a row, 0 for a row with no token of its own) reaches a recurrent
+        model's forward only."""
+        kw = {"n_valid": n_valid} if self.rt.needs_n_valid else {}
         return FORWARDS[self.cfg.arch](self.rt.params, self.cfg,
-                                       torch.from_numpy(toks).to(self.device), kv, n_past)
+                                       torch.from_numpy(toks).to(self.device), kv, n_past,
+                                       **kw)
 
     def _slot_state_to_host(self, slot) -> dict | None:
         """One slot's filled KV rows on the host (RAM-cache save)."""
@@ -355,6 +379,12 @@ class BatchEngine:
                 if entry is not None:
                     self._restore_slot_state(slot, entry)
                     prefix = lcp
+            if self.rt.recurrent and not 0 < prefix == len(slot.cache_tokens) < slot.n_prompt:
+                # the state has seen every cached token: reused only when the
+                # prompt strictly extends them, else the slot starts afresh
+                prefix = 0
+                slot.cache_tokens = []
+                self.kv.zero_row(slot.idx)
             slot.n_past = min(prefix, slot.n_prompt - 1)
             self.n_prompt_tokens_cached += slot.n_past
             slot.n_decoded = 0
@@ -386,6 +416,8 @@ class BatchEngine:
         if s.state != SlotState.IDLE:
             return s.n_past
         at = min(len(s.cache_tokens), self.kv.capacity - n)
+        if self.rt.recurrent and at < len(s.cache_tokens):
+            s.cache_tokens = []       # a recurrent state cannot be cut back
         del s.cache_tokens[at:]
         return at
 
@@ -421,9 +453,10 @@ class BatchEngine:
             ids = {s.idx for s in span}
             n_past = [s.n_past if s.idx in ids else self._junk_row(s, b)
                       for s in self.slots[lo:hi]]
+            n_valid = [len(chunks[s.idx]) if s.idx in ids else 0 for s in self.slots[lo:hi]]
             for s in span:
                 toks[s.idx - lo, :len(chunks[s.idx])] = chunks[s.idx]
-            logits = self._forward(toks, cache_rows(self.kv, lo, hi - lo), n_past)
+            logits = self._forward(toks, cache_rows(self.kv, lo, hi - lo), n_past, n_valid)
             self.n_prefill_forwards += 1
             rows = torch.tensor([s.idx - lo for s in span], device=logits.device)
             last = torch.tensor([len(chunks[s.idx]) - 1 for s in span],
@@ -597,11 +630,13 @@ class BatchEngine:
         """One decode step over every row, each at its own position."""
         toks = np.zeros((self.n_slots, 1), np.int64)
         n_past = [self._junk_row(s, 1) for s in self.slots]
+        n_valid = [0] * self.n_slots
         for s in gen:
             toks[s.idx, 0] = s.tokens[-1]
             n_past[s.idx] = s.n_past
+            n_valid[s.idx] = 1
         use_topk = all(self._slot_topk_ok(s) for s in gen)
-        logits = self._forward(toks, self.kv, n_past)[:, -1]
+        logits = self._forward(toks, self.kv, n_past, n_valid)[:, -1]
         self.n_decode_steps += 1
         if use_topk:
             self.n_topk_steps += 1
@@ -649,6 +684,8 @@ class BatchEngine:
         slot.n_prompt = len(kept)       # everything kept is "prompt" now
         slot.cache_tokens = []
         slot.n_past = 0
+        if self.rt.recurrent:
+            self.kv.zero_row(slot.idx)
         slot.state = SlotState.PREFILL
         return False
 

@@ -74,6 +74,8 @@ def test_port_files_cover_every_subpackage():
     assert subs == {"gguf", "models", "ops", "quant", "runtime", "server", "tools"}
     assert PORT / "tools" / "perf_dequant.py" in _port_files()
     assert PORT / "server" / "app.py" in _port_files()
+    assert PORT / "models" / "qwen3next.py" in _port_files()
+    assert PORT / "ops" / "delta_net.py" in _port_files()
 
 
 def test_runtime_defaults_to_cuda(tmp_path):
