@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21]
 
 Phases (all by default; any failure exits non-zero):
   1. device: the card's name and power limit; TF32 off for the plain versions
@@ -138,9 +138,42 @@ Phases (all by default; any failure exits non-zero):
      step, decode and prefill profiles, the delta-net recurrence's eager ms
      a step (device and host), two greedy requests on a 2-slot BatchEngine
      (the second submitted while the first decodes) replayed at B = 1, and
-     a one-history parity at depth 4. Phase 3 adds kernel A at the model's
-     linears and rows 2q and 3q (B and C at 16 / 2 heads of 256); with
-     phase 3 also run, row 9q follows: kernel 9 at the router's buckets
+     a one-history parity at depth 4, and a speculative check: the host
+     loop of generate_speculative with a drafter wrong at the third token
+     of every proposal, whose state after the rollbacks equals the same
+     chunks evaluated plainly (and the checkpoint clone's ms). Phase 3 adds
+     kernel A at the model's linears and rows 2q and 3q (B and C at 16 / 2
+     heads of 256); with phase 3 also run, row 9q follows: kernel 9 at the
+     router's buckets
+ 20. speculative decoding on the dense path at the full width of phase 4
+     (L32; it builds phase 4's file when phase 4 did not): a 512-token
+     prompt and 64 new tokens, (a) plain greedy, (b) generate_speculative
+     with ReplayDraft of (a)'s tokens at n_draft 4 and 8, (c) the ngram
+     stage at 8, (d) generate_speculative_device (the device ngram table;
+     replay), (e) a 4-slot BatchEngine with spec="ngram", spec_n=8 against
+     the same engine without it, (f) one replay round over a q8 cache;
+     the launches of (a)-(f), each run's tokens held to the plain path over
+     their own history (within 5% of the plain step's largest |logit|, the
+     exact argmaxes counted), tok/s, acceptance, wall and host ms a round,
+     and the verify's device ms and launches at each width. Phase 3 holds
+     each kernel at the shapes that phases 19-21 give it: rows 1s (A at M
+     5, 9 and 36), 3s (C at T 5 and 9, and B = 4 x 9; at GLM-4.5-Air's 96
+     / 8 heads T 1, 8 and 16; Qwen3-Next's T 8), 5s (5 at T 9), and at
+     GLM-4.5-Air's widths 1a / 1m (A), 4a (D), 2a (B), 12a / 13a (the
+     planar decode chain at P 8 and 64), 10a / 14a (the sorted chain at
+     128 and 4,096 pairs)
+ 21. the NextN/MTP layer at GLM-4.5-Air's full width (glm4moe: E4096, 96
+     / 8 heads of 128 with q/k/v biases, rope on 64 dims, a dense first
+     layer of FF 10944, 128 experts top-8 of FF 1408 with sigmoid routing
+     and a selection bias, a shared expert, V151552; Q4_0 linears and
+     experts, Q8_0 embedding and head, random blocks from seed 0): the
+     dense layer, 3 MoE layers (one block cloned) and the MTP layer; plain
+     greedy and generate_speculative(stage="mtp") at n_draft 3 and 8 over
+     a 512-token prompt and 48 new tokens, and at 3 with its drafts forced
+     to the plain continuation (the refreshed MTP cache rows against a
+     fresh evaluation), the launches, the one-history gate, the verify's
+     and the MTP draft step's device ms and launches, and the MTP layer's
+     logits and hidden against the plain path on the same main hiddens
 The line before the last lists every ported kernel as JSON; the last line is
 {"ok": true, "device": {...}}. Without CUDA, or without the package beside
 this file, it exits non-zero and prints no result.
@@ -240,6 +273,27 @@ L7 = L17 = 24
 A_QNEXT_SHAPES = [(2048, 12288), (2048, 8192), (4096, 2048), (2048, 151936), (2048, 512),
                   (512, 2048)]
 DSV3_H = 128                     # DeepSeek-V3's query heads over the same 576 / 512 latent head
+# phase 20: speculative decoding on the dense model of phase 4
+SPEC_PROMPT, SPEC_NEW = 512, 64
+# GLM-4.5-Air (zai-org/GLM-4.5-Air's config.json): 46 layers, hidden 4096, 96
+# heads over 8 kv heads of 128 with q/k/v biases and no QK-norm, rope on 64
+# dims (partial_rotary_factor 0.5, base 1e6), a dense first layer of FF
+# 10944 (first_k_dense_replace 1), then 128 routed experts top-8 of FF 1408
+# with sigmoid routing, a selection bias (e_score_correction_bias) and
+# normalized weights, one shared expert of FF 1408, vocab 151,552, an untied
+# head, and one NextN/MTP layer (num_nextn_predict_layers 1). Phase 21 runs
+# the dense layer, LRUN - 1 MoE layers and the MTP layer: an int8 MoE layer
+# takes ~2.3 GB
+GLM_AIR = dict(ARCH="glm4moe", L=46, LRUN=4, E=4096, H=96, HKV=8, D=128, ROPE_DIM=64,
+               ROPE=1e6, FFD=10944, G=128, TOPK=8, FF=1408, FFS=1408, V=151552, CTX=131072)
+GLM_GGUF_VERSION = "port-21"
+GLM_PROMPT, GLM_NEW = 512, 48    # phase 21's prompt and new tokens
+# kernel A's (K, N) on GLM-4.5-Air's int8 path: wq, wk / wv, wo, the dense
+# layer's fused gate|up, the shared expert's gate and up, the head, eh_proj
+A_GLM_SHAPES = [(4096, 12288), (4096, 1024), (12288, 4096), (4096, 2 * 10944), (4096, 1408),
+                (4096, 151552), (8192, 4096)]
+# the rows of phase 21's verify chunks: W = 4 and 9 padded to 8 and 16
+GLM_VERIFY_ROWS = (8, 16)
 
 
 def log(msg: str) -> None:
@@ -595,6 +649,13 @@ def phase_kernels(torch, timer, results) -> bool:
     a_cases = [(k, n, (1, 8, 16, 512)) for k, n in shapes]
     a_cases += [(k, n, (1, 512)) for k, n in A_MOE_SHAPES + A_GEMMA_SHAPES]
     a_cases += [(k, n, (1, 512)) for k, n in A_QNEXT_SHAPES if (k, n) not in A_MOE_SHAPES]
+    # rows 1s: phase 20's verify blocks at every dense linear, one row of
+    # W = 5 or 9 (the GEMV) and the engine's 4 rows of 9 (the tiled form)
+    a_cases += [(k, n, (5, 9, 36)) for k, n in shapes]
+    # rows 1a: GLM-4.5-Air's linears (phase 21; eh_proj is row 1m) at the
+    # decode and MTP draft step, the verify chunks and MTP refresh padded to
+    # 8 and 16 rows, and the prefill chunk
+    a_cases += [(k, n, (1,) + GLM_VERIFY_ROWS + (512,)) for k, n in A_GLM_SHAPES]
     for k, n, ms in a_cases:
         codes_t = torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
                                 dtype=torch.int8)
@@ -623,6 +684,12 @@ def phase_kernels(torch, timer, results) -> bool:
                 plan_us = (time.perf_counter() - t0) / 10000 * 1e6
                 call_us = timer.host_us(lambda: QM.qmatmul_i8(xq, xs, codes_t.t(), sw))
                 note += f"; host {call_us:.1f} us a call, of which gemv_i8_plan {plan_us:.2f}"
+            if (k, n) in shapes and m in (5, 9, 36):
+                # rows 1s: the int8 library product beside the bf16 one
+                # (torch._int_mm: int8 x int8 -> int32, no scales; it takes M > 16)
+                note += "; torch._int_mm " + (
+                    f"{timer(lambda: torch._int_mm(xq, codes_t.t())):.4f} ms" if m > 16
+                    else "n/a (M <= 16)")
             ok &= again
             ok &= _record(results, "qmatmul_i8", f"M={m} K={k} N={n}", err, tol,
                           timer(lambda: QM.qmatmul_i8(xq, xs, codes_t.t(), sw)),
@@ -685,6 +752,11 @@ def phase_kernels(torch, timer, results) -> bool:
                 (1408, 2048, (1, 4, 16), torch.bfloat16, False),
                 (E, 4000, (1, 16), torch.bfloat16, False),
                 (1408, 1000, (1, 16), torch.float32, True)]
+    # rows 4a: GLM-4.5-Air's planar downs (phase 21), the dense layer's K
+    # 10944 and the shared expert's K 1408, to N 4096, at the decode step,
+    # the verify chunks and the prefill chunk
+    d_cases += [(k, GLM_AIR["E"], (1,) + GLM_VERIFY_ROWS + (512,), torch.bfloat16, False)
+                for k in (GLM_AIR["FFD"], GLM_AIR["FFS"])]
     for k, n, ms, sdt, with_bias in d_cases:
         codes = torch.randint(-128, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
         scale = (torch.rand((k // 32, n), generator=gen, device="cuda") * 0.02).to(sdt)
@@ -841,6 +913,32 @@ def phase_kernels(torch, timer, results) -> bool:
     ok &= attn_case("flash_attention", FA.flash_attention, 1, 512, 1024, [512], [1024], **qn)
     ok &= attn_case("flash_attention_decode", FA.flash_attention_decode, 1, 1, 1024,
                     [1023], [1024], **qn)
+    # rows 3s: the speculative verify blocks at the shapes phases 19-21 give
+    # kernel C: phase 20's W = 5 and 9 over the dense model's 32 / 8 heads
+    # (at 4,000 cached keys, and the engine's 4 rows of 9 at its own
+    # positions); phase 21's decode and MTP draft step (T = 1) and its verify
+    # chunks and MTP refresh padded to 8 and 16 rows over GLM-4.5-Air's
+    # 96 / 8 heads (at 4,000 keys and at the phase's own ~560); phase 19's
+    # rollback verify, padded to 8 rows over Qwen3-Next's 16 / 2 of 256.
+    # Row 2a: kernel B at GLM-4.5-Air's heads, the phase's 512-token prefill
+    # and the MTP layer's warm-up over it
+    log("[3] kernels B and C at the speculative verify blocks of phases 19-21 (rows 3s, "
+        "2a); library = SDPA")
+    for t in (5, 9):
+        ok &= attn_case("flash_attention_decode", FA.flash_attention_decode, 1, t, 4096,
+                        [4000 - t], [4000])
+    kvls = [256 + 9, 280 + 9, 300 + 9, 320 + 9]
+    ok &= attn_case("flash_attention_decode", FA.flash_attention_decode, 4, 9, 1280,
+                    [k - 9 for k in kvls], kvls)
+    glm = dict(H=GLM_AIR["H"], HKV=GLM_AIR["HKV"])
+    for t in (1,) + GLM_VERIFY_ROWS:
+        ok &= attn_case("flash_attention_decode", FA.flash_attention_decode, 1, t, 4096,
+                        [4000 - t], [4000], **glm)
+        ok &= attn_case("flash_attention_decode", FA.flash_attention_decode, 1, t, 768,
+                        [560 - t], [560], **glm)
+    ok &= attn_case("flash_attention", FA.flash_attention, 1, 512, 768, [0], [512], **glm)
+    ok &= attn_case("flash_attention_decode", FA.flash_attention_decode, 1, 8, 512,
+                    [260], [268], **qn)
 
     # DeepSeek-V2-Lite's attention (phase 18): rows 2m (the last chunk of a
     # 3,999-token fill: the wgmma form) and 2md / 2md2 (the decode step after
@@ -1204,9 +1302,13 @@ def phase_planar_moe_kernels(torch, timer, results, dev="cuda") -> bool:
 
     log("[3] kernel 12 (moe_decode_gate_up, planar) vs plain; library = bf16 torch.bmm "
         "over the gathered pairs' dequantized gate|up")
-    q2, q3 = Q2MOE, MOE
+    q2, q3, glm = Q2MOE, MOE, GLM_AIR
+    # rows 12a / 13a: GLM-4.5-Air's experts (phase 21: gate / up int8 by
+    # supergroups with f32 scales, down planar group 32) at the decode and
+    # MTP draft step (P 8) and the verify chunk and MTP refresh of 8 rows (P 64)
     for c, t, group, sdt in ((q2, 1, 256, torch.float32), (q3, 1, 32, bf16),
-                             (q2, 8, 256, torch.float32)):
+                             (q2, 8, 256, torch.float32), (glm, 1, 256, torch.float32),
+                             (glm, 8, 256, torch.float32)):
         g_, k, ff, topk = c["G"], c["E"], c["FF"], c["TOPK"]
         p = t * topk
         gate, gs = planar(g_, k, ff, group, sdt)
@@ -1237,13 +1339,14 @@ def phase_planar_moe_kernels(torch, timer, results, dev="cuda") -> bool:
                       timer(lambda: MD.moe_decode_gate_up_ref(*a12, group=group), 3),
                       timer(lambda: torch.bmm(xb, wb)), bnd,
                       note=f" | {plan_text(plan)}; repeats bit for bit: {rep}")
-        gate_up_sweep(timer, MD, MD.gate_up_plan, f"kernel 12 P={p}", p, k, ff,
-                      lambda: MD.moe_decode_gate_up(*a12, group=group))
+        if c is not glm:
+            gate_up_sweep(timer, MD, MD.gate_up_plan, f"kernel 12 P={p}", p, k, ff,
+                          lambda: MD.moe_decode_gate_up(*a12, group=group))
         del wb, gate, up
 
     log("[3] kernel 13 (moe_decode_down, planar) vs plain; library = bf16 torch.bmm over "
         "the gathered pairs' dequantized down")
-    for c, t in ((q2, 1), (q3, 1), (q2, 8)):
+    for c, t in ((q2, 1), (q3, 1), (q2, 8), (glm, 1), (glm, 8)):
         g_, e_, ff, topk = c["G"], c["E"], c["FF"], c["TOPK"]
         p = t * topk
         down, ds = planar(g_, ff, e_, 32, bf16)
@@ -1273,8 +1376,9 @@ def phase_planar_moe_kernels(torch, timer, results, dev="cuda") -> bool:
                       timer(lambda: torch.bmm(hb, wb)), bnd,
                       note=f" | {plan_text(MD.down_plan(t, topk, ff, e_, 32))}; "
                            f"repeats bit for bit: {rep}")
-        cols_sweep(timer, MD, f"kernel 13 P={p} FF={ff}", t, topk, ff, e_, 32,
-                   lambda: MD.moe_decode_down(hw, ids, down, ds, top_k=topk, group=32))
+        if c is not glm:
+            cols_sweep(timer, MD, f"kernel 13 P={p} FF={ff}", t, topk, ff, e_, 32,
+                       lambda: MD.moe_decode_down(hw, ids, down, ds, top_k=topk, group=32))
         if (c, t) == (q2, 1):
             flush_check(timer, f"13 P={p} FF={ff} E={e_}",
                         kernel=lambda: MD.moe_decode_down(hw, ids, down, ds, top_k=topk,
@@ -1300,6 +1404,35 @@ def phase_planar_moe_kernels(torch, timer, results, dev="cuda") -> bool:
                 continue
             ok &= ragged_case(torch, timer, results, x, codes, sc, wg, sizes, name)
         del codes, wg
+
+    # rows 10a / 14a: GLM-4.5-Air's sorted MoE chain (phase 21), the int8
+    # gate / up on kernel 10 and the planar down on kernel 14, at the verify
+    # chunk of 16 rows (128 pairs, each token's 8 experts distinct) and at the
+    # 512-token prefill chunk and MTP warm-up (4,096 pairs, skewed)
+    log("[3] kernels 10 and 14 at GLM-4.5-Air's experts (128 top-8, E 4096, FF 1408; "
+        "rows 10a, 14a): the 16-row verify chunk and the 512-token prefill; library as for "
+        "10 and 14")
+    g_, e_, ff, topk = glm["G"], glm["E"], glm["FF"], glm["TOPK"]
+    harm = 1.0 / np.arange(1, g_ + 1)
+    size_sets = {"verify": np.bincount(routed(g_, GLM_VERIFY_ROWS[-1], topk).cpu().numpy(),
+                                       minlength=g_),
+                 "skewed": rng.permutation(rng.multinomial(PREFILL * topk, harm / harm.sum()))}
+    gate, gsw = planar(g_, e_, ff, 256, torch.float32)
+    wg = k_major((gate.float() * torch.repeat_interleave(gsw, 256, dim=1)).to(bf16))
+    for name, sizes in size_sets.items():
+        m = int(sizes.sum())
+        xq = torch.randint(-127, 128, (m, e_), generator=gen, device=dev, dtype=torch.int8)
+        xs = torch.rand((m, e_ // 256), generator=gen, device=dev) * 1e-2 + 1e-4
+        xb = (xq.float() * torch.repeat_interleave(xs, 256, dim=1)).to(bf16)
+        ok &= ragged_i8_case(torch, timer, results, xq, xs, gate, gsw, xb, wg, sizes,
+                             f"M={m} K={e_} N={ff} G={g_} {name}")
+    del gate, wg
+    down, dsc = planar(g_, ff, e_, 32, bf16)
+    wg = k_major(MD.dequant_experts(down, dsc, 32))
+    for name, sizes in size_sets.items():
+        x = torch.randn((int(sizes.sum()), ff), generator=gen, device=dev).to(bf16)
+        ok &= ragged_case(torch, timer, results, x, down, dsc, wg, sizes, name)
+    del down, wg
 
     log("[3] kernel 11 (moe_decode_fused_i8, one launch) vs plain, beside kernels 7 + 8 "
         "on the same inputs; library = bf16 torch.bmm over the gathered gate|up, then down")
@@ -1521,6 +1654,9 @@ def phase_kvq_kernels(torch, timer, results) -> bool:
     sinks = torch.randn(H, generator=gen, device="cuda")
     ok &= attn_case("flash_attention_decode_q8", FA.flash_attention_decode_q8, "q6",
                     1, 1, 1024, [512], [513], sinks=sinks, swa_window=256)
+    # row 5s: a speculative verify block of W = 9 over a q8 cache (phase 20 (f))
+    ok &= attn_case("flash_attention_decode_q8", FA.flash_attention_decode_q8, "q8",
+                    1, 9, 4096, [3991], [4000])
     for codec in ("q8", "q4", "q6", "nl4"):
         ok &= attn_case("flash_attention_decode_q8", FA.flash_attention_decode_q8, codec,
                         1, 1, 4096, [3999], [4000], sinks=sinks, swa_window=1000)
@@ -4245,6 +4381,9 @@ def phase_qnext(torch, launches: dict, card: str, replay: dict) -> bool:
     good, text = serve_interleaved(torch, rt, 191)
     log(f"[19] BatchEngine at L{nl}: {text}: {'ok' if good else 'FAIL'}")
     ok &= good
+    good, text = recurrent_rollback(torch, rt)
+    log(f"[19] speculative rollback at L{nl}: {text}: {'ok' if good else 'FAIL'}")
+    ok &= good
     log(f"[19] Qwen3-Next-80B-A3B at L{nl}: {time.perf_counter() - t_phase:.1f} s")
     # one-history parity at depth 4: the file's three delta-net layers and
     # its attention layer
@@ -4255,6 +4394,642 @@ def phase_qnext(torch, launches: dict, card: str, replay: dict) -> bool:
     del rt
     torch.cuda.empty_cache()
     return ok
+
+
+# ------------------------------------------ phases 20-21: speculative decoding --
+class PlainHistory:
+    """The one-history gate of phases 20 and 21: a run's prompt and tokens
+    fed to the plain path at B = 1 in prefill chunks (``eval_tokens`` with
+    every position's logits), so that the plain path sees the history the
+    run emitted. Every emitted token must lie within 5% of the largest
+    |logit| of the plain step's top logit; how many are its exact argmax is
+    counted. Runs that emit the same tokens share one plain evaluation."""
+
+    def __init__(self, torch, rt):
+        self.torch, self.rt = torch, rt
+        self.memo = {}          # (prompt, history) -> plain logits of each emitted token
+
+    def logits(self, prompt: list, gen: list):
+        key = (tuple(prompt), tuple(gen[:-1]))
+        if key not in self.memo:
+            seq = list(prompt) + list(gen[:-1])
+            with plain_path():
+                lg, _, _ = self.rt.eval_tokens(seq, self.rt.new_cache(1, len(seq) + 16), 0,
+                                               all_logits=True)
+            self.memo[key] = lg[len(prompt) - 1:]
+        return self.memo[key]
+
+    def verdict(self, prompt: list, gen: list):
+        """(ok, text) of the one-history gate over ``gen``."""
+        torch = self.torch
+        lp = self.logits(prompt, gen)
+        tok = torch.tensor(gen, device=lp.device)
+        gap = lp.max(dim=1).values - lp.gather(1, tok[:, None])[:, 0]
+        rel = gap / lp.abs().amax(dim=1)
+        exact = int((lp.argmax(dim=1) == tok).sum())
+        ok = bool((rel <= 5e-2).all()) and len(gen) > 0
+        return ok, (f"{exact} of {len(gen)} emitted tokens the plain path's argmax; the "
+                    f"largest gap to the plain step's top logit {100 * float(rel.max()):.2f}% "
+                    f"of its largest |logit| (tol 5%)")
+
+
+class WrongAt:
+    """A drafter that proposes a known continuation with the token at
+    position ``at`` of every proposal changed: each round accepts ``at``
+    tokens at most."""
+
+    def __init__(self, prompt_len: int, cont: list, at: int = 2):
+        self.n0, self.cont, self.at = prompt_len, list(cont), at
+        self.calls = []         # the history length at each proposal
+
+    def propose(self, tokens, n_draft):
+        self.calls.append(len(tokens))
+        d = self.cont[len(tokens) - self.n0:][:n_draft]
+        if len(d) > self.at:
+            d[self.at] = (d[self.at] + 1) % 1000 + 3
+        return d
+
+
+def spec_prompt(rng, n: int, vocab: int, span: int = 128) -> list:
+    """n random ids: a random span of ``span`` ids repeated, so that the
+    n-gram drafters find matches in the prompt."""
+    base = [int(x) for x in rng.integers(3, vocab, span)]
+    return (base * (-(-n // span)))[:n]
+
+
+def call_cost(torch, fn, what: str, tag: str) -> tuple:
+    """One call of fn (a whole forward, host-bound): (the device ms of its
+    kernels under torch.profiler, its wrapper launches by kernel). The
+    profile's lines (wall, busy share, every kernel's launches, the top
+    kernels) are logged."""
+    fn()                                     # warm
+    prof = profile_window(torch, fn, 1, what, "call", tag, top=4, host=False)
+    reset_counts()
+    fn()
+    sync(torch)
+    return sum(prof.values()), {k: n for k, n in read_counts().items() if n}
+
+
+def verify_costs(torch, rt, kv, n_past: int, widths, tag: str, batch: int = 1) -> dict:
+    """One verify forward (Runtime._spec_verify, T = W) at each width W over
+    ``batch`` rows at n_past: {W: (device ms, wrapper launches by kernel)}."""
+    out = {}
+    for w in widths:
+        step = rt._spec_verify(w)
+        block = torch.randint(3, rt.cfg.n_vocab, (batch, w), device=rt.device)
+        out[w] = call_cost(torch, lambda: step(block, kv, n_past),
+                           f"a verify at B = {batch}, W = {w}", tag)
+    return out
+
+
+def wall_of(torch, fn):
+    """fn() and its wall seconds around a synchronize."""
+    sync(torch)
+    t0 = time.perf_counter()
+    res = fn()
+    sync(torch)
+    return res, time.perf_counter() - t0
+
+
+def spec_line(tag: str, name: str, out: list, stats, secs: float, pre_s: float,
+              device_ms: float, verdict) -> str:
+    """A speculative run's figures: tok/s after the prefill, acceptance, the
+    wall a round and the host's part of it, the one-history gate."""
+    rounds = max(stats.n_rounds, 1)
+    wall = (secs - pre_s) * 1e3 / rounds
+    ok, text = verdict
+    return (f"[{tag}] {name}: {len(out)} tokens, {len(out) / max(secs - pre_s, 1e-9):.2f} "
+            f"tok/s after the prefill; {stats.n_rounds} rounds, {stats.n_accept} of "
+            f"{stats.n_draft} drafts accepted ({100 * stats.accept_rate:.1f}%); "
+            f"{wall:.2f} ms wall a round, {max(wall - device_ms, 0.0):.2f} ms of it the "
+            f"host (the wall less {device_ms:.3f} ms of kernels a round); one "
+            f"history: {text}: {'ok' if ok else 'FAIL'}")
+
+
+def serve_spec(torch, rt, prompts: list, n_predict: int, spec) -> tuple:
+    """Greedy requests on a 4-slot BatchEngine (speculative drafting
+    ``spec``, or none), stepped in this thread: (tokens a request, seconds,
+    engine)."""
+    import queue
+    from ik_llama_cpp_tpu_torch.runtime.sampling import SamplerParams
+    from ik_llama_cpp_tpu_torch.server.engine import BatchEngine, Request
+    eng = BatchEngine(rt, n_slots=len(prompts), capacity=1024, spec=spec, spec_n=8)
+    reqs = []
+    for p in prompts:
+        r = Request(prompt_ids=p, n_predict=n_predict, sampler=SamplerParams(temp=0.0))
+        r.stream_queue = queue.Queue()
+        eng.submit(r)
+        reqs.append(r)
+    sync(torch)
+    t0 = time.perf_counter()
+    while eng.step():
+        pass
+    sync(torch)
+    secs = time.perf_counter() - t0
+    gens = []
+    for r in reqs:
+        toks = []
+        while True:
+            tok, _, done = r.stream_queue.get(timeout=0)
+            if tok >= 0:
+                toks.append(tok)
+            if done:
+                break
+        gens.append(toks)
+    return gens, secs, eng
+
+
+def phase_spec(torch, gguf: Path, launches: dict, card: str) -> bool:
+    """Phase 20: speculative decoding on the dense main path at full width
+    (L32 of phase 4's file): a 512-token prompt and 64 new tokens, (a)
+    plain greedy, (b) generate_speculative with ReplayDraft of (a)'s tokens
+    at n_draft 4 and 8, (c) the ngram stage at 8, (d)
+    generate_speculative_device (the device ngram table; replay), (e) a
+    4-slot BatchEngine with spec="ngram", spec_n=8 against the same engine
+    without spec, (f) one replay round over a q8 cache; every kernel launch
+    of (a)-(f) counted. Each run passes the one-history gate; then verify
+    ms and launches a round at each width."""
+    from ik_llama_cpp_tpu_torch.runtime import speculative as SP
+    from ik_llama_cpp_tpu_torch.runtime.generate import Runtime
+    t_phase = time.perf_counter()
+    rt = clone_layers(Runtime.from_gguf(gguf, fuse=True), NL)
+    rng = np.random.default_rng(20)
+    ids = spec_prompt(rng, SPEC_PROMPT, V)
+    cap = SPEC_PROMPT + SPEC_NEW + 32
+    # warm-up: every verify width of the phase and the engine's block once
+    for w in (5, 9):
+        SP.generate_speculative(rt, ids[:64], 12, n_draft=w - 1, stop_at_eos=False,
+                                stage=SP.ReplayDraft(64, [5] * 16), capacity=128)
+    serve_spec(torch, rt, [ids[:64]] * 4, 4, "ngram")
+    log(f"[20] loaded L{NL} and warmed the verify widths in "
+        f"{time.perf_counter() - t_phase:.1f} s; prompt {len(ids)} tokens (a random span of "
+        f"128 repeated), {SPEC_NEW} new tokens, greedy")
+    ok = True
+    runs = {}
+    t_runs = time.perf_counter()
+    reset_counts()
+    (logits, toks, kv, n_past, pre_s, dec_s) = timed_run(torch, rt, ids, SPEC_NEW - 1)
+    plain = [int(torch.argmax(logits[-1]))] + toks[0].tolist()
+    del kv
+    for n_draft in (4, 8):
+        runs[f"(b) replay n_draft {n_draft}"] = wall_of(torch, lambda: SP.generate_speculative(
+            rt, ids, SPEC_NEW, n_draft=n_draft, stop_at_eos=False, capacity=cap,
+            stage=SP.ReplayDraft(len(ids), plain)))
+    runs["(c) ngram n_draft 8"] = wall_of(torch, lambda: SP.generate_speculative(
+        rt, ids, SPEC_NEW, n_draft=8, stop_at_eos=False, capacity=cap, stage="ngram"))
+    runs["(d) device ngram n_draft 8"] = wall_of(torch, lambda: SP.generate_speculative_device(
+        rt, ids, SPEC_NEW, n_draft=8, rounds_per_call=4, capacity=cap, stop_at_eos=False))
+    runs["(d) device replay n_draft 8"] = wall_of(torch, lambda: SP.generate_speculative_device(
+        rt, ids, SPEC_NEW, n_draft=8, rounds_per_call=4, capacity=cap, stop_at_eos=False,
+        replay=plain))
+    prompts = [spec_prompt(rng, 256, V, span=64) for _ in range(4)]
+    spec_gens, spec_s, spec_eng = serve_spec(torch, rt, prompts, 48, "ngram")
+    base_gens, base_s, base_eng = serve_spec(torch, rt, prompts, 48, None)
+    rt8 = replace(rt, kv_quant="q8")
+    q8_run = wall_of(torch, lambda: SP.generate_speculative(
+        rt8, ids, 10, n_draft=8, stop_at_eos=False, capacity=cap,
+        stage=SP.ReplayDraft(len(ids), plain)))
+    sync(torch)
+    counts = read_counts()
+    for k in counts:
+        launches[k] = launches.get(k, 0) + counts[k]
+    path = ("qmatmul_i8", "flash_attention", "flash_attention_decode",
+            "flash_attention_decode_q8", "flash_attention_q8")
+    launched = all(counts[k] > 0 for k in path)
+    others = {k: n for k, n in counts.items() if n and k not in path}
+    ok &= launched and not others
+    log(f"[20] launches of (a)-(f): { {k: counts[k] for k in path} }; other kernels {others}: "
+        f"every kernel of the path launched: {'ok' if launched and not others else 'FAIL'}")
+
+    # device ms and launches of one verify forward at each width (B = 1 at
+    # the prompt's end; B = 4 rows of 9 as the engine runs them)
+    t_costs = time.perf_counter()
+    kv = rt.new_cache(1, cap)
+    rt.eval_tokens(ids, kv, 0)
+    costs = verify_costs(torch, rt, kv, len(ids), (1, 5, 9), "20")
+    kv4 = rt.new_cache(4, cap)
+    for r in range(4):
+        rt.eval_tokens(ids, _row_view(kv4, r), 0)
+    costs4 = verify_costs(torch, rt, kv4, len(ids), (9,), "20", batch=4)
+    del kv4
+    kv8 = rt8.new_cache(1, cap)
+    rt8.eval_tokens(ids, kv8, 0)
+    costs8 = verify_costs(torch, rt8, kv8, len(ids), (9,), "20")
+    for w, (ms, n) in costs.items():
+        log(f"[20] verify at B = 1, W = {w} at {len(ids)} cached: {ms:.3f} ms of kernels "
+            f"(torch.profiler); wrapper launches {n}")
+    log(f"[20] verify at B = 4, W = 9 (the engine's block: A at M = 36): "
+        f"{costs4[9][0]:.3f} ms; wrapper launches {costs4[9][1]}")
+    log(f"[20] verify over a q8 cache at W = 9: {costs8[9][0]:.3f} ms; wrapper launches "
+        f"{costs8[9][1]}")
+    del kv, kv8
+
+    t_gates = time.perf_counter()
+    gate = PlainHistory(torch, rt)
+    v = gate.verdict(ids, plain)
+    ok &= v[0]
+    log(f"[20] on {card}: (a) plain greedy: prefill {len(ids)} tokens {pre_s * 1e3:.1f} ms, "
+        f"decode {SPEC_NEW - 1} steps {dec_s * 1e3:.1f} ms = {(SPEC_NEW - 1) / dec_s:.2f} "
+        f"tok/s; one history: {v[1]}: {'ok' if v[0] else 'FAIL'}")
+    for name, ((_, out, stats), secs) in runs.items():
+        w = 5 if "n_draft 4" in name else 9
+        v = gate.verdict(ids, out)
+        good = v[0] and len(out) == SPEC_NEW
+        ok &= good
+        log(spec_line("20", name, out, stats, secs, pre_s, costs[w][0], (good, v[1])))
+    (_, out, stats), secs = q8_run
+    gate8 = PlainHistory(torch, rt8)
+    v = gate8.verdict(ids, out)
+    ok &= v[0] and stats.n_rounds >= 1
+    log(f"[20] (f) one replay round over a q8 cache (kernels 6 and 5): {len(out)} tokens, "
+        f"{stats.n_accept} of {stats.n_draft} drafts accepted in {stats.n_rounds} round(s); "
+        f"one history over the q8 cache: {v[1]}: {'ok' if v[0] else 'FAIL'}")
+    texts, good_e = [], spec_eng.n_failed == 0 and base_eng.n_failed == 0
+    for p, sg, bg in zip(prompts, spec_gens, base_gens):
+        g = PlainHistory(torch, rt)
+        vs, vb = g.verdict(p, sg), g.verdict(p, bg)
+        good_e &= vs[0] and vb[0] and len(sg) > 0 and len(bg) > 0
+        texts.append(f"spec tokens {'=' if sg == bg else '!='} plain engine's; spec: {vs[1]}; "
+                     f"plain: {vb[1]}")
+    ok &= good_e and spec_eng.n_spec_steps > 0
+    n_spec, n_base = sum(map(len, spec_gens)), sum(map(len, base_gens))
+    log(f"[20] (e) BatchEngine, 4 slots, 4 requests of 256 prompt tokens and 48 new: "
+        f"spec ngram n 8: {n_spec / spec_s:.2f} tok/s over all slots in "
+        f"{spec_eng.n_decode_steps} steps ({spec_eng.n_spec_steps} verify steps, "
+        f"{spec_eng.n_draft_accepted} of {spec_eng.n_draft_proposed} drafts accepted); "
+        f"without spec: {n_base / base_s:.2f} tok/s in {base_eng.n_decode_steps} steps: "
+        + " | ".join(texts) + f": {'ok' if good_e else 'FAIL'}")
+    log(f"[20] speculation on the dense path: {time.perf_counter() - t_phase:.1f} s (the runs "
+        f"(a)-(f) {t_costs - t_runs:.1f} s, the verify profiles {t_gates - t_costs:.1f} s, the "
+        f"one-history gates on the plain path {time.perf_counter() - t_gates:.1f} s)")
+    del rt, rt8
+    torch.cuda.empty_cache()
+    return bool(ok)
+
+
+def _row_view(kv, row: int):
+    from ik_llama_cpp_tpu_torch.server.engine import cache_rows
+    return cache_rows(kv, row)
+
+
+def build_glm_gguf(path: Path, c: dict = GLM_AIR) -> Path:
+    """GLM-4.5-Air at full width as glm4moe: the dense first layer, one MoE
+    layer and the NextN/MTP layer (an MoE layer with eh_proj, enorm, hnorm
+    and shared_head_norm), Q4_0 linears and experts with q/k/v biases, Q8_0
+    embedding and untied head, f32 routers and selection biases, unit norms,
+    random blocks from seed 0; cached beside a .meta."""
+    from ik_llama_cpp_tpu_torch.gguf.constants import GGMLType
+    from ik_llama_cpp_tpu_torch.gguf.writer import GGUFWriter
+    meta = json.dumps(dict(v=GLM_GGUF_VERSION, **c))
+    mpath = path.with_suffix(".meta")
+    if path.exists() and mpath.exists() and mpath.read_text() == meta:
+        return path
+    path.parent.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(0)
+    e, h, hkv, d, g, ff, v = (c[k] for k in ("E", "H", "HKV", "D", "G", "FF", "V"))
+    arch = c["ARCH"]
+    w = GGUFWriter(str(path), arch=arch)
+    for key, val in (("block_count", 3), ("context_length", c["CTX"]),
+                     ("embedding_length", e), ("feed_forward_length", c["FFD"]),
+                     ("expert_feed_forward_length", ff), ("expert_count", g),
+                     ("expert_used_count", c["TOPK"]), ("expert_shared_count", 1),
+                     ("expert_shared_feed_forward_length", c["FFS"]),
+                     ("leading_dense_block_count", 1), ("expert_gating_func", 2),
+                     ("expert_weights_norm", True), ("expert_weights_scale", 1.0),
+                     ("nextn_predict_layers", 1), ("attention.head_count", h),
+                     ("attention.head_count_kv", hkv), ("attention.key_length", d),
+                     ("attention.value_length", d),
+                     ("attention.layer_norm_rms_epsilon", 1e-5),
+                     ("rope.freq_base", c["ROPE"]), ("rope.dimension_count", c["ROPE_DIM"]),
+                     ("vocab_size", v)):
+        w.add(f"{arch}.{key}", val)
+    w.add("tokenizer.ggml.model", "gpt2")
+    w.add("tokenizer.ggml.tokens", [f"<t{i}>" for i in range(v)])
+    w.add("tokenizer.ggml.token_type", np.ones(v, np.int32))
+    w.add("tokenizer.ggml.eos_token_id", 2)
+
+    def q(name, rows, cols, ttype=GGMLType.Q4_0, n=1):
+        w.add_tensor(name, _rand_blocks(rng, n * rows, cols, ttype),
+                     shape=(cols, rows) if n == 1 else (cols, rows, n), ggml_type=ttype)
+
+    def f32(name, *shape, scale=1.0):
+        w.add_tensor(name, (rng.standard_normal(shape) * scale).astype(np.float32))
+
+    q("token_embd.weight", v, e, GGMLType.Q8_0)
+    q("output.weight", v, e, GGMLType.Q8_0)
+    w.add_tensor("output_norm.weight", np.ones(e, np.float32))
+    for i in range(3):
+        p = f"blk.{i}."
+        for name in ("attn_norm", "ffn_norm"):
+            w.add_tensor(p + name + ".weight", np.ones(e, np.float32))
+        q(p + "attn_q.weight", h * d, e)
+        q(p + "attn_k.weight", hkv * d, e)
+        q(p + "attn_v.weight", hkv * d, e)
+        q(p + "attn_output.weight", e, h * d)
+        for name, width in (("attn_q", h * d), ("attn_k", hkv * d), ("attn_v", hkv * d)):
+            f32(p + name + ".bias", width, scale=0.1)
+        if i == 0:
+            q(p + "ffn_gate.weight", c["FFD"], e)
+            q(p + "ffn_up.weight", c["FFD"], e)
+            q(p + "ffn_down.weight", e, c["FFD"])
+            continue
+        f32(p + "ffn_gate_inp.weight", g, e, scale=1.0 / np.sqrt(e))
+        f32(p + "exp_probs_b.bias", g, scale=0.1)
+        q(p + "ffn_gate_exps.weight", ff, e, n=g)
+        q(p + "ffn_up_exps.weight", ff, e, n=g)
+        q(p + "ffn_down_exps.weight", e, ff, n=g)
+        q(p + "ffn_gate_shexp.weight", c["FFS"], e)
+        q(p + "ffn_up_shexp.weight", c["FFS"], e)
+        q(p + "ffn_down_shexp.weight", e, c["FFS"])
+        if i == 2:
+            q(p + "nextn.eh_proj.weight", e, 2 * e)
+            for name in ("enorm", "hnorm", "shared_head_norm"):
+                w.add_tensor(p + f"nextn.{name}.weight", np.ones(e, np.float32))
+    w.write()
+    mpath.write_text(meta)
+    return path
+
+
+def phase_mtp(torch, launches: dict, card: str) -> bool:
+    """Phase 21: the NextN/MTP layer at GLM-4.5-Air's width: the dense first
+    layer, LRUN - 1 MoE layers (block 1 of the file cloned) and the MTP
+    layer; a 512-token prompt and 48 new tokens, plain greedy and
+    generate_speculative(stage="mtp") at n_draft 3 (W 4) and 8 (W 9), and
+    at 3 with the drafts forced to the plain continuation (accepted rows
+    refreshed, the refreshed MTP cache rows checked), every kernel launch
+    counted, each run through the one-history gate; then verify ms and
+    launches at both widths and the MTP draft step's, and the MTP layer's
+    logits and hidden against the plain path."""
+    from ik_llama_cpp_tpu_torch.models.llama import mtp_forward
+    from ik_llama_cpp_tpu_torch.runtime import speculative as SP
+    from ik_llama_cpp_tpu_torch.runtime.generate import Runtime
+    c = GLM_AIR
+    nl = c["LRUN"]
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    gguf = build_glm_gguf(ROOT / "build" / "smoke_glm45air.gguf", c)
+    file_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rt = Runtime.from_gguf(gguf)
+    two = rt.params["blocks"]
+    rt.params["blocks"] = two + [copy.deepcopy(two[1]) for _ in range(2, nl)]
+    rt.cfg = replace(rt.cfg, n_layer=nl)
+    sync(torch)
+    load_s = time.perf_counter() - t0
+    blk, mtp = rt.params["blocks"][1], rt.params["mtp_blocks"][0]
+    ex = blk["experts"]
+    kinds = {k: type(blk[k]).__name__ for k in ("wq", "wo", "ffn_gate_shexp", "ffn_down_shexp")}
+    kinds.update(dense_down=type(rt.params["blocks"][0]["ffn_down"]).__name__,
+                 eh_proj=type(mtp["eh_proj"]).__name__)
+    log(f"[21] glm4moe L{nl} (1 dense, {nl - 1} MoE) + the MTP layer, E{c['E']} H{c['H']} "
+        f"KV{c['HKV']} D{c['D']} rope {c['ROPE_DIM']} dims, dense FF{c['FFD']}, G{c['G']} "
+        f"top-{c['TOPK']} FF{c['FF']} + shared FF{c['FFS']}, V{c['V']}: file ready in "
+        f"{file_s:.1f} s, loaded and cloned in {load_s:.1f} s; experts group "
+        f"{ex.gate_group} / {ex.up_group} / {ex.down_group} (FF {c['FF']} is not a multiple "
+        f"of 256: the down experts stay planar); linears {kinds}; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    rng = np.random.default_rng(21)
+    ids = [int(x) for x in rng.integers(3, c["V"], GLM_PROMPT)]
+    cap = GLM_PROMPT + GLM_NEW + 32
+    for n_draft in (3, 8):        # warm-up of every width
+        SP.generate_speculative(rt, ids[:64], 6, n_draft=n_draft, stop_at_eos=False,
+                                stage="mtp", capacity=128)
+    ok = True
+    reset_counts()
+    (logits, toks, kv, n_past, pre_s, dec_s) = timed_run(torch, rt, ids, GLM_NEW - 1)
+    plain = [int(torch.argmax(logits[-1]))] + toks[0].tolist()
+    del kv
+    runs = {}
+    for n_draft in (3, 8):
+        runs[f"mtp n_draft {n_draft}"] = wall_of(torch, lambda: SP.generate_speculative(
+            rt, ids, GLM_NEW, n_draft=n_draft, stop_at_eos=False, capacity=cap, stage="mtp"))
+    # random weights' drafts are not accepted: a run with the draft step's
+    # pick forced to the plain continuation refreshes accepted rows
+    forced, forced_ok, forced_text = forced_mtp_run(torch, rt, ids, plain, GLM_NEW, cap)
+    sync(torch)
+    counts = read_counts()
+    for k in counts:
+        launches[k] = launches.get(k, 0) + counts[k]
+    # the int8 path's linears (A), the planar dense and shared-expert downs
+    # (D: K 10944 and 1408), B and C, and the mixed MoE path: kernels 12 and
+    # 13 at T <= 8, 10 and 14 above
+    path = ("qmatmul_i8", "qmatmul", "flash_attention", "flash_attention_decode",
+            "moe_decode_gate_up", "moe_decode_down", "ragged_qmatmul_i8", "ragged_qmatmul")
+    launched = all(counts[k] > 0 for k in path)
+    others = {k: n for k, n in counts.items() if n and k not in path
+              and k not in ("qmatmul_wgmma", "ragged_qmatmul_wgmma")}
+    ok &= launched and not others
+    log(f"[21] launches of the three runs: { {k: counts[k] for k in path} } (the wgmma forms: "
+        f"D {counts['qmatmul_wgmma']}, 14 {counts['ragged_qmatmul_wgmma']}); other kernels "
+        f"{others}: every kernel of the path launched: "
+        f"{'ok' if launched and not others else 'FAIL'}")
+
+    kv = rt.new_cache(1, cap)
+    _, hid, kv, _ = rt.eval_tokens_hidden(ids, kv, 0)
+    # the MTP loop verifies through eval_tokens_hidden: W = 4 padded to a
+    # chunk of 8 rows, W = 9 to 16 (the JAX runtime's buckets), beside one
+    # plain decode step
+    tok = torch.tensor([[ids[-1]]], device=rt.device)
+    costs = {w: call_cost(torch, lambda: rt.eval_tokens_hidden(ids[-w:], kv, len(ids)),
+                          f"a verify of W = {w} (eval_tokens_hidden)", "21") for w in (4, 9)}
+    costs[1] = call_cost(torch, lambda: llama_step(torch, rt, tok, kv, len(ids)),
+                         "a decode step", "21")
+    mkv = rt.new_mtp_cache(1, cap)
+    h1 = hid[-1].reshape(1, 1, -1)
+    step_ms, step_n = call_cost(
+        torch, lambda: mtp_forward(rt.params, rt.cfg, tok, h1, mkv, len(ids) - 1),
+        "an MTP draft step", "21")
+    hid8 = hid[-8:]
+    ref_ms, _ = call_cost(torch, lambda: rt.mtp_eval(ids[-8:], hid8, mkv, len(ids) - 8),
+                          "an MTP refresh (mtp_eval, 8 rows)", "21")
+    del kv, mkv
+    good, text = mtp_parity(torch, rt, ids, hid, plain[0])
+    ok &= good
+    log(f"[21] the MTP layer, kernel path against plain path on the same main hiddens: {text}: "
+        f"{'ok' if good else 'FAIL'}")
+    del hid
+    for w, (ms, n) in sorted(costs.items()):
+        log(f"[21] verify of W = {w} at {len(ids)} cached "
+            f"({'one decode step' if w == 1 else 'padded to %d rows' % (8 if w <= 8 else 16)}): "
+            f"{ms:.3f} ms of kernels (torch.profiler); wrapper launches {n}")
+    log(f"[21] the MTP draft step (T = 1: eh_proj, attention, MoE, the head): {step_ms:.3f} ms "
+        f"of kernels; wrapper launches {step_n}; the refresh of accepted rows (mtp_eval, padded "
+        f"to 8 rows): {ref_ms:.3f} ms")
+    gate = PlainHistory(torch, rt)
+    v = gate.verdict(ids, plain)
+    ok &= v[0]
+    log(f"[21] on {card}: plain greedy: prefill {len(ids)} tokens {pre_s * 1e3:.1f} ms, decode "
+        f"{GLM_NEW - 1} steps {dec_s * 1e3:.1f} ms = {(GLM_NEW - 1) / dec_s:.2f} tok/s; one "
+        f"history: {v[1]}: {'ok' if v[0] else 'FAIL'}")
+    for name, ((_, out, stats), secs) in runs.items():
+        n_draft = int(name.split()[-1])
+        v = gate.verdict(ids, out)
+        good = v[0] and len(out) == GLM_NEW
+        ok &= good
+        # a round's device time: the drafts' MTP steps, the verify, one refresh
+        dev_ms = n_draft * step_ms + costs[1 + n_draft][0] + ref_ms
+        log(spec_line("21", name, out, stats, secs, pre_s, dev_ms, (good, v[1]))
+            + f" (device time a round: {n_draft} MTP steps + the verify at W = "
+              f"{1 + n_draft} + one refresh)")
+    (_, out, stats), secs = forced
+    v = gate.verdict(ids, out)
+    good = v[0] and len(out) == GLM_NEW and forced_ok
+    ok &= good
+    log(spec_line("21", "mtp n_draft 3, drafts forced to the plain continuation", out, stats,
+                  secs, pre_s, 3 * step_ms + costs[4][0] + ref_ms, (good, v[1]))
+        + f"; {forced_text}")
+    log(f"[21] GLM-4.5-Air's MTP at L{nl}: {time.perf_counter() - t_phase:.1f} s")
+    del rt
+    torch.cuda.empty_cache()
+    return bool(ok)
+
+
+def mtp_parity(torch, rt, ids: list, hid, first: int):
+    """The MTP layer's numbers, kernel path against plain path on the same
+    main hiddens ``hid`` (n, E) of the prompt ``ids``: its warm-up over the
+    prompt (rows 0 .. n - 2), a draft step at T = 1 (row n - 1, the first
+    generated token ``first``) and a refresh of rows n - 7 .. n - 4
+    (mtp_eval). Each one's logits and MTP hidden must lie within 5% of the
+    plain path's largest |value| (the rule of phase 5). Returns (ok, text)."""
+    from ik_llama_cpp_tpu_torch.models.llama import mtp_forward
+    n = len(ids)
+    tok = torch.tensor([[first]], device=rt.device)
+
+    def run():
+        mkv = rt.new_mtp_cache(1, n + 32)
+        lw, hw, mkv, _ = rt.mtp_eval(ids[1:], hid[:-1], mkv, 0)
+        ld, mkv, hd = mtp_forward(rt.params, rt.cfg, tok, hid[-1].reshape(1, 1, -1), mkv, n - 1)
+        lr, hr, mkv, _ = rt.mtp_eval(ids[-6:-2], hid[-7:-3], mkv, n - 7)
+        return {"warm-up": (lw, hw), "draft step": (ld[0, 0], hd[0, 0]), "refresh": (lr, hr)}
+
+    mine = run()
+    with plain_path():
+        want = run()
+    ok, parts = True, []
+    for what, pair in mine.items():
+        errs = []
+        for got, ref in zip(pair, want[what]):
+            e, m = float((got - ref).abs().max()), float(ref.abs().max())
+            ok &= e <= 5e-2 * m
+            errs.append(f"{e:.3e} of max {m:.3f}")
+        parts.append(f"{what}: logits {errs[0]}, hidden {errs[1]}")
+    return ok, "; ".join(parts) + " (tol 5% of each max)"
+
+
+@contextmanager
+def forced_mtp_drafts(torch, seq: list, seen: dict):
+    """mtp_forward with the draft step's logits replaced by a one-hot of
+    the token its row predicts in ``seq`` (row p predicts seq[p + 2]),
+    changed at every third row, so that MTP rounds accept 0-2 drafts. The
+    layer itself still runs on its kernels, and its cache and hidden stream
+    are kept; ``seen`` gets the cache and the first row of the last refresh
+    (a call of more than one row)."""
+    from ik_llama_cpp_tpu_torch.models import llama
+    real = llama.mtp_forward
+
+    def forward(params, cfg, tokens, hidden, kv, n_past):
+        lg, kv, h = real(params, cfg, tokens, hidden, kv, n_past)
+        seen["kv"] = kv
+        if tokens.shape[1] > 1:
+            seen["refresh"] = int(n_past)
+            return lg, kv, h
+        p = int(n_past) + 2
+        tok = (seq[p] if p < len(seq) else 0) + (1 if p % 3 == 0 else 0)
+        one = torch.full_like(lg, -1e4)
+        one[..., tok % lg.shape[-1]] = 0.0
+        return one, kv, h
+
+    llama.mtp_forward = forward
+    try:
+        yield
+    finally:
+        llama.mtp_forward = real
+
+
+def forced_mtp_run(torch, rt, ids: list, plain: list, n_new: int, cap: int):
+    """generate_speculative(stage="mtp", n_draft 3) with drafts forced to
+    the plain continuation (forced_mtp_drafts), so that accepted rows are
+    refreshed: (the run's (ids, tokens, stats) and wall seconds, ok, text).
+    The MTP cache rows that the refreshes left, [0, the last refresh's
+    first row], must match one fresh mtp_eval over the main hiddens of one
+    prefill of the same tokens, within 5% of their largest |value| (the
+    hiddens of a verify chunk and of a prefill differ by the kernels' bf16
+    and int8 rounding)."""
+    from ik_llama_cpp_tpu_torch.runtime import speculative as SP
+    seen = {}
+    with forced_mtp_drafts(torch, list(ids) + list(plain), seen):
+        run = wall_of(torch, lambda: SP.generate_speculative(
+            rt, ids, n_new, n_draft=3, stop_at_eos=False, capacity=cap, stage="mtp"))
+    (_, out, stats), _ = run
+    seq = list(ids) + list(out)
+    n = seen["refresh"] + 1
+    kv = rt.new_cache(1, cap)
+    _, hid, kv, _ = rt.eval_tokens_hidden(seq[:n], kv, 0)
+    fresh = rt.new_mtp_cache(1, cap)
+    rt.mtp_eval(seq[1:n + 1], hid, fresh, 0)
+    ok = 0 < stats.n_accept < stats.n_draft
+    errs = []
+    for f in ("k", "v"):
+        got = getattr(seen["kv"], f)[0, 0, :n].float()
+        want = getattr(fresh, f)[0, 0, :n].float()
+        e, m = float((got - want).abs().max()), float(want.abs().max())
+        ok &= e <= 5e-2 * m
+        errs.append(f"{f} {e:.3e} of max {m:.3f}")
+    del kv, hid, fresh
+    return run, ok, (f"{stats.n_accept} of {stats.n_draft} forced drafts accepted in "
+                     f"{stats.n_rounds} rounds; the MTP cache's {n} refreshed rows against one "
+                     f"fresh mtp_eval: max_abs_err " + ", ".join(errs) + " (tol 5% of each max)")
+
+
+def recurrent_rollback(torch, rt, seed: int = 193, n_prompt: int = 256, n_new: int = 12):
+    """Phase 19's speculative check: generate_speculative's host loop on the
+    loaded hybrid model with a drafter wrong at the third token of every
+    proposal, so each round accepts in part and restores the conv tails
+    and delta states it cloned before the verify. Its state must equal a
+    plain run's over the accepted tokens in the same chunks (the prompt,
+    then each round's accepted block) to 1e-5 of the largest value; the
+    error to one unchunked evaluation is printed beside. Returns (ok,
+    text)."""
+    from ik_llama_cpp_tpu_torch.runtime import speculative as SP
+    from ik_llama_cpp_tpu_torch.runtime.sampling import SamplerParams
+    rng = np.random.default_rng(seed)
+    ids = [int(x) for x in rng.integers(3, rt.cfg.n_vocab, n_prompt)]
+    cap = n_prompt + 64
+    _, plain = rt.generate_greedy_on_device(ids, n_new, stop_at_eos=False)
+    drafter = WrongAt(len(ids), plain)
+    stats = SP.SpecStats()
+    (out, kv, n_past), secs = wall_of(torch, lambda: SP._generate_spec_host(
+        rt, ids, n_new, draft=None, n_draft=4, sampler=SamplerParams(temp=0.0),
+        rng=np.random.default_rng(0), capacity=cap, stop_at_eos=False, stats=stats,
+        drafter=drafter))
+    fed = n_past - len(ids)
+    # the rounds' blocks: from each proposal's history length to the next
+    bounds = [n - len(ids) - 1 for n in drafter.calls] + [fed]
+    ref = rt.new_cache(1, cap)
+    _, ref, n = rt.eval_tokens(ids, ref, 0)
+    for a, b in zip(bounds, bounds[1:]):
+        _, ref, n = rt.eval_tokens(out[a:b], ref, n)
+    one = rt.new_cache(1, cap)
+    rt.eval_tokens(ids + out[:fed], one, 0)
+    errs = {}
+    for f in ("state", "conv"):
+        mine, want = getattr(kv, f), getattr(ref, f)
+        errs[f] = (float((mine - want).abs().max()), float(want.abs().max()),
+                   float((mine - getattr(one, f)).abs().max()))
+    ok = n == n_past and all(e <= 1e-5 * m for e, m, _ in errs.values())
+    ok &= 0 < stats.n_accept < stats.n_draft
+    clone_ms = event_ms(torch, lambda: kv.checkpoint())
+    nbytes = sum(t.numel() * t.element_size() for t in kv.checkpoint())
+    good, text = replay_verdict(torch, rt, ids, out, step_by_step=True)
+    ok &= good
+    del kv, ref, one
+    return ok, (f"{len(out)} tokens in {stats.n_rounds} rounds, {stats.n_accept} of "
+                f"{stats.n_draft} drafts accepted, {secs:.2f} s; state after the last "
+                f"rollback against the same chunks evaluated plainly: max_abs_err "
+                + ", ".join(f"{f} {e:.3e} of max {m:.3f} (tol 1e-5 of it; against one "
+                            f"unchunked evaluation {u:.3e})" for f, (e, m, u) in errs.items())
+                + f"; the checkpoint clone: {nbytes / 2**20:.1f} MiB in {clone_ms:.4f} ms "
+                f"(CUDA events); step-by-step replay: {text}")
 
 
 KERNELS = {
@@ -4333,7 +5108,8 @@ def summary(results, launches) -> list:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19")
+    ap.add_argument("--phases",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
     try:
@@ -4369,7 +5145,7 @@ def main() -> int:
         ok &= timed("3 planar moe", phase_planar_moe_kernels, torch, timer, results)
         timed("3 flush", flush_verdict, timer)
     gguf = None
-    if phases & {4, 5, 6, 9, 10, 11, 16}:
+    if phases & {4, 5, 6, 9, 10, 11, 16, 20}:
         t0 = time.perf_counter()
         gguf = timed("4 file", build_gguf, ROOT / "build" / "smoke8b.gguf")
         log(f"[4] model file ready in {time.perf_counter() - t0:.1f} s: {gguf}")
@@ -4422,6 +5198,10 @@ def main() -> int:
         if 3 in phases and replay19:
             ok &= timed("3 9q", phase_replay_9p, torch, timer, results, replay19["sizes"],
                         replay19["chunk_ms"], QNEXT, "9q", "19")
+    if 20 in phases:
+        ok &= timed("20", phase_spec, torch, gguf, launches, dev["smi"])
+    if 21 in phases:
+        ok &= timed("21", phase_mtp, torch, launches, dev["smi"])
     kernels = summary(results, launches)
     if phases >= {3, 4, 6, 7, 9, 11, 12, 14, 15, 16, 18, 19}:
         for k in kernels:

@@ -28,14 +28,15 @@ int8 path is on and 256 divides its K, stays planar (its format's group,
 bf16 scales) otherwise, and the three become bf16 ``ExpertWeights`` when
 one of them has no symmetric planar form (float tensors, asymmetric
 formats) or ``use_quant`` is off. Control vectors (``params["cvec"]``,
-``runtime/cvector.py``) add to each layer's output.
+``runtime/cvector.py``) add to each layer's output. A trailing NextN/MTP
+block (``params["mtp_blocks"]``) runs in ``mtp_forward``, which drafts
+from the forward's pre-output-norm stream (``return_mtp_hidden``).
 
 Weight names follow GGUF conventions (token_embd, blk.N.attn_q, ...).
 Later slices of the port, each raising NotImplementedError that names its
 queue item in ROADMAP.md §1: the forward's extra inputs and outputs
-(embeddings in, explicit positions and tree masks, hidden states out) and
-the MTP layers' forward (item 7; their weights are loaded into
-``params["mtp_blocks"]``), LoRA (item 6), the architectures with a forward
+(embeddings in, explicit positions and tree masks, every layer's hidden
+states out; item 7), LoRA (item 6), the architectures with a forward
 of their own that are not ported yet (deepseek4, mamba, gemma4,
 openpangu, bert, t5, dflash; item 8; the DeepSeek-2 family runs
 ``models/deepseek2.py``, the Qwen3-Next family ``models/qwen3next.py``) and tensor / pipeline / sequence / expert
@@ -326,8 +327,7 @@ def load_llama_params(gg: GGUFModel, cfg: ModelConfig, device, *,
     apply (a norm bias under RMS norms, an unknown name, a block past
     ``block_count`` that is not a NextN block) raises, so a model never
     runs with a tensor silently dropped. Trailing NextN/MTP blocks are
-    loaded into ``params["mtp_blocks"]`` (their forward is a later
-    slice)."""
+    loaded into ``params["mtp_blocks"]``, which ``mtp_forward`` runs."""
     if cfg.arch not in ARCHS:
         _later(f"architecture {cfg.arch!r}, which has a forward of its own",
                "other architectures (item 8)")
@@ -474,9 +474,41 @@ def load_llama_params(gg: GGUFModel, cfg: ModelConfig, device, *,
     return params
 
 
-def mtp_forward(*args, **kwargs):
-    """The NextN/MTP layer step of the JAX package: a later slice."""
-    _later("the MTP layers' forward", "runtime extras (item 7)")
+def mtp_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                hidden: torch.Tensor, kv: KVCache, n_past):
+    """The NextN/MTP layer step (build_glm4_moe_mtp): predict the token at
+    position p+2 from the main model's pre-output-norm hidden state at
+    position p and the token at p+1.
+
+    tokens: (B, T) the p+1 tokens; hidden: (B, T, E) the main model's
+    hidden at p; kv: a 1-layer KVCache for the MTP layer, whose rows
+    [n_past, n_past + T) are written in place. Returns (logits f32 (B, T,
+    V), kv, hidden') where hidden' (f32) is the MTP layer's own output
+    stream, which chained drafts feed back."""
+    mtp = params["mtp_blocks"][0]
+    b, t = tokens.shape
+    dev = kv.device
+    embd = mtp.get("mtp_embd", params["tok_embd"])
+    emb = embd[tokens].float()
+    x = torch.cat([L.rms_norm(emb, mtp["enorm"], cfg.rms_eps),
+                   L.rms_norm(hidden.float(), mtp["hnorm"], cfg.rms_eps)], dim=-1)
+    x = mtp["eh_proj"](x.to(torch.bfloat16)).to(torch.bfloat16)
+    n_past = [int(n_past)] * b if np.ndim(n_past) == 0 else [int(n) for n in n_past]
+    npv = torch.tensor(n_past, dtype=torch.int32, device=dev)
+    q_pos = npv[:, None] + torch.arange(t, dtype=torch.int32, device=dev)[None, :]
+    # the MTP layer's rope is unscaled, as in the JAX package
+    cos, sin = L.rope_cache(q_pos, cfg.rope_dim or cfg.head_dim, cfg.rope_freq_base)
+    h = _norm(x, mtp.get("attn_norm"), mtp.get("attn_norm_bias"), cfg)
+    attn_out = _attn_block(mtp, h, cfg, kv, 0, n_past, npv, q_pos, cos, sin)
+    if "attn_post_norm" in mtp:
+        attn_out = L.rms_norm(attn_out, mtp["attn_post_norm"], cfg.rms_eps)
+    x = x + attn_out.to(x.dtype)
+    h = _norm(x, mtp.get("ffn_norm"), mtp.get("ffn_norm_bias"), cfg)
+    x = x + _ffn(mtp, h, cfg).to(x.dtype)
+    y = L.rms_norm(x, mtp.get("shead_norm", params.get("output_norm")), cfg.rms_eps)
+    head = mtp.get("shead", params["output"])
+    logits = head(y.to(torch.bfloat16)).float()
+    return logits, kv, x.float()
 
 
 _EXPERT_TENSORS = ("ffn_gate_exps.weight", "ffn_up_exps.weight", "ffn_down_exps.weight",
@@ -787,9 +819,7 @@ def _attn_block(blk: dict, x: torch.Tensor, cfg: ModelConfig, kv, il: int,
 _LATER_ARGS = {
     "inputs_embeds": "runtime extras (item 7)", "positions": "runtime extras (item 7)",
     "block_mask": "runtime extras (item 7)", "n_valid": "runtime extras (item 7)",
-    "return_hidden": "runtime extras (item 7)",
     "return_layer_hiddens": "runtime extras (item 7)",
-    "return_mtp_hidden": "runtime extras (item 7)",
     "collect_stats": "device tools (item 9)", "tp_axis": "multi-GPU (item 11)",
     "ep_axis": "multi-GPU (item 11)", "sp_axis": "multi-GPU (item 11)",
     "layer_offset": "multi-GPU (item 11)", "return_raw_stream": "multi-GPU (item 11)",
@@ -814,12 +844,17 @@ def _rope_tables(cfg: ModelConfig, q_pos: torch.Tensor, dims: int):
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, kv,
             n_past, *, npv: torch.Tensor | None = None,
-            logits_last_only: bool = False, **later) -> torch.Tensor:
+            logits_last_only: bool = False, return_hidden: bool = False,
+            return_mtp_hidden: bool = False, **later):
     """tokens: (B, T) on the cache's device; n_past: int or per-row list of
     ints (host); npv: the same as an int32 (B,) device tensor, made here
     when not given. Writes the chunk into ``kv`` in place and returns the
-    float32 logits (B, T or 1, V). The JAX forward's other arguments raise
-    NotImplementedError naming the slice that brings them."""
+    float32 logits (B, T or 1, V); with ``return_hidden`` the final-norm
+    hidden states (B, T, E) f32 instead (embedding extraction); with
+    ``return_mtp_hidden`` (logits, the pre-output-norm residual stream of
+    every position (B, T, E) f32), the MTP layer's input. The JAX
+    forward's other arguments raise NotImplementedError naming the slice
+    that brings them."""
     for name in later:
         if name not in _LATER_ARGS:
             raise TypeError(f"forward() got an unexpected keyword argument {name!r}")
@@ -925,7 +960,10 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, kv,
                     x = (x.float() * cfg.residual_scale).to(x.dtype)
         if "cvec" in params:                   # control vector at the layer output
             x = x + params["cvec"][i].to(x.dtype)
+    mtp_hidden = x       # the pre-output-norm stream ("result_mtp_embd")
     x = _norm(x, params.get("output_norm"), params.get("output_norm_b"), cfg)
+    if return_hidden:
+        return x.float()
     if logits_last_only:
         x = x[:, -1:, :]
     logits = params["output"](x).float()
@@ -936,4 +974,6 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, kv,
                   else logits / cfg.f_logit_scale)
     if cfg.final_softcap > 0:
         logits = L.softcap(logits, cfg.final_softcap)
+    if return_mtp_hidden:
+        return logits, mtp_hidden.float()
     return logits

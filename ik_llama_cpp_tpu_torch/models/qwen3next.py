@@ -89,6 +89,24 @@ class HybridCache:
         self.conv[:, row].zero_()
         self.state[:, row].zero_()
 
+    def checkpoint(self) -> tuple:
+        """A copy of what a speculative verify may have to undo: every row's
+        conv tail and delta state (the k/v rows are cut back by n_past
+        alone). The cache is written in place, so a reference would not
+        do."""
+        return self.conv.clone(), self.state.clone()
+
+    def restore(self, ckpt: tuple, row: int | None = None) -> None:
+        """Put back a checkpoint's conv tails and delta states: every row's,
+        or one batch row's."""
+        conv, state = ckpt
+        if row is None:
+            self.conv.copy_(conv)
+            self.state.copy_(state)
+        else:
+            self.conv[:, row] = conv[:, row]
+            self.state[:, row] = state[:, row]
+
     @classmethod
     def create(cls, cfg: ModelConfig, batch: int, capacity: int, device, quant=False):
         """The cache is bf16 k/v beside float32 recurrent state: ``quant``

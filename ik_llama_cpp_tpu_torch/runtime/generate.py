@@ -14,6 +14,10 @@ PyTorch runs eagerly, so there are no compiled step functions; the prefill
 buckets and the chunk limit are kept so that cache rows and chunking match
 the JAX runtime exactly.
 
+The speculative verify steps (``_spec_verify``, ``_spec_loop``) and the
+MTP layer's runtime (``eval_tokens_hidden``, ``mtp_eval``) serve
+``runtime/speculative.py``.
+
 The runtime runs on ``cuda`` unless the caller passes ``device="cpu"``; it
 never falls back to the CPU on its own.
 """
@@ -105,6 +109,32 @@ def _chunk_limit(kv, n_past: int) -> int:
             f"writes are padded to >={PREFILL_BUCKETS[0]}-token buckets — "
             "allocate headroom (Runtime.new_cache rounds this up for you)")
     return fit
+
+
+def _chunks(ids: list[int], kv, n_past: int, device):
+    """The bucket-padded chunks in which ``ids`` are evaluated from n_past:
+    (offset in ids, live length, (1, bucket) int64 tokens on ``device``)
+    each, every chunk's padded write inside the cache (_chunk_limit)."""
+    i = 0
+    while i < len(ids):
+        chunk = ids[i:i + _chunk_limit(kv, n_past + i)]
+        padded = torch.zeros((1, _bucket(len(chunk))), dtype=torch.int64)
+        padded[0, :len(chunk)] = torch.as_tensor(chunk, dtype=torch.int64)
+        yield i, len(chunk), padded.to(device)
+        i += len(chunk)
+
+
+FNV_OFFSET, FNV_PRIME = 2166136261, 16777619
+
+
+def ngram_hash(window, table_bits: int):
+    """The slot of an n-gram in the device ngram drafter's table: FNV-1a
+    over its tokens with uint32 wraparound, masked to 2**table_bits. The
+    tokens are ints (on the host) or 0-d int64 tensors (on the device)."""
+    h = FNV_OFFSET
+    for t in window:
+        h = ((h ^ t) * FNV_PRIME) & 0xFFFFFFFF
+    return h & ((1 << table_bits) - 1)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -230,21 +260,177 @@ class Runtime:
         out_chunks = []
         logits = None
         last_len = 0
-        i = 0
-        while i < len(ids):
-            chunk = ids[i:i + _chunk_limit(kv, n_past)]
-            padded = torch.zeros((1, _bucket(len(chunk))), dtype=torch.int64)
-            padded[0, :len(chunk)] = torch.as_tensor(chunk, dtype=torch.int64)
-            kw = {"n_valid": len(chunk)} if self.needs_n_valid else {}
-            logits = fwd(self.params, self.cfg, padded.to(self.device), kv, n_past, **kw)
+        for i, n, tokens in _chunks(ids, kv, n_past, self.device):
+            kw = {"n_valid": n} if self.needs_n_valid else {}
+            logits = fwd(self.params, self.cfg, tokens, kv, n_past + i, **kw)
             if all_logits:
-                out_chunks.append(logits[0, :len(chunk)])
-            last_len = len(chunk)
-            n_past += len(chunk)
-            i += len(chunk)
+                out_chunks.append(logits[0, :n])
+            last_len = n
+        n_past += len(ids)
         if all_logits:
             return torch.cat(out_chunks, dim=0), kv, n_past
         return logits[0, last_len - 1:last_len], kv, n_past
+
+    # ----------------------------------------------------- MTP (nextn) ----
+    @property
+    def has_mtp(self) -> bool:
+        return "mtp_blocks" in self.params
+
+    def new_mtp_cache(self, batch: int = 1, capacity: int = 512) -> KVCache:
+        """The 1-layer bf16 KV cache of the trailing NextN/MTP layer on the
+        runtime's device, with room for a bucket-padded write at its last
+        row."""
+        b0 = max(PREFILL_BUCKETS[0], 256)
+        capacity = -(-(capacity + PREFILL_BUCKETS[0] - 1) // b0) * b0
+        return KVCache.create(replace(self.cfg, n_layer=1), batch, capacity, self.device)
+
+    def mtp_eval(self, ids: list[int], hidden: torch.Tensor, kv: KVCache, n_past: int):
+        """Run the MTP layer over (token, main hidden) pairs in bucket-padded
+        chunks: the warm-up over a prompt, and the refresh of accepted rows
+        (mtp_update_kv_cache). ``hidden`` (n, E). Returns (the last pair's
+        logits (V,), its MTP hidden (E,), kv, n_past)."""
+        logits = h_out = None
+        j = 0
+        for i, n, tokens in _chunks(ids, kv, n_past, self.device):
+            hid = torch.zeros((1, tokens.shape[1], hidden.shape[-1]), dtype=torch.float32,
+                              device=self.device)
+            hid[0, :n] = hidden[i:i + n].to(self.device)
+            logits, kv, h_out = llama_mod.mtp_forward(self.params, self.cfg, tokens, hid, kv,
+                                                      n_past + i)
+            j = n - 1                     # the last real position of this chunk
+        n_past += len(ids)
+        if logits is None:
+            return None, None, kv, n_past
+        return logits[0, j], h_out[0, j], kv, n_past
+
+    def eval_tokens_hidden(self, ids: list[int], kv, n_past: int = 0):
+        """eval_tokens with the pre-output-norm hidden state of every
+        position (the MTP layer's input, 'result_mtp_embd'). Returns
+        (logits (n, V), hidden (n, E) f32, kv, n_past) on the device."""
+        fwd = FORWARDS[self.cfg.arch]
+        if fwd is not llama_mod.forward:
+            raise NotImplementedError(f"the MTP hidden of arch {self.cfg.arch!r}: only "
+                                      "the llama graph carries NextN/MTP layers")
+        out_l, out_h = [], []
+        for i, n, tokens in _chunks(ids, kv, n_past, self.device):
+            logits, hid = fwd(self.params, self.cfg, tokens, kv, n_past + i,
+                              return_mtp_hidden=True)
+            out_l.append(logits[0, :n])
+            out_h.append(hid[0, :n])
+        return torch.cat(out_l), torch.cat(out_h), kv, n_past + len(ids)
+
+    # ------------------------------------------------- speculative verify ----
+    def _spec_verify(self, width: int):
+        """The greedy verify step: ``step(tokens (B, W), kv, n_past)`` runs
+        the block at T = W, with no bucket padding, so that W <= 16 stays on
+        the decode attention kernel; it writes the block's W rows at n_past
+        in place and returns the argmax of every position, (B, W) int64 on
+        the device, so that a caller reads back W ints a row and never the
+        (W, V) logits. Rejected rows need no rollback: n_past stays behind
+        them and the next step overwrites them."""
+        fwd = FORWARDS[self.cfg.arch]
+
+        def step(tokens: torch.Tensor, kv, n_past):
+            if tokens.shape[1] != width:
+                raise ValueError(f"verify block of width {tokens.shape[1]}, not {width}")
+            logits = fwd(self.params, self.cfg, tokens.to(self.device), kv, n_past)
+            return torch.argmax(logits, dim=-1)
+
+        return step
+
+    def _spec_loop(self, width: int, rounds: int, *, draft: str = "ngram",
+                   ngram_n: int = 4, table_bits: int = 16):
+        """``rounds`` greedy draft + verify rounds a call, the drafter on the
+        device: the JAX runtime's ``_spec_loop``, with the rounds driven
+        from the host. The JAX loop runs them in one jit; the port's cache
+        writes slice by the host ``n_past``, so each round reads back one
+        small int tensor (the verify's W argmaxes beside the W - 1
+        proposals). The hash table and the replay buffer stay on the
+        device, and the tokens, per-round counts and table are the JAX
+        loop's.
+
+        draft="ngram": an int32 table of 2**table_bits entries indexed by an
+        FNV-1a hash of the last ``ngram_n`` tokens, holding the token that
+        followed; a proposal chains W - 1 lookups, a miss proposes 0, and
+        every emitted token is inserted after its window.
+        draft="replay": the proposals stream from a continuation buffer
+        (padded with -1, which is always rejected).
+
+        Returns a callable:
+          ngram:  (table, win, cur, kv, n_past) -> (buf, counts, table, win, cur, kv, n_past)
+          replay: (replay, pos, cur, kv, n_past) -> (buf, counts, pos, cur, kv, n_past)
+        where buf (rounds * W,) int32 holds the sum(counts) new tokens
+        first, then -1, and counts (rounds,) int32 is each round's
+        emission count (1 + accepted); ``cur``, ``pos`` and ``n_past`` are
+        host ints."""
+        if self.recurrent:
+            raise NotImplementedError(
+                "the speculative loop needs a positional KV rewind; a recurrent model "
+                "takes generate_speculative")
+        if draft not in ("ngram", "replay"):
+            raise ValueError(f"unknown device draft kind {draft!r}")
+        w = width
+        verify = self._spec_verify(w)
+        dev = self.device
+
+        def round_(cur: int, proposal: torch.Tensor, kv, n_past: int):
+            """One verify of [cur | proposal]: the tokens it emits."""
+            # a -1 proposal is rejected at its position, so what the model
+            # reads there never reaches an emitted token
+            block = torch.cat([torch.tensor([cur], dtype=torch.int64, device=dev),
+                               proposal.clamp(min=0)])[None]
+            preds = verify(block, kv, n_past)[0]
+            host = torch.cat([preds, proposal]).tolist()       # the one readback
+            preds, prop = host[:w], host[w:]
+            n_acc = 0
+            while n_acc < w - 1 and preds[n_acc] == prop[n_acc]:
+                n_acc += 1
+            return preds[:n_acc + 1]
+
+        def finish(emitted: list):
+            buf = torch.full((rounds * w,), -1, dtype=torch.int32)
+            flat = [t for em in emitted for t in em]
+            buf[:len(flat)] = torch.tensor(flat, dtype=torch.int32)
+            return buf, torch.tensor([len(em) for em in emitted], dtype=torch.int32)
+
+        if draft == "ngram":
+            def loop(table, win, cur, kv, n_past):
+                win_h = [int(t) for t in win.tolist()]
+                emitted = []
+                for _ in range(rounds):
+                    wd = torch.tensor(win_h, dtype=torch.int64, device=dev)
+                    props = []
+                    for _ in range(w - 1):
+                        t = table[ngram_hash(wd, table_bits)].clamp(min=0).to(torch.int64)
+                        props.append(t)
+                        wd = torch.cat([wd[1:], t[None]])
+                    proposal = (torch.stack(props) if props
+                                else torch.zeros(0, dtype=torch.int64, device=dev))
+                    em = round_(cur, proposal, kv, n_past)
+                    upd = {}
+                    for tok in em:                 # insert each emitted token
+                        upd[ngram_hash(win_h, table_bits)] = tok
+                        win_h = win_h[1:] + [tok]
+                    table[torch.tensor(list(upd), device=dev)] = torch.tensor(
+                        list(upd.values()), dtype=table.dtype, device=dev)
+                    emitted.append(em)
+                    cur = em[-1]
+                    n_past += len(em)
+                buf, cs = finish(emitted)
+                return (buf, cs, table, torch.tensor(win_h, dtype=win.dtype, device=win.device),
+                        cur, kv, n_past)
+        else:
+            def loop(replay, pos, cur, kv, n_past):
+                emitted = []
+                for _ in range(rounds):
+                    em = round_(cur, replay[pos:pos + w - 1].to(torch.int64), kv, n_past)
+                    emitted.append(em)
+                    cur = em[-1]
+                    pos += len(em)
+                    n_past += len(em)
+                buf, cs = finish(emitted)
+                return buf, cs, pos, cur, kv, n_past
+        return loop
 
     def generate(self, prompt, max_new_tokens: int = 32,
                  sampler: SamplerParams | None = None, seed: int = 0,

@@ -709,12 +709,18 @@ def make_app(srv: Server):
     return app
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
+    """The server's command line."""
     ap = argparse.ArgumentParser(prog="ik_llama_cpp_tpu_torch.server")
     ap.add_argument("--gguf", required=True)
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8080)
     ap.add_argument("--parallel", type=int, default=4)
+    ap.add_argument("--spec",   # ngram | suffix | ngram-mod | ngram-cache | eagle3
+                    help="self-speculation stage for the decode loop "
+                         "(drafts verified in the shared batched step)")
+    ap.add_argument("--spec-n", type=int, default=8,
+                    help="draft tokens per speculative step")
     ap.add_argument("--ctx-size", type=int, default=2048)
     ap.add_argument("--cache-ram", "-cram", type=int, default=0,
                     help="RAM prompt-cache tier in MiB for evicted slot "
@@ -727,11 +733,16 @@ def main(argv=None):
                          "applied at startup")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the model and the cache (cpu for tests)")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
     web = _aiohttp_web()
     rt = Runtime.from_gguf(args.gguf, args.device,
                            kv_quant=False if args.cache_type == "bf16" else args.cache_type)
     engine = BatchEngine(rt, n_slots=args.parallel, capacity=args.ctx_size,
+                         spec=args.spec, spec_n=args.spec_n,
                          cache_ram_mib=args.cache_ram)
     engine.start()
     srv = Server(engine, model_name=str(args.gguf), api_key=args.api_key)

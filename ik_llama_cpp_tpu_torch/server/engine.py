@@ -23,11 +23,23 @@ slot's cached tokens; otherwise, and on a context shift's re-prefill, the
 slot's recurrent rows are zeroed and the prompt is prefilled from 0. The
 RAM prompt-cache tier is refused for such a model.
 
+Speculative drafting (``spec``: ngram, suffix, ngram-mod, ngram-cache,
+eagle3) gives each generating slot a host drafter; when any slot has a
+draft, the step verifies [last token | draft] of every row in one forward
+of width 1 + spec_n, each row at its own position, and emits tokens while
+they match the draft. A drafter serves one request: it is dropped when the
+request ends or the slot's context shifts, since its state indexes the
+slot's token list (the JAX engine keeps it, and a shorter list later makes
+SuffixDraft index past its end). Rejected K/V rows stay where they are:
+n_past does not advance past them, and the next forward overwrites them. A recurrent
+model keeps a copy of its conv tails and delta states before the verify
+and replays each partially accepting row's accepted prefix from it.
+
 An exception in the engine thread fails the requests it was serving: each
 carries the error text (``Request.error``) and ``n_failed`` counts them;
 the engine keeps serving.
 
-Speculative drafting, slot save/restore, the llguidance grammar kinds, lazy
+DFlash drafting, slot save/restore, the llguidance grammar kinds, lazy
 grammars, the allowlist, expiring logit biases, banned phrases, the
 reasoning budget, post-sampling probabilities and tensor/pipeline parallel
 serving are later slices: asking for one raises NotImplementedError.
@@ -49,6 +61,7 @@ from ..models import llama as llama_mod
 from ..models.llama import KVCache, MixedKVCache, SwaKVCache
 from ..models.qwen3next import HybridCache
 from ..runtime.generate import FORWARDS, PREFILL_BUCKETS, Runtime, _bucket, _chunk_limit
+from ..runtime.speculative import DRAFTERS
 from ..runtime.sampling import (SamplerParams, SamplerState,
                                 sample as sample_token, sample_topk,
                                 topk_chain_compatible)
@@ -113,6 +126,7 @@ class Slot:
     grammar: Any = None         # per-request GrammarSampler (stateful)
     t_start: float = 0.0
     t_first_token: float = 0.0
+    drafter: Any = None         # the slot's self-speculation drafter (spec)
 
 
 def _partial_stop_holdback(text: str, stops) -> int:
@@ -250,8 +264,13 @@ class BatchEngine:
     def __init__(self, runtime: Runtime, n_slots: int = 4, capacity: int = 2048,
                  spec: str | None = None, spec_n: int = 8,
                  cache_ram_mib: int = 0):
-        if spec:
-            llama_mod._later("speculative drafting in the server", "runtime extras (item 7)")
+        if spec and spec.startswith("dflash:"):
+            llama_mod._later("DFlash drafting (the dflash draft model)",
+                             "other architectures (item 8)")
+        if spec and spec not in DRAFTERS:
+            raise ValueError(f"unknown speculative stage {spec!r}: one of {sorted(DRAFTERS)}")
+        self.spec = spec or None
+        self.spec_n = spec_n
         self.rt = runtime
         self.cfg = runtime.cfg
         self.device = runtime.device
@@ -285,6 +304,9 @@ class BatchEngine:
         self.n_prefill_forwards = 0
         self.n_requests = 0
         self.n_failed = 0
+        self.n_draft_proposed = 0
+        self.n_draft_accepted = 0
+        self.n_spec_steps = 0
 
     # ---------------------------------------------------------------- loop
     def start(self):
@@ -482,6 +504,7 @@ class BatchEngine:
         slot.req = None
         slot.state = SlotState.IDLE
         slot.cache_tokens = []      # its rows may be half written
+        slot.drafter = None
 
     def _emit_token(self, slot: Slot, logits: np.ndarray | None, topk=None):
         req = slot.req
@@ -562,6 +585,7 @@ class BatchEngine:
             slot.cache_tokens = slot.tokens[:slot.n_past]
             slot.state = SlotState.IDLE
             slot.req = None
+            slot.drafter = None       # its state indexes this request's tokens
 
     def _slot_topk_ok(self, s: Slot) -> bool:
         """Eligibility for the top-k readback decode: the sampler chain must
@@ -618,7 +642,18 @@ class BatchEngine:
         gen = [s for s in self.slots if s.state == SlotState.GENERATING]
         if not gen:
             return bool(prefills)
-        self._decode(gen)
+        drafts = {}
+        if self.spec is not None:
+            for s in gen:
+                if s.drafter is None:
+                    s.drafter = DRAFTERS[self.spec]()
+                d = s.drafter.propose(s.tokens, self.spec_n) or []
+                if d:
+                    drafts[s.idx] = list(d[:self.spec_n])
+        if drafts and all(s.n_past + self.spec_n + 2 < self.capacity for s in gen):
+            self._decode_speculative(gen, drafts)
+        else:
+            self._decode(gen)
         return True
 
     def _run_loop_inner(self):
@@ -654,6 +689,71 @@ class BatchEngine:
             else:
                 self._emit_token(s, logits_np[s.idx])
 
+    def _decode_speculative(self, gen: list, drafts: dict):
+        """Verify the drafts in one forward over every row: a generating row
+        carries [last token | draft], its length the row's ``n_valid``; an
+        idle row writes junk at its _junk_row. The token sampled at
+        position j is accepted while it equals draft[j]
+        (server-context.cpp:3564-3599). The step's capacity rule keeps every
+        row's n_past below capacity - 1, so no context shift falls inside a
+        block. A recurrent model's partially accepting rows are then
+        replayed from the pre-verify checkpoint (``_fix_recurrent_state``)."""
+        w = 1 + self.spec_n
+        toks = np.zeros((self.n_slots, w), np.int64)
+        n_past = [self._junk_row(s, w) for s in self.slots]
+        n_valid = [0] * self.n_slots
+        for s in gen:
+            d = drafts.get(s.idx, [])
+            toks[s.idx, 0] = s.tokens[-1]
+            toks[s.idx, 1:1 + len(d)] = d
+            n_past[s.idx] = s.n_past
+            n_valid[s.idx] = 1 + len(d)
+        ckpt = self.kv.checkpoint() if self.rt.recurrent else None
+        use_topk = all(self._slot_topk_ok(s) for s in gen)
+        logits = self._forward(toks, self.kv, n_past, n_valid)       # (B, W, V)
+        self.n_decode_steps += 1
+        self.n_spec_steps += 1
+        if use_topk:
+            # B x W x (K+1) floats read back instead of B x W x V
+            self.n_topk_steps += 1
+            vals, idx, lse = topk_readback(logits, min(TOPK_FETCH, self.cfg.n_vocab))
+        else:
+            logits_np = logits.cpu().numpy()
+        consumed = {}
+        for s in gen:
+            d = drafts.get(s.idx, [])
+            self.n_draft_proposed += len(d)
+            pos = acc = 0
+            while s.state == SlotState.GENERATING:
+                s.n_past += 1         # the row of the token at pos is written
+                prev = len(s.tokens)
+                if use_topk:
+                    self._emit_token(s, None, topk=(vals[s.idx, pos], idx[s.idx, pos],
+                                                    float(lse[s.idx, pos])))
+                else:
+                    self._emit_token(s, logits_np[s.idx, pos])
+                if pos >= len(d) or len(s.tokens) == prev or s.tokens[prev] != d[pos]:
+                    break
+                self.n_draft_accepted += 1
+                acc += 1
+                pos += 1
+            if hasattr(s.drafter, "accept"):
+                s.drafter.accept(acc)
+            consumed[s.idx] = 1 + acc
+        if ckpt is not None:
+            self._fix_recurrent_state(ckpt, toks, n_past, n_valid, consumed)
+
+    def _fix_recurrent_state(self, ckpt, toks, n_past, n_valid, consumed):
+        """Each generating row that consumed fewer tokens than its verify
+        fed the state: its conv tail and delta state go back to the
+        checkpoint and take its accepted prefix again, in one forward of
+        that row alone (the K/V rows it writes are the verify's own)."""
+        for i, c in consumed.items():
+            if c >= n_valid[i]:
+                continue
+            self.kv.restore(ckpt, i)
+            self._forward(toks[i:i + 1, :c], cache_rows(self.kv, i), [n_past[i]], [c])
+
     def _context_shift(self, slot: Slot) -> bool:
         """Out of cache: keep the prompt head, discard the oldest half of
         the rest. A shiftable model with a bf16 cache K-shifts the slot's
@@ -673,6 +773,7 @@ class BatchEngine:
         kept = (slot.tokens[:n_keep]
                 + slot.tokens[n_keep + n_discard:])
         slot.n_shifts += 1
+        slot.drafter = None           # its state indexes the tokens before the shift
         if can_shift(self.cfg) and not self.rt.kv_quant:
             _, new_past = k_shift(cache_rows(self.kv, slot.idx), self.cfg,
                                   n_keep, n_discard, slot.n_past)
@@ -728,5 +829,9 @@ class BatchEngine:
             f"llamacpp:topk_decode_steps_total {self.n_topk_steps}",
             "# TYPE llamacpp:decode_steps_total counter",
             f"llamacpp:decode_steps_total {self.n_decode_steps}",
+            "# TYPE llamacpp:draft_tokens_total counter",
+            f"llamacpp:draft_tokens_total {self.n_draft_proposed}",
+            "# TYPE llamacpp:draft_tokens_accepted_total counter",
+            f"llamacpp:draft_tokens_accepted_total {self.n_draft_accepted}",
         ]
         return "\n".join(lines) + "\n"

@@ -182,8 +182,10 @@ def test_rms_norm_bias_is_refused(tmp_path):
 
 def test_mtp_blocks_are_loaded_not_run(tmp_path):
     """A trailing NextN block goes into params["mtp_blocks"] with the glue
-    the JAX loader takes, and the main stack keeps block_count layers; its
-    forward is refused with its queue item."""
+    the JAX loader takes, and the main stack keeps block_count layers. Its
+    forward runs since the speculative slice (held to the JAX package in
+    test_torch_mtp.py); the forward's per-layer hiddens still name their
+    queue item."""
     path = F.make_tiny_moe2_gguf(tmp_path / "nx.gguf", arch="glm4moe", nextn=1)
     jr = JG.Runtime.from_gguf(path)
     tr = TG.Runtime.from_gguf(path, device="cpu")
@@ -191,5 +193,9 @@ def test_mtp_blocks_are_loaded_not_run(tmp_path):
     (jm,), (tm,) = jr.params["mtp_blocks"], tr.params["mtp_blocks"]
     assert set(tm) == set(jm) and {"eh_proj", "enorm", "hnorm"} <= set(tm)
     np.testing.assert_array_equal(tm["enorm"].numpy(), np.asarray(jm["enorm"]))
+    lg, _, hid = TLM.mtp_forward(tr.params, tr.cfg, torch.tensor([[5, 6]]),
+                                 torch.zeros(1, 2, tr.cfg.n_embd), tr.new_mtp_cache(1, 16), 0)
+    assert lg.shape == (1, 2, tr.cfg.n_vocab) and hid.shape == (1, 2, tr.cfg.n_embd)
     with pytest.raises(NotImplementedError, match="item 7"):
-        TLM.mtp_forward(tr.params, tr.cfg)
+        TLM.forward(tr.params, tr.cfg, torch.tensor([[5, 6]]), tr.new_cache(1, 16), 0,
+                    return_layer_hiddens=True)

@@ -76,6 +76,7 @@ def test_port_files_cover_every_subpackage():
     assert PORT / "server" / "app.py" in _port_files()
     assert PORT / "models" / "qwen3next.py" in _port_files()
     assert PORT / "ops" / "delta_net.py" in _port_files()
+    assert PORT / "runtime" / "speculative.py" in _port_files()
 
 
 def test_runtime_defaults_to_cuda(tmp_path):

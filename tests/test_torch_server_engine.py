@@ -414,8 +414,8 @@ def test_later_slices_raise(rt, kw):
 
 
 def test_later_engine_options_raise(rt):
-    with pytest.raises(NotImplementedError, match="speculative"):
-        BatchEngine(rt, n_slots=1, capacity=64, spec="ngram")
+    with pytest.raises(NotImplementedError, match="DFlash"):
+        BatchEngine(rt, n_slots=1, capacity=64, spec="dflash:draft.gguf")
     eng = BatchEngine(rt, n_slots=1, capacity=64)
     with pytest.raises(NotImplementedError, match="slot save"):
         eng.save_slot(0, "never-written.bin")
