@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21,22,23]
 
 Phases (all by default; any failure exits non-zero):
   1. device: the card's name and power limit; TF32 off for the plain versions
@@ -42,14 +42,15 @@ Phases (all by default; any failure exits non-zero):
      launch counts, a decode profile (the M <= 16 kernel a step, the idle
      share) and a prefill profile (the tiled kernel)
   7. MoE end to end at the full width of Qwen3-30B-A3B (E2048 H32 KV4
-     D128, 128 experts top-8 FF768, V151936, at 24 of its 48 layers, L7;
+     D128, 128 experts top-8 FF768, V151936, at 16 of its 48 layers, L7;
      Q4_0 attention and experts,
      Q8_0 embedding and untied head, random blocks from a seed): load,
      prefill 512, decode 64, with every kernel launch counted, then the
      decode profile (kernels 7's and 8's share of a step) and a prefill
      chunk's (kernels 9 and 10; it fails if 10 launched but shows no time)
   8. MoE parity at depth 2: kernel path against the plain path on the card
-  9. quantized KV cache end to end at the full width of phase 4: q8 (prefill
+  9. quantized KV cache end to end at the full width of phase 4 (16 of its
+     32 layers, L9): q8 (prefill
      512, decode 64, launch counts, decode profile), then q4, q6, nl4, q8
      with the K/V Hadamard rotation and a per-layer codec dict on the same
      weights; a q8 cache and a bf16 one of capacity 4,096 filled with 3,999
@@ -96,7 +97,7 @@ Phases (all by default; any failure exits non-zero):
  17. the llama-graph family: Gemma-3-12B at full width (gemma3: E3840
      H16 KV8 D256 FF15360, V262208 tied, a 1,024-key window on all layers
      but each sixth, QK-norms, sandwich norms, GELU; Q4_0 linears, a Q8_0
-     embedding, random blocks from a seed, one block cloned to 24 of its 48
+     embedding, random blocks from a seed, one block cloned to 16 of its 48
      layers, L17): a 3,999-token prefill in
      chunks and 64 greedy decode steps at 4,000 cached tokens, with the
      A/B/C launch counts and a decode profile; the same decode over
@@ -132,7 +133,7 @@ Phases (all by default; any failure exits non-zero):
      heads of 128 with conv kernel 4, 512 experts top-10 of FF 512 and a
      sigmoid-gated shared expert, V151936; Q4_0 linears and experts, Q8_0
      embedding and head, random blocks from seed 0; four blocks, three
-     delta-net and one attention, cloned to 24 layers) on the recurrent
+     delta-net and one attention, cloned to 12 layers) on the recurrent
      HybridCache: a 1,024-token prefill in two chunks, 64 greedy decode
      steps, the launches of kernels A, B, C, 7, 8, 9 and 10 a chunk and a
      step, decode and prefill profiles, the delta-net recurrence's eager ms
@@ -174,6 +175,33 @@ Phases (all by default; any failure exits non-zero):
      fresh evaluation), the launches, the one-history gate, the verify's
      and the MTP draft step's device ms and launches, and the MTP layer's
      logits and hidden against the plain path on the same main hiddens
+ 22. the mamba family: Mamba-2.8B at full width (state-spaces/mamba-2.8b-hf:
+     E2560, d_inner 5120, state 16, conv 4, dt rank 160, V50280 tied; Q4_0
+     ssm_in / ssm_out, a Q8_0 tied embedding, f32 conv, ssm_x, ssm_dt, A, D
+     and norms, random from seed 0; one block cloned to 64 layers) on the
+     recurrent MambaCache: a 512-token prefill and 64 greedy decode steps
+     with every kernel launch counted (A 129 a chunk and a step), decode
+     and prefill profiles, the scan's device and host ms a layer, peak
+     memory; a one-history parity against the plain path; a padded chunk's
+     state against the unpadded chunk's, bit for bit; two greedy requests on
+     a 2-slot BatchEngine, each held to the runtime's greedy tokens;
+     generate_speculative with a replay draft (its tokens the plain greedy
+     ones) and with a drafter wrong at the third token (the checkpoint's
+     restore). Phase 3 adds row 1b: kernel A at ssm_in, ssm_out and the
+     tied head, M 1 and 512
+ 23. LoRA and perplexity on the dense path at the full width of phase 4
+     (L32, loaded with q/k/v and gate/up unfused): a rank-16, alpha-32
+     adapter on all seven projections of every layer (written by
+     runtime/lora.write_lora_gguf, random from seed 23): prefill 512 and 64
+     decode steps with it (A 225 a step), A's kernel ms beside the low-rank
+     products' ms a step (a profiled step with the adapter less one without); a one-history parity of the adapted kernel path
+     against the adapted plain path; at scale 0 and after strip_lora the
+     logits equal the unadapted model's bit for bit, and the adapter moves
+     them by more than 1% of the largest logit; a Server with --lora
+     answering GET /lora-adapters, a completion, POST scale 0 and a
+     completion that equals the base model's; compute_perplexity over
+     smoke_text at n_ctx 512 with and without the adapter, the adapted
+     kernel path within 2% of the adapted plain path
 The line before the last lists every ported kernel as JSON; the last line is
 {"ok": true, "device": {...}}. Without CUDA, or without the package beside
 this file, it exits non-zero and prints no result.
@@ -257,17 +285,21 @@ LONG18, DECODE18 = 4000, 64      # phase 18's cached tokens and decode steps
 # 1e7), gated delta-net linear attention on the others (16 k heads / 32 v
 # heads of 128, conv kernel 4), 512 experts top-10 of FF 512 and a
 # sigmoid-gated shared expert of FF 512, vocab 151,936, an untied head.
-# Phase 19 runs it at 24 layers: the int8 experts take ~1.64 GB a layer
-QNEXT = dict(ARCH="qwen3next", L=48, LRUN=24, E=2048, H=16, HKV=2, D=256, ROPE_DIM=64,
+# Phase 19 runs it at 12 layers: the int8 experts take ~1.64 GB a layer
+QNEXT = dict(ARCH="qwen3next", L=48, LRUN=12, E=2048, H=16, HKV=2, D=256, ROPE_DIM=64,
              ROPE=1e7, HK=16, HV=32, DK=128, DV=128, CONV=4, G=512, TOPK=10, FF=512,
              FFS=512, V=151936, CTX=262144)
 QNEXT_GGUF_VERSION = "port-20"
 PREFILL19, DECODE19 = 1024, 64   # phase 19's prefill (two chunks) and decode steps
-# phases 7 and 17 run their models' published widths at 24 of their 48
-# layers, so that the whole script stays inside its time limit beside
-# phase 19 (with both at 48 layers a full run took 1,068 s of its 1,200 on
-# an H100 80GB HBM3 at 700 W)
-L7 = L17 = 24
+# phases 7 and 17 run their models' published widths at 16 of their 48
+# layers, and phase 19 at 12, so that the whole script stays inside its
+# time limit on a slow host (with 7 and 17 at 24 layers and 19 at 24 a full
+# run took 977-993 s of its 1,200 on an H100 80GB HBM3 at 700 W, and
+# 1,296 s on a host ~30% slower)
+L7 = L17 = 16
+# phase 9 runs the dense model's published width at 16 of its 32 layers
+# over every KV codec (at 32 it took 148-201 s of a full run)
+L9 = 16
 # kernel A's (K, N) on the Qwen3-Next path: ssm_in, the gated wq, ssm_out
 # (and wo), the head, wk / wv and the shared expert's gate / up, its down
 A_QNEXT_SHAPES = [(2048, 12288), (2048, 8192), (4096, 2048), (2048, 151936), (2048, 512),
@@ -294,6 +326,16 @@ A_GLM_SHAPES = [(4096, 12288), (4096, 1024), (12288, 4096), (4096, 2 * 10944), (
                 (4096, 151552), (8192, 4096)]
 # the rows of phase 21's verify chunks: W = 4 and 9 padded to 8 and 16
 GLM_VERIFY_ROWS = (8, 16)
+# Mamba-2.8B (state-spaces/mamba-2.8b-hf's config.json): 64 layers, hidden
+# 2560, expand 2 (d_inner 5120), state 16, conv kernel 4, dt rank 160
+# (hidden / 16), rms eps 1e-5, vocab 50,280, tied embeddings
+MAMBA = dict(ARCH="mamba", L=64, E=2560, DI=5120, DS=16, CONV=4, DTR=160, V=50280,
+             EPS=1e-5)
+MAMBA_GGUF_VERSION = "port-22"
+# kernel A's (K, N) on the Mamba-2.8B path: ssm_in, ssm_out, the tied head
+A_MAMBA_SHAPES = [(2560, 10240), (5120, 2560), (2560, 50280)]
+# phase 23's adapter on the dense model of phase 4: rank and alpha
+LORA_RANK, LORA_ALPHA = 16, 32.0
 
 
 def log(msg: str) -> None:
@@ -656,7 +698,12 @@ def phase_kernels(torch, timer, results) -> bool:
     # decode and MTP draft step, the verify chunks and MTP refresh padded to
     # 8 and 16 rows, and the prefill chunk
     a_cases += [(k, n, (1,) + GLM_VERIFY_ROWS + (512,)) for k, n in A_GLM_SHAPES]
+    # rows 1b: Mamba-2.8B's ssm_in, ssm_out and tied head (phase 22) at the
+    # decode step and the prefill chunk
+    a_cases += [(k, n, (1, 512)) for k, n in A_MAMBA_SHAPES]
     for k, n, ms in a_cases:
+        if (k, n) == A_MAMBA_SHAPES[0]:
+            log("[3] rows 1b: kernel A at Mamba-2.8B's ssm_in, ssm_out and tied head")
         codes_t = torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
                                 dtype=torch.int8)
         sw = torch.rand((k // 256, n), generator=gen, device="cuda") * 1e-3
@@ -3215,13 +3262,13 @@ def phase_kvq(torch, gguf: Path, launches: dict) -> bool:
     from ik_llama_cpp_tpu_torch.runtime import kshift
     from ik_llama_cpp_tpu_torch.runtime.generate import Runtime
     t_phase = time.perf_counter()
-    rt = clone_layers(Runtime.from_gguf(gguf, fuse=True, kv_quant="q8"), NL)
+    rt = clone_layers(Runtime.from_gguf(gguf, fuse=True, kv_quant="q8"), L9)
     torch.cuda.synchronize()
-    log(f"[9] loaded L{NL} E{E} H{H} KV{HKV} FF{FF} V{V} with kv_quant='q8' in "
+    log(f"[9] loaded L{L9} E{E} H{H} KV{HKV} FF{FF} V{V} with kv_quant='q8' in "
         f"{time.perf_counter() - t_phase:.1f} s; linears {_linear_kinds(rt)}")
     base_cfg = rt.cfg
     rng = np.random.default_rng(6)
-    per = 4 * NL + 1
+    per = 4 * L9 + 1
     ok = True
     mixed = {"type": "q4", "first": "q8", "last": "q8"}
     runs = [("q8", "q8", False, DECODE), ("q4", "q4", False, DECODE),
@@ -3239,14 +3286,14 @@ def phase_kvq(torch, gguf: Path, launches: dict) -> bool:
         logits, toks, kv, n_past, pre_s, dec_s = timed_run(torch, rt, ids, n_dec)
         counts = read_counts()
         peak = torch.cuda.max_memory_allocated() / 2**30
-        n_q8 = NL if quant == "q8" else (2 if isinstance(quant, dict) else 0)
+        n_q8 = L9 if quant == "q8" else (2 if isinstance(quant, dict) else 0)
         want = dict.fromkeys(counts, 0)
         want["qmatmul_i8"] = per * (1 + n_dec)
         if quant:       # prefill: kernel 6 on q8 layers, dequantize + kernel B on the others
-            want.update({"flash_attention_q8": n_q8, "flash_attention": NL - n_q8,
-                         "flash_attention_decode_q8": NL * n_dec})
+            want.update({"flash_attention_q8": n_q8, "flash_attention": L9 - n_q8,
+                         "flash_attention_decode_q8": L9 * n_dec})
         else:
-            want.update({"flash_attention": NL, "flash_attention_decode": NL * n_dec})
+            want.update({"flash_attention": L9, "flash_attention_decode": L9 * n_dec})
         good = counts == want
         finite = bool(torch.isfinite(logits).all())
         in_range = bool(((toks >= 0) & (toks < V)).all())
@@ -3289,13 +3336,13 @@ def phase_kvq(torch, gguf: Path, launches: dict) -> bool:
     err = float((lk[0] - lp[0]).abs().max())
     scale = float(lp[0].abs().max())
     _, text = parity_verdict(lk, lp)
-    shift_ok = (n1 == n2 == n_q8_past - n_discard and launched == NL * (steps + 1)
+    shift_ok = (n1 == n2 == n_q8_past - n_discard and launched == L9 * (steps + 1)
                 and err <= 5e-2 * scale and bool(torch.isfinite(lk).all()))
     log(f"[9] k_shift(n_keep {n_keep}, n_discard {n_discard}) on the q8 cache: n_past "
         f"{n_q8_past} -> {n1}; {steps + 1} more decode steps, kernel 5 launched {launched} "
         f"times; against the same shift and the same tokens by the plain path: first-step "
         f"logits max_abs_err {err:.3e} (max |logit| {scale:.3f}, tol 5% of it: the gate at "
-        f"depth {NL}); all steps: {text}: {'ok' if shift_ok else 'FAIL'}")
+        f"depth {L9}); all steps: {text}: {'ok' if shift_ok else 'FAIL'}")
     ok &= shift_ok
     del rt, kv_q8, kv_plain
     torch.cuda.empty_cache()
@@ -3338,11 +3385,11 @@ def kvq_long_context(torch, rt, base_cfg, rng) -> bool:
                               top=6)
         n = read_counts()[key]
         ms[name] = kernel_ms(prof, kname)
-        good = (n == NL * 10 and kv.capacity == 4096 and bool(torch.isfinite(logits).all())
-                and fill_n[name] > 0 and fill_n[name] % NL == 0 and fill_ms[name] > 0)
+        good = (n == L9 * 10 and kv.capacity == 4096 and bool(torch.isfinite(logits).all())
+                and fill_n[name] > 0 and fill_n[name] % L9 == 0 and fill_ms[name] > 0)
         log(f"[9] {name} cache, capacity {kv.capacity}, {n_past} tokens prefilled: {key} "
             f"{ms[name]:.3f} ms a decode step at {n_past + 1}-{n_past + 8} keys, "
-            f"{n} launches in 10 steps (expected {NL * 10}): {'ok' if good else 'FAIL'}")
+            f"{n} launches in 10 steps (expected {L9 * 10}): {'ok' if good else 'FAIL'}")
         ok &= good
         del kv
     log(f"[9] decode at {LONG} keys: kernel 5 {ms['q8']:.3f} ms a step over the q8 cache, "
@@ -4281,7 +4328,7 @@ def serve_interleaved(torch, rt, seed: int, n_predict: int = 24):
 
 def phase_qnext(torch, launches: dict, card: str, replay: dict) -> bool:
     """Phase 19: the hybrid gated-delta-net family. Qwen3-Next-80B-A3B at
-    full width, 24 layers (18 delta-net, 6 attention), on the recurrent
+    full width, 12 layers (9 delta-net, 3 attention), on the recurrent
     HybridCache: the load, a 1,024-token prefill in two chunks and 64
     greedy decode steps with every kernel launch counted, decode and
     prefill profiles, the delta-net recurrence's eager ms, two requests on
@@ -4982,10 +5029,10 @@ def forced_mtp_run(torch, rt, ids: list, plain: list, n_new: int, cap: int):
 
 
 def recurrent_rollback(torch, rt, seed: int = 193, n_prompt: int = 256, n_new: int = 12):
-    """Phase 19's speculative check: generate_speculative's host loop on the
-    loaded hybrid model with a drafter wrong at the third token of every
-    proposal, so each round accepts in part and restores the conv tails
-    and delta states it cloned before the verify. Its state must equal a
+    """Phases 19's and 22's speculative check: generate_speculative's host
+    loop on a loaded recurrent model with a drafter wrong at the third
+    token of every proposal, so each round accepts in part and restores
+    the conv tails and recurrent states it cloned before the verify. Its state must equal a
     plain run's over the accepted tokens in the same chunks (the prompt,
     then each round's accepted block) to 1e-5 of the largest value; the
     error to one unchunked evaluation is printed beside. Returns (ok,
@@ -5012,7 +5059,7 @@ def recurrent_rollback(torch, rt, seed: int = 193, n_prompt: int = 256, n_new: i
     one = rt.new_cache(1, cap)
     rt.eval_tokens(ids + out[:fed], one, 0)
     errs = {}
-    for f in ("state", "conv"):
+    for f in (f for f in type(kv).ROW_FIELDS if f not in ("k", "v")):
         mine, want = getattr(kv, f), getattr(ref, f)
         errs[f] = (float((mine - want).abs().max()), float(want.abs().max()),
                    float((mine - getattr(one, f)).abs().max()))
@@ -5030,6 +5077,485 @@ def recurrent_rollback(torch, rt, seed: int = 193, n_prompt: int = 256, n_new: i
                             f"unchunked evaluation {u:.3e})" for f, (e, m, u) in errs.items())
                 + f"; the checkpoint clone: {nbytes / 2**20:.1f} MiB in {clone_ms:.4f} ms "
                 f"(CUDA events); step-by-step replay: {text}")
+
+
+# ------------------------------------------- phases 22-23: mamba, LoRA, perplexity --
+def build_mamba_gguf(path: Path, c: dict = MAMBA) -> Path:
+    """One block of Mamba at the width ``c``, quantized as llama.cpp's
+    quantizer leaves such a model (it does not quantize Mamba's small 2D
+    weights): Q4_0 ssm_in / ssm_out, a Q8_0 tied token_embd, and float32
+    conv kernel and bias, ssm_x, ssm_dt and its bias, A, D and norms.
+    Mamba's initialization from seed 0: A = -(1 .. state) on every row
+    (A_log = log(1 .. 16)), D = 1, the dt bias the inverse softplus of a dt
+    drawn log-uniform in [1e-3, 0.1], the conv kernel and bias uniform in
+    +-1/sqrt(conv), ssm_x and ssm_dt at 1/sqrt(fan-in). Cached beside a
+    .meta; the block clones to any depth (clone_layers)."""
+    from ik_llama_cpp_tpu_torch.gguf.constants import GGMLType
+    from ik_llama_cpp_tpu_torch.gguf.writer import GGUFWriter
+    meta = json.dumps(dict(v=MAMBA_GGUF_VERSION, **c))
+    mpath = path.with_suffix(".meta")
+    if path.exists() and mpath.exists() and mpath.read_text() == meta:
+        return path
+    path.parent.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(0)
+    arch, e, di, ds, dtr, v = c["ARCH"], c["E"], c["DI"], c["DS"], c["DTR"], c["V"]
+    w = GGUFWriter(str(path), arch=arch)
+    for key, val in (("block_count", 1), ("context_length", 1 << 20),
+                     ("embedding_length", e), ("feed_forward_length", 0),
+                     ("attention.head_count", 0), ("attention.head_count_kv", 0),
+                     ("attention.layer_norm_rms_epsilon", c["EPS"]),
+                     ("ssm.conv_kernel", c["CONV"]), ("ssm.inner_size", di),
+                     ("ssm.state_size", ds), ("ssm.time_step_rank", dtr), ("vocab_size", v)):
+        w.add(f"{arch}.{key}", val)
+    w.add("tokenizer.ggml.model", "gpt2")
+    w.add("tokenizer.ggml.tokens", [f"<t{i}>" for i in range(v)])
+    w.add("tokenizer.ggml.token_type", np.ones(v, np.int32))
+    w.add("tokenizer.ggml.eos_token_id", 0)
+
+    def q(name, rows, cols, ttype=GGMLType.Q4_0):
+        w.add_tensor(name, _rand_blocks(rng, rows, cols, ttype), shape=(cols, rows),
+                     ggml_type=ttype)
+
+    def f32(name, a):
+        w.add_tensor(name, np.ascontiguousarray(a, dtype=np.float32))
+
+    q("token_embd.weight", v, e, GGMLType.Q8_0)
+    f32("output_norm.weight", np.ones(e))
+    p = "blk.0."
+    f32(p + "attn_norm.weight", np.ones(e))
+    q(p + "ssm_in.weight", 2 * di, e)
+    bound = 1.0 / np.sqrt(c["CONV"])
+    f32(p + "ssm_conv1d.weight", rng.uniform(-bound, bound, (di, c["CONV"])))
+    f32(p + "ssm_conv1d.bias", rng.uniform(-bound, bound, di))
+    f32(p + "ssm_x.weight", rng.standard_normal((dtr + 2 * ds, di)) / np.sqrt(di))
+    f32(p + "ssm_dt.weight", rng.uniform(-1.0, 1.0, (di, dtr)) / np.sqrt(dtr))
+    dt = np.exp(rng.uniform(np.log(1e-3), np.log(0.1), di))
+    f32(p + "ssm_dt.bias", dt + np.log(-np.expm1(-dt)))
+    f32(p + "ssm_a", -np.tile(np.arange(1, ds + 1), (di, 1)))
+    f32(p + "ssm_d", np.ones(di))
+    q(p + "ssm_out.weight", e, di)
+    w.write()
+    mpath.write_text(meta)
+    return path
+
+
+def load_mamba(torch, c: dict, n_layer: int, device="cuda"):
+    """c's one-block file built (or found) under build/, loaded through
+    Runtime.from_gguf and cloned into n_layer distinct device blocks.
+    Returns (runtime, file s, load s)."""
+    from ik_llama_cpp_tpu_torch.runtime.generate import Runtime
+    t0 = time.perf_counter()
+    gguf = build_mamba_gguf(ROOT / "build" / "smoke_mamba.gguf", c)
+    t1 = time.perf_counter()
+    rt = clone_layers(Runtime.from_gguf(gguf, device), n_layer)
+    sync(torch)
+    return rt, t1 - t0, time.perf_counter() - t1
+
+
+def scan_ms(torch, c: dict, t: int) -> tuple:
+    """One layer's selective scan alone at T tokens on the card, every
+    position live: (the host's wall ms a call around a synchronize; one
+    call's device ms by CUDA events, enqueued behind a ~50 ms device sleep
+    that covers its launches)."""
+    from ik_llama_cpp_tpu_torch.models.mamba import _selective_scan
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    di, ds = c["DI"], c["DS"]
+    x = torch.randn((1, t, di), generator=gen, device="cuda")
+    dt = torch.randn((1, t, di), generator=gen, device="cuda") - 4.0
+    a = -torch.arange(1, ds + 1, dtype=torch.float32, device="cuda").repeat(di, 1)
+    b = torch.randn((1, t, ds), generator=gen, device="cuda")
+    cc = torch.randn((1, t, ds), generator=gen, device="cuda")
+    state = torch.zeros((1, di, ds), device="cuda")
+
+    def call():
+        return _selective_scan(x, dt, a, b, cc, state, None)
+
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    s.record()
+    call()
+    e.record()
+    e.synchronize()
+    return host, s.elapsed_time(e)
+
+
+def range_ms(torch, fn, name: str) -> tuple:
+    """fn run once under torch.profiler with host and device activity: the
+    record_function range ``name``'s calls, its host ms a call and the
+    device ms a call of the kernels launched inside it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.key == name and e.device_type == DeviceType.CPU]
+    n = sum(e.count for e in rows)
+    host = sum(e.cpu_time_total for e in rows) / 1e3
+    dev = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
+              for e in rows) / 1e3
+    return n, host / max(n, 1), dev / max(n, 1)
+
+
+def held_to(torch, rt, prompt: list, got: list, want: list) -> tuple:
+    """(ok, text): ``got`` equals the runtime's greedy tokens ``want``, or
+    parts from them at a near-tie: where they first differ, the runtime's
+    top-2 logits (one evaluation of the prompt and want's tokens before that
+    step) lie within 1% of its largest |logit|."""
+    if got == want:
+        return True, f"all {len(got)} tokens the runtime's greedy tokens"
+    i = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), min(len(got), len(want)))
+    if i >= min(len(got), len(want)):
+        return False, f"{len(got)} tokens against the runtime's {len(want)}"
+    seq = prompt + want[:i]
+    lg = rt.eval_tokens(seq, rt.new_cache(1, len(seq) + 16), 0)[0][-1]
+    top2 = lg.topk(2).values
+    gap = float(top2[0] - top2[1]) / float(lg.abs().max())
+    return gap <= 1e-2, (f"the runtime's greedy tokens up to step {i} of {len(want)}, where "
+                         f"its top-2 gap is {100 * gap:.3f}% of its largest |logit| "
+                         f"(a near-tie below 1%)")
+
+
+def padded_state(torch, rt, seed: int, n_live: int = 13, n_prefix: int = 64) -> tuple:
+    """A chunk of n_live tokens after an n_prefix-token prefix, evaluated
+    unpadded, padded with zeros to a 16-token bucket at n_valid n_live, and
+    padded with other tokens at n_valid n_live: the three conv tails and
+    scan states bit for bit (and without n_valid the padding reaches the
+    state). Returns (ok, text)."""
+    from ik_llama_cpp_tpu_torch.runtime.generate import FORWARDS
+    fwd = FORWARDS[rt.cfg.arch]
+    rng = np.random.default_rng(seed)
+    v = rt.cfg.n_vocab
+    prefix = torch.tensor([[int(x) for x in rng.integers(3, v, n_prefix)]], device=rt.device)
+    live = [int(x) for x in rng.integers(3, v, n_live)]
+    other = [int(x) for x in rng.integers(3, v, 16 - n_live)]
+    kvs = [rt.new_cache(1, 64) for _ in range(4)]
+    for kv in kvs:
+        fwd(rt.params, rt.cfg, prefix, kv, 0)
+    same_prefix = all(torch.equal(k.ssm, kvs[0].ssm) for k in kvs[1:])
+    for kv, (toks, nv) in zip(kvs, ((live, None), (live + [0] * (16 - n_live), n_live),
+                                    (live + other, n_live), (live + other, None))):
+        fwd(rt.params, rt.cfg, torch.tensor([toks], device=rt.device), kv, n_prefix, n_valid=nv)
+    a, b, c, d = kvs
+    pad_same = torch.equal(b.conv, c.conv) and torch.equal(b.ssm, c.ssm)
+    unpadded_same = torch.equal(a.conv, b.conv) and torch.equal(a.ssm, b.ssm)
+    err = max(float((a.ssm - b.ssm).abs().max()), float((a.conv - b.conv).abs().max()))
+    reached = float((d.ssm - a.ssm).abs().max())
+    ok = same_prefix and pad_same and unpadded_same and reached > 0
+    return ok, (f"{n_live} live tokens of a 16-token bucket after a {n_prefix}-token prefix "
+                f"(the prefix's state bit for bit the same in four caches: {same_prefix}): "
+                f"state bit for bit the unpadded chunk's: {unpadded_same} (max_abs_err "
+                f"{err:.3e}); whatever the padding: {pad_same}; without n_valid the padding "
+                f"moves the state by {reached:.3e}")
+
+
+def serve_two_greedy(torch, rt, seed: int, n_predict: int = 16) -> tuple:
+    """Two greedy requests (120 and 600 tokens, the second two prefill
+    chunks) on a 2-slot BatchEngine stepped in this thread, each held to
+    the runtime's greedy tokens for its prompt alone (held_to). Returns
+    (ok, text)."""
+    import queue
+    from ik_llama_cpp_tpu_torch.runtime.sampling import SamplerParams
+    from ik_llama_cpp_tpu_torch.server.engine import BatchEngine, Request
+    rng = np.random.default_rng(seed)
+    prompts = [[int(x) for x in rng.integers(3, rt.cfg.n_vocab, n)] for n in (120, 600)]
+    eng = BatchEngine(rt, n_slots=2, capacity=1024)
+    reqs = []
+    t0 = time.perf_counter()
+    for p in prompts:
+        r = Request(prompt_ids=p, n_predict=n_predict, sampler=SamplerParams(temp=0.0))
+        r.stream_queue = queue.Queue()
+        eng.submit(r)
+        reqs.append(r)
+    while eng.step():
+        pass
+    wall = time.perf_counter() - t0
+    ok, texts, n_tok = eng.n_failed == 0, [], 0
+    for p, r in zip(prompts, reqs):
+        got = []
+        while True:
+            tok, _, done = r.stream_queue.get(timeout=0)
+            if tok >= 0:
+                got.append(tok)
+            if done:
+                break
+        n_tok += len(got)
+        want = rt.generate_greedy_on_device(p, n_predict)[1]
+        good, text = held_to(torch, rt, p, got, want)
+        ok &= good
+        texts.append(f"{len(p)}-token prompt: {text}")
+    del eng
+    return ok, (f"2 requests in {wall:.2f} s ({n_tok / wall:.1f} tok/s over both slots): "
+                + " | ".join(texts))
+
+
+def phase_mamba(torch, launches: dict, card: str) -> bool:
+    """Phase 22: the mamba family. Mamba-2.8B at full width, 64 layers, on
+    the recurrent MambaCache: the load, a 512-token prefill and 64 greedy
+    decode steps with every kernel launch counted, decode and prefill
+    profiles, the scan's device and host ms a layer, a one-history parity,
+    a padded chunk's state, two requests on a 2-slot BatchEngine and
+    generate_speculative (a replay draft; a drafter wrong at its third
+    token)."""
+    from ik_llama_cpp_tpu_torch.runtime import speculative as SP
+    c = MAMBA
+    nl = c["L"]
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rt, file_s, load_s = load_mamba(torch, c, nl)
+    kinds = sorted(set(_linear_kinds(rt)) | {type(rt.params["output"]).__name__})
+    probe = rt.new_cache(1)
+    row_mib = sum(t.numel() * t.element_size() for t in (probe.conv, probe.ssm)) / 2**20
+    log(f"[22] mamba L{nl} E{c['E']} d_inner {c['DI']} state {c['DS']} conv {c['CONV']} dt rank "
+        f"{c['DTR']} V{c['V']} tied: file ready in {file_s:.1f} s, loaded and cloned in "
+        f"{load_s:.1f} s; linears {kinds}; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB; state {row_mib:.2f} MiB a row")
+    rng = np.random.default_rng(22)
+    rt.eval_tokens([int(x) for x in rng.integers(3, c["V"], 8)], rt.new_cache(1), 0)
+    ids = [int(x) for x in rng.integers(3, c["V"], PREFILL)]
+    kv = rt.new_cache(1)
+    reset_counts()
+    sync(torch)
+    t0 = time.perf_counter()
+    logits, kv, n_past = rt.eval_tokens(ids, kv, 0)
+    first = torch.argmax(logits[-1]).reshape(1, 1)
+    sync(torch)
+    t1 = time.perf_counter()
+    counts_pre = read_counts()
+    reset_counts()
+    toks = rt._decode_loop(first, kv, n_past, DECODE)
+    sync(torch)
+    t2 = time.perf_counter()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for k in counts:
+        launches[k] = launches.get(k, 0) + counts_pre[k] + counts[k]
+    per_a = 2 * nl + 1                    # ssm_in and ssm_out a layer, the head
+    got_pre = {k: n for k, n in counts_pre.items() if n}
+    got_dec = {k: n for k, n in counts.items() if n}
+    launch_ok = got_pre == {"qmatmul_i8": per_a} and got_dec == {"qmatmul_i8": per_a * DECODE}
+    finite = bool(torch.isfinite(logits).all())
+    ok = launch_ok and finite and bool(((toks >= 0) & (toks < c["V"])).all())
+    log(f"[22] on {card}: prefill {len(ids)} tokens: {(t1 - t0) * 1e3:.1f} ms = "
+        f"{len(ids) / (t1 - t0):.1f} tok/s; decode {DECODE} tokens: {(t2 - t1) * 1e3:.1f} ms = "
+        f"{DECODE / (t2 - t1):.2f} tok/s; peak memory {peak:.2f} GiB")
+    log(f"[22] launches the prefill chunk: {got_pre}; a decode step: "
+        f"{ {k: n / DECODE for k, n in got_dec.items()} }; expected A {per_a} (2 x {nl} + 1) "
+        f"a chunk and a step and nothing else: {launch_ok}; logits finite {finite}: "
+        f"{'ok' if ok else 'FAIL'}")
+    prof = profile_decode(torch, rt, kv, n_past + DECODE, toks[:, -1:], tag="22", top=10,
+                          host=False)
+    log(f"[22] decode step: kernel A {a_ms(prof)}; all kernels {sum(prof.values()):.3f} ms "
+        f"of the {(t2 - t1) * 1e3 / DECODE:.2f} ms step")
+    n1, host1, dev1 = range_ms(
+        torch, lambda: rt._decode_loop(toks[:, -1:], kv, n_past + DECODE, 1), "mamba.scan")
+    host512, dev512 = scan_ms(torch, c, PREFILL)
+    log(f"[22] the selective scan (models/mamba._selective_scan, plain PyTorch; {c['DI']} x "
+        f"{c['DS']} f32 state a layer, one launch a token): its mamba.scan range in a "
+        f"profiled decode step {n1} calls, {host1:.3f} ms of host and {dev1:.4f} ms of device "
+        f"a layer, {nl * host1:.1f} ms of host over {nl} layers; alone at T={PREFILL} "
+        f"{host512:.1f} ms of host wall and {dev512:.3f} ms of device a layer "
+        f"({host512 * 1e3 / PREFILL:.1f} us a token), {nl * host512:.0f} ms of host a chunk")
+    kv2 = rt.new_cache(1)
+    prof = profile_window(torch, lambda: rt.eval_tokens(ids, kv2, 0), 1,
+                          f"one {PREFILL}-token prefill chunk", "chunk", "22", top=10,
+                          host=False)
+    log(f"[22] prefill chunk: kernel A {a_ms(prof)}; all kernels {sum(prof.values()):.3f} ms")
+    del kv, kv2, logits, probe
+    torch.cuda.empty_cache()
+    ok &= family_parity(torch, rt, PREFILL, f"Mamba-2.8B at L{nl}", 221, "22")
+    good, text = padded_state(torch, rt, 222)
+    log(f"[22] padded chunk: {text}: {'ok' if good else 'FAIL'}")
+    ok &= good
+    good, text = serve_two_greedy(torch, rt, 223)
+    log(f"[22] BatchEngine at L{nl}: {text}: {'ok' if good else 'FAIL'}")
+    ok &= good
+    ids = [int(x) for x in np.random.default_rng(224).integers(3, c["V"], 256)]
+    n_new = 16
+    _, plain = rt.generate_greedy_on_device(ids, n_new, stop_at_eos=False)
+    (_, out, st), secs = wall_of(torch, lambda: SP.generate_speculative(
+        rt, ids, n_new, n_draft=8, stop_at_eos=False, stage=SP.ReplayDraft(len(ids), plain)))
+    good, text = held_to(torch, rt, ids, out, plain)
+    log(f"[22] generate_speculative with a replay draft (n_draft 8, the host loop with its "
+        f"checkpoint): {len(out)} tokens in {secs:.2f} s, {st.n_rounds} rounds, {st.n_accept} "
+        f"of {st.n_draft} drafts accepted; {text}: {'ok' if good else 'FAIL'}")
+    ok &= good
+    good, text = recurrent_rollback(torch, rt, seed=225)
+    log(f"[22] speculative rollback at L{nl}: {text}: {'ok' if good else 'FAIL'}")
+    ok &= good
+    log(f"[22] Mamba-2.8B at L{nl}: {time.perf_counter() - t_phase:.1f} s")
+    del rt
+    torch.cuda.empty_cache()
+    return ok
+
+
+def build_lora_gguf(path: Path, n_layer: int) -> Path:
+    """A LoRA adapter for the dense model of phase 4 at depth n_layer: rank
+    LORA_RANK, alpha LORA_ALPHA, float32 lora_a / lora_b on all seven
+    projections of every layer, written by runtime/lora.write_lora_gguf;
+    A ~ N(0, 1/n_in) and B ~ N(0, 0.02^2) from seed 23 (PEFT starts B at
+    zero; a trained adapter's is not). Cached beside a .meta."""
+    from ik_llama_cpp_tpu_torch.runtime.lora import write_lora_gguf
+    meta = json.dumps(dict(v="port-23", L=n_layer, E=E, HKV=HKV, D=D, FF=FF, r=LORA_RANK,
+                           alpha=LORA_ALPHA))
+    mpath = path.with_suffix(".meta")
+    if path.exists() and mpath.exists() and mpath.read_text() == meta:
+        return path
+    path.parent.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(23)
+    dims = {"attn_q": (E, E), "attn_k": (E, HKV * D), "attn_v": (E, HKV * D),
+            "attn_output": (E, E), "ffn_gate": (E, FF), "ffn_up": (E, FF), "ffn_down": (FF, E)}
+    tensors = {}
+    for i in range(n_layer):
+        for name, (k, n) in dims.items():
+            a = rng.standard_normal((LORA_RANK, k), dtype=np.float32) / np.float32(np.sqrt(k))
+            b = rng.standard_normal((n, LORA_RANK), dtype=np.float32) * np.float32(0.02)
+            tensors[f"blk.{i}.{name}.weight"] = (a, b)
+    write_lora_gguf(path, "llama", LORA_ALPHA, tensors)
+    mpath.write_text(meta)
+    return path
+
+
+def logits_probe(torch, rt, ids: list, steps: int = 4):
+    """The kernel path's logits over ``ids`` (one prefill chunk, every
+    position) and ``steps`` decode steps of ids' first tokens after it: the
+    prefill and decode kernels in one (n + steps, V) tensor."""
+    kv = rt.new_cache(1, len(ids) + steps + 8)
+    lg, kv, n = rt.eval_tokens(ids, kv, 0, all_logits=True)
+    outs = [lg]
+    for s, tok in enumerate(ids[:steps]):
+        outs.append(llama_step(torch, rt, torch.tensor([[tok]], device=rt.device), kv,
+                               n + s)[None])
+    return torch.cat(outs)
+
+
+def phase_lora(torch, gguf: Path, launches: dict, card: str) -> bool:
+    """Phase 23: a LoRA adapter and the perplexity tool on the dense model
+    of phase 4 at L32, loaded with q/k/v and gate/up unfused."""
+    from ik_llama_cpp_tpu_torch.runtime import lora as LO
+    from ik_llama_cpp_tpu_torch.runtime.generate import Runtime
+    from ik_llama_cpp_tpu_torch.server import app
+    from ik_llama_cpp_tpu_torch.server.engine import BatchEngine
+    from ik_llama_cpp_tpu_torch.tools.perplexity import compute_perplexity
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rt = clone_layers(Runtime.from_gguf(gguf, fuse=False), NL)
+    t0 = time.perf_counter()
+    path = build_lora_gguf(ROOT / "build" / "smoke_lora.gguf", NL)
+    adapter = LO.load_lora_gguf(path)
+    log(f"[23] L{NL} unfused linears {sorted(set(_linear_kinds(rt)))} loaded in "
+        f"{t0 - t_phase:.1f} s; adapter rank {adapter.rank} alpha {adapter.alpha} on "
+        f"{len(adapter.tensors)} linears ({path.stat().st_size / 2**20:.1f} MiB f32 file, "
+        f"ready and read in {time.perf_counter() - t0:.1f} s)")
+    rng = np.random.default_rng(23)
+    ids = [int(x) for x in rng.integers(3, V, PREFILL)]
+    text = smoke_text(rng, 1500)
+    n_text = len(rt.tokenizer.encode(text, parse_special=False))
+    base = logits_probe(torch, rt, ids)
+    ppl_base = compute_perplexity(rt, text, 512, verbose=False)
+    t0 = time.perf_counter()
+    LO.apply_lora(rt.params, adapter)
+    sync(torch)
+    log(f"[23] apply_lora: {time.perf_counter() - t0:.2f} s; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    adapted = logits_probe(torch, rt, ids)
+    moved = float((adapted - base).abs().max()) / float(base.abs().max())
+    ok = moved > 1e-2
+    log(f"[23] the adapter moves the logits (prefill and 4 decode steps) by {100 * moved:.2f}% "
+        f"of the largest (gate > 1%): {'ok' if ok else 'FAIL'}")
+    timed_run(torch, rt, ids[:64], 4)                       # warm
+    kv = rt.new_cache(1, PREFILL + DECODE + 8)
+    reset_counts()
+    sync(torch)
+    t0 = time.perf_counter()
+    logits, kv, n_past = rt.eval_tokens(ids, kv, 0)
+    first = torch.argmax(logits[-1]).reshape(1, 1)
+    sync(torch)
+    t1 = time.perf_counter()
+    counts_pre = read_counts()
+    reset_counts()
+    toks = rt._decode_loop(first, kv, n_past, DECODE)
+    sync(torch)
+    t2 = time.perf_counter()
+    counts = read_counts()
+    for k in counts:
+        launches[k] = launches.get(k, 0) + counts_pre[k] + counts[k]
+    per_a = 7 * NL + 1
+    got_pre = {k: n for k, n in counts_pre.items() if n}
+    got_dec = {k: n for k, n in counts.items() if n}
+    launch_ok = (got_pre == {"qmatmul_i8": per_a, "flash_attention": NL}
+                 and got_dec == {"qmatmul_i8": per_a * DECODE,
+                                 "flash_attention_decode": NL * DECODE})
+    ok &= launch_ok and bool(torch.isfinite(logits).all())
+    log(f"[23] on {card}, with the adapter: prefill {PREFILL} tokens {(t1 - t0) * 1e3:.1f} ms = "
+        f"{PREFILL / (t1 - t0):.1f} tok/s; decode {DECODE} tokens {(t2 - t1) * 1e3:.1f} ms = "
+        f"{DECODE / (t2 - t1):.2f} tok/s; launches the chunk {got_pre}, a step "
+        f"{ {k: n / DECODE for k, n in got_dec.items()} }; expected A {per_a} (7 x {NL} + 1) "
+        f"and B / C {NL}: {launch_ok}")
+    prof = profile_decode(torch, rt, kv, n_past + DECODE, toks[:, -1:], tag="23", top=10,
+                          host=False)
+    LO.strip_lora(rt.params)
+    bare = profile_decode(torch, rt, kv, n_past + DECODE, toks[:, -1:], tag="23", top=4,
+                          host=False)
+    LO.apply_lora(rt.params, adapter)
+    log(f"[23] decode step: kernel A {a_ms(prof)}; {c_ms(prof)}; all kernels "
+        f"{sum(prof.values()):.3f} ms with the adapter, {sum(bare.values()):.3f} ms without "
+        f"it (the same weights stripped): the low-rank products and their casts "
+        f"{sum(prof.values()) - sum(bare.values()):.3f} ms a step")
+    del kv, logits
+    ok &= family_parity(torch, rt, PREFILL, f"the adapted dense 8B at L{NL}", 231, "23")
+    ppl_k = compute_perplexity(rt, text, 512, verbose=False)
+    with plain_path():
+        ppl_p = compute_perplexity(rt, text, 512, verbose=False)
+    good = n_text >= 1024 and abs(ppl_k[0] - ppl_p[0]) <= 2e-2 * ppl_p[0]
+    log(f"[23] perplexity over smoke_text ({n_text} tokens, {ppl_k[2]} scored positions at "
+        f"n_ctx 512): adapted kernel path {ppl_k[0]:.4f} +/- {ppl_k[1]:.4f}, adapted plain path "
+        f"{ppl_p[0]:.4f} ({100 * (ppl_k[0] / ppl_p[0] - 1):+.3f}%, tol 2%), without the adapter "
+        f"{ppl_base[0]:.4f}: {'ok' if good else 'FAIL'}")
+    ok &= good
+    LO.set_lora_scale(rt.params, 0.0, adapter)
+    zero = logits_probe(torch, rt, ids)
+    LO.strip_lora(rt.params)
+    stripped = logits_probe(torch, rt, ids)
+    good = bool(torch.equal(zero, base)) and bool(torch.equal(stripped, base))
+    log(f"[23] scale 0: logits bit for bit the unadapted model's: {bool(torch.equal(zero, base))}"
+        f"; after strip_lora: {bool(torch.equal(stripped, base))}: {'ok' if good else 'FAIL'}")
+    ok &= good
+    args = app.parse_args(["--gguf", str(gguf), "--lora", f"{path}:1", "--parallel", "1",
+                           "--ctx-size", "1024"])
+    loras = app.load_loras(rt, args.lora)
+    eng = BatchEngine(rt, n_slots=args.parallel, capacity=args.ctx_size)
+    srv = app.Server(eng, model_name=str(gguf))
+    srv.loras = loras
+    body = dict(prompt=smoke_text(rng, 60), n_predict=16, temperature=0.0, return_tokens=True)
+    eng.start()
+    try:
+        listed = srv.lora_list()
+        with_adapter = srv.completion(body)["tokens"]
+        posted = srv.lora_set([{"id": 0, "scale": 0.0}])
+        at_zero = srv.completion(body)["tokens"]
+        LO.strip_lora(rt.params)
+        eng.weights_epoch += 1
+        base_tokens = srv.completion(body)["tokens"]
+    finally:
+        eng.stop()
+    good = (listed == [{"id": 0, "path": str(path), "scale": 1.0}]
+            and posted[0]["scale"] == 0.0 and at_zero == base_tokens and eng.n_failed == 0)
+    log(f"[23] Server with --lora {path.name}:1 over a 1-slot engine: GET /lora-adapters "
+        f"{listed}; a greedy completion with the adapter {with_adapter}; POST scale 0; the "
+        f"same completion {at_zero}; the base model's {base_tokens}: equal token for token: "
+        f"{at_zero == base_tokens}: {'ok' if good else 'FAIL'}")
+    ok &= good
+    log(f"[23] LoRA and perplexity at L{NL}: {time.perf_counter() - t_phase:.1f} s")
+    del rt, eng, srv
+    torch.cuda.empty_cache()
+    return ok
 
 
 KERNELS = {
@@ -5109,7 +5635,7 @@ def summary(results, launches) -> list:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21")
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21,22,23")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
     try:
@@ -5145,7 +5671,7 @@ def main() -> int:
         ok &= timed("3 planar moe", phase_planar_moe_kernels, torch, timer, results)
         timed("3 flush", flush_verdict, timer)
     gguf = None
-    if phases & {4, 5, 6, 9, 10, 11, 16, 20}:
+    if phases & {4, 5, 6, 9, 10, 11, 16, 20, 23}:
         t0 = time.perf_counter()
         gguf = timed("4 file", build_gguf, ROOT / "build" / "smoke8b.gguf")
         log(f"[4] model file ready in {time.perf_counter() - t0:.1f} s: {gguf}")
@@ -5202,6 +5728,10 @@ def main() -> int:
         ok &= timed("20", phase_spec, torch, gguf, launches, dev["smi"])
     if 21 in phases:
         ok &= timed("21", phase_mtp, torch, launches, dev["smi"])
+    if 22 in phases:
+        ok &= timed("22", phase_mamba, torch, launches, dev["smi"])
+    if 23 in phases:
+        ok &= timed("23", phase_lora, torch, gguf, launches, dev["smi"])
     kernels = summary(results, launches)
     if phases >= {3, 4, 6, 7, 9, 11, 12, 14, 15, 16, 18, 19}:
         for k in kernels:

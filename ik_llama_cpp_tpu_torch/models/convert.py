@@ -10,6 +10,8 @@ arrays are numpy and whose linears are dicts tagged with their kind:
     {"type": "QLinearI4", "packed": (K/2, N) uint8, "scale": (K/G, N),
      "bias": (K/G, N) | None, "group": G, "lut16": 16 floats | None}
     {"type": "DenseLinear", "w": (K, N)}
+    {"type": "LoraLinear", "base": <a linear of the kinds above>,
+     "a": (K, r), "b": (r, N), "scale": () f32}
     {"type": "QuantExpertWeights", "gate" | "up" | "down": (G, K, N) int8,
      "gate_s" | "up_s" | "down_s": (G, K/group, N) f32 or bf16,
      "gate_group" | "up_group" | "down_group": int,
@@ -29,7 +31,10 @@ supergroup codes, bf16 for planar ones). The DeepSeek-2 family's tree
 wk_b / wv_b in bf16, glm-dsa's rebuilt wkv_b and the indexer's linears as
 DenseLinear, the indexer's LayerNorm and the selection bias in float32; so
 does the Qwen3-Next family's (``models/qwen3next.py``), whose conv kernels,
-gates and norms keep float32.
+gates and norms keep float32; so does the mamba family's
+(``models/mamba.py``), whose conv kernels, A, D and dt biases keep float32.
+A LoRA-adapted linear (``runtime/lora.py``) carries its base linear, its
+bf16 low-rank factors and its float32 scale.
 """
 from __future__ import annotations
 
@@ -38,8 +43,9 @@ import torch
 
 from ..ops.moe import ExpertWeights, QuantExpertWeights
 from .llama import KVCache
+from .mamba import MambaCache
 from .qwen3next import HybridCache
-from .weights import DenseLinear, QLinear, QLinearI4, QLinearI8
+from .weights import DenseLinear, LoraLinear, QLinear, QLinearI4, QLinearI8
 
 _BF16_KEYS = ("tok_embd",)
 
@@ -76,6 +82,10 @@ def _linear(d: dict, device):
                          lut16=None if lut is None else tuple(float(v) for v in lut))
     if kind == "DenseLinear":
         return DenseLinear(_tensor(d["w"], device, bf16))
+    if kind == "LoraLinear":
+        return LoraLinear(_linear(d["base"], device), _tensor(d["a"], device, bf16),
+                          _tensor(d["b"], device, bf16),
+                          _tensor(d["scale"], device, torch.float32))
     if kind == "QuantExpertWeights":
         kw = {}
         for p in ("gate", "up", "down"):
@@ -130,3 +140,11 @@ def hybrid_from_numpy(k, v, conv, state, *, device) -> HybridCache:
     return HybridCache(_tensor(k, device, torch.bfloat16), _tensor(v, device, torch.bfloat16),
                        _tensor(conv, device, torch.float32),
                        _tensor(state, device, torch.float32))
+
+
+def mamba_from_numpy(conv, ssm, *, device) -> MambaCache:
+    """A ``MambaCache`` of the JAX package, fetched to numpy, as the port's:
+    float32 conv tails (L, B, d_conv - 1, d_inner) and ssm states
+    (L, B, d_inner, d_state). The arrays are copied; ``device`` has no
+    default, as for ``kv_from_numpy``."""
+    return MambaCache(_tensor(conv, device, torch.float32), _tensor(ssm, device, torch.float32))

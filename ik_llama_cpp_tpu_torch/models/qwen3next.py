@@ -75,6 +75,9 @@ class HybridCache:
     conv: torch.Tensor
     state: torch.Tensor
 
+    # the tensors whose axis 1 is the batch (the server's row views)
+    ROW_FIELDS = ("k", "v", "conv", "state")
+
     @property
     def capacity(self) -> int:
         return self.k.shape[2]

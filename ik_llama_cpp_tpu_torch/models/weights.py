@@ -112,6 +112,37 @@ class DenseLinear(nn.Module):
         return x.to(torch.bfloat16).float() @ self.w.float()
 
 
+class LoraLinear(nn.Module):
+    """Low-rank adapted linear: y = base(x) + scale * (x @ a) @ b, the
+    runtime form of llm_build_lora_mm. The base keeps its kernel; the two
+    low-rank products are plain float32 products of bf16-rounded operands,
+    as the JAX package computes them outside any Pallas kernel: x @ a, its
+    result rounded to bf16, then @ b. No product rounds its output to bf16.
+    ``scale`` (alpha / rank times the user's scale) is a 0-d float32 tensor
+    on the device, so ``runtime/lora.set_lora_scale`` writes that tensor
+    alone."""
+
+    def __init__(self, base: nn.Module, a: torch.Tensor, b: torch.Tensor,
+                 scale: torch.Tensor):
+        super().__init__()
+        self.base = base
+        self.register_buffer("a", a)             # bf16 (K, r)
+        self.register_buffer("b", b)             # bf16 (r, N)
+        self.register_buffer("scale", scale)     # f32 ()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.base(x)
+        xa = x.to(torch.bfloat16).float() @ self.a.float()
+        delta = xa.to(torch.bfloat16).float() @ self.b.float()
+        return y + delta * self.scale
+
+
+def _refuse_lora(lin, what: str) -> None:
+    if isinstance(lin, LoraLinear):
+        raise TypeError(f"{what} of a LoraLinear: fold or fuse the base linear "
+                        "before the adapter is applied")
+
+
 # 4-bit weight packing at load (QLinearI4), off by default; it takes
 # precedence over the int8 path for the tensors it can pack.
 _PACK_INT4 = False
@@ -190,6 +221,7 @@ def scale_linear(lin, s: torch.Tensor):
     the load-time form of bitnet's post-matmul scale by its ``*.scale``
     tensors. Each scale array (or the dense weight) is multiplied in
     float32 and stored back in its own dtype, as the JAX loader does."""
+    _refuse_lora(lin, "scale_linear")
     s = s.float().reshape(-1)
     mul = s[None, :] if s.numel() > 1 else s[0]
 
@@ -209,6 +241,8 @@ def fuse_linears(linears: list):
     """Concatenate linears along the output dim into one matmul (merge-qkv /
     merge-up-gate). Returns None when they are not fusable (mixed kinds,
     mismatched K or group, bias on some only)."""
+    for lin in linears:
+        _refuse_lora(lin, "fuse_linears")
     first = linears[0]
     if any(type(l) is not type(first) for l in linears):
         return None

@@ -1,9 +1,11 @@
 """Quantizers: float32 rows -> GGUF quant bytes (numpy, vectorized).
 
-The port needs only the two formats its model files are written in: Q8_0
-(the tied head / embedding) and Q4_0 (the planar 4-bit weights). Both follow
-the reference algorithm exactly (ggml-quants.c quantize_row_*_ref). Any other
-type raises.
+The port encodes the formats its model files and merged adapters are
+written in: Q8_0 (the tied head / embedding), Q4_0 (the planar 4-bit
+weights), F16 (``runtime/lora.merge_lora``'s merged tensors) and F32. The
+quantized two follow the reference algorithm exactly (ggml-quants.c
+quantize_row_*_ref); the float two are numpy's casts, byte for byte the JAX
+package's encoders. Any other type raises.
 
 Functions take (nrows, n) float32 and return uint8 bytes in GGUF row layout.
 """
@@ -49,7 +51,17 @@ def quantize_q4_0(x: np.ndarray, imatrix=None) -> np.ndarray:
     return out.reshape(-1)
 
 
+def quantize_f16(x: np.ndarray, imatrix=None) -> np.ndarray:
+    return x.astype(np.float16).view(np.uint8).reshape(-1)
+
+
+def quantize_f32(x: np.ndarray, imatrix=None) -> np.ndarray:
+    return x.astype(np.float32).view(np.uint8).reshape(-1)
+
+
 QUANTIZE_FNS = {
+    GGMLType.F32: quantize_f32,
+    GGMLType.F16: quantize_f16,
     GGMLType.Q4_0: quantize_q4_0,
     GGMLType.Q8_0: quantize_q8_0,
 }
@@ -59,7 +71,7 @@ def quantize(x: np.ndarray, ggml_type: GGMLType, imatrix=None) -> np.ndarray:
     fn = QUANTIZE_FNS.get(ggml_type)
     if fn is None:
         raise NotImplementedError(
-            f"quantize: the port encodes Q8_0 and Q4_0 only, not {ggml_type!r}")
+            f"quantize: the port encodes Q8_0, Q4_0, F16 and F32 only, not {ggml_type!r}")
     n = x.shape[-1]
     out = fn(x, imatrix)
     expect = GEOMETRY[ggml_type].row_bytes(n) * (x.size // n)

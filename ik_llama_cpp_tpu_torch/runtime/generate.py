@@ -7,9 +7,9 @@ experts in any of their loaded forms: int8 per supergroup, planar, mixed or
 bf16; shared experts), with a bf16 or quantized KV cache, or ring caches on
 the sliding-window layers (``swa_compress``), and for the DeepSeek-2 family
 (``models/deepseek2.py:ARCHS``), loaded with the MLA latent cache, and for
-the hybrid delta-net family (``models/qwen3next.py:ARCHS``) on its
-recurrent cache: a recurrent model's padded chunk commits only its live
-tokens to the state (``n_valid``).
+the hybrid delta-net family (``models/qwen3next.py:ARCHS``) and the mamba
+family (``models/mamba.py``) on their recurrent caches: a recurrent model's
+padded chunk commits only its live tokens to the state (``n_valid``).
 PyTorch runs eagerly, so there are no compiled step functions; the prefill
 buckets and the chunk limit are kept so that cache rows and chunking match
 the JAX runtime exactly.
@@ -33,6 +33,7 @@ import torch
 from ..gguf.reader import GGUFModel, load_gguf
 from ..models import deepseek2 as ds2_mod
 from ..models import llama as llama_mod
+from ..models import mamba as mamba_mod
 from ..models import qwen3next as q3n_mod
 from ..models.config import ModelConfig, config_from_gguf
 from ..models.llama import KVCache, MixedKVCache, SwaKVCache
@@ -83,8 +84,14 @@ for _a in q3n_mod.ARCHS:
     FORWARDS[_a] = q3n_mod.forward
     LOADERS[_a] = q3n_mod.load_qwen3next_params
     CACHES[_a] = q3n_mod.HybridCache.create
+# the mamba family: a selective-scan state and no KV cache
+for _a in mamba_mod.ARCHS:
+    FORWARDS[_a] = mamba_mod.forward
+    LOADERS[_a] = mamba_mod.load_mamba_params
+    CACHES[_a] = mamba_mod.MambaCache.create
+RECURRENT_ARCHS = q3n_mod.ARCHS + mamba_mod.ARCHS
 # architectures with a forward of their own in the JAX package, not ported yet
-OWN_FORWARD = ("deepseek4", "mamba", "gemma4", "gemma4_mtp", "gemma4-assistant",
+OWN_FORWARD = ("deepseek4", "gemma4", "gemma4_mtp", "gemma4-assistant",
                "openpangu", "bert", "nomic-bert", "jina-bert-v2", "t5", "dflash")
 
 
@@ -183,9 +190,9 @@ class Runtime:
                                  "its own", "other architectures (item 8)")
             raise NotImplementedError(f"arch {cfg.arch!r} not supported yet")
         # the DeepSeek-2 family loads the latent cache's absorb projections;
-        # neither it nor the hybrid family has a q/k/v or gate/up pair to fuse
+        # neither it nor a recurrent family has a q/k/v or gate/up pair to fuse
         kw = ({"mla": True} if cfg.arch in ds2_mod.ARCHS else
-              {} if cfg.arch in q3n_mod.ARCHS else {"fuse": fuse})
+              {} if cfg.arch in RECURRENT_ARCHS else {"fuse": fuse})
         params = loader(gg, cfg, dev, use_quant=use_quant, **kw)
         _log_model_load(gg, cfg)
         return cls(cfg=cfg, params=params, device=dev,
@@ -194,9 +201,10 @@ class Runtime:
 
     @property
     def recurrent(self) -> bool:
-        """A model with recurrent state (the delta-net family), which a
-        padded row must not advance and a cache row cannot be cut back."""
-        return self.cfg.arch in q3n_mod.ARCHS
+        """A model with recurrent state (the delta-net and mamba families),
+        which a padded row must not advance and a cache row cannot be cut
+        back."""
+        return self.cfg.arch in RECURRENT_ARCHS
 
     @property
     def needs_n_valid(self) -> bool:
@@ -218,9 +226,8 @@ class Runtime:
         b0 = max(PREFILL_BUCKETS[0], 256)
         capacity = -(-(capacity + PREFILL_BUCKETS[0] - 1) // b0) * b0
         quant = self.kv_quant
-        if self.cfg.arch in q3n_mod.ARCHS:
-            return q3n_mod.HybridCache.create(self.cfg, batch, capacity, self.device,
-                                              quant=quant)
+        if self.cfg.arch in RECURRENT_ARCHS:
+            return CACHES[self.cfg.arch](self.cfg, batch, capacity, self.device, quant=quant)
         if self.cfg.arch in ds2_mod.ARCHS:
             # the latent cache where the model was loaded for it (bf16; the
             # JAX runtime gives this family no other cache type either)
@@ -270,6 +277,18 @@ class Runtime:
         if all_logits:
             return torch.cat(out_chunks, dim=0), kv, n_past
         return logits[0, last_len - 1:last_len], kv, n_past
+
+    def all_position_logits(self, ids: list[int], capacity: int = 512) -> torch.Tensor:
+        """The logits of every position of ``ids`` evaluated from a fresh
+        cache, (n, V) float32 on the device: the perplexity tool's and the
+        LoRA checks' call. The cache has room for the last chunk's padded
+        write."""
+        n = len(ids)
+        rem = n % PREFILL_BUCKETS[-1] or PREFILL_BUCKETS[-1]
+        capacity = max(capacity, (n - rem) + _bucket(rem))
+        kv = self.new_cache(1, capacity)
+        logits, _, _ = self.eval_tokens(ids, kv, 0, all_logits=True)
+        return logits
 
     # ----------------------------------------------------- MTP (nextn) ----
     @property

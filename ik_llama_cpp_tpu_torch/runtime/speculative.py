@@ -13,11 +13,13 @@ W = 1 + n_draft. Acceptance is greedy token match against the target's
 argmax (temperature 0); a sampler that is not exactly argmax takes the
 host loop, which samples every position from the read-back logits.
 
-A recurrent model (the delta-net family) keeps a copy of its conv tails and
-delta states before each verify (``HybridCache.checkpoint``): its cache is
-written in place, where the JAX package keeps the pre-verify cache by
-reference. On partial acceptance it restores the copy and replays the
-accepted prefix.
+A recurrent model (the delta-net and mamba families) keeps a copy of its
+conv tails and recurrent states before each verify (``HybridCache`` /
+``MambaCache.checkpoint``): its cache is written in place, where the JAX
+package keeps the pre-verify cache by reference. On partial acceptance it
+restores the copy and replays the accepted prefix. Such a model takes the
+host loop always; the device loop (``Runtime._spec_loop``) refuses it, as
+the JAX runtime's does.
 """
 from __future__ import annotations
 
@@ -621,7 +623,7 @@ def _generate_spec_host(target: Runtime, ids, max_new_tokens, *, draft, n_draft,
         # ---- verify [cur] + proposal in one chunk
         block = [cur] + proposal
         # a recurrent state cannot be cut back by n_past: keep a copy of the
-        # conv tails and delta states, restored on partial acceptance
+        # conv tails and recurrent states, restored on partial acceptance
         ckpt, np_ckpt = (kv.checkpoint(), n_past) if target.recurrent else (None, None)
         logits_all, kv, n_past = target.eval_tokens(block, kv, n_past, all_logits=True)
         logits_all = logits_all.cpu().numpy()

@@ -14,10 +14,12 @@ The torch port of the JAX package's ``server/app.py``, split in two:
 
 Endpoints: /health /props /v1/models /metrics /slots /tokenize /detokenize
 /completion(s) /v1/completions /v1/chat/completions /v1/responses
-/apply-template and the control vectors' GET /control-vectors and POST
-/control-vectors/load, /unload and /apply. The other routes of the JAX
-server (embeddings, rerank, infill, slot save/restore, LoRA, sessions, the
-Anthropic API, multimodal, the profiler) are later slices of the port.
+/apply-template, the control vectors' GET /control-vectors and POST
+/control-vectors/load, /unload and /apply, and the LoRA adapters' GET and
+POST /lora-adapters (adapters given with ``--lora PATH[:SCALE]``, which
+loads the model with its q/k/v and gate/up unfused). The other routes of
+the JAX server (embeddings, rerank, infill, slot save/restore, sessions,
+the Anthropic API, multimodal, the profiler) are later slices of the port.
 
 Run: python -m ik_llama_cpp_tpu_torch.server --gguf model.gguf --port 8080
 """
@@ -167,6 +169,8 @@ class Server:
         # loaded control vectors: {"path", "scale", "layer_start",
         # "layer_end" (1-indexed, inclusive), "applied"}
         self.control_vectors: list[dict] = []
+        # applied LoRA adapters (runtime/lora.LoraAdapter), in --lora order
+        self.loras: list = []
 
     # ------------------------------------------------------ engine bridge
     def _open(self, prompt_ids: list[int], body: dict,
@@ -394,6 +398,24 @@ class Server:
         self._reapply_cvec()
         return {"success": True}
 
+    def lora_list(self) -> list:
+        """GET /lora-adapters (server.cpp /lora-adapters)."""
+        return [{"id": i, "path": a.path, "scale": a.scale}
+                for i, a in enumerate(self.loras)]
+
+    def lora_set(self, body) -> list:
+        """POST /lora-adapters: [{"id": N, "scale": S}, ...] (or one such
+        object); an id that names no adapter is skipped, as the JAX server
+        does. Only each adapted linear's scale tensor is written, and no
+        slot reuses rows cached before the change."""
+        from ..runtime.lora import set_lora_scale
+        for item in body if isinstance(body, list) else [body]:
+            i = int(item.get("id", 0))
+            if 0 <= i < len(self.loras):
+                set_lora_scale(self.rt.params, float(item.get("scale", 1.0)), self.loras[i])
+                self.engine.weights_epoch += 1
+        return self.lora_list()
+
     def tokenize(self, body: dict) -> dict:
         ids = self.rt.tokenizer.encode(body.get("content", ""),
                                        add_bos=bool(body.get("add_special", False)))
@@ -605,7 +627,7 @@ class Server:
 
 GET_ROUTES = {"/health": "health", "/props": "props", "/v1/models": "models",
               "/models": "models", "/metrics": "metrics", "/slots": "slots",
-              "/control-vectors": "cvec_list"}
+              "/control-vectors": "cvec_list", "/lora-adapters": "lora_list"}
 POST_ROUTES = {"/tokenize": "tokenize", "/detokenize": "detokenize",
                "/apply-template": "apply_template",
                "/completion": "completion", "/completions": "completion",
@@ -614,7 +636,8 @@ POST_ROUTES = {"/tokenize": "tokenize", "/detokenize": "detokenize",
                "/v1/responses": "oai_responses", "/responses": "oai_responses",
                "/control-vectors/load": "cvec_load",
                "/control-vectors/unload": "cvec_unload",
-               "/control-vectors/apply": "cvec_apply"}
+               "/control-vectors/apply": "cvec_apply",
+               "/lora-adapters": "lora_set"}
 
 
 def sse(item) -> bytes:
@@ -731,21 +754,49 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--control-vector", action="append", default=[],
                     help="control-vector GGUF (repeatable); PATH or PATH:SCALE, "
                          "applied at startup")
+    ap.add_argument("--lora", action="append", default=[],
+                    help="LoRA adapter GGUF (repeatable); PATH or PATH:SCALE. "
+                         "The model is then loaded with q/k/v and gate/up unfused")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the model and the cache (cpu for tests)")
     return ap.parse_args(argv)
 
 
+def parse_lora_arg(spec: str) -> tuple[str, float]:
+    """``--lora PATH[:SCALE]`` -> (path, scale); the scale defaults to 1."""
+    path, _, s = spec.rpartition(":")
+    if path and s.replace(".", "").isdigit():
+        return path, float(s)
+    return spec, 1.0
+
+
+def load_loras(rt: Runtime, specs: list[str]) -> list:
+    """Load and apply each ``--lora`` adapter to ``rt.params``, in order."""
+    from ..runtime.lora import apply_lora, load_lora_gguf
+    loras = []
+    for spec in specs:
+        path, scale = parse_lora_arg(spec)
+        adapter = load_lora_gguf(path)
+        adapter.scale = scale
+        apply_lora(rt.params, adapter)
+        loras.append(adapter)
+    return loras
+
+
 def main(argv=None):
     args = parse_args(argv)
     web = _aiohttp_web()
+    # per-projection adapters need the q/k/v and gate/up linears unfused
     rt = Runtime.from_gguf(args.gguf, args.device,
-                           kv_quant=False if args.cache_type == "bf16" else args.cache_type)
+                           kv_quant=False if args.cache_type == "bf16" else args.cache_type,
+                           fuse=not args.lora)
+    loras = load_loras(rt, args.lora)
     engine = BatchEngine(rt, n_slots=args.parallel, capacity=args.ctx_size,
                          spec=args.spec, spec_n=args.spec_n,
                          cache_ram_mib=args.cache_ram)
     engine.start()
     srv = Server(engine, model_name=str(args.gguf), api_key=args.api_key)
+    srv.loras = loras
     for spec in args.control_vector:
         path, _, scale = spec.rpartition(":")
         if not (path and scale.replace(".", "").replace("-", "").isdigit()):

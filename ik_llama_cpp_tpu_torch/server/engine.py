@@ -14,10 +14,12 @@ the decode step, that has no token of its own writes junk where nothing
 is read: past an idle slot's cached tokens, or at a busy slot's next
 position, which its own next forward overwrites.
 
-A recurrent model (the delta-net family, ``HybridCache``) runs every
-forward with ``n_valid``: 0 for a row with no token of its own, so an idle
-or mid-prefill slot's conv tail and delta state stay exactly as they
-were. Its state has seen every cached token and cannot be cut back, so a
+A recurrent model (the delta-net family's ``HybridCache``, the mamba
+family's ``MambaCache``) runs every forward with ``n_valid``: 0 for a row
+with no token of its own, so an idle or mid-prefill slot's conv tail and
+recurrent state stay exactly as they were. A cache with no KV rows
+reports a capacity of 2^30, so only the engine's own ``capacity`` (its
+context size) bounds a slot and triggers its context shift. Its state has seen every cached token and cannot be cut back, so a
 slot's state is reused only when the new prompt strictly extends the
 slot's cached tokens; otherwise, and on a context shift's re-prefill, the
 slot's recurrent rows are zeroed and the prompt is prefilled from 0. The
@@ -32,8 +34,8 @@ request ends or the slot's context shifts, since its state indexes the
 slot's token list (the JAX engine keeps it, and a shorter list later makes
 SuffixDraft index past its end). Rejected K/V rows stay where they are:
 n_past does not advance past them, and the next forward overwrites them. A recurrent
-model keeps a copy of its conv tails and delta states before the verify
-and replays each partially accepting row's accepted prefix from it.
+model keeps a copy of its conv tails and recurrent states before the
+verify and replays each partially accepting row's accepted prefix from it.
 
 An exception in the engine thread fails the requests it was serving: each
 carries the error text (``Request.error``) and ``n_failed`` counts them;
@@ -59,7 +61,6 @@ import torch
 
 from ..models import llama as llama_mod
 from ..models.llama import KVCache, MixedKVCache, SwaKVCache
-from ..models.qwen3next import HybridCache
 from ..runtime.generate import FORWARDS, PREFILL_BUCKETS, Runtime, _bucket, _chunk_limit
 from ..runtime.speculative import DRAFTERS
 from ..runtime.sampling import (SamplerParams, SamplerState,
@@ -114,6 +115,7 @@ class Slot:
     req: Optional[Request] = None
     tokens: list[int] = field(default_factory=list)   # prompt + generated
     cache_tokens: list[int] = field(default_factory=list)  # tokens with KV rows
+    weights_epoch: int = 0        # the engine's weights_epoch its rows were made at
     n_prompt: int = 0
     n_past: int = 0
     n_decoded: int = 0
@@ -216,17 +218,18 @@ _MIXED_FIELDS = ("k_ovr", "v_ovr", "ks_ovr", "vs_ovr",
 
 
 _KV_FIELDS = ("k", "v", "k_scale", "v_scale")
-_HYBRID_FIELDS = ("k", "v", "conv", "state")
 
 
 def _cache_tensors(kv) -> list:
-    """The cache's tensors, each with the batch on axis 1 (a field that is
-    None, as the latent cache's v of a model without an indexer, is
-    left out)."""
+    """The cache's tensors, each with the batch on axis 1: a recurrent
+    cache's ``ROW_FIELDS`` (``HybridCache``, ``MambaCache``), or the KV
+    fields (a field that is None, as the latent cache's v of a model
+    without an indexer, is left out)."""
     if isinstance(kv, MixedKVCache):
         return [getattr(kv, f) for f in _MIXED_FIELDS]
-    if isinstance(kv, HybridCache):
-        return [getattr(kv, f) for f in _HYBRID_FIELDS]
+    fields = getattr(kv, "ROW_FIELDS", None)
+    if fields is not None:
+        return [getattr(kv, f) for f in fields]
     return [t for t in (getattr(kv, f) for f in _KV_FIELDS) if t is not None]
 
 
@@ -234,8 +237,8 @@ def _like(kv, tensors: list):
     """A cache of kv's type over ``tensors`` (in _cache_tensors order)."""
     if isinstance(kv, MixedKVCache):
         return MixedKVCache(*tensors, layer_map=kv.layer_map)
-    if isinstance(kv, HybridCache):
-        return HybridCache(*tensors)
+    if getattr(kv, "ROW_FIELDS", None) is not None:
+        return type(kv)(*tensors)
     it = iter(tensors)
     return KVCache(**{f: None if getattr(kv, f) is None else next(it) for f in _KV_FIELDS})
 
@@ -295,6 +298,9 @@ class BatchEngine:
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._submit_lock = threading.Lock()     # submit() runs on many threads
+        # bumped when the weights change under the cache (an adapter's
+        # scale): rows made before are not reused
+        self.weights_epoch = 0
         # metrics
         self.n_prompt_tokens_processed = 0
         self.n_prompt_tokens_cached = 0
@@ -379,6 +385,11 @@ class BatchEngine:
             if not slot.tokens:
                 self._fail(slot, "ValueError: empty prompt")
                 continue
+            if slot.weights_epoch != self.weights_epoch:
+                # rows made under other weights (the reference server clears
+                # a slot's cached tokens when its LoRA set changes)
+                slot.cache_tokens = []
+                slot.weights_epoch = self.weights_epoch
             # prompt-cache reuse: skip the common prefix with the slot's
             # previous contents — at least one token is evaluated again
             prefix = 0

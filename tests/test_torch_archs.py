@@ -160,9 +160,10 @@ def test_gptj_raises_in_both(tmp_path):
 
 def test_own_forward_archs_name_their_queue_item(tmp_path):
     """An architecture with a forward of its own in the JAX package (here
-    mamba) is refused with its queue item, at the runtime and the loader."""
-    path = F.make_tiny_mamba_gguf(tmp_path / "mamba.gguf")
-    with pytest.raises(NotImplementedError, match=r"mamba.*item 8"):
+    bert; mamba was until it was ported) is refused with its queue item, at
+    the runtime and the loader."""
+    path = F.make_tiny_bert_gguf(tmp_path / "bert.gguf")
+    with pytest.raises(NotImplementedError, match=r"bert.*item 8"):
         TG.Runtime.from_gguf(path, device="cpu")
     tg = t_load_gguf(path)
     from ik_llama_cpp_tpu_torch.models.config import config_from_gguf

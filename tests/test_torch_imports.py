@@ -77,6 +77,9 @@ def test_port_files_cover_every_subpackage():
     assert PORT / "models" / "qwen3next.py" in _port_files()
     assert PORT / "ops" / "delta_net.py" in _port_files()
     assert PORT / "runtime" / "speculative.py" in _port_files()
+    for rel in ("models/mamba.py", "runtime/lora.py", "tools/convert_lora.py",
+                "tools/perplexity.py"):
+        assert PORT / rel in _port_files(), rel
 
 
 def test_runtime_defaults_to_cuda(tmp_path):
