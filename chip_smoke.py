@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21,22,23]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21,22,23,24]
 
 Phases (all by default; any failure exits non-zero):
   1. device: the card's name and power limit; TF32 off for the plain versions
@@ -49,9 +49,8 @@ Phases (all by default; any failure exits non-zero):
      decode profile (kernels 7's and 8's share of a step) and a prefill
      chunk's (kernels 9 and 10; it fails if 10 launched but shows no time)
   8. MoE parity at depth 2: kernel path against the plain path on the card
-  9. quantized KV cache end to end at the full width of phase 4 (16 of its
-     32 layers, L9): q8 (prefill
-     512, decode 64, launch counts, decode profile), then q4, q6, nl4, q8
+  9. quantized KV cache end to end at the full width of phase 4 (8 of its
+     32 layers, L9): q8 (prefill 512, decode 64, launch counts, decode profile), then q4, q6, nl4, q8
      with the K/V Hadamard rotation and a per-layer codec dict on the same
      weights; a q8 cache and a bf16 one of capacity 4,096 filled with 3,999
      tokens by the prefill chunks (profiled: kernel 6's ms over the q8
@@ -112,10 +111,10 @@ Phases (all by default; any failure exits non-zero):
      E2048 H16, kv-lora 512, nope 128 / rope 64 / v 128, 64 experts top-6
      FF1408 softmax-routed, 2 shared experts, a dense lead of FF10944,
      V102400, YaRN 40; Q4_0 linears and experts, Q8_0 embedding and head,
-     random blocks from seed 0, its MoE block cloned to 26 layers) on the
-     MLA latent cache: the load, a 3,999-token prefill in chunks and 64
+     random blocks from seed 0, its MoE block cloned to 15 layers: 16 of
+     its 27) on the MLA latent cache: the load, a 3,999-token prefill in chunks and 64
      greedy decode steps at 4,000 cached tokens, the launches a step by
-     kernel (the MLA form of kernel B 27 a chunk and 27 a step), decode and
+     kernel (the MLA form of kernel B 16 a chunk and 16 a step), decode and
      prefill profiles, the cache's bytes beside the per-head cache's, two
      greedy requests on a 2-slot BatchEngine replayed at B = 1; then
      one-history parities at depth 2: (a) those widths, (b) DeepSeek-V3's
@@ -133,7 +132,7 @@ Phases (all by default; any failure exits non-zero):
      heads of 128 with conv kernel 4, 512 experts top-10 of FF 512 and a
      sigmoid-gated shared expert, V151936; Q4_0 linears and experts, Q8_0
      embedding and head, random blocks from seed 0; four blocks, three
-     delta-net and one attention, cloned to 12 layers) on the recurrent
+     delta-net and one attention, cloned to 8 layers) on the recurrent
      HybridCache: a 1,024-token prefill in two chunks, 64 greedy decode
      steps, the launches of kernels A, B, C, 7, 8, 9 and 10 a chunk and a
      step, decode and prefill profiles, the delta-net recurrence's eager ms
@@ -178,7 +177,8 @@ Phases (all by default; any failure exits non-zero):
  22. the mamba family: Mamba-2.8B at full width (state-spaces/mamba-2.8b-hf:
      E2560, d_inner 5120, state 16, conv 4, dt rank 160, V50280 tied; Q4_0
      ssm_in / ssm_out, a Q8_0 tied embedding, f32 conv, ssm_x, ssm_dt, A, D
-     and norms, random from seed 0; one block cloned to 64 layers) on the
+     and norms, random from seed 0; one block cloned to 32 of its 64
+     layers, L22) on the
      recurrent MambaCache: a 512-token prefill and 64 greedy decode steps
      with every kernel launch counted (A 129 a chunk and a step), decode
      and prefill profiles, the scan's device and host ms a layer, peak
@@ -201,7 +201,30 @@ Phases (all by default; any failure exits non-zero):
      answering GET /lora-adapters, a completion, POST scale 0 and a
      completion that equals the base model's; compute_perplexity over
      smoke_text at n_ctx 512 with and without the adapter, the adapted
-     kernel path within 2% of the adapted plain path
+     kernel path within 2% of the adapted plain path; then, on the same
+     loaded model with the adapter stripped, the hidden-state paths:
+     layer_hiddens over 512 tokens (A 224, B 32), generate_control_vector
+     over 4 prompt pairs, the embedding of a 300-token input padded to its
+     bucket of 512 (n_valid) against the plain path, and lookahead decoding
+     (W 4, N 3, G 4) over 64 tokens: a free run, and the one-history gate
+     (fed greedy decode's tokens, each probe row on the greedy history
+     within 5% of the decode step's logits at its position) with the
+     accepted tokens a round
+ 24. the BERT encoder family: BGE-M3 at full width and depth (bert L24
+     E1024 H16 FF4096, V250002, 8,192 positions, CLS pooling; Q4_0 linears,
+     a Q8_0 embedding, random from seed 0, every layer its own) through
+     Runtime.embed over documents of 7, 100, 512, 2,048 and 8,192 token
+     ids: tok/s and A 144 a forward exactly, profiles of the 512- and
+     8,192-token forwards (kernel A against the plain attention, wall,
+     idle share), peak memory, the kernel path against the plain path
+     layer by layer over one history (each layer within 1% of the largest
+     state) and run free over 512 tokens (the pooled and per-position unit
+     vectors within BGE_FREE_TOL and BGE_ROW_TOL, and pooled within
+     BGE_WITNESS_X times the plain path against itself with one bf16
+     rounding flipped a layer), and
+     the server's /v1/embeddings, /embedding and /rerank on the encoder,
+     each vector and score Runtime.embed's bit for bit. Phase 3 adds rows
+     1e: kernel A at BGE-M3's three shapes at M 512 and 8,192
 The line before the last lists every ported kernel as JSON; the last line is
 {"ok": true, "device": {...}}. Without CUDA, or without the package beside
 this file, it exits non-zero and prints no result.
@@ -285,21 +308,24 @@ LONG18, DECODE18 = 4000, 64      # phase 18's cached tokens and decode steps
 # 1e7), gated delta-net linear attention on the others (16 k heads / 32 v
 # heads of 128, conv kernel 4), 512 experts top-10 of FF 512 and a
 # sigmoid-gated shared expert of FF 512, vocab 151,936, an untied head.
-# Phase 19 runs it at 12 layers: the int8 experts take ~1.64 GB a layer
-QNEXT = dict(ARCH="qwen3next", L=48, LRUN=12, E=2048, H=16, HKV=2, D=256, ROPE_DIM=64,
+# Phase 19 runs it at 8 layers: the int8 experts take ~1.64 GB a layer
+QNEXT = dict(ARCH="qwen3next", L=48, LRUN=8, E=2048, H=16, HKV=2, D=256, ROPE_DIM=64,
              ROPE=1e7, HK=16, HV=32, DK=128, DV=128, CONV=4, G=512, TOPK=10, FF=512,
              FFS=512, V=151936, CTX=262144)
 QNEXT_GGUF_VERSION = "port-20"
 PREFILL19, DECODE19 = 1024, 64   # phase 19's prefill (two chunks) and decode steps
 # phases 7 and 17 run their models' published widths at 16 of their 48
-# layers, and phase 19 at 12, so that the whole script stays inside its
-# time limit on a slow host (with 7 and 17 at 24 layers and 19 at 24 a full
-# run took 977-993 s of its 1,200 on an H100 80GB HBM3 at 700 W, and
-# 1,296 s on a host ~30% slower)
+# layers, and phase 19 at 8, so that the whole script stays inside its time
+# limit on a slow host (with 7 and 17 at 24 layers and 19 at 24 a full run
+# took 977-993 s of its 1,200 on an H100 80GB HBM3 at 700 W, and 1,296 s on
+# a host ~30% slower; at 12 phase 19 took 108-118 s)
 L7 = L17 = 16
-# phase 9 runs the dense model's published width at 16 of its 32 layers
-# over every KV codec (at 32 it took 148-201 s of a full run)
-L9 = 16
+# phase 9 runs the dense model's published width at 8 of its 32 layers
+# over every KV codec (at 32 it took 148-201 s of a full run, at 16 103 s)
+L9 = 8
+# phase 18 runs DeepSeek-V2-Lite at 16 of its 27 layers (the dense lead
+# and 15 MoE layers), which makes room for phase 23's additions and phase 24
+L18 = 16
 # kernel A's (K, N) on the Qwen3-Next path: ssm_in, the gated wq, ssm_out
 # (and wo), the head, wk / wv and the shared expert's gate / up, its down
 A_QNEXT_SHAPES = [(2048, 12288), (2048, 8192), (4096, 2048), (2048, 151936), (2048, 512),
@@ -332,10 +358,37 @@ GLM_VERIFY_ROWS = (8, 16)
 MAMBA = dict(ARCH="mamba", L=64, E=2560, DI=5120, DS=16, CONV=4, DTR=160, V=50280,
              EPS=1e-5)
 MAMBA_GGUF_VERSION = "port-22"
+# phase 22 runs Mamba-2.8B at 32 of its 64 layers (at 64 it took 56-87 s
+# of a full run)
+L22 = 32
 # kernel A's (K, N) on the Mamba-2.8B path: ssm_in, ssm_out, the tied head
 A_MAMBA_SHAPES = [(2560, 10240), (5120, 2560), (2560, 50280)]
 # phase 23's adapter on the dense model of phase 4: rank and alpha
 LORA_RANK, LORA_ALPHA = 16, 32.0
+# phase 23's lookahead window (W columns, N-gram size, G verification grams)
+# and its new tokens
+LOOKAHEAD_WNG, LOOKAHEAD_NEW = (4, 3, 4), 64
+# BGE-M3 (BAAI/bge-m3's config.json: XLMRobertaModel, hidden 1024,
+# intermediate 4096, 16 heads, 24 layers, vocab 250,002, 8,194 positions of
+# which a GGUF keeps the 8,192 after XLM-R's padding offset of 2, one token
+# type, LayerNorm eps 1e-5, GELU, CLS pooling), arch bert in GGUF
+BGEM3 = dict(ARCH="bert", L=24, E=1024, H=16, FF=4096, V=250002, CTX=8192, TYPES=1, EPS=1e-5)
+BERT_GGUF_VERSION = "port-24"
+EMBED_LENGTHS = (7, 100, 512, 2048, 8192)    # phase 24's documents, in tokens
+# phase 24's free run over 512 tokens: the L2 distance of the kernel path's
+# pooled unit vectors (mean and first position) from the plain path's, and
+# of one position's. 24 post-LN layers of random weights grow a layer's
+# 0.2-0.8% gap (the one-history gate) to 0.034-0.038 pooled and 0.038 at
+# the worst position on an H100 80GB HBM3 at 700 W; the plain path against
+# itself with one bf16 rounding flipped a layer, the second witness of that
+# growth, reached 0.035 and 0.037. The kernel path's pooled gap is also
+# held to BGE_WITNESS_X times the witness's
+BGE_FREE_TOL, BGE_ROW_TOL, BGE_WITNESS_X = 0.06, 0.06, 2.0
+# phase 23's padded decoder embedding: one position's unit vectors (0.019
+# read on the same card)
+EMBED23_ROW_TOL = 0.04
+# kernel A's (K, N) on the BGE-M3 path: q / k / v / o, ffn_up, ffn_down
+A_BGE_SHAPES = [(1024, 1024), (1024, 4096), (4096, 1024)]
 
 
 def log(msg: str) -> None:
@@ -701,9 +754,14 @@ def phase_kernels(torch, timer, results) -> bool:
     # rows 1b: Mamba-2.8B's ssm_in, ssm_out and tied head (phase 22) at the
     # decode step and the prefill chunk
     a_cases += [(k, n, (1, 512)) for k, n in A_MAMBA_SHAPES]
+    # rows 1e: BGE-M3's linears (phase 24) at a 512- and an 8,192-token document
+    a_cases += [(k, n, (512, 8192)) for k, n in A_BGE_SHAPES]
     for k, n, ms in a_cases:
         if (k, n) == A_MAMBA_SHAPES[0]:
             log("[3] rows 1b: kernel A at Mamba-2.8B's ssm_in, ssm_out and tied head")
+        if (k, n) == A_BGE_SHAPES[0]:
+            log("[3] rows 1e: kernel A at BGE-M3's q/k/v/o, ffn_up and ffn_down (a forward "
+                "launches 96, 24 and 24 of them)")
         codes_t = torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
                                 dtype=torch.int8)
         sw = torch.rand((k // 256, n), generator=gen, device="cuda") * 1e-3
@@ -4029,7 +4087,7 @@ def absorb_ms(torch, blk: dict, t: int) -> tuple:
 
 def phase_deepseek(torch, launches: dict, card: str) -> bool:
     """Phase 18: the DeepSeek-2 family. DeepSeek-V2-Lite at full width
-    (L27) on the latent cache: the load, a 3,999-token prefill in 512-token
+    (16 of its 27 layers) on the latent cache: the load, a 3,999-token prefill in 512-token
     chunks and 64 greedy decode steps at 4,000 cached tokens, the launches
     a step by kernel, decode and prefill profiles, the cache's bytes beside
     the per-head cache's, two requests on a 2-slot BatchEngine; then four
@@ -4037,7 +4095,7 @@ def phase_deepseek(torch, launches: dict, card: str) -> bool:
     DeepSeek-V3's routing with a q-lora, (c) mla=False, (d) glm-dsa's
     indexer over a 2,100-token prompt."""
     c = DSV2
-    nl = c["L"]
+    nl = L18
     t_phase = time.perf_counter()
     rt, load_s = load_ds(torch, c, nl, "full width")
     ids = [int(x) for x in np.random.default_rng(18).integers(3, c["V"], LONG18 - 1)]
@@ -4328,7 +4386,7 @@ def serve_interleaved(torch, rt, seed: int, n_predict: int = 24):
 
 def phase_qnext(torch, launches: dict, card: str, replay: dict) -> bool:
     """Phase 19: the hybrid gated-delta-net family. Qwen3-Next-80B-A3B at
-    full width, 12 layers (9 delta-net, 3 attention), on the recurrent
+    full width, 8 layers (6 delta-net, 2 attention), on the recurrent
     HybridCache: the load, a 1,024-token prefill in two chunks and 64
     greedy decode steps with every kernel launch counted, decode and
     prefill profiles, the delta-net recurrence's eager ms, two requests on
@@ -5296,7 +5354,8 @@ def serve_two_greedy(torch, rt, seed: int, n_predict: int = 16) -> tuple:
 
 
 def phase_mamba(torch, launches: dict, card: str) -> bool:
-    """Phase 22: the mamba family. Mamba-2.8B at full width, 64 layers, on
+    """Phase 22: the mamba family. Mamba-2.8B at full width, L22 of its 64
+    layers, on
     the recurrent MambaCache: the load, a 512-token prefill and 64 greedy
     decode steps with every kernel launch counted, decode and prefill
     profiles, the scan's device and host ms a layer, a one-history parity,
@@ -5305,7 +5364,7 @@ def phase_mamba(torch, launches: dict, card: str) -> bool:
     token)."""
     from ik_llama_cpp_tpu_torch.runtime import speculative as SP
     c = MAMBA
-    nl = c["L"]
+    nl = L22
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     rt, file_s, load_s = load_mamba(torch, c, nl)
@@ -5553,6 +5612,363 @@ def phase_lora(torch, gguf: Path, launches: dict, card: str) -> bool:
         f"{at_zero == base_tokens}: {'ok' if good else 'FAIL'}")
     ok &= good
     log(f"[23] LoRA and perplexity at L{NL}: {time.perf_counter() - t_phase:.1f} s")
+    del eng, srv
+    ok &= hidden_paths(torch, rt, launches, card)
+    del rt
+    torch.cuda.empty_cache()
+    return ok
+
+
+def counted(torch, launches: dict, fn):
+    """fn() with the launch counters zeroed just before and read just after
+    (added into ``launches``): (its result, its wall seconds, the counts
+    that are not zero)."""
+    reset_counts()
+    res, secs = wall_of(torch, fn)
+    counts = read_counts()
+    for k, n in counts.items():
+        launches[k] = launches.get(k, 0) + n
+    return res, secs, {k: n for k, n in counts.items() if n}
+
+
+def probe_rows(n_past: int, toks, prompt_len: int, gen: list, lay) -> list:
+    """The rows of a lookahead probe whose history is the greedy one, each
+    as (probe row, index into the greedy steps' logits): row 0 (``cur`` at
+    n_past) and each verification gram's rows while the gram follows the
+    greedy tokens. Step s's logits predict gen[s] (greedy's last step,
+    len(gen), the token after them)."""
+    k = n_past - prompt_len              # cur is gen[k]
+    out = [(0, k + 1)]
+    n = lay.N
+    for gi in range(lay.G):
+        base = 1 + gi * (n - 1)
+        for j in range(n - 1):
+            if k + 1 + j >= len(gen) or int(toks[base + j]) != gen[k + 1 + j]:
+                break
+            out.append((base + j, k + 2 + j))
+    return [(r, s) for r, s in out if s <= len(gen)]
+
+
+def lookahead_gate(torch, rt, launches: dict, card: str, prompt: list) -> bool:
+    """Lookahead decoding (W, N, G = LOOKAHEAD_WNG) over LOOKAHEAD_NEW
+    tokens: a free run (tokens, rounds, accepted tokens a round, tok/s,
+    launches), then the one-history gate: a run fed greedy decode's tokens,
+    each probe row whose history is the greedy one held to the greedy decode
+    step at the same position (within 5% of that step's largest |logit|:
+    the probe's plain attention and kernel C round differently)."""
+    from ik_llama_cpp_tpu_torch.runtime import lookahead as LA
+    w, n, g = LOOKAHEAD_WNG
+    gen, steps = greedy(torch, rt, prompt, LOOKAHEAD_NEW)
+    (_, out, st), secs, counts = counted(torch, launches, lambda: LA.generate_lookahead(
+        rt, prompt, LOOKAHEAD_NEW, W=w, N=n, G=g, capacity=len(prompt) + 256,
+        stop_at_eos=False))
+    same = next((i for i, (a, b) in enumerate(zip(out, gen)) if a != b), len(out))
+    log(f"[23] lookahead W {w} N {n} G {g} (probe of {LA._Layout(w, n, g).T} rows) on {card}: "
+        f"{len(out)} tokens in {secs:.2f} s = {len(out) / secs:.2f} tok/s, {st.n_rounds} "
+        f"rounds, {st.n_accept} gram tokens accepted = {st.n_accept / st.n_rounds:.3f} a "
+        f"round ({(len(out) - 1) / st.n_rounds:.3f} tokens a round); the first {same} tokens "
+        f"greedy decode's; launches {counts}")
+    lay = LA._Layout(w, n, g)
+    seen, orig_probe, orig_sample = [], rt.eval_probe, LA.sample_token
+
+    def probe(toks, positions, mask, kv, n_past):
+        lg = orig_probe(toks, positions, mask, kv, n_past)
+        seen.append((n_past, np.asarray(toks).copy(), lg))
+        return lg
+
+    rt.eval_probe = probe
+    LA.sample_token = lambda lg, sampler, rng, history: gen[len(history) - len(prompt)]
+    try:
+        (_, forced, fst), _, _ = counted(torch, launches, lambda: LA.generate_lookahead(
+            rt, prompt, LOOKAHEAD_NEW, W=w, N=n, G=g, capacity=len(prompt) + 256,
+            stop_at_eos=False))
+    finally:
+        del rt.eval_probe                # the instance's wrapper; the method again
+        LA.sample_token = orig_sample
+    worst, rows = 0.0, 0
+    for n_past, toks, lg in seen:
+        for r, si in probe_rows(n_past, toks, len(prompt), gen, lay):
+            ref = steps[si]
+            worst = max(worst, float((lg[r] - ref).abs().max() / ref.abs().max()))
+            rows += 1
+    ok = forced == gen and rows > 0 and worst <= 5e-2
+    log(f"[23] lookahead fed greedy decode's tokens: {fst.n_rounds} rounds, {fst.n_accept} "
+        f"gram tokens accepted = {fst.n_accept / fst.n_rounds:.3f} a round; {rows} probe rows "
+        f"on the greedy history, the largest gap to the decode step at the same position "
+        f"{100 * worst:.3f}% of its largest |logit| (tol 5%): {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def embed_gaps(got, ref) -> tuple:
+    """The kernel path's final states ``got`` (T, E) against the plain
+    path's ``ref``: (the largest L2 distance of the mean-pooled and of the
+    first position's unit vectors, what Runtime.embed returns pooled; the
+    largest L2 distance of one position's unit vectors, what pooling 'none'
+    gives after the L2 normalization, which no pooling dilutes; text with
+    both and the states' largest element-wise gap over the largest
+    |state|)."""
+    def unit(v):
+        return v / np.linalg.norm(v, axis=-1, keepdims=True)
+    dist = max(float(np.linalg.norm(unit(got.mean(0)) - unit(ref.mean(0)))),
+               float(np.linalg.norm(unit(got[0]) - unit(ref[0]))))
+    row = float(np.linalg.norm(unit(got) - unit(ref), axis=-1).max())
+    rel = float(np.abs(got - ref).max() / np.abs(ref).max())
+    return dist, row, (f"the mean-pooled and first-position unit vectors at most {dist:.5f} "
+                       f"apart (L2), one position's at most {row:.5f}; the states' largest "
+                       f"gap {100 * rel:.3f}% of the largest |state|")
+
+
+def bert_layer_gaps(torch, rt, ids: list) -> tuple:
+    """The one-history form for an encoder: every layer of the plain path
+    fed the kernel path's input to that layer (``layer_hiddens``), its
+    output against the kernel path's, as the largest gap over the largest
+    |state| a layer; and the free-running plain path's layer outputs
+    against the kernel path's. Returns (teacher-forced gaps, free gaps,
+    the kernel path's and the free plain path's final states (T, E) on
+    the host)."""
+    from ik_llama_cpp_tpu_torch.models import bert as TB
+    hs = rt.layer_hiddens(ids)
+    tokens = torch.tensor([ids], device=rt.device)
+    ctx = TB.layer_context(rt.cfg, 1, len(ids), None, rt.device)
+    forced, prev = [], TB.embed_input(rt.params, rt.cfg, tokens, ctx)
+    with plain_path():
+        for blk, ref in zip(rt.params["blocks"], hs):
+            out = TB.layer(blk, prev, rt.cfg, ctx)[0]
+            forced.append(float((out - ref).abs().max() / ref.abs().max()))
+            prev = ref[None]
+        free = rt.layer_hiddens(ids)
+    gaps = ((free - hs).abs().amax(dim=(1, 2)) / hs.abs().amax(dim=(1, 2))).tolist()
+    return forced, gaps, hs[-1].cpu().numpy(), free[-1].cpu().numpy()
+
+
+def flipped_plain(torch, rt, ids: list, seed: int):
+    """The second witness of how the encoder's depth grows a small gap: the
+    plain path run free over ids with one bf16 rounding flipped in every
+    layer (one element of the layer's input, picked at random, moved to
+    the bf16 value on the other side of it, so that the layer's bf16
+    operand there is one step off). Its final states (T, E) on the host."""
+    from ik_llama_cpp_tpu_torch.models import bert as TB
+    gen = np.random.default_rng(seed)
+    tokens = torch.tensor([ids], device=rt.device)
+    ctx = TB.layer_context(rt.cfg, 1, len(ids), None, rt.device)
+    with plain_path():
+        x = TB.embed_input(rt.params, rt.cfg, tokens, ctx)
+        for blk in rt.params["blocks"]:
+            flat = x.view(-1)
+            j = int(gen.integers(flat.numel()))
+            r = flat[j].to(torch.bfloat16)
+            step = 1 if r.float().abs() <= flat[j].abs() else -1   # sign-magnitude bits
+            flat[j] = (r.view(torch.int16) + step).view(torch.bfloat16).float()
+            x = TB.layer(blk, x, rt.cfg, ctx)
+    return x[0].cpu().numpy()
+
+
+def hidden_paths(torch, rt, launches: dict, card: str) -> bool:
+    """Phase 23's hidden-state paths on its loaded dense model (L32,
+    q/k/v and gate/up unfused, the adapter stripped): layer_hiddens over 512
+    tokens, generate_control_vector over 4 prompt pairs, the embedding of a
+    300-token input padded to its bucket of 512 (n_valid) against the plain
+    path, and lookahead decoding."""
+    from ik_llama_cpp_tpu_torch.runtime.cvector import generate_control_vector
+    rng = np.random.default_rng(230)
+    per_a = 7 * NL                       # the unfused linears, no head
+    ids = [int(x) for x in rng.integers(3, V, PREFILL)]
+    rt.layer_hiddens(ids[:64])           # warm
+    hs, secs, counts = counted(torch, launches, lambda: rt.layer_hiddens(ids))
+    ok = (counts == {"qmatmul_i8": per_a, "flash_attention": NL}
+          and hs.shape == (NL, PREFILL, E) and bool(torch.isfinite(hs).all()))
+    log(f"[23] layer_hiddens over {PREFILL} tokens on {card}: {tuple(hs.shape)} f32 in "
+        f"{secs * 1e3:.1f} ms; launches {counts}, expected A {per_a} (7 x {NL}, no head) and "
+        f"B {NL}: {'ok' if ok else 'FAIL'}")
+    del hs
+    pos = [smoke_text(rng, 12 + 3 * i) for i in range(4)]
+    neg = [smoke_text(rng, 12 + 3 * i) for i in range(4)]
+    cv, secs, counts = counted(torch, launches, lambda: generate_control_vector(rt, pos, neg))
+    good = cv.shape == (NL, E) and bool(np.allclose(np.linalg.norm(cv, axis=1), 1.0, atol=1e-4))
+    log(f"[23] generate_control_vector (pca) over 4 prompt pairs: {cv.shape} unit directions "
+        f"in {secs:.2f} s, launches {counts}: {'ok' if good else 'FAIL'}")
+    ok &= good
+    doc = ids[:300]
+    e, secs, counts = counted(torch, launches, lambda: rt.embed(doc, "none"))
+    with plain_path():
+        ep = rt.embed(doc, "none")
+    dist, row, text = embed_gaps(e, ep)
+    good = (dist <= 2e-2 and row <= EMBED23_ROW_TOL
+            and counts == {"qmatmul_i8": per_a, "flash_attention": NL} and e.shape == (300, E))
+    log(f"[23] embed of {len(doc)} tokens padded to the bucket of {PREFILL} (n_valid "
+        f"{len(doc)}): {secs * 1e3:.1f} ms, launches {counts}; against the plain path: "
+        f"{text} (tol 2e-2 pooled, a cosine of 0.9998, and {EMBED23_ROW_TOL} a position): "
+        f"{'ok' if good else 'FAIL'}")
+    ok &= good
+    ok &= lookahead_gate(torch, rt, launches, card, ids[:128])
+    return ok
+
+
+def build_bert_gguf(path: Path, c: dict = BGEM3) -> Path:
+    """BGE-M3 as GGUF arch bert at its full depth, every layer its own:
+    Q4_0 q/k/v/o, ffn_up and ffn_down with float32 biases, a Q8_0 token
+    embedding, float32 positions, token type and LayerNorms (near 1 and
+    near 0), random from seed 0, and spm_vocab's SentencePiece vocabulary
+    of V pieces filled up to the model's size with pieces '<x000000>' ...
+    (spm_vocab's random pieces of two and three letters run out near
+    36,000). Cached beside a .meta."""
+    from ik_llama_cpp_tpu_torch.gguf.constants import GGMLType
+    from ik_llama_cpp_tpu_torch.gguf.writer import GGUFWriter
+    meta = json.dumps(dict(v=BERT_GGUF_VERSION, **c))
+    mpath = path.with_suffix(".meta")
+    if path.exists() and mpath.exists() and mpath.read_text() == meta:
+        return path
+    path.parent.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(0)
+    arch, e, ff, v = c["ARCH"], c["E"], c["FF"], c["V"]
+    w = GGUFWriter(str(path), arch=arch)
+    for key, val in (("block_count", c["L"]), ("context_length", c["CTX"]),
+                     ("embedding_length", e), ("feed_forward_length", ff),
+                     ("attention.head_count", c["H"]), ("attention.head_count_kv", c["H"]),
+                     ("attention.layer_norm_epsilon", c["EPS"]), ("attention.causal", False),
+                     ("pooling_type", 2), ("vocab_size", v)):
+        w.add(f"{arch}.{key}", val)
+    tokens, scores, types = spm_vocab(min(v, V))
+    fill = v - len(tokens)
+    w.add("tokenizer.ggml.model", "llama")
+    w.add("tokenizer.ggml.tokens", tokens + [f"<x{i:06d}>" for i in range(fill)])
+    w.add("tokenizer.ggml.scores", np.asarray(scores + [scores[-1] - 1.0 - i
+                                                        for i in range(fill)], np.float32))
+    w.add("tokenizer.ggml.token_type", np.asarray(types + [1] * fill, np.int32))
+    w.add("tokenizer.ggml.bos_token_id", 1)
+    w.add("tokenizer.ggml.eos_token_id", 2)
+
+    def q(name, rows, cols, ttype=GGMLType.Q4_0):
+        w.add_tensor(name, _rand_blocks(rng, rows, cols, ttype), shape=(cols, rows),
+                     ggml_type=ttype)
+
+    def f32(name, *shape, mean=0.0, std=0.02):
+        w.add_tensor(name, (mean + std * rng.standard_normal(shape)).astype(np.float32))
+
+    q("token_embd.weight", v, e, GGMLType.Q8_0)
+    f32("token_types.weight", c["TYPES"], e)
+    f32("position_embd.weight", c["CTX"], e)
+    f32("token_embd_norm.weight", e, mean=1.0)
+    f32("token_embd_norm.bias", e)
+    for i in range(c["L"]):
+        p = f"blk.{i}."
+        for name, rows, cols in (("attn_q", e, e), ("attn_k", e, e), ("attn_v", e, e),
+                                 ("attn_output", e, e), ("ffn_up", ff, e), ("ffn_down", e, ff)):
+            q(p + name + ".weight", rows, cols)
+            f32(p + name + ".bias", rows)
+        for name in ("attn_output_norm", "layer_output_norm"):
+            f32(p + name + ".weight", e, mean=1.0)
+            f32(p + name + ".bias", e)
+    w.write()
+    mpath.write_text(meta)
+    return path
+
+
+def phase_bert(torch, launches: dict, card: str) -> bool:
+    """Phase 24: the BERT encoder family at the full width and depth of
+    BGE-M3 (L24): Runtime.embed over token-id documents of EMBED_LENGTHS
+    tokens with tok/s and the exact count of kernel-A launches a forward,
+    profiles of the 512- and 8,192-token forwards (kernel A, the plain
+    attention's kernels, the wall and the idle share), peak memory, the
+    kernel path against the plain path over one history (each layer of the
+    plain path fed the kernel path's input) and run free (beside the plain
+    path against itself with one bf16 rounding flipped a layer), and the
+    server's /v1/embeddings, /embedding and /rerank, whose vectors and
+    scores must equal Runtime.embed's bit for bit."""
+    from ik_llama_cpp_tpu_torch.runtime.generate import Runtime
+    from ik_llama_cpp_tpu_torch.server import app
+    from ik_llama_cpp_tpu_torch.server.engine import BatchEngine
+    c = BGEM3
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    gguf = build_bert_gguf(ROOT / "build" / "smoke_bgem3.gguf", c)
+    t1 = time.perf_counter()
+    rt = Runtime.from_gguf(gguf)
+    sync(torch)
+    t2 = time.perf_counter()
+    kinds = sorted(set(_linear_kinds(rt)))
+    log(f"[24] BGE-M3 (bert L{c['L']} E{c['E']} H{c['H']} FF{c['FF']} V{c['V']}, {c['CTX']} "
+        f"positions): file ({gguf.stat().st_size / 2**20:.0f} MiB) ready in {t1 - t_phase:.1f} s, "
+        f"loaded in {t2 - t1:.1f} s; linears {kinds}; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    rng = np.random.default_rng(24)
+    per_a = 6 * c["L"]                   # q, k, v, o, up and down a layer; no head
+    ok = kinds == ["QLinearI8"]
+    docs = {n: [int(x) for x in rng.integers(3, c["V"], n)] for n in EMBED_LENGTHS}
+    vecs = {}
+    for n, ids in docs.items():
+        rt.embed(ids, "cls")             # warm at this shape
+        vec, secs, counts = counted(torch, launches, lambda: rt.embed(ids, "cls"))
+        vecs[n] = vec
+        good = (counts == {"qmatmul_i8": per_a} and vec.shape == (c["E"],)
+                and bool(np.isfinite(vec).all()))
+        log(f"[24] on {card}: embed (cls) of {n} tokens: {secs * 1e3:.1f} ms = "
+            f"{n / secs:.0f} tok/s; launches {counts}, "
+            f"expected A {per_a} (6 x {c['L']}) and nothing else: {'ok' if good else 'FAIL'}")
+        ok &= good
+    log(f"[24] peak memory over the five documents {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB on {card}")
+    for n in (512, 8192):
+        ids = docs[n]
+        prof = profile_window(torch, lambda: rt.embed(ids, "cls"), 1, f"the {n}-token forward",
+                              "forward", "24", top=8, host=False)
+        a = kernel_ms(prof, "qmatmul_i8")
+        log(f"[24] {n}-token forward on {card}: kernel A {a_ms(prof)}; the plain attention, "
+            f"norms and casts {sum(prof.values()) - a:.3f} ms; all kernels "
+            f"{sum(prof.values()):.3f} ms")
+    forced, free, got, ref = bert_layer_gaps(torch, rt, docs[512])
+    good = max(forced) <= 1e-2
+    log(f"[24] kernel path against the plain path over one history, 512 tokens: each "
+        f"layer of the plain path fed the kernel path's input, its output at most "
+        f"{100 * max(forced):.4f}% of the largest |state| apart (layer by layer "
+        f"{', '.join(f'{100 * g:.4f}' for g in forced[:4])}, ... {100 * forced[-1]:.4f}%; "
+        f"tol 1%: kernel A against its plain version, then a bf16 rounding flip or an "
+        f"int8 activation step inside the layer): {'ok' if good else 'FAIL'}")
+    ok &= good
+    dist, row, text = embed_gaps(got, ref)
+    w_dist, _, w_text = embed_gaps(flipped_plain(torch, rt, docs[512], 241), ref)
+    good = dist <= BGE_FREE_TOL and row <= BGE_ROW_TOL and dist <= BGE_WITNESS_X * w_dist
+    log(f"[24] run free over 512 tokens, the kernel path against the plain path: {text} "
+        f"(tol {BGE_FREE_TOL} pooled and {BGE_ROW_TOL} a position, and pooled at most "
+        f"{BGE_WITNESS_X} x the second witness's): {'ok' if good else 'FAIL'}; the gap through the {len(free)} post-LN layers of random weights (layer: % of its "
+        f"largest |state|): "
+        f"{', '.join(f'{i + 1}: {100 * free[i]:.3f}' for i in range(0, len(free), 4))}, "
+        f"{len(free)}: {100 * free[-1]:.3f}. Second witness, the plain path against itself "
+        f"with one bf16 rounding flipped a layer: {w_text}")
+    ok &= good
+    eng = BatchEngine(rt, n_slots=1, capacity=c["CTX"])
+    srv = app.Server(eng, model_name=str(gguf))
+    eng.start()
+    try:
+        a, b = docs[100], docs[512]
+        oai = srv.oai_embeddings({"input": [a, b]})
+        native = srv.embeddings({"content": [a], "pooling": "cls"})
+        query = smoke_text(rng, 12)
+        texts = [smoke_text(rng, 20 + 10 * i) for i in range(3)]
+        rr = srv.rerank({"query": query, "documents": texts})
+        refused = False
+        try:
+            srv.completion({"prompt": query, "n_predict": 2})
+        except app.RequestError as err:
+            refused = err.status == 400
+    finally:
+        eng.stop()
+    tok = rt.tokenizer
+    qe = rt.embed(tok.encode(query), "mean")
+    scores = {i: float(np.dot(qe, rt.embed(tok.encode(t), "mean"))) for i, t in enumerate(texts)}
+    good = (oai["data"][0]["embedding"] == rt.embed(a, "mean").tolist()
+            and oai["data"][1]["embedding"] == rt.embed(b, "mean").tolist()
+            and native[0]["embedding"] == rt.embed(a, "cls").tolist()
+            and all(r["relevance_score"] == scores[r["index"]] for r in rr["results"])
+            and [r["index"] for r in rr["results"]] == sorted(scores, key=lambda i: -scores[i])
+            and refused and eng.n_failed == 0)
+    log(f"[24] Server over a 1-slot engine on the encoder: /v1/embeddings of 100 and 512 ids, "
+        f"/embedding of 100 ids (cls), /rerank of 3 texts (scores "
+        f"{[round(r['relevance_score'], 4) for r in rr['results']]}), each equal to "
+        f"Runtime.embed's bit for bit; a completion refused with a 400 {refused}: "
+        f"{'ok' if good else 'FAIL'}")
+    ok &= good
+    log(f"[24] BGE-M3 at L{c['L']}: {time.perf_counter() - t_phase:.1f} s")
     del rt, eng, srv
     torch.cuda.empty_cache()
     return ok
@@ -5635,7 +6051,7 @@ def summary(results, launches) -> list:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21,22,23")
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21,22,23,24")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
     try:
@@ -5732,6 +6148,8 @@ def main() -> int:
         ok &= timed("22", phase_mamba, torch, launches, dev["smi"])
     if 23 in phases:
         ok &= timed("23", phase_lora, torch, gguf, launches, dev["smi"])
+    if 24 in phases:
+        ok &= timed("24", phase_bert, torch, launches, dev["smi"])
     kernels = summary(results, launches)
     if phases >= {3, 4, 6, 7, 9, 11, 12, 14, 15, 16, 18, 19}:
         for k in kernels:

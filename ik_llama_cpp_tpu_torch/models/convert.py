@@ -34,7 +34,9 @@ does the Qwen3-Next family's (``models/qwen3next.py``), whose conv kernels,
 gates and norms keep float32; so does the mamba family's
 (``models/mamba.py``), whose conv kernels, A, D and dt biases keep float32.
 A LoRA-adapted linear (``runtime/lora.py``) carries its base linear, its
-bf16 low-rank factors and its float32 scale.
+bf16 low-rank factors and its float32 scale. The BERT family's tree
+(``models/bert.py``) holds its norms as (weight, bias) pairs:
+``bert_from_numpy`` carries those across as pairs.
 """
 from __future__ import annotations
 
@@ -113,6 +115,23 @@ def params_from_numpy(tree, device, *, _key: str = ""):
     if isinstance(tree, (list, tuple)):
         return [params_from_numpy(v, device, _key=_key) for v in tree]
     return _tensor(tree, device, torch.bfloat16 if _key in _BF16_KEYS else None)
+
+
+def bert_from_numpy(params, device) -> dict:
+    """The BERT family's parameter tree of the JAX package, fetched to numpy
+    as for ``params_from_numpy`` with its norms left as (weight, bias | None)
+    tuples, as the port's ``models/bert.load_bert_params`` gives it: the
+    token embedding bf16, every other array in its own dtype (float32).
+    ``device`` has no default, as for ``kv_from_numpy``."""
+    def walk(tree, key: str = ""):
+        if isinstance(tree, tuple):
+            return tuple(_tensor(a, device) for a in tree)
+        if isinstance(tree, dict) and "type" not in tree:
+            return {k: walk(v, k) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, key) for v in tree]
+        return params_from_numpy(tree, device, _key=key)
+    return walk(params)
 
 
 def kv_from_numpy(k, v, k_scale=None, v_scale=None, *, device) -> KVCache:

@@ -45,7 +45,7 @@ from ..ops.attention import attend
 from ..ops.flash_attention import flash_attention
 from ..ops.moe import moe_ffn
 from .config import ModelConfig
-from .llama import _EXPERT_TENSORS, KVCache, _later, _load_experts
+from .llama import _EXPERT_TENSORS, KVCache, _later, _load_experts, refuse_hidden
 from .weights import DenseLinear, _t, dequant_tensor, load_dense, load_linear
 
 ARCHS = ("deepseek2", "mistral4", "glm-dsa")
@@ -301,12 +301,15 @@ def _ds_ffn(blk: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, kv: KVCache,
             n_past, *, npv: torch.Tensor | None = None,
-            logits_last_only: bool = False, **later) -> torch.Tensor:
+            logits_last_only: bool = False, return_hidden: bool = False,
+            return_layer_hiddens: bool = False, **later) -> torch.Tensor:
     """tokens: (B, T) on the cache's device; n_past: int or per-row list of
     ints (host); npv: the same as an int32 (B,) device tensor, made here
     when not given. Writes the chunk into ``kv`` in place and returns the
     float32 logits (B, T or 1, V). ``collect_stats`` and ``tp_axis`` raise
-    NotImplementedError naming the slice that brings them."""
+    NotImplementedError naming the slice that brings them; so do the hidden
+    states (``refuse_hidden``)."""
+    refuse_hidden("DeepSeek-2", return_hidden, return_layer_hiddens)
     for name in later:
         if name not in _LATER_ARGS:
             raise TypeError(f"forward() got an unexpected keyword argument {name!r}")

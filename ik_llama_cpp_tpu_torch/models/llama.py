@@ -32,15 +32,21 @@ formats) or ``use_quant`` is off. Control vectors (``params["cvec"]``,
 block (``params["mtp_blocks"]``) runs in ``mtp_forward``, which drafts
 from the forward's pre-output-norm stream (``return_mtp_hidden``).
 
+The forward also takes embeddings in place of token ids
+(``inputs_embeds``), explicit positions with an in-block visibility mask
+(``positions`` / ``block_mask``: the lookahead probe, on the plain
+``attend`` as the JAX package runs it on XLA), the live length of a padded
+chunk (``n_valid``: a ring layer drops the padded rows' writes) and every
+layer's output (``return_layer_hiddens``).
+
 Weight names follow GGUF conventions (token_embd, blk.N.attn_q, ...).
 Later slices of the port, each raising NotImplementedError that names its
-queue item in ROADMAP.md §1: the forward's extra inputs and outputs
-(embeddings in, explicit positions and tree masks, every layer's hidden
-states out; item 7), LoRA (item 6), the architectures with a forward
-of their own that are not ported yet (deepseek4, mamba, gemma4,
-openpangu, bert, t5, dflash; item 8; the DeepSeek-2 family runs
-``models/deepseek2.py``, the Qwen3-Next family ``models/qwen3next.py``) and tensor / pipeline / sequence / expert
-parallelism (item 11).
+queue item in ROADMAP.md §1: the architectures with a forward of their
+own that are not ported yet (deepseek4, gemma4, openpangu, t5, dflash;
+item 8; the DeepSeek-2 family runs ``models/deepseek2.py``, the Qwen3-Next
+family ``models/qwen3next.py``, mamba ``models/mamba.py`` and the BERT
+family ``models/bert.py``), the activation statistics (item 9) and tensor
+/ pipeline / sequence / expert parallelism (item 11).
 """
 from __future__ import annotations
 
@@ -91,6 +97,16 @@ def _later(what: str, item: str):
     queue item in ROADMAP.md §1."""
     raise NotImplementedError(f"{what} is not ported yet (the {item} slice "
                               "of the PyTorch port)")
+
+
+def refuse_hidden(family: str, return_hidden: bool, return_layer_hiddens: bool) -> None:
+    """The hidden-state outputs of a family whose JAX forward takes them and
+    returns logits all the same (``**_``): there is nothing to hold the
+    port's hidden states to, so the port raises, naming the family."""
+    if return_hidden or return_layer_hiddens:
+        raise NotImplementedError(
+            f"the hidden states of the {family} family: its JAX forward ignores "
+            "return_hidden / return_layer_hiddens and returns logits (ROADMAP.md §3)")
 
 
 def _codec_name(quant) -> str:
@@ -677,20 +693,49 @@ def _ring_positions(kv_len: torch.Tensor, ring: int) -> torch.Tensor:
     return torch.where(slots < torch.clamp(kvl, max=ring), pos, torch.full_like(pos, -1))
 
 
+def _probe_attend(qb, ka, va, q_pos, npv, kv_len, block_mask, **kw) -> torch.Tensor:
+    """Attention of a probe block (lookahead, tree decoding): the block's
+    queries sit at explicit positions ``q_pos`` and see the committed
+    prefix (slots below n_past, slot == position) and the block's own slots
+    n_past + j, each holding position q_pos[:, j], as far as ``block_mask``
+    (T, T) allows. The JAX forward's probe branch, on the plain
+    ``attend``."""
+    b, t = q_pos.shape
+    s = ka.shape[1]
+    dev = qb.device
+    slots = torch.arange(s, device=dev)[None, :]                      # (1, S)
+    blk_j = slots - npv.long()[:, None]                               # (B, S)
+    in_blk = (blk_j >= 0) & (blk_j < t)
+    blk_jc = blk_j.clamp(0, t - 1)
+    committed = slots < npv.long()[:, None]
+    grid_pos = torch.gather(q_pos.long(), 1, blk_jc)
+    key_pos = torch.where(committed, slots, torch.where(in_blk, grid_pos,
+                                                        torch.full_like(grid_pos, -1)))
+    bm = block_mask.to(device=dev, dtype=torch.bool).expand(b, t, t)
+    bm_g = torch.gather(bm, 2, blk_jc[:, None, :].expand(b, t, s))     # (B, T, S)
+    allow = committed[:, None, :] | (in_blk[:, None, :] & bm_g)
+    return attend(qb, ka, va, q_pos=q_pos, kv_len=kv_len, key_positions=key_pos,
+                  allow_mask=allow, **kw)
+
+
 def _attn_block(blk: dict, x: torch.Tensor, cfg: ModelConfig, kv, il: int,
                 n_past: list[int], npv: torch.Tensor, q_pos: torch.Tensor,
                 cos, sin, *, swa_window: int = 0, n_head: int | None = None,
                 n_head_kv: int | None = None, attn_chunk: int = 0,
-                attn_scale_vec: torch.Tensor | None = None) -> torch.Tensor:
+                attn_scale_vec: torch.Tensor | None = None,
+                n_valid: list[int] | None = None,
+                block_mask: torch.Tensor | None = None) -> torch.Tensor:
     """One attention sublayer over (B, T, E). Writes this chunk's K/V rows
     into layer ``il`` of the cache in place (quantized with the layer's
-    codec when the cache is; at slot p % ring on a ring layer), then
-    attends over that layer's slab: a decode kernel for T <= 16, a prefill
-    kernel otherwise. ALiBi models and ring layers attend by the plain
-    ``ops/attention.attend``, as the JAX package runs XLA there and no
-    Pallas kernel. ``cos`` None is a NoPE layer; ``swa_window`` > 0 limits
-    each query to that many most recent keys; ``n_head`` / ``n_head_kv``
-    are the layer's own head counts (deci/openelm)."""
+    codec when the cache is; at slot p % ring on a ring layer, where rows
+    past a row's ``n_valid`` are dropped), then attends over that layer's
+    slab: a decode kernel for T <= 16, a prefill kernel otherwise. ALiBi
+    models, ring layers and a probe block (``block_mask``, ``_probe_attend``)
+    attend by the plain ``ops/attention.attend``, as the JAX package runs
+    XLA there and no Pallas kernel. ``cos`` None is a NoPE layer;
+    ``swa_window`` > 0 limits each query to that many most recent keys;
+    ``n_head`` / ``n_head_kv`` are the layer's own head counts
+    (deci/openelm)."""
     b, t, _ = x.shape
     h = cfg.n_head if n_head is None else n_head
     hkv = cfg.n_head_kv if n_head_kv is None else n_head_kv
@@ -749,10 +794,15 @@ def _attn_block(blk: dict, x: torch.Tensor, cfg: ModelConfig, kv, il: int,
     ring = kv.ring(il) if isinstance(kv, SwaKVCache) else 0
     alibi = (alibi_slopes(h, cfg.alibi_max_bias) if cfg.alibi_max_bias > 0 else None)
     if ring:
+        if block_mask is not None:
+            raise ValueError("a block_mask probe does not run on a ring cache layer")
         for bb in range(b):
-            rows = (torch.arange(t, device=k.device) + n_past[bb]) % ring
-            k_slab[bb, rows, :hkv] = k[bb].to(k_slab.dtype)
-            v_slab[bb, rows, :hkv] = v[bb].to(v_slab.dtype)
+            # a padded row would wrap onto a live window row: only the
+            # row's first n_valid positions are written
+            n = t if n_valid is None else n_valid[bb]
+            rows = (torch.arange(n, device=k.device) + n_past[bb]) % ring
+            k_slab[bb, rows, :hkv] = k[bb, :n].to(k_slab.dtype)
+            v_slab[bb, rows, :hkv] = v[bb, :n].to(v_slab.dtype)
         attn = attend(qb, _heads(k_slab, hkv), _heads(v_slab, hkv), q_pos=q_pos,
                       kv_len=kv_len, key_positions=_ring_positions(kv_len, ring), **kw)
     elif not kv.quantized:
@@ -761,7 +811,9 @@ def _attn_block(blk: dict, x: torch.Tensor, cfg: ModelConfig, kv, il: int,
             k_slab[bb, n:n + t, :hkv] = k[bb].to(k_slab.dtype)
             v_slab[bb, n:n + t, :hkv] = v[bb].to(v_slab.dtype)
         ka, va = _heads(k_slab, hkv), _heads(v_slab, hkv)
-        if alibi is not None:
+        if block_mask is not None:
+            attn = _probe_attend(qb, ka, va, q_pos, npv, kv_len, block_mask, alibi=alibi, **kw)
+        elif alibi is not None:
             attn = attend(qb, ka, va, q_pos=q_pos, kv_len=kv_len, scale=kw["scale"],
                           softcap=cfg.attn_softcap, swa_window=swa_window, alibi=alibi)
         else:
@@ -778,7 +830,11 @@ def _attn_block(blk: dict, x: torch.Tensor, cfg: ModelConfig, kv, il: int,
             v_slab[bb, n:n + t, :hkv], vs_slab[bb, n:n + t, :hkv] = vq[bb], vs[bb]
         ka, ksa, va, vsa = (_heads(a, hkv) for a in (k_slab, ks_slab, v_slab, vs_slab))
         dec = KV_DECODERS[codec]
-        if alibi is not None:
+        if block_mask is not None:
+            attn = _probe_attend(qb, dec(ka, ksa).to(torch.bfloat16),
+                                 dec(va, vsa).to(torch.bfloat16), q_pos, npv, kv_len,
+                                 block_mask, alibi=alibi, **kw)
+        elif alibi is not None:
             attn = attend(qb, dec(ka, ksa).to(torch.bfloat16),
                           dec(va, vsa).to(torch.bfloat16), q_pos=q_pos, kv_len=kv_len,
                           scale=kw["scale"], softcap=cfg.attn_softcap,
@@ -817,9 +873,6 @@ def _attn_block(blk: dict, x: torch.Tensor, cfg: ModelConfig, kv, il: int,
 # forward() arguments of the JAX package that later slices bring, by the
 # queue item of ROADMAP.md §1 that brings them
 _LATER_ARGS = {
-    "inputs_embeds": "runtime extras (item 7)", "positions": "runtime extras (item 7)",
-    "block_mask": "runtime extras (item 7)", "n_valid": "runtime extras (item 7)",
-    "return_layer_hiddens": "runtime extras (item 7)",
     "collect_stats": "device tools (item 9)", "tp_axis": "multi-GPU (item 11)",
     "ep_axis": "multi-GPU (item 11)", "sp_axis": "multi-GPU (item 11)",
     "layer_offset": "multi-GPU (item 11)", "return_raw_stream": "multi-GPU (item 11)",
@@ -845,16 +898,29 @@ def _rope_tables(cfg: ModelConfig, q_pos: torch.Tensor, dims: int):
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, kv,
             n_past, *, npv: torch.Tensor | None = None,
             logits_last_only: bool = False, return_hidden: bool = False,
-            return_mtp_hidden: bool = False, **later):
+            return_mtp_hidden: bool = False, return_layer_hiddens: bool = False,
+            inputs_embeds: torch.Tensor | None = None, positions=None,
+            block_mask=None, n_valid=None, **later):
     """tokens: (B, T) on the cache's device; n_past: int or per-row list of
     ints (host); npv: the same as an int32 (B,) device tensor, made here
     when not given. Writes the chunk into ``kv`` in place and returns the
     float32 logits (B, T or 1, V); with ``return_hidden`` the final-norm
     hidden states (B, T, E) f32 instead (embedding extraction); with
     ``return_mtp_hidden`` (logits, the pre-output-norm residual stream of
-    every position (B, T, E) f32), the MTP layer's input. The JAX
-    forward's other arguments raise NotImplementedError naming the slice
-    that brings them."""
+    every position (B, T, E) f32), the MTP layer's input; with
+    ``return_layer_hiddens`` every layer's output (L, B, T, E) f32 (the
+    control-vector generator's input).
+
+    ``inputs_embeds`` (B, T, E) replaces the token-embedding lookup;
+    ``positions`` (T,) or (B, T) gives each token's absolute position (rope
+    and learned positions follow it; the rows are still written at n_past
+    + j); ``block_mask`` (T, T) bool makes the chunk a probe block whose
+    queries see the committed prefix and the block rows it allows
+    (``_probe_attend``). ``n_valid`` (an int, or one a row; host ints) is
+    the chunk's live length: a ring layer drops the writes past it, and
+    causal rows past it never feed a live row, so nothing else changes.
+    The JAX forward's other arguments raise NotImplementedError naming the
+    slice that brings them."""
     for name in later:
         if name not in _LATER_ARGS:
             raise TypeError(f"forward() got an unexpected keyword argument {name!r}")
@@ -864,10 +930,19 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, kv,
     n_past = [int(n_past)] * b if np.ndim(n_past) == 0 else [int(n) for n in n_past]
     if npv is None:
         npv = torch.tensor(n_past, dtype=torch.int32, device=dev)
-    x = params["tok_embd"][tokens]                      # (B, T, E) bf16
+    if n_valid is not None:
+        n_valid = [int(n_valid)] * b if np.ndim(n_valid) == 0 else [int(n) for n in n_valid]
+    if inputs_embeds is not None:
+        x = inputs_embeds.to(device=dev, dtype=torch.bfloat16)
+    else:
+        x = params["tok_embd"][tokens]                  # (B, T, E) bf16
     if cfg.embd_scale > 0:                              # gemma input scaling
         x = (x.float() * cfg.embd_scale).to(x.dtype)
-    q_pos = npv[:, None] + torch.arange(t, dtype=torch.int32, device=dev)[None, :]
+    if positions is not None:
+        q_pos = torch.as_tensor(positions, dtype=torch.int32, device=dev).reshape(-1, t)
+        q_pos = q_pos.expand(b, t)
+    else:
+        q_pos = npv[:, None] + torch.arange(t, dtype=torch.int32, device=dev)[None, :]
     if "pos_embd" in params:                            # learned positions
         x = x + params["pos_embd"][q_pos].to(x.dtype)
     if "tok_norm" in params:                            # bloom embedding norm
@@ -891,6 +966,7 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, kv,
     if cfg.attn_temp_scale > 0:                         # llama4 NoPE temperature
         attn_temp = (torch.log(torch.floor((q_pos.float() + 1.0) / cfg.attn_temp_floor)
                                + 1.0) * cfg.attn_temp_scale + 1.0)
+    layer_hiddens = []
     for i, blk in enumerate(params["blocks"]):
         x_layer_in = x       # arctic's parallel MoE branch reads the layer input
         is_swa = cfg.layer_is_swa(i)
@@ -919,7 +995,8 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, kv,
                                    swa_window=cfg.swa_window if is_swa else 0,
                                    n_head=n_head_l, n_head_kv=n_head_kv_l,
                                    attn_chunk=chunk_l,
-                                   attn_scale_vec=attn_temp if nope else None)
+                                   attn_scale_vec=attn_temp if nope else None,
+                                   n_valid=n_valid, block_mask=block_mask)
         if "attn_post_norm" in blk:            # sandwich norm on the branch
             attn_out = L.rms_norm(attn_out, blk["attn_post_norm"], cfg.rms_eps)
         if cfg.residual_branch_scale > 0:      # minicpm
@@ -960,6 +1037,10 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, kv,
                     x = (x.float() * cfg.residual_scale).to(x.dtype)
         if "cvec" in params:                   # control vector at the layer output
             x = x + params["cvec"][i].to(x.dtype)
+        if return_layer_hiddens:
+            layer_hiddens.append(x.float())
+    if return_layer_hiddens:
+        return torch.stack(layer_hiddens)
     mtp_hidden = x       # the pre-output-norm stream ("result_mtp_embd")
     x = _norm(x, params.get("output_norm"), params.get("output_norm_b"), cfg)
     if return_hidden:

@@ -38,7 +38,6 @@ import torch
 from ..gguf.reader import GGUFModel
 from ..ops import layers as L
 from .config import ModelConfig
-from .llama import _later
 from .weights import _t, dequant_tensor, load_dense, load_linear
 
 ARCHS = ("mamba",)
@@ -242,9 +241,10 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: MambaCa
     read (the state carries the history); n_valid: None (all T), an int, or
     one length a row (host ints) — the tokens of each row that the state
     takes. Writes the chunk into ``cache`` in place and returns the float32
-    logits (B, T or 1, V)."""
-    if return_hidden or return_layer_hiddens:
-        _later("the mamba forward's hidden states", "runtime extras (item 7)")
+    logits (B, T or 1, V); with ``return_hidden`` the final-norm hidden
+    states (B, T, E) f32 instead, with ``return_layer_hiddens`` every
+    layer's output (L, B, T, E) f32. The state takes the chunk either
+    way."""
     b, t = tokens.shape
     dev = cache.device
     if n_valid is None:
@@ -254,13 +254,20 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: MambaCa
         raise ValueError(f"n_valid {nv} outside [0, {t}] or not one a row of {b}")
     valid = _valid_rows(nv, t, cfg.ssm_d_conv, dev)
     x = params["tok_embd"][tokens]                               # (B, T, E) bf16
+    layer_hiddens = []
     for i, blk in enumerate(params["blocks"]):
         h = L.rms_norm(x, blk["attn_norm"], cfg.rms_eps)
         y = _mamba_block(blk, h, cfg, cache.conv[i], cache.ssm[i], valid)
         x = x + y.to(x.dtype)
         if "cvec" in params:                   # control vector at the layer output
             x = x + params["cvec"][i].to(x.dtype)
+        if return_layer_hiddens:
+            layer_hiddens.append(x.float())
+    if return_layer_hiddens:
+        return torch.stack(layer_hiddens)
     x = L.rms_norm(x, params["output_norm"], cfg.rms_eps)
+    if return_hidden:
+        return x.float()
     if logits_last_only:
         x = x[:, -1:, :]
     return params["output"](x).float()

@@ -50,7 +50,7 @@ from ..ops.delta_net import delta_net
 from ..ops.flash_attention import DECODE_MAX_T, flash_attention, flash_attention_decode
 from ..ops.moe import moe_ffn
 from .config import ModelConfig
-from .llama import _EXPERT_TENSORS, _load_experts
+from .llama import _EXPERT_TENSORS, _load_experts, refuse_hidden
 from .weights import _t, dequant_tensor, load_dense, load_linear
 
 ARCHS = ("qwen3next", "qwen35", "qwen35moe")
@@ -337,13 +337,15 @@ def _rope_tables(cfg: ModelConfig, q_pos: torch.Tensor):
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, kv: HybridCache,
             n_past, *, npv: torch.Tensor | None = None, logits_last_only: bool = False,
-            n_valid=None) -> torch.Tensor:
+            n_valid=None, return_hidden: bool = False,
+            return_layer_hiddens: bool = False) -> torch.Tensor:
     """tokens: (B, T) on the cache's device; n_past: int or per-row list of
     ints (host); npv: the same as an int32 (B,) device tensor, made here
     when not given; n_valid: None (all T), an int, or one length a row
     (host ints) — the tokens of each row that the recurrent state takes.
     Writes the chunk into ``kv`` in place and returns the float32 logits
-    (B, T or 1, V)."""
+    (B, T or 1, V). The hidden states raise (``refuse_hidden``)."""
+    refuse_hidden("Qwen3-Next", return_hidden, return_layer_hiddens)
     b, t = tokens.shape
     dev = kv.device
     n_past = [int(n_past)] * b if np.ndim(n_past) == 0 else [int(n) for n in n_past]

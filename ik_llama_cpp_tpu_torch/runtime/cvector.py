@@ -7,9 +7,12 @@ per steered layer, 1-indexed (``direction.1`` steers layer 0).
 
 Applied, each layer's output gains ``scale * direction[il]``
 (llama_control_vector::apply_to at the l_out hook of every reference
-graph): ``models/llama.forward`` adds ``params["cvec"][il]`` there. The
-generator (PCA or mean of hidden-state differences) needs the runtime's
-per-layer hidden states, a later slice (ROADMAP.md §1 item 7).
+graph): ``models/llama.forward`` adds ``params["cvec"][il]`` there.
+
+Generation (``generate_control_vector``, cvector-generator's pca and mean
+modes): each layer's direction from the differences of the last token's
+hidden state (``Runtime.layer_hiddens``) between paired positive and
+negative prompts.
 """
 from __future__ import annotations
 
@@ -62,3 +65,35 @@ def write_control_vector(path: str | Path, directions: np.ndarray) -> Path:
             w.add_tensor(f"direction.{il + 1}", d.astype(np.float32))
     w.write()
     return Path(path)
+
+
+def generate_control_vector(runtime, positive: list[str], negative: list[str], *,
+                            method: str = "pca") -> np.ndarray:
+    """The cvector-generator: for each layer, the principal direction
+    (``method`` "pca": the first right singular vector of the centred
+    differences, oriented along their mean; one pair or "mean": the mean)
+    of the (positive - negative) differences of the last token's output,
+    normalized. Returns (n_layer, n_embd) float32; the SVD runs in numpy
+    on the host, as in the JAX package."""
+    cfg = runtime.cfg
+    diffs = [[] for _ in range(cfg.n_layer)]
+    for pos, neg in zip(positive, negative):
+        hp = runtime.layer_hiddens(runtime.tokenizer.encode(pos))[:, -1].cpu().numpy()
+        hn = runtime.layer_hiddens(runtime.tokenizer.encode(neg))[:, -1].cpu().numpy()
+        for il in range(cfg.n_layer):
+            diffs[il].append(hp[il] - hn[il])
+    out = np.zeros((cfg.n_layer, cfg.n_embd), np.float32)
+    for il in range(cfg.n_layer):
+        d = np.stack(diffs[il])                  # (n_pairs, E)
+        if method == "mean" or d.shape[0] == 1:
+            v = d.mean(axis=0)
+        else:
+            dc = d - d.mean(axis=0, keepdims=True)
+            _, _, vt = np.linalg.svd(dc, full_matrices=False)
+            v = vt[0]
+            if np.dot(v, d.mean(axis=0)) < 0:    # orient along the mean difference
+                v = -v
+        n = np.linalg.norm(v)
+        if n > 0:
+            out[il] = v / n
+    return out

@@ -14,9 +14,16 @@ PyTorch runs eagerly, so there are no compiled step functions; the prefill
 buckets and the chunk limit are kept so that cache rows and chunking match
 the JAX runtime exactly.
 
+The BERT family (``models/bert.py``) is an encoder on a ``NoCache``: it
+has no LM head, so it serves ``embed`` and ``layer_hiddens`` and refuses
+``eval_tokens``.
+
 The speculative verify steps (``_spec_verify``, ``_spec_loop``) and the
 MTP layer's runtime (``eval_tokens_hidden``, ``mtp_eval``) serve
-``runtime/speculative.py``.
+``runtime/speculative.py``; the hidden-state paths ``embed`` (pooled
+embeddings), ``layer_hiddens`` (the control-vector generator's input) and
+``eval_probe`` (lookahead's probe block) serve ``runtime/cvector.py``,
+``runtime/lookahead.py``, the server's embeddings routes and the tools.
 
 The runtime runs on ``cuda`` unless the caller passes ``device="cpu"``; it
 never falls back to the CPU on its own.
@@ -31,6 +38,7 @@ import numpy as np
 import torch
 
 from ..gguf.reader import GGUFModel, load_gguf
+from ..models import bert as bert_mod
 from ..models import deepseek2 as ds2_mod
 from ..models import llama as llama_mod
 from ..models import mamba as mamba_mod
@@ -89,10 +97,15 @@ for _a in mamba_mod.ARCHS:
     FORWARDS[_a] = mamba_mod.forward
     LOADERS[_a] = mamba_mod.load_mamba_params
     CACHES[_a] = mamba_mod.MambaCache.create
+# the BERT family: an encoder with no cache and no LM head
+for _a in bert_mod.ARCHS:
+    FORWARDS[_a] = bert_mod.forward
+    LOADERS[_a] = bert_mod.load_bert_params
+    CACHES[_a] = bert_mod.NoCache.create
 RECURRENT_ARCHS = q3n_mod.ARCHS + mamba_mod.ARCHS
 # architectures with a forward of their own in the JAX package, not ported yet
 OWN_FORWARD = ("deepseek4", "gemma4", "gemma4_mtp", "gemma4-assistant",
-               "openpangu", "bert", "nomic-bert", "jina-bert-v2", "t5", "dflash")
+               "openpangu", "t5", "dflash")
 
 
 def _bucket(n: int) -> int:
@@ -192,7 +205,7 @@ class Runtime:
         # the DeepSeek-2 family loads the latent cache's absorb projections;
         # neither it nor a recurrent family has a q/k/v or gate/up pair to fuse
         kw = ({"mla": True} if cfg.arch in ds2_mod.ARCHS else
-              {} if cfg.arch in RECURRENT_ARCHS else {"fuse": fuse})
+              {} if cfg.arch in RECURRENT_ARCHS + bert_mod.ARCHS else {"fuse": fuse})
         params = loader(gg, cfg, dev, use_quant=use_quant, **kw)
         _log_model_load(gg, cfg)
         return cls(cfg=cfg, params=params, device=dev,
@@ -208,12 +221,15 @@ class Runtime:
 
     @property
     def needs_n_valid(self) -> bool:
-        """Padded prefill rows must not be committed to persistent state.
-        The JAX runtime adds ring caches (--swa-compress) here; the port's
-        rings take padded rows into slots outside every window of that
-        chunk and the next (ROADMAP.md §3), so only recurrent state needs
-        it."""
-        return self.recurrent
+        """Padded prefill rows must not be committed to persistent state:
+        recurrent state, and ring writes under --swa-compress (a padded row
+        would wrap onto a live window row), as in the JAX runtime."""
+        return self.recurrent or self.swa_compress
+
+    @property
+    def encoder_only(self) -> bool:
+        """An encoder (the BERT family): hidden states out, no logits."""
+        return self.cfg.arch in bert_mod.ARCHS
 
     @property
     def eos_id(self) -> int:
@@ -262,7 +278,10 @@ class Runtime:
         with the logits of every position (all_logits) or of the last one,
         as a float32 (n, V) tensor on the runtime's device. A recurrent
         model's forward takes each chunk's live length (``n_valid``), so its
-        state never sees the padding."""
+        state never sees the padding. An encoder has no logits: it raises."""
+        if self.encoder_only:
+            raise NotImplementedError(f"{self.cfg.arch} is an encoder with no LM head: it has "
+                                      "no logits to evaluate; use Runtime.embed")
         fwd = FORWARDS[self.cfg.arch]
         out_chunks = []
         logits = None
@@ -289,6 +308,80 @@ class Runtime:
         kv = self.new_cache(1, capacity)
         logits, _, _ = self.eval_tokens(ids, kv, 0, all_logits=True)
         return logits
+
+    # ------------------------------------------------- hidden states ----
+    def _padded(self, ids: list[int]):
+        """ids as one (1, b) int64 chunk on the device, b the prefill bucket
+        of len(ids) (len(ids) itself above the largest), and a fresh cache
+        with room for it, as the JAX runtime's embed and layer_hiddens make
+        them."""
+        n = len(ids)
+        b = _bucket(n) if n <= PREFILL_BUCKETS[-1] else n
+        tokens = torch.zeros((1, b), dtype=torch.int64)
+        tokens[0, :n] = torch.as_tensor(ids, dtype=torch.int64)
+        return tokens.to(self.device), self.new_cache(1, max(b + 8, 64))
+
+    def embed(self, ids: list[int], pooling: str = "mean",
+              normalize: bool = True) -> np.ndarray:
+        """Embedding extraction (llama_get_embeddings with the pooling types
+        NONE / MEAN / CLS / LAST; examples/embedding): one forward over ids,
+        padded to its bucket with the live length as ``n_valid``, for the
+        final-norm hidden states. Returns a float32 numpy (E,) vector for a
+        pooled mode, L2-normalized unless ``normalize`` is False, or the
+        (T, E) states for pooling 'none'; any other pooling name means
+        mean, as in the JAX runtime. The pooling runs in numpy on the host,
+        as there."""
+        n = len(ids)
+        tokens, kv = self._padded(ids)
+        hidden = FORWARDS[self.cfg.arch](self.params, self.cfg, tokens, kv, 0,
+                                         return_hidden=True, n_valid=n)[0, :n]
+        if pooling == "none":
+            return hidden.cpu().numpy()
+        if pooling == "cls":
+            e = hidden[0].cpu().numpy()
+        elif pooling == "last":
+            e = hidden[-1].cpu().numpy()
+        else:
+            e = hidden.cpu().numpy().mean(axis=0)
+        if normalize:
+            e = e / (np.linalg.norm(e) + 1e-12)
+        return e
+
+    def layer_hiddens(self, ids: list[int]) -> torch.Tensor:
+        """Every layer's output at each position of ids, (n_layer, T, E)
+        float32 on the device: the control-vector generator's input. One
+        forward over ids padded to its bucket."""
+        n = len(ids)
+        tokens, kv = self._padded(ids)
+        hs = FORWARDS[self.cfg.arch](self.params, self.cfg, tokens, kv, 0,
+                                     return_layer_hiddens=True, n_valid=n)
+        return hs[:, 0, :n]
+
+    def eval_probe(self, tokens, positions, block_mask, kv, n_past: int) -> torch.Tensor:
+        """A tree / lookahead probe: a block of T tokens at explicit,
+        possibly non-contiguous ``positions`` with an in-block visibility
+        ``block_mask`` (T, T), the analogue of a multi-seq-id llama_batch
+        (examples/lookahead/lookahead.cpp:182-259). Returns all T logit
+        rows, (T, V) float32 on the device.
+
+        The cache is written in place: the block's K/V rows land in rows
+        n_past .. n_past + T - 1, overwriting what they held, and rows below
+        n_past stay as they were, bit for bit. The caller's committed state
+        is those rows below n_past; the JAX runtime leaves its cache
+        untouched only because its arrays are immutable."""
+        fwd = FORWARDS[self.cfg.arch]
+        if fwd is not llama_mod.forward:
+            raise NotImplementedError(f"eval_probe: arch {self.cfg.arch} uses a custom graph "
+                                      "without block-mask support")
+        t = len(tokens)
+        if n_past + t > kv.capacity:
+            raise ValueError(f"probe of {t} rows at n_past {n_past} past the cache's "
+                             f"capacity {kv.capacity}")
+        toks = torch.as_tensor(np.asarray(tokens, np.int64)[None], device=self.device)
+        logits = fwd(self.params, self.cfg, toks, kv, n_past,
+                     positions=torch.as_tensor(np.asarray(positions, np.int32)[None]),
+                     block_mask=torch.as_tensor(np.asarray(block_mask, bool)))
+        return logits[0]
 
     # ----------------------------------------------------- MTP (nextn) ----
     @property

@@ -14,12 +14,18 @@ The torch port of the JAX package's ``server/app.py``, split in two:
 
 Endpoints: /health /props /v1/models /metrics /slots /tokenize /detokenize
 /completion(s) /v1/completions /v1/chat/completions /v1/responses
-/apply-template, the control vectors' GET /control-vectors and POST
-/control-vectors/load, /unload and /apply, and the LoRA adapters' GET and
-POST /lora-adapters (adapters given with ``--lora PATH[:SCALE]``, which
-loads the model with its q/k/v and gate/up unfused). The other routes of
-the JAX server (embeddings, rerank, infill, slot save/restore, sessions,
-the Anthropic API, multimodal, the profiler) are later slices of the port.
+/apply-template, the embeddings routes /embedding, /embeddings and
+/v1/embeddings (``Runtime.embed``: pooled, L2-normalized vectors), /rerank
+and /v1/rerank (documents scored by the dot product of their mean-pooled
+embeddings with the query's), /infill (a fill-in-the-middle completion
+from the tokenizer's FIM tokens), the control vectors' GET
+/control-vectors and POST /control-vectors/load, /unload and /apply, and
+the LoRA adapters' GET and POST /lora-adapters (adapters given with
+``--lora PATH[:SCALE]``, which loads the model with its q/k/v and gate/up
+unfused). An encoder-only model (the BERT family) serves the embeddings
+and rerank routes and refuses generation with a 400. The other routes of
+the JAX server (slot save/restore, sessions, the Anthropic API,
+multimodal, the profiler) are later slices of the port.
 
 Run: python -m ik_llama_cpp_tpu_torch.server --gguf model.gguf --port 8080
 """
@@ -429,6 +435,65 @@ class Server:
     def apply_template(self, body: dict) -> dict:
         return {"prompt": self._chat_prompt(body.get("messages", []))}
 
+    # ----------------------------------------------- embeddings / rerank
+    def _item_ids(self, item) -> list[int]:
+        """An input item: a list of token ids as it is, a text encoded."""
+        return list(item) if isinstance(item, list) else self.rt.tokenizer.encode(item)
+
+    def embeddings(self, body: dict):
+        """Native /embedding(s): {"content": str | ids | [str | ids, ...],
+        "pooling": ...} -> {"embedding": [...]} for one item, or [{"index",
+        "embedding"}, ...] for a list (each list entry is an item, so one
+        id list goes in as [[ids]])."""
+        content = body.get("content", body.get("input", ""))
+        items = content if isinstance(content, list) else [content]
+        pooling = body.get("pooling", "mean")
+        out = [{"index": i, "embedding": self.rt.embed(self._item_ids(x), pooling).tolist()}
+               for i, x in enumerate(items)]
+        return out if isinstance(content, list) else {"embedding": out[0]["embedding"]}
+
+    def oai_embeddings(self, body: dict) -> dict:
+        """OpenAI-compatible /v1/embeddings (mean pooling)."""
+        inputs = body.get("input", "")
+        data, n_tok = [], 0
+        for i, x in enumerate(inputs if isinstance(inputs, list) else [inputs]):
+            ids = self._item_ids(x)
+            n_tok += len(ids)
+            data.append({"object": "embedding", "index": i,
+                         "embedding": self.rt.embed(ids, "mean").tolist()})
+        return {"object": "list", "data": data, "model": self.model_name,
+                "usage": {"prompt_tokens": n_tok, "total_tokens": n_tok}}
+
+    def rerank(self, body: dict) -> dict:
+        """/rerank: documents scored against a query by the dot product of
+        their mean-pooled, normalized embeddings (the generative fallback of
+        the reference server's rerank endpoint for a model with no
+        classifier head), best first, the top_n of them."""
+        docs = body.get("documents", [])
+        top_n = int(body.get("top_n", len(docs)))
+        qe = self.rt.embed(self.rt.tokenizer.encode(body.get("query", "")), "mean")
+        results = []
+        for i, d in enumerate(docs):
+            text = d if isinstance(d, str) else d.get("text", "")
+            de = self.rt.embed(self.rt.tokenizer.encode(text), "mean")
+            results.append({"index": i, "relevance_score": float(np.dot(qe, de))})
+        results.sort(key=lambda r: -r["relevance_score"])
+        return {"model": self.model_name, "results": results[:top_n]}
+
+    def infill(self, body: dict) -> dict:
+        """Fill-in-the-middle completion (examples/infill): the prompt
+        [BOS] <pre> prefix <suf> suffix <mid> from the tokenizer's FIM ids;
+        a model without them is a 400."""
+        tok = self.rt.tokenizer
+        if tok.fim_pre_id < 0 or tok.fim_suf_id < 0 or tok.fim_mid_id < 0:
+            raise RequestError(400, "model has no fill-in-middle tokens")
+        pre = tok.encode(body.get("input_prefix", ""), add_bos=False)
+        suf = tok.encode(body.get("input_suffix", ""), add_bos=False)
+        ids = (([tok.bos_id] if tok.bos_id >= 0 and tok.add_bos else [])
+               + [tok.fim_pre_id] + pre + [tok.fim_suf_id] + suf + [tok.fim_mid_id])
+        toks, text, _ = self._run(ids, body)
+        return {"content": text, "tokens_predicted": len(toks)}
+
     def completion(self, body: dict) -> dict:
         """llama.cpp-native /completion."""
         ids = self._prompt_ids(body.get("prompt", ""))
@@ -637,7 +702,10 @@ POST_ROUTES = {"/tokenize": "tokenize", "/detokenize": "detokenize",
                "/control-vectors/load": "cvec_load",
                "/control-vectors/unload": "cvec_unload",
                "/control-vectors/apply": "cvec_apply",
-               "/lora-adapters": "lora_set"}
+               "/lora-adapters": "lora_set",
+               "/embedding": "embeddings", "/embeddings": "embeddings",
+               "/v1/embeddings": "oai_embeddings", "/rerank": "rerank",
+               "/v1/rerank": "rerank", "/infill": "infill"}
 
 
 def sse(item) -> bytes:

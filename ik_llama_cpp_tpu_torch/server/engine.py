@@ -41,6 +41,10 @@ An exception in the engine thread fails the requests it was serving: each
 carries the error text (``Request.error``) and ``n_failed`` counts them;
 the engine keeps serving.
 
+An encoder-only model (the BERT family, on a ``NoCache``) starts an
+engine that refuses every generation request; the server's embeddings
+routes serve it.
+
 DFlash drafting, slot save/restore, the llguidance grammar kinds, lazy
 grammars, the allowlist, expiring logit biases, banned phrases, the
 reasoning budget, post-sampling probabilities and tensor/pipeline parallel
@@ -329,6 +333,10 @@ class BatchEngine:
         return self._thread is not None and self._thread.is_alive()
 
     def submit(self, req: Request):
+        if self.rt.encoder_only:
+            raise NotImplementedError(
+                f"{self.cfg.arch} is an encoder with no LM head: it generates no text "
+                "(its embeddings are served by /embedding and /v1/embeddings)")
         later = [(req.allow_rules, "the unicode-script allowlist"),
                  (req.expiring_logit_bias is not None, "expiring logit biases"),
                  (req.grammar and req.grammar_kind not in ("gbnf", "grammar"),
@@ -346,8 +354,10 @@ class BatchEngine:
 
     def _forward(self, toks: np.ndarray, kv, n_past, n_valid: list) -> torch.Tensor:
         """One forward over rows of the shared cache; ``n_valid`` (a length
-        a row, 0 for a row with no token of its own) reaches a recurrent
-        model's forward only."""
+        a row, 0 for a row with no token of its own) reaches the forward
+        when the runtime needs it: a recurrent model's, which keeps the
+        padded rows out of its state, and a llama model's on ring caches
+        (--swa-compress), which drops the padded and idle rows' ring writes."""
         kw = {"n_valid": n_valid} if self.rt.needs_n_valid else {}
         return FORWARDS[self.cfg.arch](self.rt.params, self.cfg,
                                        torch.from_numpy(toks).to(self.device), kv, n_past,

@@ -7,8 +7,9 @@ Usage:
   python -m ik_llama_cpp_tpu_torch.tools.cli -m model.gguf -i            # interactive
   python -m ik_llama_cpp_tpu_torch.tools.cli -m model.gguf -p "..." --device cpu
 
-The model runs on the card unless ``--device`` says otherwise. Lookahead
-decoding, the prompt-cache session file, ring SWA caches and the layer
+The model runs on the card unless ``--device`` says otherwise.
+``--lookahead`` decodes with lookahead decoding (``runtime/lookahead.py``,
+its default W 8, N 4, G 8). The prompt-cache session file and the layer
 split are later slices of the port: asking for one raises.
 """
 from __future__ import annotations
@@ -20,6 +21,7 @@ import time
 
 from ..models import llama as llama_mod
 from ..runtime.generate import Runtime
+from ..runtime.lookahead import generate_lookahead
 from ..runtime.sampling import SamplerParams
 
 
@@ -55,9 +57,10 @@ def parse_args(argv=None):
                          "into DIR/trace.json")
     ap.add_argument("--device", default="cuda",
                     help="torch device (cpu runs the plain versions)")
-    # later slices of the port
     ap.add_argument("--swa-compress", action="store_true")
-    ap.add_argument("--lookahead", action="store_true")
+    ap.add_argument("--lookahead", action="store_true",
+                    help="lookahead decoding (Jacobi window and n-gram pool)")
+    # later slices of the port
     ap.add_argument("--prompt-cache")
     ap.add_argument("-sml", "--layer-split", type=int, default=0)
     return ap.parse_args(argv)
@@ -80,8 +83,6 @@ def kv_spec(args):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.lookahead:
-        llama_mod._later("lookahead decoding", "runtime extras (item 7)")
     if args.prompt_cache:
         llama_mod._later("the prompt-cache session file", "runtime extras (item 7: state.py)")
     if args.i8_mxu:
@@ -102,6 +103,15 @@ def main(argv=None):
 
     def run(prompt: str):
         t1 = time.time()
+        if args.lookahead:
+            _, out, st = generate_lookahead(rt, prompt, args.n_predict, sampler=sampler,
+                                            seed=seed, capacity=args.ctx_size)
+            dt = time.time() - t1
+            print(rt.detokenize(out))
+            print(f"\n[lookahead: {len(out)} tokens, {len(out) / dt:.2f} tok/s, "
+                  f"{st.n_rounds} rounds, {100 * st.accept_rate:.1f}% gram-accepted]",
+                  file=sys.stderr)
+            return
         ids, out = rt.generate(prompt, args.n_predict, sampler, seed,
                                capacity=args.ctx_size)
         dt = time.time() - t1

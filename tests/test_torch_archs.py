@@ -160,10 +160,10 @@ def test_gptj_raises_in_both(tmp_path):
 
 def test_own_forward_archs_name_their_queue_item(tmp_path):
     """An architecture with a forward of its own in the JAX package (here
-    bert; mamba was until it was ported) is refused with its queue item, at
-    the runtime and the loader."""
-    path = F.make_tiny_bert_gguf(tmp_path / "bert.gguf")
-    with pytest.raises(NotImplementedError, match=r"bert.*item 8"):
+    t5; mamba and bert were until they were ported) is refused with its
+    queue item, at the runtime and the loader."""
+    path = F.make_tiny_t5_gguf(tmp_path / "t5.gguf")
+    with pytest.raises(NotImplementedError, match=r"t5.*item 8"):
         TG.Runtime.from_gguf(path, device="cpu")
     tg = t_load_gguf(path)
     from ik_llama_cpp_tpu_torch.models.config import config_from_gguf
@@ -197,6 +197,6 @@ def test_mtp_blocks_are_loaded_not_run(tmp_path):
     lg, _, hid = TLM.mtp_forward(tr.params, tr.cfg, torch.tensor([[5, 6]]),
                                  torch.zeros(1, 2, tr.cfg.n_embd), tr.new_mtp_cache(1, 16), 0)
     assert lg.shape == (1, 2, tr.cfg.n_vocab) and hid.shape == (1, 2, tr.cfg.n_embd)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 9"):
         TLM.forward(tr.params, tr.cfg, torch.tensor([[5, 6]]), tr.new_cache(1, 16), 0,
-                    return_layer_hiddens=True)
+                    collect_stats=True)

@@ -1,9 +1,10 @@
 """Control vectors in the port against the JAX package on the CPU: the GGUF
 the port writes is the one the JAX writer writes, the dense steering array
 loads the same, the forward adds it at each layer's output as the JAX one
-does (the rule of test_torch_archs.py), and the server's four
+does (the rule of test_torch_archs.py), the server's four
 /control-vectors routes keep the JAX server's bookkeeping and apply the
-JAX sum of the loaded vectors."""
+JAX sum of the loaded vectors, and the generator (pca and mean) gives the
+JAX generator's directions."""
 import numpy as np
 import pytest
 import torch
@@ -94,3 +95,31 @@ def test_routes_are_served():
     assert GET_ROUTES["/control-vectors"] == "cvec_list"
     assert {POST_ROUTES[f"/control-vectors/{r}"] for r in ("load", "unload", "apply")} == {
         "cvec_load", "cvec_unload", "cvec_apply"}
+
+
+
+POS = ["I love this, it is wonderful", "what a great day", "happy and kind"]
+NEG = ["I hate this, it is awful", "what a dreadful day", "sad and cruel"]
+COS_TOL = 0.999
+
+
+@pytest.fixture(scope="module")
+def runtimes(files):
+    return JRuntime.from_gguf(files["model"]), TRuntime.from_gguf(files["model"], "cpu")
+
+
+@pytest.mark.parametrize("method", ["pca", "mean"])
+def test_generated_vector_matches_jax(runtimes, method):
+    """generate_control_vector over three prompt pairs: unit directions,
+    one a layer, each within COS_TOL (cosine 0.999) of the JAX generator's
+    on the JAX runtime. The last token's layer outputs agree to the rule of
+    test_torch_hidden.py (3%); their differences, which the generator takes,
+    keep that absolute error, so a direction moves by well under a degree
+    (observed cosines 0.99993 and above)."""
+    jr, tr = runtimes
+    ref = JC.generate_control_vector(jr, POS, NEG, method=method)
+    got = TC.generate_control_vector(tr, POS, NEG, method=method)
+    assert got.shape == ref.shape == (N_LAYER, N_EMBD) and got.dtype == np.float32
+    np.testing.assert_allclose(np.linalg.norm(got, axis=1), 1.0, rtol=1e-5)
+    cos = (got * ref).sum(axis=1)
+    assert (cos >= COS_TOL).all(), cos

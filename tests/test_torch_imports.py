@@ -78,7 +78,9 @@ def test_port_files_cover_every_subpackage():
     assert PORT / "ops" / "delta_net.py" in _port_files()
     assert PORT / "runtime" / "speculative.py" in _port_files()
     for rel in ("models/mamba.py", "runtime/lora.py", "tools/convert_lora.py",
-                "tools/perplexity.py"):
+                "tools/perplexity.py", "models/bert.py", "runtime/lookahead.py",
+                "tools/embedding.py", "tools/retrieval.py", "tools/gritlm.py",
+                "tools/cvector_generator.py", "tools/lookahead.py"):
         assert PORT / rel in _port_files(), rel
 
 

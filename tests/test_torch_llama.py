@@ -159,12 +159,12 @@ def test_later_slices_raise(tiny, tmp_path):
     assert type(ring.new_cache(1, 2048)) is TLM.KVCache
     gemma = make_tiny_llama_gguf(tmp_path / "g.gguf", arch="gemma", n_layer=1)
     assert len(TRuntime.from_gguf(gemma, device="cpu").generate([5, 6, 7], 2)[1]) == 2
-    from fixtures import make_tiny_bert_gguf
+    from fixtures import make_tiny_t5_gguf
     with pytest.raises(NotImplementedError, match=r"item 8"):
-        TRuntime.from_gguf(make_tiny_bert_gguf(tmp_path / "b.gguf"), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"item 7"):
+        TRuntime.from_gguf(make_tiny_t5_gguf(tmp_path / "t5.gguf"), device="cpu")
+    with pytest.raises(NotImplementedError, match=r"item 9"):
         TLM.forward(tr.params, tr.cfg, torch.zeros((1, 8), dtype=torch.int64),
-                    tr.new_cache(1, 16), 0, inputs_embeds=torch.zeros(1, 8, 64))
+                    tr.new_cache(1, 16), 0, collect_stats=True)
 
 
 @needs_cuda

@@ -267,11 +267,25 @@ def test_zero_row_checkpoint_restore_and_row_views(loaded):
 
 
 def test_hidden_outputs_are_a_later_slice(loaded):
+    """The hidden outputs (the name is from when the forward refused them;
+    they are ported now): over the same chunk from the same
+    state, return_hidden's states give the logits bit for bit through the
+    head, the last of return_layer_hiddens' layers gives them through the
+    final norm, and all three calls leave the same state bit for bit."""
     _, _, tp, tc = loaded
-    kv = TMB.MambaCache.create(tc, 1, 0, "cpu")
-    for kw in ("return_hidden", "return_layer_hiddens"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            TMB.forward(tp, tc, torch.tensor([[5]]), kv, 0, **{kw: True})
+    tok = torch.tensor([_ids(9, seed=4)])
+    outs, states = [], []
+    for kw in ({}, {"return_hidden": True}, {"return_layer_hiddens": True}):
+        kv = TMB.MambaCache.create(tc, 1, 0, "cpu")
+        outs.append(TMB.forward(tp, tc, tok, kv, 0, n_valid=7, **kw))
+        states.append((kv.conv, kv.ssm))
+    logits, hidden, layers = outs
+    assert hidden.shape == (1, 9, 64) and layers.shape == (2, 1, 9, 64)
+    assert torch.equal(tp["output"](hidden.to(torch.bfloat16)).float(), logits)
+    last = TMB.L.rms_norm(layers[-1].to(torch.bfloat16), tp["output_norm"], tc.rms_eps)
+    assert torch.equal(last.float(), hidden)
+    for conv, ssm in states[1:]:
+        assert torch.equal(conv, states[0][0]) and torch.equal(ssm, states[0][1])
 
 
 def test_runtime_greedy_matches_jax(gguf, rt):
