@@ -92,11 +92,20 @@ Phases (all by default; any failure exits non-zero):
      a chat through the built-in llama-3 template); the launches of kernels
      A, B and C counted over the run, requests/s and tokens/s over all
      slots, and each greedy request replayed at B = 1 on the kernel path
-     and the plain path over its own history
+     and the plain path over its own history. Then 16b on the same loaded
+     model: slot state (a ~1,000-token prompt saved, the slot erased and
+     overwritten, restored: its rows bit for bit, the restored tokens
+     counted as cached, an extending request's greedy tokens those of the
+     uninterrupted slot; save and restore ms and GB/s; again over a q8
+     cache, where kernels 5 and 6 read the restored rows), then the
+     request options, each gated on the model's own unconstrained greedy
+     run: banned words with a rewind, the reasoning budget, a lazy
+     grammar, a forced tool call, the allowlist, an expiring bias,
+     post-sampling probabilities and the Anthropic API
  17. the llama-graph family: Gemma-3-12B at full width (gemma3: E3840
      H16 KV8 D256 FF15360, V262208 tied, a 1,024-key window on all layers
      but each sixth, QK-norms, sandwich norms, GELU; Q4_0 linears, a Q8_0
-     embedding, random blocks from a seed, one block cloned to 16 of its 48
+     embedding, random blocks from a seed, one block cloned to 8 of its 48
      layers, L17): a 3,999-token prefill in
      chunks and 64 greedy decode steps at 4,000 cached tokens, with the
      A/B/C launch counts and a decode profile; the same decode over
@@ -190,10 +199,10 @@ Phases (all by default; any failure exits non-zero):
      restore). Phase 3 adds row 1b: kernel A at ssm_in, ssm_out and the
      tied head, M 1 and 512
  23. LoRA and perplexity on the dense path at the full width of phase 4
-     (L32, loaded with q/k/v and gate/up unfused): a rank-16, alpha-32
-     adapter on all seven projections of every layer (written by
-     runtime/lora.write_lora_gguf, random from seed 23): prefill 512 and 64
-     decode steps with it (A 225 a step), A's kernel ms beside the low-rank
+     at 16 of its 32 layers (L23, loaded with q/k/v and gate/up unfused): a
+     rank-16, alpha-32 adapter on all seven projections of every layer
+     (written by runtime/lora.write_lora_gguf, random from seed 23): prefill
+     512 and 64 decode steps with it (A 7 x L23 + 1 a step), A's kernel ms beside the low-rank
      products' ms a step (a profiled step with the adapter less one without); a one-history parity of the adapted kernel path
      against the adapted plain path; at scale 0 and after strip_lora the
      logits equal the unadapted model's bit for bit, and the adapter moves
@@ -203,7 +212,7 @@ Phases (all by default; any failure exits non-zero):
      smoke_text at n_ctx 512 with and without the adapter, the adapted
      kernel path within 2% of the adapted plain path; then, on the same
      loaded model with the adapter stripped, the hidden-state paths:
-     layer_hiddens over 512 tokens (A 224, B 32), generate_control_vector
+     layer_hiddens over 512 tokens (A 7 x L23, B L23), generate_control_vector
      over 4 prompt pairs, the embedding of a 300-token input padded to its
      bucket of 512 (n_valid) against the plain path, and lookahead decoding
      (W 4, N 3, G 4) over 64 tokens: a free run, and the one-history gate
@@ -314,12 +323,14 @@ QNEXT = dict(ARCH="qwen3next", L=48, LRUN=8, E=2048, H=16, HKV=2, D=256, ROPE_DI
              FFS=512, V=151936, CTX=262144)
 QNEXT_GGUF_VERSION = "port-20"
 PREFILL19, DECODE19 = 1024, 64   # phase 19's prefill (two chunks) and decode steps
-# phases 7 and 17 run their models' published widths at 16 of their 48
-# layers, and phase 19 at 8, so that the whole script stays inside its time
-# limit on a slow host (with 7 and 17 at 24 layers and 19 at 24 a full run
-# took 977-993 s of its 1,200 on an H100 80GB HBM3 at 700 W, and 1,296 s on
-# a host ~30% slower; at 12 phase 19 took 108-118 s)
-L7 = L17 = 16
+# phases 7 and 17 run their models' published widths at 16 and 8 of their
+# 48 layers, and phase 19 at 8, so that the whole script stays inside its
+# time limit on a slow host (with 7 and 17 at 24 layers and 19 at 24 a full
+# run took 977-993 s of its 1,200 on an H100 80GB HBM3 at 700 W, and 1,296 s
+# on a host ~30% slower; at 12 phase 19 took 108-118 s; with 17 at 16 and
+# phase 16b added, 1,079 s on a slow host)
+L7 = 16
+L17 = 8
 # phase 9 runs the dense model's published width at 8 of its 32 layers
 # over every KV codec (at 32 it took 148-201 s of a full run, at 16 103 s)
 L9 = 8
@@ -361,6 +372,9 @@ MAMBA_GGUF_VERSION = "port-22"
 # phase 22 runs Mamba-2.8B at 32 of its 64 layers (at 64 it took 56-87 s
 # of a full run)
 L22 = 32
+# phase 23 runs the dense model's published width at 16 of its 32 layers
+# (at 32 it took 117-126 s of a full run on a slow host)
+L23 = 16
 # kernel A's (K, N) on the Mamba-2.8B path: ssm_in, ssm_out, the tied head
 A_MAMBA_SHAPES = [(2560, 10240), (5120, 2560), (2560, 50280)]
 # phase 23's adapter on the dense model of phase 4: rank and alpha
@@ -3202,7 +3216,7 @@ def span_cost(torch, rt, capacity: int = 2048, bucket: int = 512) -> str:
             f"back of the two rows {gather:.2f} ms and {2 * row / 2**20:.0f} MiB")
 
 
-def phase_server(torch, gguf: Path) -> bool:
+def phase_server(torch, gguf: Path, spent: dict | None = None) -> bool:
     """Phase 16: the text-serving path at the full width of phase 4 (L32):
     a BatchEngine of SERVER_SLOTS slots over one bf16 cache, driven through
     the Server's request methods (no HTTP) with six text requests at once,
@@ -3297,8 +3311,270 @@ def phase_server(torch, gguf: Path) -> bool:
     t1 = time.perf_counter()
     log(f"[16] {span_cost(torch, rt)} ({time.perf_counter() - t1:.1f} s)")
     log(f"[16] text-serving path: {time.perf_counter() - t_phase:.1f} s in all")
-    del rt, eng, srv
+    del eng, srv
     torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    try:
+        ok &= phase_server_extras(torch, rt)
+    except Exception as e:              # noqa: BLE001 - reported as the phase's failure
+        import traceback
+        traceback.print_exc()
+        log(f"[16b] FAILED: {type(e).__name__}: {e}")
+        ok = False
+    if spent is not None:
+        spent["16b"] = time.perf_counter() - t1
+    del rt
+    torch.cuda.empty_cache()
+    return bool(ok)
+
+
+SLOT_WORDS = 900           # about 1,000 tokens of smoke_text
+EXTRAS_TOOLS = [{"type": "function", "function": {
+    "name": "weather", "parameters": {"type": "object", "properties": {
+        "unit": {"enum": ["celsius", "fahrenheit"]}}, "required": ["unit"],
+        "additionalProperties": False}}}]
+
+
+def _row_bits(torch, kv, n: int) -> list:
+    """Slot 0's rows [0, n) of every cache tensor, as integers (bf16 as its
+    16-bit words), cloned."""
+    from ik_llama_cpp_tpu_torch.server.engine import _cache_tensors
+    out = []
+    for t in _cache_tensors(kv):
+        r = t[:, 0, :n]
+        out.append((r.view(torch.int16) if r.dtype == torch.bfloat16 else
+                    r.view(torch.int32) if r.dtype == torch.float32 else r).clone())
+    return out
+
+
+def slot_state_round(torch, rt, tag: str, save_dir: Path, gb: dict) -> bool:
+    """16b's slot state on a one-slot engine over ``rt``'s cache type: a
+    ~1,000-token prompt served and saved; an extending request served (the
+    uninterrupted slot's tokens); the slot erased and overwritten by an
+    unrelated request; the state restored (rows bit for bit) and the
+    extending request served again (the restored tokens counted as cached,
+    the same greedy tokens). The last request's launches are counted."""
+    from ik_llama_cpp_tpu_torch.server.app import Server
+    from ik_llama_cpp_tpu_torch.server.engine import BatchEngine
+    rng = np.random.default_rng(161)
+    eng = BatchEngine(rt, n_slots=1, capacity=2048)
+    srv = Server(eng, model_name="smoke8b", template="llama3")
+    srv.slot_save_path = str(save_dir)
+    tok = rt.tokenizer
+    eng.start()
+    try:
+        greedy = dict(temperature=0.0, return_tokens=True)
+        p1 = tok.encode(smoke_text(rng, SLOT_WORDS))
+        r1 = srv.completion(dict(prompt=p1, n_predict=8, **greedy))
+        saved = srv.slot_action(0, "save", {"filename": f"{tag}.bin"})
+        n = saved["n_saved"]
+        rows = _row_bits(torch, eng.kv, n)
+        # ~65 new tokens: a prefill chunk above DECODE_MAX_T, so the prefill
+        # attention (B, or 6 over q8) reads the restored rows, then the decode
+        ext = p1 + r1["tokens"] + tok.encode(smoke_text(rng, 60), add_bos=False)
+        want = srv.completion(dict(prompt=ext, n_predict=16, **greedy))["tokens"]
+        n_before = len(eng.slots[0].cache_tokens)     # the slot is idle
+        erased = srv.slot_action(0, "erase")
+        srv.completion(dict(prompt=smoke_text(rng, 300), n_predict=8, **greedy))
+        restored = srv.slot_action(0, "restore", {"filename": f"{tag}.bin"})
+        back = _row_bits(torch, eng.kv, n)
+        same_rows = all(torch.equal(a, b) for a, b in zip(rows, back))
+        cached0 = eng.n_prompt_tokens_cached
+        reset_counts()
+        got = srv.completion(dict(prompt=ext, n_predict=16, **greedy))["tokens"]
+        sync(torch)
+        counts = read_counts()
+        cached = eng.n_prompt_tokens_cached - cached0
+        alive, failed = eng.alive, eng.n_failed
+    finally:
+        eng.stop()
+    size = (save_dir / f"{tag}.bin").stat().st_size
+    save_ms, restore_ms = saved["timings"]["save_ms"], restored["timings"]["restore_ms"]
+    gb[tag] = (size, save_ms, restore_ms)
+    ok = (same_rows and got == want and cached == n == restored["n_restored"]
+          and erased["n_erased"] == n_before > 0 and alive and failed == 0)
+    # the prefill and decode attention that read the restored rows: B and
+    # C over bf16, kernels 6 and 5 over q8
+    pre, dec = (("flash_attention_q8", "flash_attention_decode_q8") if rt.kv_quant
+                else ("flash_attention", "flash_attention_decode"))
+    ok &= counts[pre] == NL and counts[dec] == 15 * NL
+    kinds = {k: v for k, v in counts.items() if v}
+    log(f"[16b] {tag} cache: saved {n} tokens of a {len(p1)}-token prompt + 8 generated, "
+        f"{size / 2**20:.1f} MiB ({size / max(n, 1) / 1024:.1f} KiB a token); save "
+        f"{save_ms:.1f} ms = {size / save_ms / 1e6:.2f} GB/s, restore {restore_ms:.1f} ms = "
+        f"{size / restore_ms / 1e6:.2f} GB/s (file to card rows, warm page cache); restored "
+        f"rows bit for bit {same_rows}; the extending request ({len(ext)} tokens) counted "
+        f"{cached} cached (want {n}), its 16 greedy tokens equal the uninterrupted slot's "
+        f"{got == want}; its launches {kinds}: {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def _first_word(text: str, start: int = 1) -> str | None:
+    import re
+    m = re.compile(r"[A-Za-z]{3,}").search(text, start)
+    return m.group(0) if m else None
+
+
+def phase_server_extras(torch, rt) -> bool:
+    """Phase 16b on phase 16's loaded L32 model: slot state over a bf16 and
+    a q8 cache, then every request option of the server-extras slice
+    through the Server's request methods, each gated on the model's own
+    unconstrained greedy run (random weights rate nothing)."""
+    import re
+    from ik_llama_cpp_tpu_torch.runtime.allowlist import script_of
+    from ik_llama_cpp_tpu_torch.server.app import Server
+    from ik_llama_cpp_tpu_torch.server.engine import BatchEngine
+    t_phase = time.perf_counter()
+    save_dir = ROOT / "build" / "slots"
+    save_dir.mkdir(parents=True, exist_ok=True)
+    gb = {}
+    ok = slot_state_round(torch, rt, "bf16", save_dir, gb)
+    ok &= slot_state_round(torch, replace(rt, kv_quant="q8"), "q8", save_dir, gb)
+    log(f"[16b] slot state over both caches: {time.perf_counter() - t_phase:.1f} s")
+    eng = BatchEngine(rt, n_slots=1, capacity=1024)
+    srv = Server(eng, model_name="smoke8b", template="llama3")
+    tok = rt.tokenizer
+    rng = np.random.default_rng(162)
+    prompt = smoke_text(rng, 40)
+    greedy = dict(temperature=0.0, return_tokens=True)
+    times = {}
+
+    def run(name, method, body):
+        t0 = time.perf_counter()
+        out = getattr(srv, method)(body)
+        out = list(out) if method.endswith("_stream") else out
+        times[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    def gate(name, good, detail):
+        nonlocal ok
+        ok &= bool(good)
+        log(f"[16b] {name} ({times.get(name, 0.0):.0f} ms): {detail}: "
+            f"{'ok' if good else 'FAIL'}")
+
+    eng.start()
+    try:
+        steps0, fwd0 = eng.n_decode_steps, eng.n_prefill_forwards
+        reset_counts()
+        free = run("free run", "completion", dict(prompt=prompt, n_predict=32, **greedy))
+        sync(torch)
+        counts = read_counts()
+        steps, fwds = eng.n_decode_steps - steps0, eng.n_prefill_forwards - fwd0
+        per = 4 * NL + 1
+        good = (counts["qmatmul_i8"] == per * (steps + fwds)
+                and counts["flash_attention"] + counts["flash_attention_decode"]
+                == NL * (steps + fwds)
+                and counts["flash_attention_decode"] >= NL * steps)
+        gate("free run", good, f"{steps} decode steps, {fwds} prefill forwards: A "
+             f"{counts['qmatmul_i8']} (A {per} and C {NL} a decode step: want "
+             f"{per * (steps + fwds)}), B {counts['flash_attention']}, C "
+             f"{counts['flash_attention_decode']}; text {free['content'][:60]!r}")
+        text, toks = free["content"], free["tokens"]
+        pieces = [tok.decode_bytes([t]).decode("utf-8", "replace") for t in toks]
+
+        at = [len("".join(pieces[:i])) for i in range(len(pieces))]
+        word = _first_word(text)
+        n_rw = eng.n_rewinds
+        banned = run("bans", "completion", dict(prompt=prompt, n_predict=32,
+                                                banned_strings=[word], **greedy))
+        pos = text.lower().find(word.lower())
+        cut = max(a for a in at if a <= pos)      # the start of the token holding the match
+        gate("bans", word.lower() not in banned["content"].lower() and eng.n_rewinds > n_rw
+             and banned["content"][:cut] == text[:cut],
+             f"banned {word!r} (char {pos} of the free run, in the token at char {cut}): "
+             f"{eng.n_rewinds - n_rw} rewinds, the text before that token kept, "
+             f"{banned['content'][:60]!r}")
+
+        tag = word
+        rb = run("reasoning budget", "completion", dict(
+            prompt=prompt, n_predict=48, reasoning_budget=4, reasoning_budget_start_tag=tag,
+            **greedy))
+        k = next((i for i in range(len(rb["tokens"]))
+                  if tag in tok.decode(rb["tokens"][:i + 1])), None)
+        forced = tok.encode("\n</think>\n", add_bos=False)
+        good = k is not None and rb["tokens"][k + 4:k + 4 + len(forced)] == forced
+        gate("reasoning budget", good, f"start tag {tag!r} at token {k}, the forced "
+             f"{len(forced)}-token end tag after 4 tokens")
+
+        i = next((i for i in range(1, len(pieces) - 4)
+                  if re.fullmatch(r" ?[A-Za-z]+", pieces[i]) and text.find(pieces[i]) == at[i]),
+                 None)
+        trig = pieces[i] if i is not None else word
+        # after the trigger, letters a-j and spaces only: a class the free
+        # run leaves, and one a greedy pick meets within the grammar
+        # sampler's 2,048 tries on a 32,000-piece vocabulary
+        lazy = run("lazy grammar", "completion", dict(
+            prompt=prompt, n_predict=24, grammar=f"root ::= {json.dumps(trig)} [a-j ]+\n",
+            grammar_lazy=True, grammar_triggers=[trig], **greedy))
+        lt = lazy["content"]
+        after = lt[lt.find(trig) + len(trig):] if trig in lt else ""
+        free_after = text[text.find(trig) + len(trig):]
+        gate("lazy grammar", i is not None and lt.find(trig) == text.find(trig)
+             and re.fullmatch("[a-j ]*[a-j][a-j ]*", after) is not None
+             and lt[:lt.find(trig)] == text[:text.find(trig)],
+             f"trigger {trig!r}, after it {after[:30]!r} (the free run: {free_after[:30]!r})")
+
+        call = run("forced tool call", "oai_chat", dict(
+            messages=[{"role": "user", "content": prompt}], tools=EXTRAS_TOOLS,
+            tool_choice={"type": "function", "function": {"name": "weather"}},
+            max_tokens=96, temperature=0.0))
+        calls = call["choices"][0]["message"].get("tool_calls") or []
+        args = json.loads(calls[0]["function"]["arguments"]) if calls else {}
+        gate("forced tool call", len(calls) == 1 and calls[0]["function"]["name"] == "weather"
+             and set(args) == {"unit"} and args["unit"] in ("celsius", "fahrenheit"),
+             f"{calls[0]['function'] if calls else call['choices'][0]['message']}")
+
+        allow = run("allowlist", "completion", dict(
+            prompt=prompt, n_predict=24, allowlist_unicode_rules=[["common"]], **greedy))
+        own = [tok.decode_bytes([t]).decode("utf-8", "replace") for t in allow["tokens"]]
+        latin = [p for p in own if any(script_of(ord(c)) == "latin" for c in p)]
+        in_text = sum(script_of(ord(c)) == "latin" for c in allow["content"])
+        gate("allowlist", not latin and allow["tokens"],
+             f"rules [common] ban every other script: Latin code points in the emitted "
+             f"tokens' pieces "
+             f"{len(latin)}, in the text {in_text} (bytes joined across tokens are outside "
+             f"a token's piece); text {allow['content'][:40]!r}")
+
+        phrase = next(w for w in WORDS if w not in text and len(w) > 3)
+        elb = run("expiring bias", "completion", dict(
+            prompt=prompt, n_predict=24, expiring_logit_bias=f'(12 : "{phrase}" : 40.0)\n',
+            **greedy))
+        within = tok.decode(elb["tokens"][:12])
+        gate("expiring bias", phrase in within, f"+40 on {phrase!r} for 12 tokens: "
+             f"{within[:60]!r}")
+
+        probs = run("post-sampling probs", "completion", dict(
+            prompt=prompt, n_predict=8, n_probs=3, post_sampling_probs=True, **greedy))
+        cp = probs["completion_probabilities"]
+        good = len(cp) == len(probs["tokens"]) and all(
+            sum(x["prob"] for x in p["probs"]) <= 1 + 1e-6
+            and p["probs"][0]["tok_str"] == tok.decode([t])
+            for p, t in zip(cp, probs["tokens"]))
+        gate("post-sampling probs", good, f"{len(cp)} steps, top entries "
+             f"{[p['probs'][0]['prob'] for p in cp][:4]}")
+
+        body = {"system": "Answer briefly.", "max_tokens": 16, "temperature": 0.0,
+                "messages": [{"role": "user", "content": prompt}]}
+        msg = run("anthropic", "anthropic_messages", dict(body))
+        n_in = srv.anthropic_count_tokens(
+            {"system": body["system"], "messages": body["messages"]})["input_tokens"]
+        rendered = srv._chat_prompt([{"role": "system", "content": body["system"]}]
+                                    + body["messages"])
+        events = run("anthropic stream", "anthropic_messages_stream", {**body, "stream": True})
+        good = (msg["type"] == "message" and msg["role"] == "assistant"
+                and msg["content"][0]["type"] == "text" and msg["usage"]["output_tokens"] > 0
+                and msg["usage"]["input_tokens"] == n_in == len(tok.encode(rendered))
+                and events[0]["event"] == "message_start"
+                and events[-1]["event"] == "message_stop")
+        gate("anthropic", good, f"stop_reason {msg['stop_reason']}, usage {msg['usage']}, "
+             f"count_tokens {n_in}, {len(events)} stream events")
+        alive, failed = eng.alive, eng.n_failed
+    finally:
+        eng.stop()
+    ok &= alive and failed == 0
+    log(f"[16b] engine alive {alive}, failed requests {failed}; request ms "
+        + ", ".join(f"{k} {v:.0f}" for k, v in times.items()))
+    log(f"[16b] server extras: {time.perf_counter() - t_phase:.1f} s in all")
     return bool(ok)
 
 
@@ -5504,11 +5780,11 @@ def phase_lora(torch, gguf: Path, launches: dict, card: str) -> bool:
     from ik_llama_cpp_tpu_torch.tools.perplexity import compute_perplexity
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    rt = clone_layers(Runtime.from_gguf(gguf, fuse=False), NL)
+    rt = clone_layers(Runtime.from_gguf(gguf, fuse=False), L23)
     t0 = time.perf_counter()
-    path = build_lora_gguf(ROOT / "build" / "smoke_lora.gguf", NL)
+    path = build_lora_gguf(ROOT / "build" / "smoke_lora.gguf", L23)
     adapter = LO.load_lora_gguf(path)
-    log(f"[23] L{NL} unfused linears {sorted(set(_linear_kinds(rt)))} loaded in "
+    log(f"[23] L{L23} unfused linears {sorted(set(_linear_kinds(rt)))} loaded in "
         f"{t0 - t_phase:.1f} s; adapter rank {adapter.rank} alpha {adapter.alpha} on "
         f"{len(adapter.tensors)} linears ({path.stat().st_size / 2**20:.1f} MiB f32 file, "
         f"ready and read in {time.perf_counter() - t0:.1f} s)")
@@ -5545,18 +5821,18 @@ def phase_lora(torch, gguf: Path, launches: dict, card: str) -> bool:
     counts = read_counts()
     for k in counts:
         launches[k] = launches.get(k, 0) + counts_pre[k] + counts[k]
-    per_a = 7 * NL + 1
+    per_a = 7 * L23 + 1
     got_pre = {k: n for k, n in counts_pre.items() if n}
     got_dec = {k: n for k, n in counts.items() if n}
-    launch_ok = (got_pre == {"qmatmul_i8": per_a, "flash_attention": NL}
+    launch_ok = (got_pre == {"qmatmul_i8": per_a, "flash_attention": L23}
                  and got_dec == {"qmatmul_i8": per_a * DECODE,
-                                 "flash_attention_decode": NL * DECODE})
+                                 "flash_attention_decode": L23 * DECODE})
     ok &= launch_ok and bool(torch.isfinite(logits).all())
     log(f"[23] on {card}, with the adapter: prefill {PREFILL} tokens {(t1 - t0) * 1e3:.1f} ms = "
         f"{PREFILL / (t1 - t0):.1f} tok/s; decode {DECODE} tokens {(t2 - t1) * 1e3:.1f} ms = "
         f"{DECODE / (t2 - t1):.2f} tok/s; launches the chunk {got_pre}, a step "
-        f"{ {k: n / DECODE for k, n in got_dec.items()} }; expected A {per_a} (7 x {NL} + 1) "
-        f"and B / C {NL}: {launch_ok}")
+        f"{ {k: n / DECODE for k, n in got_dec.items()} }; expected A {per_a} (7 x {L23} + 1) "
+        f"and B / C {L23}: {launch_ok}")
     prof = profile_decode(torch, rt, kv, n_past + DECODE, toks[:, -1:], tag="23", top=10,
                           host=False)
     LO.strip_lora(rt.params)
@@ -5568,7 +5844,7 @@ def phase_lora(torch, gguf: Path, launches: dict, card: str) -> bool:
         f"it (the same weights stripped): the low-rank products and their casts "
         f"{sum(prof.values()) - sum(bare.values()):.3f} ms a step")
     del kv, logits
-    ok &= family_parity(torch, rt, PREFILL, f"the adapted dense 8B at L{NL}", 231, "23")
+    ok &= family_parity(torch, rt, PREFILL, f"the adapted dense 8B at L{L23}", 231, "23")
     ppl_k = compute_perplexity(rt, text, 512, verbose=False)
     with plain_path():
         ppl_p = compute_perplexity(rt, text, 512, verbose=False)
@@ -5611,7 +5887,7 @@ def phase_lora(torch, gguf: Path, launches: dict, card: str) -> bool:
         f"same completion {at_zero}; the base model's {base_tokens}: equal token for token: "
         f"{at_zero == base_tokens}: {'ok' if good else 'FAIL'}")
     ok &= good
-    log(f"[23] LoRA and perplexity at L{NL}: {time.perf_counter() - t_phase:.1f} s")
+    log(f"[23] LoRA and perplexity at L{L23}: {time.perf_counter() - t_phase:.1f} s")
     del eng, srv
     ok &= hidden_paths(torch, rt, launches, card)
     del rt
@@ -5771,20 +6047,20 @@ def hidden_paths(torch, rt, launches: dict, card: str) -> bool:
     path, and lookahead decoding."""
     from ik_llama_cpp_tpu_torch.runtime.cvector import generate_control_vector
     rng = np.random.default_rng(230)
-    per_a = 7 * NL                       # the unfused linears, no head
+    per_a = 7 * L23                       # the unfused linears, no head
     ids = [int(x) for x in rng.integers(3, V, PREFILL)]
     rt.layer_hiddens(ids[:64])           # warm
     hs, secs, counts = counted(torch, launches, lambda: rt.layer_hiddens(ids))
-    ok = (counts == {"qmatmul_i8": per_a, "flash_attention": NL}
-          and hs.shape == (NL, PREFILL, E) and bool(torch.isfinite(hs).all()))
+    ok = (counts == {"qmatmul_i8": per_a, "flash_attention": L23}
+          and hs.shape == (L23, PREFILL, E) and bool(torch.isfinite(hs).all()))
     log(f"[23] layer_hiddens over {PREFILL} tokens on {card}: {tuple(hs.shape)} f32 in "
-        f"{secs * 1e3:.1f} ms; launches {counts}, expected A {per_a} (7 x {NL}, no head) and "
-        f"B {NL}: {'ok' if ok else 'FAIL'}")
+        f"{secs * 1e3:.1f} ms; launches {counts}, expected A {per_a} (7 x {L23}, no head) and "
+        f"B {L23}: {'ok' if ok else 'FAIL'}")
     del hs
     pos = [smoke_text(rng, 12 + 3 * i) for i in range(4)]
     neg = [smoke_text(rng, 12 + 3 * i) for i in range(4)]
     cv, secs, counts = counted(torch, launches, lambda: generate_control_vector(rt, pos, neg))
-    good = cv.shape == (NL, E) and bool(np.allclose(np.linalg.norm(cv, axis=1), 1.0, atol=1e-4))
+    good = cv.shape == (L23, E) and bool(np.allclose(np.linalg.norm(cv, axis=1), 1.0, atol=1e-4))
     log(f"[23] generate_control_vector (pca) over 4 prompt pairs: {cv.shape} unit directions "
         f"in {secs:.2f} s, launches {counts}: {'ok' if good else 'FAIL'}")
     ok &= good
@@ -5794,7 +6070,7 @@ def hidden_paths(torch, rt, launches: dict, card: str) -> bool:
         ep = rt.embed(doc, "none")
     dist, row, text = embed_gaps(e, ep)
     good = (dist <= 2e-2 and row <= EMBED23_ROW_TOL
-            and counts == {"qmatmul_i8": per_a, "flash_attention": NL} and e.shape == (300, E))
+            and counts == {"qmatmul_i8": per_a, "flash_attention": L23} and e.shape == (300, E))
     log(f"[23] embed of {len(doc)} tokens padded to the bucket of {PREFILL} (n_valid "
         f"{len(doc)}): {secs * 1e3:.1f} ms, launches {counts}; against the plain path: "
         f"{text} (tol 2e-2 pooled, a cosine of 0.9998, and {EMBED23_ROW_TOL} a position): "
@@ -6129,7 +6405,8 @@ def main() -> int:
     if 15 in phases:
         ok &= timed("15", phase_perf_dequant, torch, launches)
     if 16 in phases:
-        ok &= timed("16", phase_server, torch, gguf)
+        ok &= timed("16", phase_server, torch, gguf, spent)
+        spent["16"] -= spent.get("16b", 0.0)          # 16b is logged on its own
     if 17 in phases:
         ok &= timed("17", phase_family, torch, launches)
     if 18 in phases:

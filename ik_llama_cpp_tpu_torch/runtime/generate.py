@@ -297,6 +297,12 @@ class Runtime:
             return torch.cat(out_chunks, dim=0), kv, n_past
         return logits[0, last_len - 1:last_len], kv, n_past
 
+    def reload_changed_tensors(self) -> bool:
+        """The JAX runtime's in-place reload of a GGUF's changed tensors
+        (``runtime/reload.py``): a later slice of the port."""
+        llama_mod._later("reloading changed tensors (runtime/reload.py)",
+                         "rest of Runtime (item 7)")
+
     def all_position_logits(self, ids: list[int], capacity: int = 512) -> torch.Tensor:
         """The logits of every position of ``ids`` evaluated from a fresh
         cache, (n, V) float32 on the device: the perplexity tool's and the

@@ -378,6 +378,17 @@ class GrammarSampler:
                         self.grammar.accept_text(piece)
                     return tok
                 logits[tok] = -np.inf
+            else:
+                # past the fast tries: the rest of the vocabulary in logit
+                # order (see _whole_vocab_pick)
+                for tok in np.argsort(-logits, kind="stable"):
+                    if logits[tok] == -np.inf:
+                        break
+                    piece = self._allows(int(tok))
+                    if piece is not None:
+                        if piece:
+                            self.grammar.accept_text(piece)
+                        return int(tok)
             raise RuntimeError("no grammar-conforming token found")
 
         for _ in range(64):   # rounds of candidate sets (vocab/top_k bound)
@@ -402,4 +413,27 @@ class GrammarSampler:
             logits[np.asarray(order, np.int64)] = -np.inf
             if not np.isfinite(logits).any():
                 break
+        else:
+            return self._whole_vocab_pick(logits, sampler_params, rng, history, state)
         raise RuntimeError("no grammar-conforming token found")
+
+    def _whole_vocab_pick(self, logits, sampler_params, rng, history, state) -> int:
+        """Past the bounded retries, the grammar masks every token left (the
+        reference applies the grammar to the whole candidate array on a
+        reject, common/sampling.cpp) and the chain samples the survivors:
+        a conforming token is found whenever one exists, however low its
+        logit (on random weights the JSON of a forced call ranks near the
+        bottom of 32,000 pieces). The JAX package raises here instead."""
+        import numpy as np
+        from .sampling import sample as sample_token
+        live = np.flatnonzero(np.isfinite(logits))
+        ok = [int(t) for t in live if self._allows(int(t)) is not None]
+        if not ok:
+            raise RuntimeError("no grammar-conforming token found")
+        masked = np.full_like(logits, -np.inf)
+        masked[ok] = logits[ok]
+        tok = int(sample_token(masked, sampler_params, rng, history=history, state=state))
+        piece = self._allows(tok)
+        if piece:
+            self.grammar.accept_text(piece)
+        return tok

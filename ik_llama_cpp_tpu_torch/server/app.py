@@ -12,20 +12,35 @@ The torch port of the JAX package's ``server/app.py``, split in two:
 - ``make_app`` / ``main`` wrap it in thin aiohttp handlers. aiohttp is
   imported there, at the point of use.
 
-Endpoints: /health /props /v1/models /metrics /slots /tokenize /detokenize
-/completion(s) /v1/completions /v1/chat/completions /v1/responses
-/apply-template, the embeddings routes /embedding, /embeddings and
-/v1/embeddings (``Runtime.embed``: pooled, L2-normalized vectors), /rerank
-and /v1/rerank (documents scored by the dot product of their mean-pooled
-embeddings with the query's), /infill (a fill-in-the-middle completion
-from the tokenizer's FIM tokens), the control vectors' GET
-/control-vectors and POST /control-vectors/load, /unload and /apply, and
-the LoRA adapters' GET and POST /lora-adapters (adapters given with
-``--lora PATH[:SCALE]``, which loads the model with its q/k/v and gate/up
-unfused). An encoder-only model (the BERT family) serves the embeddings
-and rerank routes and refuses generation with a 400. The other routes of
-the JAX server (slot save/restore, sessions, the Anthropic API,
-multimodal, the profiler) are later slices of the port.
+Endpoints: /health /props /v1/props /version /v1/models /metrics /slots
+/tokenize /detokenize /completion(s) /v1/completions /v1/chat/completions
+/v1/responses /apply-template, Anthropic's /v1/messages and
+/v1/messages/count_tokens, the embeddings routes /embedding, /embeddings
+and /v1/embeddings (``Runtime.embed``: pooled, L2-normalized vectors),
+/rerank and /v1/rerank (documents scored by the dot product of their
+mean-pooled embeddings with the query's), /infill (a fill-in-the-middle
+completion from the tokenizer's FIM tokens), the control vectors' GET
+/control-vectors and POST /control-vectors/load, /unload and /apply, the
+LoRA adapters' GET and POST /lora-adapters (adapters given with ``--lora
+PATH[:SCALE]``, which loads the model with its q/k/v and gate/up unfused),
+slot state (POST /slots/{id}?action=save|restore|erase, GET /slots/list;
+the saved files in ``--slot-save-path``: GET /list, POST /delete_prompt
+and /rename_prompt) and the session store of ``--sql-save-file`` (POST
+/load /save /rename /all /delete, GET or POST /sessions, GET /vacuum). An
+encoder-only model (the BERT family) serves the embeddings and rerank
+routes and refuses generation with a 400.
+
+The request options of the JAX server are all taken: grammars of every
+kind (``grammar_kind`` regex / json / lark through ``runtime/llg.py``),
+lazy grammars, banned strings and regexes, the reasoning budget,
+``post_sampling_probs``, the allowlist (``--allowlist-*`` defaults, the
+request's ``allowlist_*`` fields) and expiring logit biases. A forced
+``tool_choice`` ("required" or a named function) constrains the output to
+a call through ``json_schema.tool_call_gbnf``, in the call format the
+chat template's analysis found (``runtime/chat_autoparser.py``; without
+jinja2 the analysis is off, the call is bare JSON and the named parsers
+read the output). Multimodal input, the profiler and the web UI are later
+slices of the port.
 
 Run: python -m ik_llama_cpp_tpu_torch.server --gguf model.gguf --port 8080
 """
@@ -33,6 +48,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import queue
 import time
 import uuid
@@ -41,22 +57,27 @@ from typing import Iterator
 
 import numpy as np
 
+from ..models import llama as llama_mod
 from ..runtime.chat import apply_chat_template, parse_tool_calls, split_reasoning
 from ..runtime.generate import Runtime
 from ..runtime.sampling import DEFAULT_DRY_BREAKERS, SamplerParams
 from .engine import BatchEngine, Request
 
 DONE = "[DONE]"
+# chat content parts of the multimodal path (a later slice)
+MEDIA_PARTS = ("image_url", "input_image", "input_audio", "image")
 
 
 class RequestError(Exception):
     """A request the server refuses (status 400) or failed (status 500)."""
 
     def __init__(self, status: int, message: str,
-                 kind: str = "invalid_request_error"):
+                 kind: str = "invalid_request_error", payload: dict | None = None):
         super().__init__(message)
         self.status = status
-        self.payload = {"error": {"message": message, "type": kind}}
+        # the body of the reply: OpenAI's error object unless a route has
+        # its own form
+        self.payload = payload or {"error": {"message": message, "type": kind}}
 
 
 def _sampler_from(body: dict, tok=None) -> SamplerParams:
@@ -134,13 +155,38 @@ def _n_probs_from(body: dict) -> int:
     return 0
 
 
+def _allowlist_fields(body: dict, srv) -> dict:
+    """The allowlist's Request fields: the server's defaults, overridden by
+    the request's ``allowlist_unicode_rules`` (a list of rulesets, each a
+    list of rule strings), ``allowlist_keywords``, ``allowlist_piece_array``
+    and ``allowlist_keyword_delay`` (server-context.cpp:1707-1717)."""
+    rules = srv.allow_rules
+    body_rules = body.get("allowlist_unicode_rules")
+    if isinstance(body_rules, list):
+        from ..runtime.allowlist import parse_rule
+        rules = [[parse_rule(str(r)) for r in rs] for rs in body_rules if isinstance(rs, list)]
+    kws = srv.allow_kws
+    if isinstance(body.get("allowlist_keywords"), list):
+        kws = [str(k) for k in body["allowlist_keywords"]]
+    pieces = srv.allow_pieces
+    if isinstance(body.get("allowlist_piece_array"), list):
+        pieces = [str(x) for x in body["allowlist_piece_array"] if isinstance(x, str)]
+    return {"allow_rules": rules, "allow_pieces": pieces, "allow_kws": kws,
+            "allow_kw_delay": int(body.get("allowlist_keyword_delay", srv.allow_kw_delay))}
+
+
 def _grammar_from(body: dict) -> str | None:
     """GBNF grammar text from the request: native ``grammar`` /
     ``json_schema`` fields (server.cpp params_from_json_cmpl) or the OpenAI
-    ``response_format`` object (json_object / json_schema types). Other
-    ``grammar_kind``s (llguidance) are a later slice: the engine refuses
-    them."""
+    ``response_format`` object (json_object / json_schema types). A
+    ``grammar_kind`` of regex / json / lark goes through ``runtime/llg.py``
+    to GBNF here, so every later path (lazy triggers, the allowlist) sees
+    GBNF."""
     if body.get("grammar"):
+        kind = str(body.get("grammar_kind") or "gbnf")
+        if kind not in ("gbnf", "grammar"):
+            from ..runtime.llg import to_gbnf
+            return to_gbnf(kind, str(body["grammar"]))
         return str(body["grammar"])
     if body.get("json_schema") is not None:
         from ..runtime.json_schema import json_schema_to_gbnf
@@ -154,6 +200,40 @@ def _grammar_from(body: dict) -> str | None:
             schema = js.get("schema") if isinstance(js, dict) else None
             return json_schema_to_gbnf(schema if schema is not None else {})
     return None
+
+
+def _safe_name(name) -> str | None:
+    """The directory-traversal guard of the saved-prompt file routes
+    (server.cpp delete_saved_prompt): a plain file name, else None."""
+    if not isinstance(name, str) or not name or ".." in name or "/" in name or "\\" in name:
+        return None
+    return name
+
+
+def _anthropic_flatten(messages: list[dict]) -> list[dict]:
+    """Anthropic content blocks (text / tool_use / tool_result) flattened
+    into plain-text chat messages for the template."""
+    out = []
+    for m in messages:
+        c = m.get("content")
+        if isinstance(c, str):
+            out.append(m)
+            continue
+        parts = []
+        for blk in c or []:
+            t = blk.get("type")
+            if t == "text":
+                parts.append(blk.get("text", ""))
+            elif t == "tool_use":
+                call = json.dumps({"name": blk.get("name"), "arguments": blk.get("input", {})})
+                parts.append(f"<tool_call>{call}</tool_call>")
+            elif t == "tool_result":
+                content = blk.get("content")
+                if isinstance(content, list):
+                    content = "".join(x.get("text", "") for x in content if isinstance(x, dict))
+                parts.append(f"<tool_response>{content}</tool_response>")
+        out.append({**m, "content": "\n".join(parts)})
+    return out
 
 
 def _chunk(rid: str, obj: str, model: str, choices: list, **extra) -> dict:
@@ -177,19 +257,41 @@ class Server:
         self.control_vectors: list[dict] = []
         # applied LoRA adapters (runtime/lora.LoraAdapter), in --lora order
         self.loras: list = []
+        # the chat template's analysis (runtime/chat_autoparser.py): its
+        # reasoning markers and tool-call format, for parsing and for a
+        # forced tool call; None for a built-in template, or without jinja2
+        self.chat_analysis = None
+        if self.template and ("{{" in self.template or "{%" in self.template):
+            try:
+                from ..runtime.chat_autoparser import analyze_template
+                self.chat_analysis = analyze_template(self.template)
+            except Exception as e:          # noqa: BLE001 - the named parsers serve
+                logging.getLogger("ik_llama_cpp_tpu_torch").warning(
+                    "chat template analysis is off (%s: %s): the named parsers read "
+                    "the output", type(e).__name__, e)
+        # allowlist defaults (--allowlist-unicode-rule / -pieces / -keyword
+        # / -keyword-delay) and the expiring-logit-bias rule text
+        # (--expiring-logit-bias-file); request fields override them
+        self.allow_rules: list = []
+        self.allow_pieces: list = []
+        self.allow_kws: list = []
+        self.allow_kw_delay = 0
+        self.expiring_logit_bias = None
+        self.slot_save_path = "."       # --slot-save-path
+        self.session_db = None          # sessions.SessionDB under --sql-save-file
 
     # ------------------------------------------------------ engine bridge
     def _open(self, prompt_ids: list[int], body: dict,
               holder: dict | None = None) -> tuple[Request, queue.Queue]:
         """Validate the body, build the engine Request and submit it."""
         from ..runtime.grammar import GBNFParseError, Grammar
-        kind = str(body.get("grammar_kind") or "gbnf")
         try:
             g_text = _grammar_from(body)
-            if g_text is not None and kind in ("gbnf", "grammar"):
+            if g_text is not None:
                 Grammar(g_text)     # validate before admitting -> clean 400
+            allow = _allowlist_fields(body, self)
         except (GBNFParseError, ValueError, KeyError, IndexError) as e:
-            raise RequestError(400, f"invalid grammar/schema: {e!r}") from e
+            raise RequestError(400, f"invalid grammar/schema/rule: {e!r}") from e
         q: queue.Queue = queue.Queue()
         req = Request(
             prompt_ids=list(prompt_ids),
@@ -198,20 +300,30 @@ class Server:
             seed=int(body.get("seed", int(time.time() * 1000) % 2**31)),
             stop=body.get("stop", []) or [],
             grammar=g_text,
-            grammar_kind=kind,
+            grammar_lazy=bool(body.get("grammar_lazy", False)),
+            grammar_triggers=[t.get("value", "") if isinstance(t, dict) else str(t)
+                              for t in body.get("grammar_triggers") or []],
             n_probs=_n_probs_from(body),
+            post_sampling_probs=bool(body.get("post_sampling_probs", False)),
             n_keep=int(body.get("n_keep", -1)),
             n_discard=int(body.get("n_discard", -1)),
             cache_prompt=bool(body.get("cache_prompt", True)),
-            grammar_lazy=bool(body.get("grammar_lazy", False)),
-            banned=any(body.get(k) for k in ("banned_strings", "banned_regex",
-                                             "banned_regex_ci")),
+            banned_strings=[str(x).lower() for x in body.get("banned_strings") or [] if x],
+            banned_regex=[str(x) for x in body.get("banned_regex") or [] if x],
+            banned_regex_ci=[str(x) for x in body.get("banned_regex_ci") or [] if x],
+            banned_bias=float(body.get("banned_bias", -999.0)),
+            banned_n=int(body.get("banned_n", 1)),
+            banbuffer=int(body.get("banbuffer_size", 0)),
+            rewind_count_max=int(body.get("rewind_count_max", -1)),
+            saturate_predict=bool(body.get("saturate_predict", False)),
             reasoning_budget=int(body.get(
                 "reasoning_budget", body.get("reasoning_budget_tokens", -1))),
-            post_sampling_probs=bool(body.get("post_sampling_probs", False)),
-            allow_rules=body.get("allowlist_unicode_rules") or [],
-            expiring_logit_bias=body.get("expiring_logit_bias"),
+            reasoning_start_tag=str(body.get("reasoning_budget_start_tag") or "<think>"),
+            reasoning_end_tag=str(body.get("reasoning_budget_end_tag") or "</think>"),
+            reasoning_message=str(body.get("reasoning_budget_message") or "\n"),
+            expiring_logit_bias=body.get("expiring_logit_bias", self.expiring_logit_bias),
             stream_queue=q,
+            **allow,
         )
         try:
             self.engine.submit(req)
@@ -250,30 +362,82 @@ class Server:
     def _chat_prompt(self, messages: list[dict], tools: list | None = None) -> str:
         """Render the chat template (the server's, else the GGUF's; chatml
         without either)."""
+        self._refuse_media(messages)
         return apply_chat_template(messages, template=self.template, tools=tools,
                                    add_generation_prompt=True)
+
+    @classmethod
+    def _refuse_media(cls, messages: list) -> None:
+        """Image and audio content parts are a 400: multimodal input is a
+        later slice."""
+        for m in messages:
+            parts = m.get("content") if isinstance(m, dict) else None
+            if isinstance(parts, list) and any(
+                    isinstance(x, dict) and x.get("type") in MEDIA_PARTS for x in parts):
+                raise cls._later("image and audio input (--mmproj, models/clip.py, "
+                                 "runtime/mtmd.py)", "multimodal (item 7)")
+
+    @staticmethod
+    def _later(what: str, item: str) -> RequestError:
+        """A 400 for what a later slice of the port brings."""
+        try:
+            llama_mod._later(what, item)
+        except NotImplementedError as e:
+            return RequestError(400, str(e))
+
+    def profiler(self, body: dict | None = None) -> dict:
+        """POST /profiler/start and /profiler/stop: a later slice."""
+        raise self._later("the device profiler routes", "server extras (item 7)")
+
+    def webui(self) -> dict:
+        """GET /: the built-in web UI, a later slice."""
+        raise self._later("the web UI", "server extras (item 7)")
 
     def _dec(self, t) -> str:
         return self.rt.tokenizer.decode([int(t)])
 
-    @staticmethod
-    def _parse_chat_output(text: str):
-        """(reasoning, content, tool calls) of a chat completion's text."""
+    def _parse_chat_output(self, text: str):
+        """(reasoning, content, tool calls) of a chat completion's text: the
+        template analysis's parser first, the named parsers when it finds
+        neither reasoning nor a call, or when there is no analysis."""
+        ca = self.chat_analysis
+        if ca is not None and (ca.has_tools() or ca.reasoning_open):
+            from ..runtime.chat_autoparser import parse_auto
+            reasoning, content, calls = parse_auto(text, ca)
+            if calls or reasoning:
+                return reasoning, content, calls
         reasoning, content = split_reasoning(text)
         content, calls = parse_tool_calls(content)
         return reasoning, content, calls
 
     @staticmethod
-    def _apply_tool_choice(body: dict) -> dict:
-        """tool_choice 'none' hides the tools; forcing a tool call
-        ('required' or a named function) is a later slice: 400."""
+    def _apply_tool_choice(body: dict, analysis=None) -> dict:
+        """tool_choice 'none' hides the tools; 'required' or a named
+        function forces a schema-valid call through a grammar over the
+        call format of the template's ``analysis`` (bare JSON without one;
+        the reference's tool-call grammars, common/chat.cpp). A schema the
+        converter cannot take leaves the output free."""
         tc = body.get("tool_choice")
-        if not body.get("tools") or tc in (None, "auto") or _grammar_from(body) is not None:
+        if not body.get("tools") or _grammar_from(body) is not None:
             return body
         if tc == "none":
             return {**body, "tools": None}
-        raise RequestError(400, f"tool_choice {tc!r} (a forced tool call) is not "
-                                "ported yet (the server extras slice of the PyTorch port)")
+        sel = None
+        if tc == "required":
+            sel = body["tools"]
+        elif isinstance(tc, dict) and tc.get("type") == "function":
+            want = (tc.get("function") or {}).get("name")
+            sel = [t for t in body["tools"] if (t.get("function") or {}).get("name") == want]
+        if not sel:
+            return body
+        from ..runtime.json_schema import tool_call_gbnf
+        calls = analysis is not None and analysis.has_tools()
+        try:
+            g = tool_call_gbnf(sel, open_tag=analysis.call_lead if calls else "",
+                               close_tag=analysis.call_trail if calls else "")
+        except Exception:       # noqa: BLE001 - an unconvertible schema: free form
+            return body
+        return {**body, "grammar": g}
 
     # ------------------------------------------------------------ GET
     def health(self) -> dict:
@@ -346,9 +510,7 @@ class Server:
 
     @staticmethod
     def _cvec_error(message: str) -> RequestError:
-        e = RequestError(400, message)
-        e.payload = {"success": False, "error": message}
-        return e
+        return RequestError(400, message, payload={"success": False, "error": message})
 
     def cvec_load(self, body: dict) -> dict:
         """POST /control-vectors/load {"path", "scale"?, "layer_start"?,
@@ -577,7 +739,7 @@ class Server:
         return events()
 
     def _chat_ids(self, body: dict) -> tuple[dict, list[int]]:
-        body = self._apply_tool_choice(body)
+        body = self._apply_tool_choice(body, self.chat_analysis)
         prompt = self._chat_prompt(body.get("messages", []), tools=body.get("tools"))
         return body, self.rt.tokenizer.encode(prompt)
 
@@ -690,9 +852,239 @@ class Server:
         return events()
 
 
+    # ------------------------------------------------------- slot state
+    def version(self) -> dict:
+        """GET /version (server.cpp:1921): the API version and the optional
+        features (the session store keeps plain text: no zstd)."""
+        return {"version": 4, "features": {"sql": self.session_db is not None,
+                                           "zstd_compression": False}}
+
+    def props_simple(self) -> dict:
+        """GET /v1/props (server.cpp:1068 handle_props_simple): the model and
+        the slot with the most cached tokens."""
+        n_past, slot_id = 0, 0
+        for i, s in enumerate(self.engine.slots):
+            if len(s.cache_tokens) > n_past:
+                n_past, slot_id = len(s.cache_tokens), i
+        return {"model_name": Path(self.model_name).stem, "model_path": self.model_name,
+                "modalities": {"vision": False, "audio": False},
+                "n_past": n_past, "slot_id": slot_id}
+
+    def slots_list(self) -> list:
+        """GET /slots/list (server.cpp list_slot_prompts): each slot's
+        cached prompt."""
+        return [{"slot_id": s.idx, "token_count": len(s.cache_tokens),
+                 "prompt": self.rt.tokenizer.decode(list(s.cache_tokens))}
+                for s in self.engine.slots]
+
+    def saved_prompts_list(self) -> list:
+        """GET /list (server.cpp list_saved_prompts): the state files in the
+        slot save path, each with its cached prompt's text."""
+        from ..runtime.state import read_state_meta
+        out = []
+        try:
+            for f in sorted(Path(self.slot_save_path).iterdir()):
+                meta = read_state_meta(f) if f.is_file() else None
+                if meta is None:
+                    continue
+                st = f.stat()
+                toks = meta.get("tokens", [])
+                out.append({"filename": f.name, "filesize": st.st_size,
+                            "mtime": time.strftime("%Y-%m-%d %H:%M:%S",
+                                                   time.localtime(st.st_mtime)),
+                            "token_count": len(toks),
+                            "prompt": self.rt.tokenizer.decode(toks)})
+        except OSError as e:
+            raise RequestError(500, str(e), "server_error") from e
+        return out
+
+    @staticmethod
+    def _file_error(status: int, message: str) -> RequestError:
+        return RequestError(status, message, payload={"error": message})
+
+    def delete_prompt(self, body: dict) -> dict:
+        """POST /delete_prompt {"filename"} (server.cpp:1807)."""
+        name = _safe_name(body.get("filename"))
+        if name is None:
+            raise self._file_error(400, "Invalid filename format.")
+        f = Path(self.slot_save_path) / name
+        if not f.is_file():
+            raise self._file_error(404, "File not found.")
+        f.unlink()
+        return {"status": "deleted", "filename": name}
+
+    def rename_prompt(self, body: dict) -> dict:
+        """POST /rename_prompt {"old_filename", "new_filename"}."""
+        old, new = _safe_name(body.get("old_filename")), _safe_name(body.get("new_filename"))
+        if old is None or new is None:
+            raise self._file_error(400, "Invalid filename format.")
+        src = Path(self.slot_save_path) / old
+        if not src.is_file():
+            raise self._file_error(404, "File not found.")
+        src.rename(Path(self.slot_save_path) / new)
+        return {"status": "renamed", "filename": new}
+
+    def slot_action(self, idx: int, action: str, body: dict | None = None) -> dict:
+        """POST /slots/{id}?action=save|restore|erase (server.cpp:2162). The
+        file is ``body["filename"]`` (default ``slot<id>.bin``) in the slot
+        save path; the engine runs the action on its loop thread. A busy
+        slot's restore, a file that is no state of this cache, and a bad id
+        or action are 400s; a missing file is a 404."""
+        body = body or {}
+        if not 0 <= idx < self.engine.n_slots:
+            raise self._file_error(400, "invalid slot id")
+        if action == "erase":
+            return self.engine.erase_slot(idx)
+        if action not in ("save", "restore"):
+            raise self._file_error(400, "unknown action")
+        name = _safe_name(body.get("filename", f"slot{idx}.bin"))
+        if name is None:
+            raise self._file_error(400, "Invalid filename format.")
+        path = str(Path(self.slot_save_path) / name)
+        if action == "restore" and not Path(path).is_file():
+            raise self._file_error(404, "File not found.")
+        try:
+            if action == "save":
+                return self.engine.save_slot(idx, path)
+            return self.engine.restore_slot(idx, path)
+        except (ValueError, TypeError) as e:
+            raise self._file_error(400, str(e)) from e
+
+    # ---------------------------------------------------- session store
+    def _db(self):
+        if self.session_db is None:
+            msg = "session store disabled; start the server with --sql-save-file"
+            raise RequestError(500, msg, payload={"ok": False, "message": msg})
+        return self.session_db
+
+    def db_load(self, body: dict) -> dict:
+        """POST /load {"storeName", "key"} (server.cpp:1987)."""
+        data = self._db().load(body.get("storeName"), body.get("key"))
+        if data is None:
+            raise RequestError(404, "Key not found",
+                               payload={"ok": False, "message": "Key not found"})
+        return {"ok": True, "result": data}
+
+    def db_save(self, body: dict) -> dict:
+        """POST /save {"storeName", "key", "data"}."""
+        self._db().save(body.get("storeName"), body.get("key"), body.get("data"))
+        return {"ok": True, "result": "Data saved successfully"}
+
+    def db_rename(self, body: dict) -> dict:
+        """POST /rename {"key", "newName"}."""
+        self._db().rename(body.get("key"), str(body.get("newName", "")))
+        return {"ok": True, "result": "Session renamed successfully"}
+
+    def db_all(self, body: dict) -> dict:
+        """POST /all {"storeName"}: every document of a store."""
+        return {"ok": True, "result": self._db().all(body.get("storeName"))}
+
+    def db_sessions(self, body: dict | None = None) -> dict:
+        """GET or POST /sessions: {key: display name}."""
+        return {"ok": True, "result": self._db().sessions()}
+
+    def db_delete(self, body: dict) -> dict:
+        """POST /delete {"storeName", "key"}."""
+        self._db().delete(body.get("storeName"), body.get("key"))
+        return {"ok": True, "result": "Session deleted successfully"}
+
+    def db_vacuum(self) -> dict:
+        self._db().vacuum()
+        return {"ok": True}
+
+    # ----------------------------------------------------- Anthropic API
+    def _anthropic_body(self, body: dict) -> tuple[dict, list[int]]:
+        """An Anthropic Messages body as the engine's body and prompt ids:
+        content blocks flattened, the system prompt first, tools in the
+        OpenAI shape, and tool_choice "any" / "tool" mapped onto the forced
+        call ("required" / a named function)."""
+        self._refuse_media(body.get("messages", []))
+        messages = _anthropic_flatten(body.get("messages", []))
+        if body.get("system"):
+            sys_c = body["system"]
+            if isinstance(sys_c, list):
+                sys_c = "".join(x.get("text", "") for x in sys_c if isinstance(x, dict))
+            messages = [{"role": "system", "content": sys_c}] + messages
+        tools = None
+        if body.get("tools"):
+            tools = [{"type": "function",
+                      "function": {"name": t.get("name"),
+                                   "description": t.get("description", ""),
+                                   "parameters": t.get("input_schema", {})}}
+                     for t in body["tools"]]
+            atc = body.get("tool_choice")
+            if isinstance(atc, dict) and atc.get("type") in ("any", "tool"):
+                oai_tc = ("required" if atc["type"] == "any" else
+                          {"type": "function", "function": {"name": atc.get("name")}})
+                body = self._apply_tool_choice({**body, "tools": tools, "tool_choice": oai_tc},
+                                               self.chat_analysis)
+        ids = self.rt.tokenizer.encode(self._chat_prompt(messages, tools=tools))
+        return {**body, "max_tokens": body.get("max_tokens", 128)}, ids
+
+    def anthropic_messages(self, body: dict) -> dict:
+        """POST /v1/messages: an Anthropic Messages response (thinking,
+        text and tool_use blocks)."""
+        body, ids = self._anthropic_body(body)
+        toks, text, _ = self._run(ids, body)
+        reasoning, content_text = split_reasoning(text)
+        content_text, calls = parse_tool_calls(content_text)
+        content = []
+        if reasoning:
+            content.append({"type": "thinking", "thinking": reasoning})
+        if content_text:
+            content.append({"type": "text", "text": content_text})
+        for c in calls:
+            content.append({"type": "tool_use", "id": "toolu_" + uuid.uuid4().hex[:16],
+                            "name": c.name, "input": json.loads(c.arguments or "{}")})
+        return {"id": f"msg_{uuid.uuid4().hex[:16]}", "type": "message", "role": "assistant",
+                "content": content or [{"type": "text", "text": ""}],
+                "model": self.model_name,
+                "stop_reason": "tool_use" if calls else "end_turn",
+                "usage": {"input_tokens": len(ids), "output_tokens": len(toks)}}
+
+    def anthropic_messages_stream(self, body: dict, holder: dict | None = None) -> Iterator:
+        """The streamed form: message_start, one text block of
+        content_block_delta events, message_delta and message_stop."""
+        body, ids = self._anthropic_body(body)
+        req, q = self._open(ids, body, holder)
+        rid = f"msg_{uuid.uuid4().hex[:16]}"
+
+        def ev(name, data):
+            return {"event": name, "data": {"type": name, **data}}
+
+        def events():
+            yield ev("message_start", {"message": {
+                "id": rid, "type": "message", "role": "assistant", "content": [],
+                "model": self.model_name,
+                "usage": {"input_tokens": len(ids), "output_tokens": 0}}})
+            yield ev("content_block_start", {"index": 0,
+                                             "content_block": {"type": "text", "text": ""}})
+            n = 0
+            for tok, piece, _ in self._pieces(req, q):
+                n += tok >= 0
+                if piece:
+                    yield ev("content_block_delta", {
+                        "index": 0, "delta": {"type": "text_delta", "text": piece}})
+            yield ev("content_block_stop", {"index": 0})
+            yield ev("message_delta", {"delta": {"stop_reason": "end_turn"},
+                                       "usage": {"output_tokens": n}})
+            yield ev("message_stop", {})
+        return events()
+
+    def anthropic_count_tokens(self, body: dict) -> dict:
+        """POST /v1/messages/count_tokens: the rendered prompt's tokens."""
+        messages = body.get("messages", [])
+        if body.get("system"):
+            messages = [{"role": "system", "content": body["system"]}] + messages
+        return {"input_tokens": len(self.rt.tokenizer.encode(self._chat_prompt(messages)))}
+
+
 GET_ROUTES = {"/health": "health", "/props": "props", "/v1/models": "models",
               "/models": "models", "/metrics": "metrics", "/slots": "slots",
-              "/control-vectors": "cvec_list", "/lora-adapters": "lora_list"}
+              "/control-vectors": "cvec_list", "/lora-adapters": "lora_list",
+              "/version": "version", "/v1/props": "props_simple",
+              "/slots/list": "slots_list", "/list": "saved_prompts_list",
+              "/sessions": "db_sessions", "/vacuum": "db_vacuum", "/": "webui"}
 POST_ROUTES = {"/tokenize": "tokenize", "/detokenize": "detokenize",
                "/apply-template": "apply_template",
                "/completion": "completion", "/completions": "completion",
@@ -705,7 +1097,13 @@ POST_ROUTES = {"/tokenize": "tokenize", "/detokenize": "detokenize",
                "/lora-adapters": "lora_set",
                "/embedding": "embeddings", "/embeddings": "embeddings",
                "/v1/embeddings": "oai_embeddings", "/rerank": "rerank",
-               "/v1/rerank": "rerank", "/infill": "infill"}
+               "/v1/rerank": "rerank", "/infill": "infill",
+               "/v1/messages": "anthropic_messages",
+               "/v1/messages/count_tokens": "anthropic_count_tokens",
+               "/delete_prompt": "delete_prompt", "/rename_prompt": "rename_prompt",
+               "/load": "db_load", "/save": "db_save", "/rename": "db_rename",
+               "/all": "db_all", "/sessions": "db_sessions", "/delete": "db_delete",
+               "/profiler/start": "profiler", "/profiler/stop": "profiler"}
 
 
 def sse(item) -> bytes:
@@ -755,14 +1153,31 @@ def make_app(srv: Server):
         return resp
 
     async def get(request):
-        out = getattr(srv, GET_ROUTES[request.path])()
+        try:
+            out = getattr(srv, GET_ROUTES[request.path])()
+        except RequestError as e:
+            return web.json_response(e.payload, status=e.status)
         if isinstance(out, str):
             return web.Response(text=out, content_type="text/plain")
         bad = request.path == "/health" and out["status"] != "ok"
         return web.json_response(out, status=503 if bad else 200)
 
+    async def slot(request):
+        """POST /slots/{id}?action=...: the engine runs it between two steps."""
+        try:
+            idx = int(request.match_info["id"])
+        except ValueError:
+            return web.json_response({"error": "invalid slot id"}, status=400)
+        body = await request.json() if request.can_read_body else {}
+        try:
+            out = await asyncio.get_running_loop().run_in_executor(
+                None, srv.slot_action, idx, request.query.get("action", ""), body)
+        except RequestError as e:
+            return web.json_response(e.payload, status=e.status)
+        return web.json_response(out)
+
     async def post(request):
-        body = await request.json()
+        body = await request.json() if request.can_read_body else {}
         name = POST_ROUTES[request.path]
         loop = asyncio.get_running_loop()
         streamed = (isinstance(body, dict) and body.get("stream")
@@ -797,6 +1212,7 @@ def make_app(srv: Server):
         app.router.add_get(path, get)
     for path in POST_ROUTES:
         app.router.add_post(path, post)
+    app.router.add_post("/slots/{id}", slot)
     return app
 
 
@@ -825,9 +1241,55 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--lora", action="append", default=[],
                     help="LoRA adapter GGUF (repeatable); PATH or PATH:SCALE. "
                          "The model is then loaded with q/k/v and gate/up unfused")
+    ap.add_argument("--mmproj", help="multimodal projector GGUF: a later slice (refused)")
+    ap.add_argument("--slot-save-path", default=".",
+                    help="directory of the slot save/restore state files")
+    ap.add_argument("--sql-save-file",
+                    help="sqlite file of the session store (/load /save /sessions ...)")
+
+    class _AllowAction(argparse.Action):
+        # --allowlist-unicode-rule appends to the current ruleset and
+        # --allowlist-keyword closes it, so the flags' order counts
+        # (common.cpp:2327-2345)
+        def __call__(self, parser, ns, values, option_string=None):
+            seq = list(getattr(ns, "allow_seq", None) or [])
+            seq.append(("kw" if "keyword" in option_string else "rule", values))
+            ns.allow_seq = seq
+    ap.add_argument("--allowlist-unicode-rule", action=_AllowAction, dest="allow_seq",
+                    metavar="LOWER..UPPER,SCRIPT:BIAS",
+                    help="allowlist rule (repeatable): a token with a code point "
+                         "outside every rule is banned; the rules between two "
+                         "--allowlist-keyword flags form one ruleset")
+    ap.add_argument("--allowlist-keyword", action=_AllowAction, dest="allow_seq",
+                    help="a keyword of the generated text that expires the current "
+                         "ruleset and starts the next")
+    ap.add_argument("--allowlist-pieces", action="append", default=[],
+                    help="an always-allowed text piece (repeatable)")
+    ap.add_argument("--allowlist-keyword-delay", type=int, default=0,
+                    help="decoded tokens before keyword matching starts")
+    ap.add_argument("--expiring-logit-bias-file",
+                    help="expiring-logit-bias rule file; a request's "
+                         "expiring_logit_bias field overrides it")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the model and the cache (cpu for tests)")
     return ap.parse_args(argv)
+
+
+def allowlist_defaults(seq) -> tuple[list, list]:
+    """The (rulesets, keywords) of the --allowlist-unicode-rule /
+    --allowlist-keyword flags, in their order."""
+    from ..runtime.allowlist import parse_rule
+    rulesets: list[list] = []
+    kws: list[str] = []
+    for kind, val in seq or []:
+        if kind == "rule":
+            if not rulesets:
+                rulesets.append([])
+            rulesets[-1].append(parse_rule(val))
+        else:
+            kws.append(val)
+            rulesets.append([])
+    return rulesets, kws
 
 
 def parse_lora_arg(spec: str) -> tuple[str, float]:
@@ -853,6 +1315,9 @@ def load_loras(rt: Runtime, specs: list[str]) -> list:
 
 def main(argv=None):
     args = parse_args(argv)
+    if args.mmproj:
+        llama_mod._later("image and audio input (--mmproj, models/clip.py, runtime/mtmd.py)",
+                         "multimodal (item 7)")
     web = _aiohttp_web()
     # per-projection adapters need the q/k/v and gate/up linears unfused
     rt = Runtime.from_gguf(args.gguf, args.device,
@@ -865,6 +1330,15 @@ def main(argv=None):
     engine.start()
     srv = Server(engine, model_name=str(args.gguf), api_key=args.api_key)
     srv.loras = loras
+    srv.allow_rules, srv.allow_kws = allowlist_defaults(getattr(args, "allow_seq", None))
+    srv.allow_pieces = list(args.allowlist_pieces)
+    srv.allow_kw_delay = args.allowlist_keyword_delay
+    if args.expiring_logit_bias_file:
+        srv.expiring_logit_bias = Path(args.expiring_logit_bias_file).read_text()
+    srv.slot_save_path = args.slot_save_path
+    if args.sql_save_file:
+        from .sessions import SessionDB
+        srv.session_db = SessionDB(args.sql_save_file)
     for spec in args.control_vector:
         path, _, scale = spec.rpartition(":")
         if not (path and scale.replace(".", "").replace("-", "").isdigit()):

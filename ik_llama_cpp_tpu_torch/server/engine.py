@@ -45,14 +45,32 @@ An encoder-only model (the BERT family, on a ``NoCache``) starts an
 engine that refuses every generation request; the server's embeddings
 routes serve it.
 
-DFlash drafting, slot save/restore, the llguidance grammar kinds, lazy
-grammars, the allowlist, expiring logit biases, banned phrases, the
-reasoning budget, post-sampling probabilities and tensor/pipeline parallel
-serving are later slices: asking for one raises NotImplementedError.
+The request options run as in the JAX engine, on the host: the
+unicode-script allowlist (``runtime/allowlist.py``) and expiring logit
+biases (``runtime/expiring_bias.py``) add to a row's logits; grammar kinds
+other than GBNF compile through ``runtime/llg.py``; a lazy grammar waits
+for its trigger word; banned strings and regexes rewind the slot to the
+token where the match starts and ban it there (``_check_bans``: the
+rewound rows are overwritten by the next forwards, and at the end the
+slot keeps ``cache_tokens = tokens[:n_past]``); the reasoning budget
+forces its end tag; ``post_sampling_probs`` reports the sampler chain's
+probabilities. Each of them that needs the whole row of logits turns the
+top-k readback off for the step (``_slot_topk_ok``). A recurrent model
+drops the bans, as the JAX engine does: its state cannot be rewound.
+
+Slot save, restore and erase (``save_slot`` / ``restore_slot`` /
+``erase_slot``) run on the loop thread, between two steps, as queued
+commands: the forwards write the cache in place. A restore takes an idle
+slot only. The state file is ``runtime/state.py``'s.
+
+DFlash drafting and tensor/pipeline parallel serving are later slices:
+asking for one raises NotImplementedError.
 """
 from __future__ import annotations
 
+import logging
 import queue
+import re
 import threading
 import time
 import traceback
@@ -88,25 +106,50 @@ class Request:
     sampler: SamplerParams = field(default_factory=lambda: SamplerParams(temp=0.8))
     seed: int = 0
     stop: list[str] = field(default_factory=list)
-    grammar: str | None = None         # GBNF text (constrained decoding)
-    grammar_kind: str = "gbnf"         # other kinds: a later slice
+    grammar: str | None = None         # grammar text (constrained decoding)
+    # the grammar's dialect: gbnf, or regex / json / lark through
+    # runtime/llg.py (a backend registered there under the kind's name
+    # takes it instead)
+    grammar_kind: str = "gbnf"
+    # lazy grammar: dormant until a trigger word appears in the generated
+    # text, then enforced from the trigger on
+    grammar_lazy: bool = False
+    grammar_triggers: list = field(default_factory=list)
     stream_queue: Optional[queue.Queue] = None  # receives (token_id, text, done)
     id: int = 0
     cancelled: bool = False       # client disconnect -> slot release
+    # tokens inside <think>...</think> before a forced close (-1 = no limit)
+    reasoning_budget: int = -1
     # n_probs > 0: per emitted token append {"id", "logprob", "top":
     # [(id, logprob) x n_probs]} to probs_out
     n_probs: int = 0
+    post_sampling_probs: bool = False   # probs of the chain's candidates
     probs_out: list = field(default_factory=list)
     # context-shift tuning (-1 = engine defaults)
     n_keep: int = -1
     n_discard: int = -1
     cache_prompt: bool = True     # false disables prefix reuse
-    # later slices: asking for one raises at submit
-    grammar_lazy: bool = False
-    banned: bool = False          # banned strings or regexes (rewind)
-    reasoning_budget: int = -1
-    post_sampling_probs: bool = False
+    # banned phrases (server-context.cpp:4508 rewind_context): a match in
+    # the held-back text rewinds the slot to the token where it starts,
+    # biases that token there by banned_bias, and samples again
+    banned_strings: list = field(default_factory=list)   # lowercased
+    banned_regex: list = field(default_factory=list)
+    banned_regex_ci: list = field(default_factory=list)
+    banned_bias: float = -999.0
+    banned_n: int = 1
+    banbuffer: int = 0            # chars held from the stream (0 = auto)
+    rewind_count_max: int = -1    # -1 heuristic, 0 unlimited, >0 strict
+    saturate_predict: bool = False   # rewound tokens refund n_predict
+    reasoning_start_tag: str = "<think>"
+    reasoning_end_tag: str = "</think>"
+    reasoning_message: str = "\n"
+    # unicode-script allowlist: rulesets of (lower_cpt, upper_cpt, script,
+    # bias) tuples; keywords in the generated text expire them in order
     allow_rules: list = field(default_factory=list)
+    allow_pieces: list = field(default_factory=list)
+    allow_kws: list = field(default_factory=list)
+    allow_kw_delay: int = 0
+    # expiring logit bias rule text (a string or a list of lines)
     expiring_logit_bias: Any = None
     # set when the engine failed this request: the error's text
     error: str | None = None
@@ -130,6 +173,14 @@ class Slot:
     n_streamed: int = 0         # chars of .text already sent to the stream
     pending: bytes = b""        # partial UTF-8 tail awaiting continuation
     grammar: Any = None         # per-request GrammarSampler (stateful)
+    forced: list = field(default_factory=list)   # forced next tokens
+    n_think: int = 0
+    gen_pieces: list = field(default_factory=list)  # text piece a generated token
+    pos_bans: dict = field(default_factory=dict)    # token index -> {ids}
+    rewind_count: int = 0
+    allowlist: Any = None       # runtime.allowlist.AllowlistState | None
+    elb: Any = None             # runtime.expiring_bias.ElbRuntime | None
+    lazy_grammar: Any = None    # (gbnf text, [trigger words]) while dormant
     t_start: float = 0.0
     t_first_token: float = 0.0
     drafter: Any = None         # the slot's self-speculation drafter (spec)
@@ -298,7 +349,11 @@ class BatchEngine:
         self.prompt_cache = (HostPromptCache(cache_ram_mib)
                              if cache_ram_mib != 0 else None)
         self.slots = [Slot(i) for i in range(n_slots)]
+        self._allow_cache: dict = {}   # the allowlist's vocab flattening, shared
         self.requests: queue.Queue[Request] = queue.Queue()
+        # slot save / restore / erase, run on the loop thread between steps
+        self._commands: queue.Queue = queue.Queue()
+        self._bans_dropped = False     # logged once on a recurrent model
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._submit_lock = threading.Lock()     # submit() runs on many threads
@@ -309,6 +364,7 @@ class BatchEngine:
         self.n_prompt_tokens_processed = 0
         self.n_prompt_tokens_cached = 0
         self.n_tokens_predicted = 0
+        self.n_rewinds = 0
         self.n_topk_steps = 0
         self.n_decode_steps = 0
         self.n_prefill_forwards = 0
@@ -337,17 +393,6 @@ class BatchEngine:
             raise NotImplementedError(
                 f"{self.cfg.arch} is an encoder with no LM head: it generates no text "
                 "(its embeddings are served by /embedding and /v1/embeddings)")
-        later = [(req.allow_rules, "the unicode-script allowlist"),
-                 (req.expiring_logit_bias is not None, "expiring logit biases"),
-                 (req.grammar and req.grammar_kind not in ("gbnf", "grammar"),
-                  f"{req.grammar_kind!r} grammars (llguidance)"),
-                 (req.grammar_lazy, "lazy grammars (grammar triggers)"),
-                 (req.banned, "banned strings and the rewind"),
-                 (req.reasoning_budget >= 0, "the reasoning budget"),
-                 (req.post_sampling_probs, "post-sampling probabilities")]
-        for asked, what in later:
-            if asked:
-                llama_mod._later(what, "server extras (item 7)")
         with self._submit_lock:
             self.n_requests += 1
         self.requests.put(req)
@@ -437,14 +482,68 @@ class BatchEngine:
             slot.pending = b""
             slot.rng = np.random.default_rng(req.seed)
             slot.sampler_state = SamplerState()
-            slot.grammar = None
-            if req.grammar:
-                from ..runtime.grammar import Grammar, GrammarSampler
-                slot.grammar = GrammarSampler(Grammar(req.grammar),
-                                              self.rt.tokenizer)
+            slot.forced = []
+            slot.n_think = 0
+            try:
+                self._admit_options(slot, req)
+            except Exception as e:          # noqa: BLE001 - fails this request only
+                traceback.print_exc()
+                self._fail(slot, f"{type(e).__name__}: {e}")
+                continue
             slot.state = SlotState.PREFILL
             slot.t_start = time.time()
             slot.t_first_token = 0.0
+
+    def _admit_options(self, slot: Slot, req: Request) -> None:
+        """The request options' per-slot state: the grammar (of any kind,
+        lazy or not), the allowlist, the expiring biases, the ban buffer."""
+        slot.grammar = None
+        slot.lazy_grammar = None
+        g_text = req.grammar
+        if g_text and req.grammar_kind not in ("gbnf", "grammar"):
+            from ..runtime import llg
+            if req.grammar_kind in llg._BACKENDS:
+                # a registered engine: its stateful sampler object
+                slot.grammar = llg.constraint_from(req.grammar_kind, g_text,
+                                                   self.rt.tokenizer, backend=req.grammar_kind)
+                g_text = None
+            else:
+                g_text = llg.to_gbnf(req.grammar_kind, g_text)
+        if g_text and req.grammar_lazy and req.grammar_triggers:
+            slot.lazy_grammar = (g_text, [str(t) for t in req.grammar_triggers])
+        elif g_text:
+            from ..runtime.grammar import Grammar, GrammarSampler
+            slot.grammar = GrammarSampler(Grammar(g_text), self.rt.tokenizer)
+        slot.gen_pieces = []
+        slot.pos_bans = {}
+        slot.rewind_count = 0
+        slot.allowlist = None
+        if req.allow_rules:
+            from ..runtime.allowlist import build_allowlist
+            slot.allowlist = build_allowlist(
+                self.rt.tokenizer, req.allow_rules, req.allow_kws,
+                pieces=req.allow_pieces, kw_delay=req.allow_kw_delay,
+                vocab_cache=self._allow_cache)
+        slot.elb = None
+        if req.expiring_logit_bias is not None:
+            from ..runtime.expiring_bias import build_elb_runtime
+            slot.elb = build_elb_runtime(self.rt.tokenizer, req.expiring_logit_bias,
+                                         req.sampler)
+        bans = req.banned_strings or req.banned_regex or req.banned_regex_ci
+        if self.rt.recurrent and bans:
+            # a recurrent state cannot be rewound: the bans go, as in JAX
+            if not self._bans_dropped:
+                logging.getLogger("ik_llama_cpp_tpu_torch").warning(
+                    "banned strings and regexes are dropped on %s: its recurrent "
+                    "state cannot be rewound", self.cfg.arch)
+                self._bans_dropped = True
+            req.banned_strings, req.banned_regex, req.banned_regex_ci = [], [], []
+            req.banbuffer = 0
+        if req.banned_strings and req.banbuffer <= 0:
+            # the longest phrase + 1 chars (the reference's n_buffer)
+            req.banbuffer = max(len(b) for b in req.banned_strings) + 1
+        if (req.banned_regex or req.banned_regex_ci) and req.banbuffer <= 0:
+            req.banbuffer = 64
 
     def _room(self, s: Slot, n: int) -> bool:
         """Whether row ``s`` can take an n-token write in a prefill forward:
@@ -527,13 +626,43 @@ class BatchEngine:
         slot.cache_tokens = []      # its rows may be half written
         slot.drafter = None
 
-    def _emit_token(self, slot: Slot, logits: np.ndarray | None, topk=None):
+    def _emit_token(self, slot: Slot, logits: np.ndarray | None, topk=None) -> bool:
+        """Sample the slot's next token from its row of logits (or from
+        the top-k readback), append it and stream its text. Returns True
+        when a banned phrase rewound the slot instead: nothing was emitted,
+        and ``n_past`` and ``tokens`` went back to the ban's position."""
         req = slot.req
-        if topk is not None:
+        if topk is None and slot.allowlist is not None:
+            # allowlist biases go on the raw logits before any sampler
+            # stage (common/sampling.cpp:640 server_biases); -inf bans
+            srv_bias = slot.allowlist.active_bias()
+            if srv_bias is not None and len(srv_bias) == len(logits):
+                logits = np.asarray(logits, np.float32) + srv_bias
+        if topk is None and slot.elb is not None:
+            # expiring biases: the state machine's token biases on the raw
+            # logits and its sampler-parameter toggles (sampling.cpp:836)
+            logits = np.asarray(logits, np.float32).copy()
+            slot.elb.apply(logits, slot.text)
+        bans = slot.pos_bans.get(len(slot.tokens))
+        if bans and topk is None:
+            # a rewind's bans at exactly this position (server-context.cpp:4773)
+            logits = np.asarray(logits, np.float32).copy()
+            for t in bans:
+                logits[t] += req.banned_bias
+        post = None
+        if slot.forced:
+            tok = slot.forced.pop(0)
+        elif topk is not None:
             # top-k readback: only (vals, ids, lse) left the card;
             # _slot_topk_ok guaranteed exactness
-            vals, tidx, _lse = topk
-            tok = sample_topk(vals, tidx, _lse, req.sampler, slot.rng,
+            vals, tidx, lse = topk
+            if bans:
+                vals = vals.copy()
+                for t in bans:
+                    m = np.where(tidx == t)[0]
+                    if len(m):
+                        vals[m[0]] += req.banned_bias
+            tok = sample_topk(vals, tidx, lse, req.sampler, slot.rng,
                               history=slot.tokens, state=slot.sampler_state)
         elif slot.grammar is not None:
             # constrained decoding: chain once, grammar-mask the surviving
@@ -545,14 +674,29 @@ class BatchEngine:
             except RuntimeError as e:
                 # the grammar dead-ends against the vocab: fail THIS request
                 self._fail(slot, f"grammar: {e}")
-                return
+                return False
+        elif req.n_probs > 0 and req.post_sampling_probs:
+            tok, p_order, p_probs = sample_token(
+                logits, req.sampler, slot.rng, history=slot.tokens,
+                state=slot.sampler_state, return_probs=True)
+            post = (np.asarray(p_order), np.asarray(p_probs))
         else:
             tok = sample_token(logits, req.sampler, slot.rng,
                                history=slot.tokens, state=slot.sampler_state)
         slot.tokens.append(int(tok))
         slot.n_decoded += 1
         self.n_tokens_predicted += 1
-        if req.n_probs > 0:
+        if req.n_probs > 0 and post is not None:
+            # the probabilities of the chain's surviving candidates
+            p_order, p_probs = post
+            n = min(req.n_probs, len(p_order))
+            where = np.where(p_order == int(tok))[0]
+            own = float(np.log(p_probs[where[0]] + 1e-30)) if len(where) else 0.0
+            req.probs_out.append({
+                "id": int(tok), "logprob": own,
+                "top": [(int(p_order[i]), float(np.log(p_probs[i] + 1e-30)))
+                        for i in range(n)]})
+        elif req.n_probs > 0:
             # log-softmax over the raw logits (pre-sampling probabilities,
             # the reference's default n_probs mode)
             lg = np.asarray(logits, np.float32).reshape(-1)
@@ -580,23 +724,59 @@ class BatchEngine:
         if tok == self.rt.tokenizer.eos_id:
             done = True
             piece = ""            # the eos token's own text is never emitted
+        prev_len = len(slot.text)
+        if slot.elb is not None:
+            # count-up and exit/jump-word scan over the text BEFORE this
+            # piece (sampling.cpp:941 accept)
+            slot.elb.accept(slot.text, piece)
         slot.text += piece
+        if slot.allowlist is not None:
+            # keywords in the new text expire rulesets in order
+            slot.allowlist.update(slot.text, prev_len, slot.n_decoded)
+        slot.gen_pieces.append(piece)
         if req.cancelled:
+            # before the rewind: a client that left is released even under
+            # an unlimited rewind budget
             done = True
+        if slot.lazy_grammar is not None and slot.grammar is None and piece:
+            # a lazy grammar wakes at its first trigger word and takes the
+            # text from the trigger on
+            g_text, triggers = slot.lazy_grammar
+            hits = [h for h in (slot.text.find(t) for t in triggers) if h >= 0]
+            if hits:
+                from ..runtime.grammar import Grammar, GrammarSampler
+                gs = GrammarSampler(Grammar(g_text), self.rt.tokenizer)
+                if gs.grammar.accept_text(slot.text[min(hits):]):
+                    slot.grammar = gs
+                slot.lazy_grammar = None
+        if not done and slot.grammar is None and (
+                req.banned_strings or req.banned_regex or req.banned_regex_ci):
+            if self._check_bans(slot):
+                return True       # rewound: nothing emitted this round
         if slot.n_decoded >= req.n_predict:
             done = True
         for stop_s in req.stop:
             if stop_s and stop_s in slot.text:
                 slot.text = slot.text.split(stop_s)[0]
                 done = True
+        # the reasoning budget: force the <think> block closed when spent
+        # (common/reasoning-budget.cpp)
+        if req.reasoning_budget >= 0 and not slot.forced and not done:
+            tail = slot.text.rsplit(req.reasoning_start_tag, 1)
+            if len(tail) == 2 and req.reasoning_end_tag not in tail[1]:
+                slot.n_think += 1
+                if slot.n_think >= req.reasoning_budget:
+                    slot.forced = self.rt.tokenizer.encode(
+                        req.reasoning_message + req.reasoning_end_tag + "\n",
+                        add_bos=False)
         if req.stream_queue is not None:
             # stream from the (possibly stop-trimmed) accumulated text, and
             # hold back any suffix that could be the start of a stop string
-            # (find_partial_stop_string) so that a stop string split across
-            # tokens never reaches a streaming client
+            # (find_partial_stop_string), and the ban buffer's rewindable
+            # tail
             safe = len(slot.text)
             if not done:
-                safe -= _partial_stop_holdback(slot.text, req.stop)
+                safe -= max(_partial_stop_holdback(slot.text, req.stop), req.banbuffer)
             out = slot.text[slot.n_streamed: safe] if safe > slot.n_streamed \
                 else ""
             slot.n_streamed += len(out)
@@ -607,6 +787,75 @@ class BatchEngine:
             slot.state = SlotState.IDLE
             slot.req = None
             slot.drafter = None       # its state indexes this request's tokens
+        return False
+
+    def _check_bans(self, slot: Slot) -> bool:
+        """Banned-phrase rewind (rewind_context, server-context.cpp:4508):
+        search the held-back tail of the generated text for banned strings
+        and regexes; on a match, ban the token(s) at the match's position
+        and rewind the slot there to sample again. The rows past the new
+        n_past are overwritten by the next forwards. Returns True when
+        rewound."""
+        req = slot.req
+        W = req.banbuffer
+        win = slot.text[-W:] if W > 0 else slot.text
+        base = len(slot.text) - len(win)
+        best = None
+        low = win.lower()
+        for ph in req.banned_strings:
+            i = low.find(ph)
+            if i >= 0 and (best is None or i < best):
+                best = i
+        for pats, flags in ((req.banned_regex, 0), (req.banned_regex_ci, re.IGNORECASE)):
+            for pat in pats:
+                try:
+                    m = re.search(pat, win, flags)
+                except re.error:
+                    continue
+                if m and (best is None or m.start() < best):
+                    best = m.start()
+        if best is None:
+            return False
+        # the rewind budget (the reference's heuristic / strict / unlimited)
+        total = len(req.banned_strings) + len(req.banned_regex) + len(req.banned_regex_ci)
+        if req.rewind_count_max == -1:
+            if slot.rewind_count >= 20 and slot.rewind_count > 2 * total:
+                return False
+        elif req.rewind_count_max > 0 and slot.rewind_count >= req.rewind_count_max:
+            return False
+        # a backstop even when unlimited: with saturate_predict a pattern
+        # matching everything would never end
+        if slot.rewind_count >= 100 + 20 * max(1, req.n_predict):
+            return False
+        # the match's char offset -> its generated token g
+        off = base + best
+        cum = g = 0
+        for g, piece in enumerate(slot.gen_pieces):
+            if cum + len(piece) > off:
+                break
+            cum += len(piece)
+        ban_idx = slot.n_prompt + g
+        if req.stream_queue is not None and cum < slot.n_streamed:
+            # the token began before the held-back window: its head reached
+            # the client already, so it stands
+            return False
+        n = req.banned_n
+        banned = (slot.tokens[ban_idx:ban_idx + n] if n > 0
+                  else slot.tokens[ban_idx:] if n < 0 else [])
+        if banned:
+            slot.pos_bans.setdefault(ban_idx, set()).update(int(t) for t in banned)
+        slot.rewind_count += 1
+        self.n_rewinds += 1
+        slot.tokens = slot.tokens[:ban_idx]
+        slot.gen_pieces = slot.gen_pieces[:g]
+        slot.text = slot.text[:cum]
+        if req.saturate_predict:
+            slot.n_decoded = g
+        # the token before the ban is fed again at its own position
+        slot.n_past = ban_idx - 1
+        slot.pending = b""
+        slot.n_streamed = min(slot.n_streamed, cum)
+        return True
 
     def _slot_topk_ok(self, s: Slot) -> bool:
         """Eligibility for the top-k readback decode: the sampler chain must
@@ -615,7 +864,13 @@ class BatchEngine:
         identical candidate membership)."""
         req = s.req
         p = req.sampler
-        if s.grammar is not None or req.n_probs > 0:
+        if s.forced or s.grammar is not None or req.n_probs > 0:
+            return False
+        if s.allowlist is not None and s.allowlist.active_bias() is not None:
+            return False      # a bias over the whole vocabulary needs the row
+        if s.elb is not None:
+            return False      # expiring biases can promote any token
+        if s.pos_bans and req.banned_bias > 0:
             return False
         if not topk_chain_compatible(p):
             return False
@@ -630,6 +885,8 @@ class BatchEngine:
             need = max(p.top_k, p.min_keep) + min(window, len(s.tokens))
         else:
             need = max(p.top_k, p.min_keep)
+        # a rewind's bans at this position push that many tokens down
+        need += len(s.pos_bans.get(len(s.tokens), ()))
         return need <= min(TOPK_FETCH, self.cfg.n_vocab)
 
     def run_loop(self):
@@ -653,6 +910,7 @@ class BatchEngine:
         """One round of the loop: admit, one prefill round, one decode step
         of every generating slot. Returns False when there was nothing to
         do."""
+        did = self._run_commands()
         self._admit()
         prefills = [s for s in self.slots if s.state == SlotState.PREFILL]
         if prefills:
@@ -662,7 +920,7 @@ class BatchEngine:
             self._admit()
         gen = [s for s in self.slots if s.state == SlotState.GENERATING]
         if not gen:
-            return bool(prefills)
+            return bool(prefills) or did
         drafts = {}
         if self.spec is not None:
             for s in gen:
@@ -749,11 +1007,12 @@ class BatchEngine:
                 s.n_past += 1         # the row of the token at pos is written
                 prev = len(s.tokens)
                 if use_topk:
-                    self._emit_token(s, None, topk=(vals[s.idx, pos], idx[s.idx, pos],
-                                                    float(lse[s.idx, pos])))
+                    rewound = self._emit_token(s, None, topk=(
+                        vals[s.idx, pos], idx[s.idx, pos], float(lse[s.idx, pos])))
                 else:
-                    self._emit_token(s, logits_np[s.idx, pos])
-                if pos >= len(d) or len(s.tokens) == prev or s.tokens[prev] != d[pos]:
+                    rewound = self._emit_token(s, logits_np[s.idx, pos])
+                if (rewound or pos >= len(d) or len(s.tokens) == prev
+                        or s.tokens[prev] != d[pos]):
                     break
                 self.n_draft_accepted += 1
                 acc += 1
@@ -795,6 +1054,11 @@ class BatchEngine:
                 + slot.tokens[n_keep + n_discard:])
         slot.n_shifts += 1
         slot.drafter = None           # its state indexes the tokens before the shift
+        if req is not None:
+            # a shift renumbers the positions: the bans' positions and the
+            # pieces' alignment with the tokens no longer hold
+            slot.pos_bans = {}
+            req.banned_strings, req.banned_regex, req.banned_regex_ci = [], [], []
         if can_shift(self.cfg) and not self.rt.kv_quant:
             _, new_past = k_shift(cache_rows(self.kv, slot.idx), self.cfg,
                                   n_keep, n_discard, slot.n_past)
@@ -811,13 +1075,95 @@ class BatchEngine:
         slot.state = SlotState.PREFILL
         return False
 
+    # ------------------------------------------------------- slot state IO
+    def _run_commands(self) -> bool:
+        """Run the queued slot commands; True if there was one."""
+        did = False
+        while True:
+            try:
+                cmd = self._commands.get_nowait()
+            except queue.Empty:
+                return did
+            cmd()
+            did = True
+
+    def _call(self, fn, *args):
+        """``fn(*args)`` on the loop thread between two steps (here and now
+        when no loop thread runs, as when a caller drives ``step``): the
+        forwards write the cache in place. Returns its result or raises its
+        error."""
+        if not self.alive or threading.current_thread() is self._thread:
+            return fn(*args)
+        done, box = threading.Event(), {}
+
+        def run():
+            try:
+                box["out"] = fn(*args)
+            except Exception as e:          # noqa: BLE001 - raised in the caller
+                box["err"] = e
+            finally:
+                done.set()
+
+        self._commands.put(run)
+        while not done.wait(0.05):
+            if not self.alive:
+                raise RuntimeError("the engine stopped before the slot command ran")
+        if "err" in box:
+            raise box["err"]
+        return box["out"]
+
     def save_slot(self, idx: int, path: str) -> dict:
-        llama_mod._later("slot save/restore", "runtime extras (item 7: state.py)")
+        """Write slot ``idx``'s cached tokens and their KV rows to ``path``
+        (the server's /slots/{id}?action=save): an idle slot's
+        ``cache_tokens``, a busy one's ``tokens[:n_past]``."""
+        return self._call(self._save_slot, idx, str(path))
+
+    def _save_slot(self, idx: int, path: str) -> dict:
+        from ..runtime.state import save_state
+        slot = self.slots[idx]
+        if slot.weights_epoch != self.weights_epoch:
+            toks = []                 # rows made under other weights
+        elif slot.state == SlotState.IDLE:
+            toks = list(slot.cache_tokens)
+        else:
+            toks = slot.tokens[:slot.n_past]
+        t0 = time.perf_counter()
+        nbytes = save_state(path, toks, len(toks), cache_rows(self.kv, idx), rows_exact=True)
+        return {"id_slot": idx, "filename": path, "n_saved": len(toks), "n_written": nbytes,
+                "timings": {"save_ms": (time.perf_counter() - t0) * 1e3}}
 
     def restore_slot(self, idx: int, path: str) -> dict:
-        llama_mod._later("slot save/restore", "runtime extras (item 7: state.py)")
+        """Write a saved state's rows into idle slot ``idx`` and take its
+        tokens as the slot's cached ones (action=restore); a busy slot
+        raises ValueError. A file the JAX engine wrote gives its tokens
+        less the last (``runtime/state.restored_tokens``)."""
+        return self._call(self._restore_slot, idx, str(path))
+
+    def _restore_slot(self, idx: int, path: str) -> dict:
+        from ..runtime.state import load_state, read_state_meta, restored_tokens
+        slot = self.slots[idx]
+        if slot.state != SlotState.IDLE:
+            raise ValueError(f"slot {idx} is busy: a state is restored into an idle slot")
+        meta = read_state_meta(path)
+        if meta is None:
+            raise ValueError(f"{path} is not a state file")
+        if meta["n_past"] > self.capacity - 1:
+            raise ValueError(f"the state holds {meta['n_past']} tokens; a slot holds "
+                             f"{self.capacity - 1}")
+        t0 = time.perf_counter()
+        slot.cache_tokens = []        # its rows are overwritten below
+        load_state(path, cache_rows(self.kv, idx))
+        slot.cache_tokens = restored_tokens(meta)
+        slot.weights_epoch = self.weights_epoch
+        slot.drafter = None
+        return {"id_slot": idx, "filename": path, "n_restored": len(slot.cache_tokens),
+                "timings": {"restore_ms": (time.perf_counter() - t0) * 1e3}}
 
     def erase_slot(self, idx: int) -> dict:
+        """Forget slot ``idx``'s cached tokens (action=erase)."""
+        return self._call(self._erase_slot, idx)
+
+    def _erase_slot(self, idx: int) -> dict:
         slot = self.slots[idx]
         n = len(slot.cache_tokens)
         slot.cache_tokens = []
@@ -846,6 +1192,8 @@ class BatchEngine:
             f"llamacpp:slots_idle {sum(1 for s in self.slots if s.state == SlotState.IDLE)}",
             "# TYPE llamacpp:slots_processing gauge",
             f"llamacpp:slots_processing {sum(1 for s in self.slots if s.state != SlotState.IDLE)}",
+            "# TYPE llamacpp:rewinds_total counter",
+            f"llamacpp:rewinds_total {self.n_rewinds}",
             "# TYPE llamacpp:topk_decode_steps_total counter",
             f"llamacpp:topk_decode_steps_total {self.n_topk_steps}",
             "# TYPE llamacpp:decode_steps_total counter",

@@ -9,20 +9,26 @@ Usage:
 
 The model runs on the card unless ``--device`` says otherwise.
 ``--lookahead`` decodes with lookahead decoding (``runtime/lookahead.py``,
-its default W 8, N 4, G 8). The prompt-cache session file and the layer
-split are later slices of the port: asking for one raises.
+its default W 8, N 4, G 8). ``--prompt-cache FILE`` is main.cpp's session
+file: the KV rows of the longest common prefix with the file's tokens are
+restored from it instead of evaluated, and after the generation the file
+holds the new state (``runtime/state.py``'s format, which the JAX CLI
+reads). The layer split is a later slice of the port: asking for it
+raises.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import os
 import sys
 import time
 
-from ..models import llama as llama_mod
+import numpy as np
+
 from ..runtime.generate import Runtime
 from ..runtime.lookahead import generate_lookahead
-from ..runtime.sampling import SamplerParams
+from ..runtime.sampling import SamplerParams, SamplerState, sample as sample_token
 
 
 def parse_args(argv=None):
@@ -60,8 +66,10 @@ def parse_args(argv=None):
     ap.add_argument("--swa-compress", action="store_true")
     ap.add_argument("--lookahead", action="store_true",
                     help="lookahead decoding (Jacobi window and n-gram pool)")
-    # later slices of the port
-    ap.add_argument("--prompt-cache")
+    ap.add_argument("--prompt-cache", metavar="FILE",
+                    help="session file: restore the KV state if it exists, save it "
+                         "after the generation")
+    # a later slice of the port
     ap.add_argument("-sml", "--layer-split", type=int, default=0)
     return ap.parse_args(argv)
 
@@ -81,10 +89,42 @@ def kv_spec(args):
     return kvq
 
 
+def generate_cached(rt, prompt: str, n_predict: int, sampler: SamplerParams, seed: int,
+                    capacity: int, path: str):
+    """One generation through the session file at ``path``: the prompt's
+    longest common prefix with the file's tokens is restored (at least one
+    prompt token is evaluated), the rest evaluated, then n_predict tokens
+    sampled; the file is then rewritten with every token that has a row.
+    Returns (prompt ids, generated ids, tokens reused)."""
+    from ..runtime.state import load_state, read_state_meta, restored_tokens, save_state
+    ids = rt.tokenizer.encode(prompt)
+    kv = rt.new_cache(1, capacity)
+    prefix = 0
+    meta = read_state_meta(path) if os.path.exists(path) else None
+    if meta is not None:
+        load_state(path, kv)
+        for a, b in zip(restored_tokens(meta), ids):
+            if a != b:
+                break
+            prefix += 1
+        prefix = min(prefix, len(ids) - 1)
+    logits, kv, n_past = rt.eval_tokens(ids[prefix:], kv, prefix)
+    rng = np.random.default_rng(seed)
+    state = SamplerState()
+    out = []
+    for _ in range(n_predict):
+        tok = int(sample_token(logits[-1].cpu().numpy(), sampler, rng, history=ids + out,
+                               state=state))
+        out.append(tok)
+        if tok == rt.eos_id:
+            break
+        logits, kv, n_past = rt.eval_tokens([tok], kv, n_past)
+    save_state(path, (ids + out)[:n_past], n_past, kv, rows_exact=True)
+    return ids, out, prefix
+
+
 def main(argv=None):
     args = parse_args(argv)
-    if args.prompt_cache:
-        llama_mod._later("the prompt-cache session file", "runtime extras (item 7: state.py)")
     if args.i8_mxu:
         from ..models.weights import set_i8_mxu
         set_i8_mxu(True)
@@ -112,8 +152,13 @@ def main(argv=None):
                   f"{st.n_rounds} rounds, {100 * st.accept_rate:.1f}% gram-accepted]",
                   file=sys.stderr)
             return
-        ids, out = rt.generate(prompt, args.n_predict, sampler, seed,
-                               capacity=args.ctx_size)
+        if args.prompt_cache:
+            ids, out, reused = generate_cached(rt, prompt, args.n_predict, sampler, seed,
+                                               args.ctx_size, args.prompt_cache)
+            print(f"session: reused {reused} cached tokens", file=sys.stderr)
+        else:
+            ids, out = rt.generate(prompt, args.n_predict, sampler, seed,
+                                   capacity=args.ctx_size)
         dt = time.time() - t1
         print(rt.detokenize(out))
         print(f"\n[{len(ids)} prompt + {len(out)} generated tokens, "

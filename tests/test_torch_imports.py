@@ -80,7 +80,9 @@ def test_port_files_cover_every_subpackage():
     for rel in ("models/mamba.py", "runtime/lora.py", "tools/convert_lora.py",
                 "tools/perplexity.py", "models/bert.py", "runtime/lookahead.py",
                 "tools/embedding.py", "tools/retrieval.py", "tools/gritlm.py",
-                "tools/cvector_generator.py", "tools/lookahead.py"):
+                "tools/cvector_generator.py", "tools/lookahead.py", "runtime/state.py",
+                "runtime/allowlist.py", "runtime/expiring_bias.py", "runtime/llg.py",
+                "runtime/chat_autoparser.py", "server/sessions.py"):
         assert PORT / rel in _port_files(), rel
 
 

@@ -4,6 +4,7 @@ process (no HTTP), and the aiohttp app booted in a subprocess with
 one."""
 import json
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -85,9 +86,12 @@ def test_requests_refused_and_failed(srv):
     with pytest.raises(RequestError) as e:
         srv.completion({"prompt": "x", "grammar": "root ::= (", "n_predict": 2})
     assert e.value.status == 400
+    r = srv.completion({"prompt": "x", "grammar": "a+", "grammar_kind": "regex",
+                        "n_predict": 4, "temperature": 0})
+    assert r["content"] and set(r["content"]) == {"a"}      # a regex grammar is served
     with pytest.raises(RequestError) as e:
-        srv.completion({"prompt": "x", "grammar": "a+", "grammar_kind": "regex"})
-    assert e.value.status == 400 and "not ported" in e.value.payload["error"]["message"]
+        srv.completion({"prompt": "x", "grammar": "a", "grammar_kind": "nope"})
+    assert e.value.status == 400 and "grammar kind" in e.value.payload["error"]["message"]
     with pytest.raises(RequestError) as e:
         srv.completion({"prompt": [1, 10 ** 6], "n_predict": 2})
     assert e.value.status == 500 and e.value.payload["error"]["type"] == "server_error"
@@ -98,7 +102,9 @@ def test_requests_refused_and_failed(srv):
     assert sse(DONE) == b"data: [DONE]\n\n"
 
 
-TOOLS = [{"type": "function", "function": {"name": "f", "parameters": {"type": "object"}}}]
+TOOLS = [{"type": "function", "function": {"name": "f", "parameters": {
+    "type": "object", "properties": {"unit": {"enum": ["c", "f"]}}, "required": ["unit"],
+    "additionalProperties": False}}}]
 
 
 @pytest.mark.parametrize("extra", [
@@ -108,14 +114,64 @@ TOOLS = [{"type": "function", "function": {"name": "f", "parameters": {"type": "
     {"tools": TOOLS, "tool_choice": "required"},
     {"tools": TOOLS, "tool_choice": {"type": "function", "function": {"name": "f"}}}])
 def test_later_request_options_refused(srv, extra):
-    """Request options of later slices are refused with a 400 before they
-    reach the engine."""
+    """The request options of the server-extras slice, refused before it,
+    are now served: each request reaches the engine and completes, and
+    each option holds on its output (no banned match, Latin-script text
+    only, the post-sampling probabilities, the forced call)."""
     n = srv.engine.n_requests
-    body = {"messages": [{"role": "user", "content": "Hi"}], "max_tokens": 2, **extra}
+    body = {"messages": [{"role": "user", "content": "Hi"}], "max_tokens": 8,
+            "temperature": 0, **extra}
+    if "tool_choice" in extra:
+        body["max_tokens"] = 60     # the call is 42 byte tokens
+    r = srv.oai_chat(body)
+    assert srv.engine.n_requests == n + 1 and r["object"] == "chat.completion"
+    msg = r["choices"][0]["message"]
+    text = msg["content"] or ""
+    if "banned_strings" in extra:
+        assert "the" not in text.lower()
+    if "banned_regex" in extra:
+        assert not re.search("t.e", text)
+    if "banned_regex_ci" in extra:
+        assert "t" not in text.lower()
+    if "allowlist_unicode_rules" in extra:
+        from ik_llama_cpp_tpu_torch.runtime.allowlist import script_of
+        assert all(script_of(ord(c)) in ("latin", "common", "inherited") or c == "\ufffd"
+                   for c in text)
+    if "post_sampling_probs" in extra:
+        lp = r["choices"][0]["logprobs"]["content"]
+        assert lp and all(x["top_logprobs"][0]["logprob"] == 0.0 for x in lp)
+    if "tool_choice" in extra:
+        assert [c["function"]["name"] for c in msg["tool_calls"]] == ["f"]
+        assert json.loads(msg["tool_calls"][0]["function"]["arguments"])["unit"] in "cf"
+
+
+IMAGE = {"type": "image_url", "image_url": {"url": "data:image/png;base64,AA=="}}
+
+
+@pytest.mark.parametrize("call,item", [
+    (lambda srv: srv.oai_chat({"messages": [{"role": "user", "content": [
+        {"type": "text", "text": "Hi"}, IMAGE]}], "max_tokens": 2}), "multimodal"),
+    (lambda srv: srv.anthropic_messages({"messages": [{"role": "user", "content": [
+        {"type": "image", "source": {}}]}]}), "multimodal"),
+    (lambda srv: srv.profiler({}), "server extras"),
+    (lambda srv: srv.webui(), "server extras")], ids=["image", "anthropic-image",
+                                                      "profiler", "webui"])
+def test_later_slices_refused_by_name(srv, call, item):
+    """What this port leaves for later is a 400 naming its queue item, and
+    reaches no engine."""
+    n = srv.engine.n_requests
     with pytest.raises(RequestError) as e:
-        srv.oai_chat(body)
+        call(srv)
     assert e.value.status == 400 and "not ported" in e.value.payload["error"]["message"]
-    assert srv.engine.n_requests == n
+    assert item in e.value.payload["error"]["message"] and srv.engine.n_requests == n
+
+
+def test_later_runtime_and_flags_refused(srv):
+    from ik_llama_cpp_tpu_torch.server.app import main
+    with pytest.raises(NotImplementedError, match="reload.py"):
+        srv.rt.reload_changed_tensors()
+    with pytest.raises(NotImplementedError, match="multimodal"):
+        main(["--gguf", "never-read.gguf", "--mmproj", "never-read-either.gguf"])
 
 
 BODIES = [
@@ -201,7 +257,13 @@ def req(port, path, body=None, raw=False):
 
 
 @pytest.fixture(scope="module")
-def http(model):
+def http_dir(tmp_path_factory):
+    """The served model's slot save path and session store."""
+    return tmp_path_factory.mktemp("http")
+
+
+@pytest.fixture(scope="module")
+def http(model, http_dir):
     pytest.importorskip("aiohttp")
     port = free_port()
     env = {k: v for k, v in os.environ.items() if k in ("PATH", "HOME", "TMPDIR")}
@@ -209,7 +271,8 @@ def http(model):
     proc = subprocess.Popen(
         [sys.executable, "-m", "ik_llama_cpp_tpu_torch.server", "--gguf", str(model),
          "--port", str(port), "--parallel", "2", "--ctx-size", "256",
-         "--device", "cpu"],
+         "--device", "cpu", "--slot-save-path", str(http_dir),
+         "--sql-save-file", str(http_dir / "sessions.db")],
         cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
     try:
         for _ in range(120):
@@ -259,3 +322,74 @@ def test_http_chat_completion(http):
         req(http, "/v1/chat/completions",
             {"messages": [{"role": "user", "content": "Hi"}], "grammar": "root ::= ("})
     assert e.value.code == 400
+
+
+def test_http_slots_sessions_anthropic(http, http_dir):
+    """The routes of the server-extras slice over HTTP: slot save, list,
+    erase and restore with the saved-file routes and their traversal
+    guard; the session store; /version and /v1/props; Anthropic's
+    /v1/messages and count_tokens."""
+    r = req(http, "/completion", {"prompt": "Once upon", "n_predict": 4, "temperature": 0,
+                                  "id_slot": 0})
+    assert r["tokens_predicted"] == 4
+    lists = req(http, "/slots/list")
+    slot = max(lists, key=lambda x: x["token_count"])["slot_id"]
+    saved = req(http, f"/slots/{slot}?action=save", {"filename": "a.bin"})
+    assert saved["n_saved"] > 0 and (http_dir / "a.bin").is_file()
+    (listing,) = [f for f in req(http, "/list") if f["filename"] == "a.bin"]
+    assert listing["token_count"] == saved["n_saved"]
+    assert req(http, f"/slots/{slot}?action=erase", {})["n_erased"] == saved["n_saved"]
+    assert req(http, f"/slots/{slot}?action=restore",
+               {"filename": "a.bin"})["n_restored"] == saved["n_saved"]
+    assert req(http, "/rename_prompt", {"old_filename": "a.bin",
+                                        "new_filename": "b.bin"})["filename"] == "b.bin"
+    for path, body, code in (("/delete_prompt", {"filename": "../x.bin"}, 400),
+                             ("/slots/0?action=restore", {"filename": "gone.bin"}, 404),
+                             ("/slots/9?action=save", {}, 400),
+                             ("/load", {"storeName": "sessions", "key": "none"}, 404)):
+        with pytest.raises(urllib.error.HTTPError) as e:
+            req(http, path, body)
+        assert e.value.code == code, path
+    assert req(http, "/delete_prompt", {"filename": "b.bin"})["status"] == "deleted"
+    assert req(http, "/save", {"storeName": "sessions", "key": "k", "data": {"a": 1}})["ok"]
+    assert req(http, "/save", {"storeName": "names", "key": "k", "data": "chat"})["ok"]
+    assert req(http, "/load", {"storeName": "sessions", "key": "k"})["result"] == {"a": 1}
+    assert req(http, "/sessions")["result"] == {"k": "chat"}
+    assert req(http, "/rename", {"key": "k", "newName": "renamed"})["ok"]
+    assert req(http, "/sessions", {})["result"] == {"k": "renamed"}
+    assert req(http, "/all", {"storeName": "sessions"})["result"] == {"k": {"a": 1}}
+    assert req(http, "/delete", {"storeName": "sessions", "key": "k"})["ok"]
+    assert req(http, "/vacuum")["ok"]
+    assert req(http, "/version")["features"]["sql"] is True
+    assert req(http, "/v1/props")["n_past"] >= saved["n_saved"]
+    msg = req(http, "/v1/messages", {"messages": [{"role": "user", "content": "Hi"}],
+                                     "max_tokens": 4, "temperature": 0})
+    assert msg["type"] == "message" and msg["usage"]["output_tokens"] == 4
+    raw = req(http, "/v1/messages", {"messages": [{"role": "user", "content": "Hi"}],
+                                     "max_tokens": 4, "temperature": 0, "stream": True}, raw=True)
+    names = [b.split("\n")[0] for b in raw.decode().split("\n\n") if b.strip()]
+    assert names[0] == "event: message_start" and names[-1] == "event: message_stop"
+    n = req(http, "/v1/messages/count_tokens",
+            {"messages": [{"role": "user", "content": "Hi"}]})["input_tokens"]
+    prompt = req(http, "/apply-template", {"messages": [{"role": "user", "content": "Hi"}]})
+    assert n == len(req(http, "/tokenize", {"content": prompt["prompt"],
+                                            "add_special": True})["tokens"])
+
+
+def test_allowlist_and_bias_flags():
+    """--allowlist-unicode-rule appends to the current ruleset and
+    --allowlist-keyword closes it, in the flags' order (common.cpp:2327);
+    the other server-extras flags parse."""
+    from ik_llama_cpp_tpu_torch.runtime.allowlist import parse_rule
+    from ik_llama_cpp_tpu_torch.server.app import allowlist_defaults, parse_args
+    args = parse_args(["--gguf", "m.gguf", "--allowlist-unicode-rule", "latin",
+                       "--allowlist-unicode-rule", "0..127", "--allowlist-keyword", "STOP",
+                       "--allowlist-unicode-rule", "greek:1", "--allowlist-pieces", "ok",
+                       "--allowlist-keyword-delay", "3", "--expiring-logit-bias-file", "b.txt",
+                       "--slot-save-path", "slots", "--sql-save-file", "s.db"])
+    rules, kws = allowlist_defaults(args.allow_seq)
+    assert rules == [[parse_rule("latin"), parse_rule("0..127")], [parse_rule("greek:1")]]
+    assert kws == ["STOP"] and args.allowlist_pieces == ["ok"]
+    assert (args.allowlist_keyword_delay, args.expiring_logit_bias_file, args.slot_save_path,
+            args.sql_save_file) == (3, "b.txt", "slots", "s.db")
+    assert allowlist_defaults(parse_args(["--gguf", "m.gguf"]).allow_seq) == ([], [])

@@ -3,7 +3,8 @@ greedy tokens on the tiny fixture JAX's test_server.py uses, then the
 port engine's own features (prefix reuse, the RAM prompt-cache tier, the
 context shift through k_shift, partial-stop holdback, a batched prefill of
 slots that are not adjacent, the top-k readback, failed requests that do
-not stop the engine)."""
+not stop the engine), and the request options of the server-extras slice
+against the JAX engine's tokens."""
 import queue
 
 import numpy as np
@@ -402,20 +403,45 @@ def test_many_client_threads(rt):
     assert out[3] == _fresh(rt, [1, 13, 23], 4)
 
 
+@pytest.fixture(scope="module")
+def jeng(model):
+    """One JAX engine for the option cases (its jits compile once)."""
+    e = JEngine(JRuntime.from_gguf(model), n_slots=1, capacity=128)
+    e.start()
+    yield e
+    e.stop()
+
+
 @pytest.mark.parametrize("kw", [
-    dict(allow_rules=[[(0, 127, "Latin", 0.0)]]), dict(expiring_logit_bias="x"),
-    dict(grammar="a+", grammar_kind="regex"), dict(grammar="root ::= [a-z]+", grammar_lazy=True),
-    dict(banned=True), dict(reasoning_budget=0), dict(post_sampling_probs=True)])
-def test_later_slices_raise(rt, kw):
-    eng = BatchEngine(rt, n_slots=1, capacity=64)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        eng.submit(Request(prompt_ids=[1, 2], **kw))
-    assert eng.requests.empty() and eng.n_requests == 0
+    dict(allow_rules=[[(0, 127, "latin", 0.0)]]), dict(expiring_logit_bias='(8 : "e" : 5.0)\n'),
+    dict(grammar="a+", grammar_kind="regex"),
+    dict(grammar="root ::= [a-z]+", grammar_lazy=True, grammar_triggers=["e"]),
+    dict(banned_strings=["e"]), dict(reasoning_budget=0),
+    dict(post_sampling_probs=True, n_probs=2)])
+def test_later_slices_raise(jeng, rt, kw):
+    """The request options of the server-extras slice, refused before it,
+    are taken: the port engine's greedy tokens, and its post-sampling
+    probabilities within 2e-2, are the JAX engine's on the same request."""
+    import copy
+    p = rt.tokenizer.encode("Hello world")
+    reqs = [R(prompt_ids=p, n_predict=10, sampler=P(temp=0.0), cache_prompt=False,
+              stream_queue=queue.Queue(), **copy.deepcopy(kw))
+            for R, P in ((JRequest, JParams), (Request, SamplerParams))]
+    jeng.submit(reqs[0])
+    want = _drain(reqs[0].stream_queue)
+    eng = BatchEngine(rt, n_slots=1, capacity=128)
+    got = _serve(eng, [reqs[1]])[0]
+    assert got == want[0] and eng.n_failed == 0 and eng.n_requests == 1
+    for t, j in zip(reqs[1].probs_out, reqs[0].probs_out):
+        assert t["id"] == j["id"] and [i for i, _ in t["top"]] == [i for i, _ in j["top"]]
+        np.testing.assert_allclose([x for _, x in t["top"]], [x for _, x in j["top"]], atol=2e-2)
 
 
-def test_later_engine_options_raise(rt):
+def test_later_engine_options_raise(rt, tmp_path):
+    """DFlash drafting stays a later slice; slot save, once refused, writes
+    the slot's state file (nothing cached yet: no tokens)."""
     with pytest.raises(NotImplementedError, match="DFlash"):
         BatchEngine(rt, n_slots=1, capacity=64, spec="dflash:draft.gguf")
     eng = BatchEngine(rt, n_slots=1, capacity=64)
-    with pytest.raises(NotImplementedError, match="slot save"):
-        eng.save_slot(0, "never-written.bin")
+    out = eng.save_slot(0, str(tmp_path / "slot0.bin"))
+    assert out["n_saved"] == 0 and (tmp_path / "slot0.bin").stat().st_size == out["n_written"]
