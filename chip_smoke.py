@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21,22,23,24]
+    python3 chip_smoke.py [--phases 1,2,3,...,25]
 
 Phases (all by default; any failure exits non-zero):
   1. device: the card's name and power limit; TF32 off for the plain versions
@@ -234,6 +234,24 @@ Phases (all by default; any failure exits non-zero):
      the server's /v1/embeddings, /embedding and /rerank on the encoder,
      each vector and score Runtime.embed's bit for bit. Phase 3 adds rows
      1e: kernel A at BGE-M3's three shapes at M 512 and 8,192
+ 25. the multimodal path on phase 16's loaded L32 model (the dense bench
+     widths, LLaVA-1.6-Mistral-7B's text tower): (a) an f16 mmproj at CLIP
+     ViT-L/14-336's widths (23 blocks, the llava mlp projector to 4096) and
+     a 640 x 480 PNG made in the phase, (b) an f16 mmproj at
+     whisper-large-v3's encoder widths with Qwen2-Audio's qwen2a projector
+     and 29.5 s of 16 kHz PCM16 WAV (one chunk, 750 rows); each a chat
+     through Server.oai_chat (--mmproj's load_mmproj, generate_mm on the
+     engine's loop thread), the encoder on the card against the CPU in
+     float32, the splice prefilled by rows and decoded with the launches
+     of A, B and C a chunk and a step, rows/s, tok/s, peak GiB, and the
+     one-history parity of the splice and its greedy tokens; then the
+     profiler routes around one request (the Chrome trace names kernel
+     A), and Runtime.reload_changed_tensors on an L2 file at the bench
+     widths (one ffn_down overwritten: a fresh load's logits bit for bit).
+     Phase 17 adds a 2-slot BatchEngine over its ring caches (tokens held
+     to the runtime's ring tokens, a prefix past the window reused);
+     phase 3's kernel 9 rows (9, 9p, 9q) each repeat REPEAT_CALLS calls
+     bit for bit
 The line before the last lists every ported kernel as JSON; the last line is
 {"ok": true, "device": {...}}. Without CUDA, or without the package beside
 this file, it exits non-zero and prints no result.
@@ -403,6 +421,27 @@ BGE_FREE_TOL, BGE_ROW_TOL, BGE_WITNESS_X = 0.06, 0.06, 2.0
 EMBED23_ROW_TOL = 0.04
 # kernel A's (K, N) on the BGE-M3 path: q / k / v / o, ffn_up, ffn_down
 A_BGE_SHAPES = [(1024, 1024), (1024, 4096), (4096, 1024)]
+# CLIP ViT-L/14-336 (openai/clip-vit-large-patch14-336's vision_config) as
+# LLaVA-1.6-Mistral-7B's mmproj keeps it: image 336, patch 14, hidden 1024,
+# 16 heads, FF 4096, quickgelu, a class token and a pre-LN; the llava
+# converter keeps 23 of its 24 layers (the penultimate layer's output) and
+# no post-LN; the mlp projector 1024 -> 4096 -> 4096; CLIP's mean and std
+CLIP_L336 = dict(IMAGE=336, PATCH=14, E=1024, L=23, H=16, FF=4096, PROJ=4096)
+# whisper-large-v3's encoder as Qwen2-Audio-7B's audio tower
+# (Qwen/Qwen2-Audio-7B's audio_config): 128 mel bins, hidden 1280, 32
+# layers, 20 heads, FF 5120, 1,500 positions; after the avgpool of 2 the
+# qwen2a projector 1280 -> 4096 with a bias (Qwen-7B's width, phase 4's)
+WHISPER_L3 = dict(MEL=128, E=1280, L=32, H=20, FF=5120, POS=1500, PROJ=4096)
+MM_GGUF_VERSION = "port-25"
+MM_NEW = 32             # phase 25's greedy tokens after the splice
+# phase 25's clip: one 3,000-frame chunk, 750 rows (the preprocessor pads
+# 30 s of silence, so 30 s or more of audio makes a second chunk)
+MM_AUDIO_S = 29.5
+# the encoder on the card against the CPU, both float32 with no TF32, as a
+# share of the largest |output|: the sums run in other orders
+MM_ENC_TOL = 1e-3
+# phase 17's ring-cache engine: the greedy tokens of each request
+ENGINE17_NEW = 16
 
 
 def log(msg: str) -> None:
@@ -2741,6 +2780,33 @@ def fused_buckets(torch, sizes, g_: int, r: int, k: int, gen, dev="cuda"):
     return xg, xst, eids, torch.tensor(n_live, dtype=torch.int32, device=dev), n_live
 
 
+REPEAT_CALLS = 300      # kernel 9's repeat gate: calls a row, each held to the first
+
+
+def repeat_gate(torch, timer, fn, first, live, calls: int):
+    """Calls ``fn`` ``calls`` times back to back with no host sync between
+    them (a clean L2 flush, ``timer``'s, before every other call) and holds
+    the live rows of each output to ``first``'s, bit for bit, on the device.
+    Returns (calls that differ, the largest difference, the live slots that
+    differed at least once)."""
+    n = len(live)
+    bad = torch.zeros((), dtype=torch.int32, device=first.device)
+    worst = torch.zeros((), dtype=torch.float32, device=first.device)
+    hit = torch.zeros(n, dtype=torch.bool, device=first.device)
+    want = first[live]
+    for i in range(calls):
+        if i % 2:
+            timer.flush.zero_()
+            timer.sweep.sum()
+        d = (fn()[live] - want).abs().flatten(1)
+        bad += (d.amax() != 0).to(torch.int32)
+        hit |= d.amax(1) != 0
+        worst = torch.maximum(worst, d.amax())
+    sync(torch)
+    slots = torch.nonzero(hit).flatten().tolist()
+    return int(bad), float(worst), slots
+
+
 def prefill_case(torch, timer, results, a9, n_live: int, r: int, c, case: str) -> bool:
     """One kernel 9 case against its plain version (live rows), repeated for
     its bits, beside the bf16 torch.bmm of the live buckets against their
@@ -2750,13 +2816,17 @@ def prefill_case(torch, timer, results, a9, n_live: int, r: int, c, case: str) -
     g_, e_, ff = c["G"], c["E"], c["FF"]
     nsg, nsgf = e_ // 256, ff // 256
     got = MQ.fused_moe_prefill_i8(*a9, capacity=r)
-    again = MQ.fused_moe_prefill_i8(*a9, capacity=r)
     ref = MQ.fused_moe_prefill_i8_ref(*a9, capacity=r)
     sync(torch)
     live = eids[:n_live].long()
     err = float((got[live] - ref[live]).abs().max()) if n_live else 0.0
     same = bool(torch.equal(got[live], ref[live]))
-    rep = bool(torch.equal(got[live], again[live]))
+    bad, worst, slots = repeat_gate(torch, timer, lambda: MQ.fused_moe_prefill_i8(*a9, capacity=r),
+                                    got, live, REPEAT_CALLS)
+    rep = bad == 0
+    log(f"[3] {case}: repeat gate, {REPEAT_CALLS} calls back to back (a clean L2 flush before "
+        f"every other one): {bad} differ from the first call"
+        + (f", by at most {worst:.4g}, in live slots {slots[:10]}" if bad else ""))
     # a one-ulp float32 difference in the activation can move an h
     # across a bf16 boundary and one requantized h by one int8 step
     tol = 1e-2 * float(ref[live].abs().max()) if n_live else 0.0
@@ -2773,7 +2843,7 @@ def prefill_case(torch, timer, results, a9, n_live: int, r: int, c, case: str) -
                  timer(lambda: torch.bmm(xb, wb)), bnd,
                  note=f" | plan mi {plan['mi']} depth {plan['depth']} blocks {plan['blocks']} "
                       f"smem {plan['smem']}; bit-identical to plain: {same}; repeats bit for "
-                      f"bit: {rep}")
+                      f"bit: {REPEAT_CALLS - bad} of {REPEAT_CALLS} calls")
     del wb, xb
     return ok and rep
 
@@ -3216,17 +3286,21 @@ def span_cost(torch, rt, capacity: int = 2048, bucket: int = 512) -> str:
             f"back of the two rows {gather:.2f} ms and {2 * row / 2**20:.0f} MiB")
 
 
-def phase_server(torch, gguf: Path, spent: dict | None = None) -> bool:
+def phase_server(torch, gguf: Path, spent: dict | None = None, phases=frozenset({16}),
+                 card: str = "") -> bool:
     """Phase 16: the text-serving path at the full width of phase 4 (L32):
     a BatchEngine of SERVER_SLOTS slots over one bf16 cache, driven through
     the Server's request methods (no HTTP) with six text requests at once,
     every kernel launch of the run counted; then each greedy request's
-    one-history parity."""
+    one-history parity, then 16b. Phase 25 follows on the same loaded
+    model (alone when 16 is not asked for)."""
     from ik_llama_cpp_tpu_torch.runtime.generate import Runtime
     from ik_llama_cpp_tpu_torch.server.app import Server
     from ik_llama_cpp_tpu_torch.server.engine import BatchEngine
     t_phase = time.perf_counter()
     rt = clone_layers(Runtime.from_gguf(gguf, fuse=True), NL)
+    if 16 not in phases:
+        return phase_multimodal_timed(torch, rt, spent, card)
     eng = BatchEngine(rt, n_slots=SERVER_SLOTS, capacity=1024)
     srv = Server(eng, model_name="smoke8b", template="llama3")
     reqs = server_requests()
@@ -3323,9 +3397,27 @@ def phase_server(torch, gguf: Path, spent: dict | None = None) -> bool:
         ok = False
     if spent is not None:
         spent["16b"] = time.perf_counter() - t1
+    if 25 in phases:
+        ok &= phase_multimodal_timed(torch, rt, spent, card)
     del rt
     torch.cuda.empty_cache()
     return bool(ok)
+
+
+def phase_multimodal_timed(torch, rt, spent: dict | None, card: str) -> bool:
+    """Phase 25 on a loaded model, its seconds kept apart in ``spent``; a
+    failure is reported as the phase's."""
+    t0 = time.perf_counter()
+    try:
+        ok = phase_multimodal(torch, rt, card)
+    except Exception as e:              # noqa: BLE001 - reported as the phase's failure
+        import traceback
+        traceback.print_exc()
+        log(f"[25] FAILED: {type(e).__name__}: {e}")
+        ok = False
+    if spent is not None:
+        spent["25"] = time.perf_counter() - t0
+    return ok
 
 
 SLOT_WORDS = 900           # about 1,000 tokens of smoke_text
@@ -4129,8 +4221,13 @@ def phase_family(torch, launches: dict) -> bool:
                           host=False)
     log(f"[17] ring decode step: kernel A {a_ms(prof)}; {c_ms(prof)}; all kernels "
         f"{sum(prof.values()):.3f} ms")
+    del kvr
+    torch.cuda.empty_cache()
+    eng_ok, eng_text = ring_engine(torch, rt, ids)
+    log(f"[17] ring-cache engine: {eng_text}: {'ok' if eng_ok else 'FAIL'}")
+    ok &= eng_ok
     rt.swa_compress = False
-    del kvr, lr
+    del lr
     ok &= ring_ok
     log(f"[17] Gemma-3-12B at L{nl}, bf16 and ring caches: "
         f"{time.perf_counter() - t_phase:.1f} s")
@@ -4149,6 +4246,63 @@ def phase_family(torch, launches: dict) -> bool:
         del rt
         torch.cuda.empty_cache()
     return ok
+
+
+def ring_engine(torch, rt, ids: list) -> tuple:
+    """A 2-slot BatchEngine over ring caches (``rt.swa_compress``), stepped
+    in this thread: requests A (1,800 of ``ids``) and B (300 others) at
+    once, then C (A's first 1,700 and 60 new: a prefix past the window,
+    which the reuse rule takes) and D (A's first 200 and 40 new: the ring
+    no longer holds that prefix's window, so the slot prefills from 0),
+    each in slot 0 after the last; every request's greedy tokens held to
+    the runtime's ring tokens for its prompt alone (held_to). Returns (ok,
+    text)."""
+    import queue
+    from ik_llama_cpp_tpu_torch.models.llama import SwaKVCache
+    from ik_llama_cpp_tpu_torch.runtime.sampling import SamplerParams
+    from ik_llama_cpp_tpu_torch.server.engine import BatchEngine, Request
+    cap = 2304
+    eng = BatchEngine(rt, n_slots=2, capacity=cap)
+    rng = np.random.default_rng(171)
+    fresh = [int(x) for x in rng.integers(3, rt.cfg.n_vocab, 400)]
+    rounds = [[("A", ids[:1800]), ("B", fresh[:300])],
+              [("C", ids[:1700] + fresh[300:360])], [("D", ids[:200] + fresh[360:400])]]
+    ok = isinstance(eng.kv, SwaKVCache)
+    texts, n_tok, t0 = [], 0, time.perf_counter()
+    for batch in rounds:
+        cached0 = eng.n_prompt_tokens_cached
+        reqs = []
+        for name, p in batch:
+            r = Request(prompt_ids=p, n_predict=ENGINE17_NEW, sampler=SamplerParams(temp=0.0))
+            r.stream_queue = queue.Queue()
+            eng.submit(r)
+            reqs.append((name, p, r))
+        while eng.step():
+            pass
+        cached = eng.n_prompt_tokens_cached - cached0
+        for name, p, r in reqs:
+            got = []
+            while True:
+                tok, _, done = r.stream_queue.get(timeout=0)
+                if tok >= 0:
+                    got.append(tok)
+                if done:
+                    break
+            n_tok += len(got)
+            want = rt.generate_greedy_on_device(p, ENGINE17_NEW, capacity=cap)[1]
+            good, text = held_to(torch, rt, p, got, want)
+            ok &= good
+            texts.append(f"{name} ({len(p)}-token prompt, {cached} reused): {text}")
+        if batch[0][0] == "C":
+            ok &= cached == 1700
+        elif batch[0][0] == "D":
+            ok &= cached == 0
+    wall = time.perf_counter() - t0
+    ok &= eng.n_failed == 0
+    del eng
+    torch.cuda.empty_cache()
+    return ok, (f"4 requests in {wall:.2f} s ({n_tok / wall:.1f} tok/s over both slots, the "
+                f"runtime's replays included): " + " | ".join(texts))
 
 
 def build_ds_gguf(path: Path, c: dict) -> Path:
@@ -6324,10 +6478,373 @@ def summary(results, launches) -> list:
     return out
 
 
+# ------------------------------------------------------------- phase 25 --
+def _rand_f16(rng, *shape) -> np.ndarray:
+    """Random f16 weights of about 1/sqrt(fan-in) (the last axis)."""
+    fan = int(np.prod(shape[1:])) if len(shape) > 1 else shape[0]
+    return (rng.standard_normal(shape, dtype=np.float32) / np.float32(np.sqrt(fan))).astype(
+        np.float16)
+
+
+def _rand_norm(rng, n: int):
+    """A LayerNorm's f32 (weight, bias): about one and about zero."""
+    return ((1.0 + 0.05 * rng.standard_normal(n)).astype(np.float32),
+            (0.02 * rng.standard_normal(n)).astype(np.float32))
+
+
+def _encoder_blocks(w, rng, pre: str, c: dict, k_bias: bool) -> None:
+    """c["L"] pre-LN blocks of width c["E"] / c["FF"]: f16 linears, f32
+    biases and norms (whisper's k projection has no bias)."""
+    e, ff = c["E"], c["FF"]
+    for i in range(c["L"]):
+        p = f"{pre}.blk.{i}."
+        for tn, rows, cols, bias in (("attn_q", e, e, True), ("attn_k", e, e, k_bias),
+                                     ("attn_v", e, e, True), ("attn_out", e, e, True),
+                                     ("ffn_up", ff, e, True), ("ffn_down", e, ff, True)):
+            w.add_tensor(p + tn + ".weight", _rand_f16(rng, rows, cols))
+            if bias:
+                w.add_tensor(p + tn + ".bias", (0.02 * rng.standard_normal(rows)).astype(np.float32))
+        for ln in ("ln1", "ln2"):
+            wt, b = _rand_norm(rng, e)
+            w.add_tensor(p + ln + ".weight", wt)
+            w.add_tensor(p + ln + ".bias", b)
+
+
+def build_mmproj_gguf(path: Path, kind: str) -> Path:
+    """An f16 mmproj at full width, random from seed 25 (cached beside a
+    .meta): ``vision``, CLIP ViT-L/14-336 with the llava mlp projector
+    (CLIP_L336), or ``audio``, whisper-large-v3's encoder with the qwen2a
+    projector (WHISPER_L3); f32 biases, norms and position embeddings."""
+    from ik_llama_cpp_tpu_torch.gguf.writer import GGUFWriter
+    c = CLIP_L336 if kind == "vision" else WHISPER_L3
+    meta = json.dumps(dict(v=MM_GGUF_VERSION, kind=kind, **c))
+    mpath = path.with_suffix(".meta")
+    if path.exists() and mpath.exists() and mpath.read_text() == meta:
+        return path
+    path.parent.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(25)
+    w = GGUFWriter(str(path), arch="clip")
+    e = c["E"]
+    if kind == "vision":
+        w.add("clip.has_vision_encoder", True)
+        w.add("clip.projector_type", "mlp")
+        for key, val in (("image_size", c["IMAGE"]), ("patch_size", c["PATCH"]),
+                         ("embedding_length", e), ("feed_forward_length", c["FF"]),
+                         ("block_count", c["L"]), ("attention.head_count", c["H"]),
+                         ("attention.layer_norm_epsilon", 1e-5),
+                         ("projection_dim", c["PROJ"])):
+            w.add(f"clip.vision.{key}", val)
+        w.add("clip.vision.image_mean", np.asarray([0.48145466, 0.4578275, 0.40821073],
+                                                   np.float32))
+        w.add("clip.vision.image_std", np.asarray([0.26862954, 0.26130258, 0.27577711],
+                                                  np.float32))
+        ps = c["PATCH"]
+        n_pos = (c["IMAGE"] // ps) ** 2 + 1
+        w.add_tensor("v.patch_embd.weight", _rand_f16(rng, e, 3, ps, ps))
+        w.add_tensor("v.class_embd", (0.02 * rng.standard_normal(e)).astype(np.float32))
+        w.add_tensor("v.position_embd.weight",
+                     (0.02 * rng.standard_normal((n_pos, e))).astype(np.float32))
+        wt, b = _rand_norm(rng, e)
+        w.add_tensor("v.pre_ln.weight", wt)
+        w.add_tensor("v.pre_ln.bias", b)
+        _encoder_blocks(w, rng, "v", c, True)
+        w.add_tensor("mm.0.weight", _rand_f16(rng, c["PROJ"], e))
+        w.add_tensor("mm.0.bias", (0.02 * rng.standard_normal(c["PROJ"])).astype(np.float32))
+        w.add_tensor("mm.2.weight", _rand_f16(rng, c["PROJ"], c["PROJ"]))
+        w.add_tensor("mm.2.bias", (0.02 * rng.standard_normal(c["PROJ"])).astype(np.float32))
+    else:
+        w.add("clip.has_audio_encoder", True)
+        w.add("clip.projector_type", "qwen2a")
+        for key, val in (("num_mel_bins", c["MEL"]), ("embedding_length", e),
+                         ("feed_forward_length", c["FF"]), ("block_count", c["L"]),
+                         ("attention.head_count", c["H"]),
+                         ("attention.layer_norm_epsilon", 1e-5), ("projection_dim", c["PROJ"])):
+            w.add(f"clip.audio.{key}", val)
+        w.add_tensor("a.conv1d.1.weight", _rand_f16(rng, e, c["MEL"], 3))
+        w.add_tensor("a.conv1d.1.bias", (0.02 * rng.standard_normal((e, 1))).astype(np.float32))
+        w.add_tensor("a.conv1d.2.weight", _rand_f16(rng, e, e, 3))
+        w.add_tensor("a.conv1d.2.bias", (0.02 * rng.standard_normal((e, 1))).astype(np.float32))
+        w.add_tensor("a.position_embd.weight",
+                     (0.02 * rng.standard_normal((c["POS"], e))).astype(np.float32))
+        wt, b = _rand_norm(rng, e)
+        w.add_tensor("a.post_ln.weight", wt)
+        w.add_tensor("a.post_ln.bias", b)
+        _encoder_blocks(w, rng, "a", c, False)
+        w.add_tensor("mm.a.fc.weight", _rand_f16(rng, c["PROJ"], e))
+        w.add_tensor("mm.a.fc.bias", (0.02 * rng.standard_normal(c["PROJ"])).astype(np.float32))
+    w.write()
+    mpath.write_text(meta)
+    return path
+
+
+def smoke_png(width: int = 640, height: int = 480) -> bytes:
+    """A width x height RGB PNG made from seed 25: gradients, a disc and
+    noise, its rows in all five filters."""
+    from ik_llama_cpp_tpu_torch.runtime.media import encode_png
+    y, x = np.mgrid[0:height, 0:width].astype(np.float32)
+    disc = ((x - width * 0.6) ** 2 + (y - height * 0.4) ** 2) < (height * 0.25) ** 2
+    img = np.stack([x / width * 255, y / height * 255, 128 + 100 * disc], axis=-1)
+    img += np.random.default_rng(25).normal(0, 12, img.shape)
+    return encode_png(np.clip(img, 0, 255).astype(np.uint8))
+
+
+def smoke_wav(seconds: float) -> bytes:
+    """``seconds`` of 16 kHz mono PCM16 WAV from seed 25: two chirps and noise."""
+    import io
+    import wave
+    t = np.arange(int(seconds * 16000)) / 16000.0
+    s = (0.3 * np.sin(2 * np.pi * (200 + 300 * t) * t) + 0.2 * np.sin(2 * np.pi * 3000 * t * t / seconds)
+         + 0.05 * np.random.default_rng(25).standard_normal(len(t)))
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(16000)
+        f.writeframes((np.clip(s, -1, 1) * 32767).astype(np.int16).tobytes())
+    return buf.getvalue()
+
+
+def mm_case(torch, rt, srv, enc, enc_cpu, part: dict, media, kind: str, card: str) -> bool:
+    """One media chat on phase 25's server (its engine thread running): the
+    encoder on the card against the CPU, the chat through Server.oai_chat,
+    the same splice and decode driven here with the launches of each
+    prefill chunk and decode step counted, and the one-history parity."""
+    from ik_llama_cpp_tpu_torch.runtime import mtmd
+    from ik_llama_cpp_tpu_torch.runtime.mtmd_audio import preprocess_audio
+    from ik_llama_cpp_tpu_torch.models.clip import preprocess_image
+    tag = f"25{'a' if kind == 'vision' else 'b'}"
+    text_part = {"type": "text", "text": "Describe this in a few words."}
+    body = {"messages": [{"role": "user", "content": [text_part, part]}],
+            "max_tokens": MM_NEW, "temperature": 0.0}
+    # the encoder: the card against the same function on the CPU in float32
+    t0 = time.perf_counter()
+    x = (preprocess_image(media, enc.cfg) if kind == "vision"
+         else preprocess_audio(np.asarray(media, np.float32))[0])
+    host_ms = (time.perf_counter() - t0) * 1e3
+    xt = torch.from_numpy(np.ascontiguousarray(x))
+    enc_ms = event_ms(torch, lambda: enc(xt.to(rt.device)), 3)
+    got = enc(xt.to(rt.device)).float().cpu()
+    want = enc_cpu(xt)
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    enc_ok = bool(torch.isfinite(got).all()) and err <= MM_ENC_TOL * scale
+    log(f"[{tag}] encoder {'CLIP ViT-L/14-336' if kind == 'vision' else 'whisper-large-v3'}: "
+        f"{tuple(got.shape)} rows out, {enc_ms:.2f} ms on the card (CUDA events), host "
+        f"preprocessing {host_ms:.1f} ms; against the CPU in float32 max_abs_err {err:.3e} of "
+        f"max |out| {scale:.3f} (tol {MM_ENC_TOL:g} of it): {'ok' if enc_ok else 'FAIL'}")
+    # the chat through the server, mtmd on the engine's loop thread
+    reset_counts()
+    t0 = time.perf_counter()
+    res = srv.oai_chat(body)
+    sync(torch)
+    chat_s = time.perf_counter() - t0
+    chat_counts = {k: n for k, n in read_counts().items() if n}
+    reply = res["choices"][0]["message"]["content"]
+    usage = res["usage"]
+    # the same splice and decode here, timed and counted by part
+    messages = srv._extract_images(body["messages"])[0]
+    prompt = srv._chat_prompt(messages)
+    embds = mtmd.build_mm_embeds(rt, prompt, [media], srv.clip, audio_encoder=srv.audio)
+    n_rows = embds.shape[0]
+    kv = rt.new_cache(1, n_rows + MM_NEW + 8)
+    reset_counts()
+    sync(torch)
+    t0 = time.perf_counter()
+    logits, kv, n_past = mtmd.eval_embeds(rt, embds, kv, 0)
+    sync(torch)
+    pre_s = time.perf_counter() - t0
+    pre_counts = {k: n for k, n in read_counts().items() if n}
+    chunks = -(-n_rows // 512)
+    gen = [int(torch.argmax(logits))]
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(MM_NEW - 1):
+        lg, kv, n_past = rt.eval_tokens([gen[-1]], kv, n_past)
+        gen.append(int(torch.argmax(lg[-1])))
+    sync(torch)
+    dec_s = time.perf_counter() - t0
+    dec_counts = {k: n for k, n in read_counts().items() if n}
+    per = 4 * NL + 1
+    want_pre = {"qmatmul_i8": per * chunks, "flash_attention": NL * chunks}
+    want_dec = {"qmatmul_i8": per * (MM_NEW - 1), "flash_attention_decode": NL * (MM_NEW - 1)}
+    eos = rt.tokenizer.eos_id
+    upto = gen[:gen.index(eos) + 1] if eos in gen else gen
+    same_text = srv._mm_message(rt.tokenizer.decode([t for t in upto if t != eos]))[
+        "content"] == reply
+    counts_ok = pre_counts == want_pre and dec_counts == want_dec and \
+        chat_counts.get("qmatmul_i8", 0) > 0 and chat_counts.get("flash_attention", 0) > 0
+    log(f"[{tag}] chat through Server.oai_chat in {chat_s:.2f} s: {usage['prompt_tokens']} "
+        f"prompt rows ({got.shape[0]} spliced), {usage['completion_tokens']} tokens, launches "
+        f"{chat_counts}; the reply is the greedy decode driven here: {same_text}")
+    log(f"[{tag}] prefill by rows: {n_rows} rows in {chunks} chunks, {pre_s * 1e3:.1f} ms = "
+        f"{n_rows / pre_s:.1f} rows/s, launches {pre_counts} (expected {want_pre}: A "
+        f"{per} and B {NL} a chunk); decode {MM_NEW - 1} steps {dec_s * 1e3:.1f} ms = "
+        f"{(MM_NEW - 1) / dec_s:.2f} tok/s, launches {dec_counts} (expected {want_dec}: A "
+        f"{per} and C {NL} a step); peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"{card}: {'ok' if counts_ok else 'FAIL'}")
+    # one history: the plain path fed the kernel path's greedy tokens
+    def history():
+        lg0, kv_, n_ = mtmd.eval_embeds(rt, embds, rt.new_cache(1, n_rows + MM_NEW + 8), 0)
+        rest = rt.eval_tokens(gen[:-1], kv_, n_, all_logits=True)[0]
+        return torch.cat([lg0[None], rest], dim=0)
+    lk = history()
+    with plain_path():
+        lp = history()
+    good, text = parity_verdict(lk, lp)
+    log(f"[{tag}] parity over one history (the splice, then {MM_NEW} greedy tokens): {text}: "
+        f"{'ok' if good else 'FAIL'}")
+    del kv, lk, lp
+    return enc_ok and counts_ok and same_text and good and bool(usage["completion_tokens"])
+
+
+def phase_multimodal(torch, rt, card: str) -> bool:
+    """Phase 25: the multimodal path on phase 16's loaded L32 model (the
+    dense bench widths, Mistral-7B's and so LLaVA-1.6-Mistral-7B's text
+    tower): (a) an f16 CLIP ViT-L/14-336 mmproj with the llava projector
+    and a 640 x 480 PNG, (b) an f16 whisper-large-v3 / qwen2a mmproj and
+    MM_AUDIO_S seconds of PCM16 WAV, each as a chat through
+    Server.oai_chat (load_mmproj, the PNG decoder, decode_wav, generate_mm
+    on the engine's loop thread), the encoder against the CPU, the launches
+    by part, the one-history parity; then a profiler window around one
+    request (its trace must name kernel A) and a reload on an L2 file at
+    the bench widths (one ffn_down overwritten: the logits of a fresh load,
+    bit for bit)."""
+    import base64
+    from ik_llama_cpp_tpu_torch.models.clip import AudioEncoder, ClipEncoder
+    from ik_llama_cpp_tpu_torch.runtime.media import decode_png, decode_wav
+    from ik_llama_cpp_tpu_torch.server.app import Server, load_mmproj
+    from ik_llama_cpp_tpu_torch.server.engine import BatchEngine
+    t_phase = time.perf_counter()
+    ok = True
+    t0 = time.perf_counter()
+    vpath = build_mmproj_gguf(ROOT / "build" / "smoke_mmproj_clip.gguf", "vision")
+    apath = build_mmproj_gguf(ROOT / "build" / "smoke_mmproj_whisper.gguf", "audio")
+    files_s = time.perf_counter() - t0
+    eng = BatchEngine(rt, n_slots=1, capacity=2048)
+    srv = Server(eng, model_name="smoke8b", template="llama3")
+    t0 = time.perf_counter()
+    load_mmproj(srv, str(vpath))
+    load_mmproj(srv, str(apath))
+    sync(torch)
+    load_s = time.perf_counter() - t0
+    ok &= srv.props()["modalities"] == {"vision": True, "audio": True}
+    log(f"[25] mmproj files ready in {files_s:.1f} s ({vpath.stat().st_size / 2**30:.2f} + "
+        f"{apath.stat().st_size / 2**30:.2f} GiB f16), both towers loaded in {load_s:.1f} s; "
+        f"modalities {srv.props()['modalities']}; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    eng.start()
+    try:
+        png = smoke_png()
+        img = decode_png(png)
+        cpu = ClipEncoder(vpath, "cpu")
+        part = {"type": "image_url",
+                "image_url": {"url": "data:image/png;base64," + base64.b64encode(png).decode()}}
+        torch.cuda.reset_peak_memory_stats()
+        ok &= mm_case(torch, rt, srv, srv.clip, cpu, part, img, "vision", card)
+        del cpu
+        wav = smoke_wav(MM_AUDIO_S)
+        cpu = AudioEncoder(apath, "cpu")
+        part = {"type": "input_audio",
+                "input_audio": {"data": base64.b64encode(wav).decode(), "format": "wav"}}
+        torch.cuda.reset_peak_memory_stats()
+        ok &= mm_case(torch, rt, srv, srv.audio, cpu, part, decode_wav(wav), "audio", card)
+        del cpu
+        # a torch.profiler window around one request, through the routes' methods
+        trace_dir = ROOT / "build" / "trace25"
+        start = srv.profiler_start({"dir": str(trace_dir)})
+        srv.completion({"prompt": "the quick brown fox", "n_predict": 8, "temperature": 0.0})
+        stop = srv.profiler_stop({})
+        text = Path(stop["trace"]).read_text()
+        named = "qmatmul_i8" in text
+        ok &= start["success"] and stop["success"] and named
+        log(f"[25] profiler routes: start {start}, stop wrote {Path(stop['trace']).name} "
+            f"({len(text) / 2**20:.1f} MiB): kernel A named in the trace {named}: "
+            f"{'ok' if named else 'FAIL'}")
+    finally:
+        eng.stop()
+    del srv, eng
+    torch.cuda.empty_cache()
+    ok &= reload_check(torch)
+    log(f"[25] multimodal path: {time.perf_counter() - t_phase:.1f} s in all")
+    return bool(ok)
+
+
+def build_reload_gguf(path: Path, down_seed: int) -> Path:
+    """Two llama blocks at the bench widths (Q4_0 random blocks, a Q8_0
+    tied head, a byte-level vocabulary), blk.0.ffn_down drawn from
+    ``down_seed`` and all else from seed 0."""
+    from ik_llama_cpp_tpu_torch.gguf.constants import GGMLType
+    from ik_llama_cpp_tpu_torch.gguf.writer import GGUFWriter
+    path.parent.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(0)
+    w = GGUFWriter(str(path), arch="llama")
+    for key, val in (("block_count", 2), ("context_length", 8192), ("embedding_length", E),
+                     ("feed_forward_length", FF), ("attention.head_count", H),
+                     ("attention.head_count_kv", HKV), ("attention.layer_norm_rms_epsilon", 1e-5),
+                     ("rope.freq_base", 500000.0), ("rope.dimension_count", D), ("vocab_size", V)):
+        w.add(f"llama.{key}", val)
+    w.add("tokenizer.ggml.model", "gpt2")
+    w.add("tokenizer.ggml.tokens", [f"<t{i}>" for i in range(V)])
+    w.add("tokenizer.ggml.token_type", np.ones(V, np.int32))
+    w.add("tokenizer.ggml.eos_token_id", 2)
+
+    def q(name, rows, cols, ttype=GGMLType.Q4_0, gen=rng):
+        w.add_tensor(name, _rand_blocks(gen, rows, cols, ttype), shape=(cols, rows),
+                     ggml_type=ttype)
+
+    q("token_embd.weight", V, E, GGMLType.Q8_0)
+    w.add_tensor("output_norm.weight", np.ones(E, np.float32))
+    for i in range(2):
+        p = f"blk.{i}."
+        w.add_tensor(p + "attn_norm.weight", np.ones(E, np.float32))
+        w.add_tensor(p + "ffn_norm.weight", np.ones(E, np.float32))
+        for name, rows, cols in (("attn_q", E, E), ("attn_k", HKV * D, E), ("attn_v", HKV * D, E),
+                                 ("attn_output", E, E), ("ffn_gate", FF, E), ("ffn_up", FF, E)):
+            q(p + name + ".weight", rows, cols)
+        down = np.random.default_rng(down_seed) if i == 0 else rng
+        q(p + "ffn_down.weight", E, FF, gen=down)
+    w.write()
+    return path
+
+
+def reload_check(torch) -> bool:
+    """Runtime.reload_changed_tensors on a fresh L2 file at the bench
+    widths: blk.0.ffn_down overwritten on disk, the reload patches that one
+    leaf in place (the module object kept), and the logits over 64 ids
+    equal a fresh load's of the new file bit for bit."""
+    from ik_llama_cpp_tpu_torch.runtime.generate import Runtime
+    path = ROOT / "build" / "smoke_reload.gguf"
+    t0 = time.perf_counter()
+    build_reload_gguf(path, 1)
+    rt = Runtime.from_gguf(path, track_reload=True)
+    ids = [int(x) for x in np.random.default_rng(25).integers(3, V, 64)]
+    before = rt.all_position_logits(ids)
+    leaf = rt.params["blocks"][0]["ffn_down"]
+    tmp = build_reload_gguf(path.with_suffix(".next"), 2)
+    os.replace(tmp, path)
+    t1 = time.perf_counter()
+    changed = rt.reload_changed_tensors()
+    sync(torch)
+    reload_ms = (time.perf_counter() - t1) * 1e3
+    after = rt.all_position_logits(ids)
+    fresh = Runtime.from_gguf(path).all_position_logits(ids)
+    in_place = rt.params["blocks"][0]["ffn_down"] is leaf
+    moved = float((after - before).abs().max())
+    same = bool(torch.equal(after, fresh))
+    ok = changed and in_place and same and moved > 0
+    log(f"[25] reload at the bench widths (L2): blk.0.ffn_down overwritten, reloaded in "
+        f"{reload_ms:.1f} ms (in place: {in_place}); the logits moved by {moved:.3f} and equal a "
+        f"fresh load's bit for bit: {same} ({time.perf_counter() - t0:.1f} s): "
+        f"{'ok' if ok else 'FAIL'}")
+    del rt
+    torch.cuda.empty_cache()
+    return ok
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21,22,23,24")
+                    default=",".join(str(p) for p in range(1, 26)))
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
     try:
@@ -6363,7 +6880,7 @@ def main() -> int:
         ok &= timed("3 planar moe", phase_planar_moe_kernels, torch, timer, results)
         timed("3 flush", flush_verdict, timer)
     gguf = None
-    if phases & {4, 5, 6, 9, 10, 11, 16, 20, 23}:
+    if phases & {4, 5, 6, 9, 10, 11, 16, 20, 23, 25}:
         t0 = time.perf_counter()
         gguf = timed("4 file", build_gguf, ROOT / "build" / "smoke8b.gguf")
         log(f"[4] model file ready in {time.perf_counter() - t0:.1f} s: {gguf}")
@@ -6404,9 +6921,10 @@ def main() -> int:
                         replay["chunk_ms"])
     if 15 in phases:
         ok &= timed("15", phase_perf_dequant, torch, launches)
-    if 16 in phases:
-        ok &= timed("16", phase_server, torch, gguf, spent)
-        spent["16"] -= spent.get("16b", 0.0)          # 16b is logged on its own
+    if phases & {16, 25}:
+        # phase 25 runs on phase 16's loaded model
+        ok &= timed("16", phase_server, torch, gguf, spent, phases, dev["smi"])
+        spent["16"] -= spent.get("16b", 0.0) + spent.get("25", 0.0)   # logged on their own
     if 17 in phases:
         ok &= timed("17", phase_family, torch, launches)
     if 18 in phases:

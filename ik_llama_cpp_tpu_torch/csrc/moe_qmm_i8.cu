@@ -277,12 +277,48 @@ struct Stage {
   static constexpr int BYTES = 2 * W1 + X > D ? 2 * W1 + X : D;
 };
 
-IK_DEV void bar_consumers() { asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory"); }
+// The consumer warps' named barrier. bar.sync is the aligned form: a warp
+// arrives as a whole, so a warp whose lanes diverged (thread 0 spinning on
+// `ready`, or in its counter update) would let the barrier count it before
+// thread 0 gets there. The compiler does not know the inline asm is a
+// barrier and need not reconverge the warp first: __syncwarp() does.
+IK_DEV void bar_consumers() {
+  __syncwarp();
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
+}
 
 IK_DEV int ld_acquire(const int* p) {
   int v;
   asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
   return v;
+}
+
+// The cross-block hand-offs of kernel 9. Every consumer thread fences its
+// own scratch writes before bar_consumers(); thread 0 then fences again
+// after the barrier, so that the whole block's writes are ordered before
+// its counter update at gpu scope (the barrier alone orders them at CTA
+// scope only), and updates the counter with release (and, where the block
+// reads what other blocks released, acquire) semantics.
+IK_DEV int atom_add_acq_rel(int* p, int v) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;\n"
+               : "=r"(old) : "l"(p), "r"(v) : "memory");
+  return old;
+}
+IK_DEV void red_add_release(int* p, int v) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+// A consumer warp hands a ring stage back to the producer, whose next TMA
+// load (the async proxy) overwrites it. The warp read the stage with plain
+// shared-memory loads (the generic proxy), and the compiler leaves the last
+// of them in flight when lane 0 arrives (their products are issued after
+// the arrive): each lane orders its loads before the async writes with
+// fence.proxy.async, then the warp arrives.
+IK_DEV void release_stage(uint64_t* empty, int lane) {
+  fence_proxy_async();
+  __syncwarp();
+  if (lane == 0) mbar_arrive(empty);
 }
 
 // The 16-byte chunk c of row r of a tile written by TMA in the 128-byte
@@ -498,8 +534,7 @@ fused_prefill_i8_kernel(const __grid_constant__ CUtensorMap map_x,
             const int8_t* st = ring + s * S::BYTES;
             const int8_t* const b[2] = {st + (w * 8) * BK, st + S::W1 + (w * 8) * BK};
             stage_mma<MI, 2, true>(part, st + 2 * S::W1, BK, 0, b, lane);
-            __syncwarp();
-            if (lane == 0) mbar_arrive(&empty[s]);
+            release_stage(&empty[s], lane);
           }
 #pragma unroll
           for (int i = 0; i < MI; ++i)
@@ -523,7 +558,11 @@ fused_prefill_i8_kernel(const __grid_constant__ CUtensorMap map_x,
         __threadfence();
         bar_consumers();
         int* grp = groups + (item.slot * nrb + item.rb) * nsgf + fs;
-        if (tid == 0) *flag = atomicAdd(grp, 1) == NQ - 1;
+        if (tid == 0) {
+          __threadfence();
+          *flag = atom_add_acq_rel(grp, 1) == NQ - 1;
+          __threadfence();
+        }
         bar_consumers();
         if (*flag) {
           // the last of the group's items: requantize each row's 256 values by 1/scale
@@ -556,7 +595,10 @@ fused_prefill_i8_kernel(const __grid_constant__ CUtensorMap map_x,
           }
           __threadfence();
           bar_consumers();
-          if (tid == 0) atomicAdd(&ready[item.slot * nrb + item.rb], 1);
+          if (tid == 0) {
+            __threadfence();
+            red_add_release(&ready[item.slot * nrb + item.rb], 1);
+          }
         }
       } else {
         // phase 2: wait for the slot's h, stage its int8 rows, the down sweep
@@ -602,8 +644,7 @@ fused_prefill_i8_kernel(const __grid_constant__ CUtensorMap map_x,
             const int8_t* st = ring + s * S::BYTES + (w * 32) * BK;
             const int8_t* const b[4] = {st, st + 8 * BK, st + 16 * BK, st + 24 * BK};
             stage_mma<MI, 4, false>(part, region, ldh, (2 * sg + h2) * BK, b, lane);
-            __syncwarp();
-            if (lane == 0) mbar_arrive(&empty[s]);
+            release_stage(&empty[s], lane);
           }
 #pragma unroll
           for (int i = 0; i < MI; ++i)
@@ -637,7 +678,8 @@ fused_prefill_i8_kernel(const __grid_constant__ CUtensorMap map_x,
   __syncthreads();
   if (tid == 0) {
     __threadfence();
-    if (atomicAdd(done, 1) == (int)gridDim.x - 1) {
+    if (atom_add_acq_rel(done, 1) == (int)gridDim.x - 1) {
+      __threadfence();
       for (int i = 0; i < a.G * nrb * (1 + nsgf); ++i) ready[i] = 0;
       *ticket = 0;
       *done = 0;

@@ -134,6 +134,31 @@ def bert_from_numpy(params, device) -> dict:
     return walk(params)
 
 
+def _float_tree(tree, device):
+    """Every array of a tree of dicts, lists and tuples as a float32 tensor
+    on ``device``; None stays None."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _float_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_float_tree(v, device) for v in tree)
+    return _tensor(tree, device, torch.float32)
+
+
+def clip_from_numpy(params, device) -> dict:
+    """A JAX package's encoder tree (``models/clip.load_clip_params`` or
+    ``load_audio_params``), fetched to numpy, as the port's
+    ``models/clip.clip_forward`` / ``whisper_forward`` take it: the same
+    keys, float32 tensors, LayerNorms as (weight, bias) tuples and a
+    vision projector as a list of (weight, bias | None). ``device`` has no
+    default, as for ``kv_from_numpy``."""
+    return _float_tree(params, device)
+
+
+audio_from_numpy = clip_from_numpy      # the whisper tree converts the same way
+
+
 def kv_from_numpy(k, v, k_scale=None, v_scale=None, *, device) -> KVCache:
     """A KV cache of the JAX package, fetched to numpy, as the port's: bf16
     k/v (L, B, S, Hkv, D), or codes (int8 / uint8, any of the four codecs)

@@ -182,13 +182,16 @@ class Runtime:
     @classmethod
     def from_gguf(cls, path, device=None, *, use_quant: bool = True,
                   fuse: bool = True, kv_quant=False, swa_compress: bool = False,
-                  tensor_parallel: int = 0, layer_split: int = 0,
+                  track_reload: bool = False, tensor_parallel: int = 0, layer_split: int = 0,
                   k_hadamard: bool = False, v_hadamard: bool = False):
         """``kv_quant`` picks the cache type of ``new_cache``; ``k_hadamard``
         / ``v_hadamard`` (-khad / -vhad) rotate K (with q) and V by a
         head-dim Hadamard before the cache write; ``swa_compress`` gives
         ``new_cache`` ring caches on the sliding-window layers where they
-        take effect (a bf16 cache longer than window + margin + 128)."""
+        take effect (a bf16 cache longer than window + margin + 128);
+        ``track_reload`` records per-tensor CRCs of the file, so that
+        ``reload_changed_tensors`` can patch the live weights when it
+        changes on disk."""
         dev = resolve_device(device)
         if tensor_parallel > 1 or layer_split > 1:
             llama_mod._later("tensor / pipeline parallel serving", "multi-GPU (item 11)")
@@ -208,9 +211,14 @@ class Runtime:
               {} if cfg.arch in RECURRENT_ARCHS + bert_mod.ARCHS else {"fuse": fuse})
         params = loader(gg, cfg, dev, use_quant=use_quant, **kw)
         _log_model_load(gg, cfg)
-        return cls(cfg=cfg, params=params, device=dev,
-                   tokenizer=tokenizer_from_gguf(gg.metadata), kv_quant=kv_quant,
-                   swa_compress=swa_compress)
+        rt = cls(cfg=cfg, params=params, device=dev,
+                 tokenizer=tokenizer_from_gguf(gg.metadata), kv_quant=kv_quant,
+                 swa_compress=swa_compress)
+        if track_reload:
+            from .reload import ReloadInfo
+            rt._reload_info = ReloadInfo(path, gg)
+            rt._loader_kw = dict(use_quant=use_quant, **kw)
+        return rt
 
     @property
     def recurrent(self) -> bool:
@@ -298,10 +306,11 @@ class Runtime:
         return logits[0, last_len - 1:last_len], kv, n_past
 
     def reload_changed_tensors(self) -> bool:
-        """The JAX runtime's in-place reload of a GGUF's changed tensors
-        (``runtime/reload.py``): a later slice of the port."""
-        llama_mod._later("reloading changed tensors (runtime/reload.py)",
-                         "rest of Runtime (item 7)")
+        """Pick up on-disk tensor changes into the live model
+        (llama_reload_changed_tensors, include/llama.h:1635;
+        ``runtime/reload.py``). Needs ``from_gguf(..., track_reload=True)``."""
+        from .reload import reload_changed_tensors
+        return reload_changed_tensors(self)
 
     def all_position_logits(self, ids: list[int], capacity: int = 512) -> torch.Tensor:
         """The logits of every position of ``ids`` evaluated from a fresh

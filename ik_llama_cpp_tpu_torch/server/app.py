@@ -39,8 +39,15 @@ request's ``allowlist_*`` fields) and expiring logit biases. A forced
 a call through ``json_schema.tool_call_gbnf``, in the call format the
 chat template's analysis found (``runtime/chat_autoparser.py``; without
 jinja2 the analysis is off, the call is bare JSON and the named parsers
-read the output). Multimodal input, the profiler and the web UI are later
-slices of the port.
+read the output).
+
+With ``--mmproj`` (a CLIP and/or whisper mmproj GGUF) a chat's
+``image_url`` data URLs and ``input_audio`` parts are encoded and spliced
+into the prompt (``runtime/mtmd.generate_mm``), run on the engine's loop
+thread as a queued command. A PNG or a WAV needs no PIL
+(``runtime/media.py``). POST /profiler/start and /profiler/stop record a
+``torch.profiler`` trace of the served work into a Chrome trace file; GET /
+serves the web UI.
 
 Run: python -m ik_llama_cpp_tpu_torch.server --gguf model.gguf --port 8080
 """
@@ -57,15 +64,15 @@ from typing import Iterator
 
 import numpy as np
 
-from ..models import llama as llama_mod
 from ..runtime.chat import apply_chat_template, parse_tool_calls, split_reasoning
 from ..runtime.generate import Runtime
 from ..runtime.sampling import DEFAULT_DRY_BREAKERS, SamplerParams
 from .engine import BatchEngine, Request
 
 DONE = "[DONE]"
-# chat content parts of the multimodal path (a later slice)
+# chat content parts of the multimodal path
 MEDIA_PARTS = ("image_url", "input_image", "input_audio", "image")
+IMAGE_MARKER, AUDIO_MARKER = "<__image__>", "<__audio__>"
 
 
 class RequestError(Exception):
@@ -279,6 +286,9 @@ class Server:
         self.expiring_logit_bias = None
         self.slot_save_path = "."       # --slot-save-path
         self.session_db = None          # sessions.SessionDB under --sql-save-file
+        self.clip = None                # models/clip.ClipEncoder under --mmproj
+        self.audio = None               # models/clip.AudioEncoder when the mmproj has one
+        self._profile = None            # (torch.profiler.profile, dir) while one runs
 
     # ------------------------------------------------------ engine bridge
     def _open(self, prompt_ids: list[int], body: dict,
@@ -366,32 +376,132 @@ class Server:
         return apply_chat_template(messages, template=self.template, tools=tools,
                                    add_generation_prompt=True)
 
-    @classmethod
-    def _refuse_media(cls, messages: list) -> None:
-        """Image and audio content parts are a 400: multimodal input is a
-        later slice."""
+    @staticmethod
+    def _refuse_media(messages: list, why: str = "") -> None:
+        """Media parts left in a prompt are a 400: without ``--mmproj`` (the
+        JAX server templates them as text), or where the route takes none."""
         for m in messages:
             parts = m.get("content") if isinstance(m, dict) else None
             if isinstance(parts, list) and any(
                     isinstance(x, dict) and x.get("type") in MEDIA_PARTS for x in parts):
-                raise cls._later("image and audio input (--mmproj, models/clip.py, "
-                                 "runtime/mtmd.py)", "multimodal (item 7)")
+                raise RequestError(400, why or "image and audio input needs a multimodal "
+                                   "projector: start the server with --mmproj")
 
-    @staticmethod
-    def _later(what: str, item: str) -> RequestError:
-        """A 400 for what a later slice of the port brings."""
+    def _extract_images(self, messages: list[dict]) -> tuple[list, list]:
+        """Replace image_url / input_audio content parts with <__image__> /
+        <__audio__> markers; returns (messages, decoded media in marker
+        order): (H, W, 3) uint8 arrays for base64 data-URL images (a PNG
+        with no PIL, any other format through PIL) and float32 16 kHz
+        samples for base64 WAV (PCM16, OpenAI's input_audio format)."""
+        import base64
+        import struct
+        import wave
+        import zlib
+        from ..runtime.media import decode_image, decode_wav
+        bad_media = (ValueError, EOFError, OSError, struct.error, wave.Error, zlib.error)
+        media, out_msgs = [], []
+        for m in messages:
+            c = m.get("content")
+            if not isinstance(c, list):
+                out_msgs.append(m)
+                continue
+            text_parts = []
+            for part in c:
+                if not isinstance(part, dict):
+                    continue
+                try:
+                    if part.get("type") == "image_url":
+                        url = part.get("image_url", {})
+                        url = url.get("url", url) if isinstance(url, dict) else url
+                        if isinstance(url, str) and url.startswith("data:"):
+                            media.append(decode_image(base64.b64decode(url.split(",", 1)[1])))
+                            text_parts.append(IMAGE_MARKER)
+                    elif part.get("type") == "input_audio":
+                        spec = part.get("input_audio", {})
+                        media.append(decode_wav(base64.b64decode(spec.get("data", ""))))
+                        text_parts.append(AUDIO_MARKER)
+                    else:
+                        text_parts.append(part.get("text", ""))
+                except bad_media as e:
+                    raise RequestError(400, f"{part.get('type')}: {e}") from e
+            out_msgs.append({**m, "content": "".join(text_parts)})
+        return out_msgs, media
+
+    def _media(self, body: dict) -> tuple[list, list]:
+        """(messages, media) of a chat body: the media parts extracted when
+        an mmproj is loaded, else the messages as they are."""
+        messages = body.get("messages", [])
+        if self.clip is None and self.audio is None:
+            return messages, []
+        return self._extract_images(messages)
+
+    def _chat_multimodal(self, body: dict, messages: list, media: list) -> tuple:
+        """A media-bearing chat through the mtmd path (encode, splice,
+        prefill by rows, decode), run on the engine's loop thread between
+        two steps: (prompt rows, generated ids, text)."""
+        from ..runtime.mtmd import generate_mm
+        prompt = self._chat_prompt(messages)
+        sampler = _sampler_from(body, self.rt.tokenizer)
+        n_predict = int(body.get("n_predict", body.get("max_tokens", 128)))
+        n_prompt, out = self.engine._call(lambda: generate_mm(
+            self.rt, prompt, media, self.clip, audio_encoder=self.audio,
+            max_new_tokens=n_predict, sampler=sampler, seed=int(body.get("seed", 0)),
+            capacity=self.engine.capacity))
+        eos = self.rt.tokenizer.eos_id
+        return n_prompt, out, self.rt.tokenizer.decode([t for t in out if t != eos])
+
+    def _mm_message(self, text: str) -> dict:
+        reasoning, content = split_reasoning(text)
+        message = {"role": "assistant", "content": content}
+        if reasoning:
+            message["reasoning_content"] = reasoning
+        return message
+
+    def profiler_start(self, body: dict | None = None) -> dict:
+        """POST /profiler/start {"dir"?}: a ``torch.profiler`` capture of the
+        live serving work, written at stop as a Chrome trace into ``dir``
+        (default ``ik_torch_trace`` under the working directory). It starts
+        and stops on the engine's loop thread, which launches the serving
+        work: its host ops and, on the card, every kernel are recorded (a
+        capture must start and stop on one thread; the HTTP layer runs each
+        request on a pool thread). The JAX routes' errors and status codes:
+        a second start, or a stop with none running, is a 400."""
+        if self._profile is not None:
+            raise RequestError(400, "profiler already running", payload={
+                "success": False, "error": "profiler already running",
+                "dir": self._profile[1]})
+        logdir = (body or {}).get("dir") or "ik_torch_trace"
         try:
-            llama_mod._later(what, item)
-        except NotImplementedError as e:
-            return RequestError(400, str(e))
+            import torch
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.rt.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=acts)
+            self.engine._call(prof.start)
+        except Exception as e:          # noqa: BLE001 - the reply names it
+            raise RequestError(400, str(e), payload={"success": False, "error": str(e)}) from e
+        self._profile = (prof, logdir)
+        return {"success": True, "dir": logdir}
 
-    def profiler(self, body: dict | None = None) -> dict:
-        """POST /profiler/start and /profiler/stop: a later slice."""
-        raise self._later("the device profiler routes", "server extras (item 7)")
+    def profiler_stop(self, body: dict | None = None) -> dict:
+        """POST /profiler/stop: the capture written as ``dir/trace-<ms>.json``."""
+        if self._profile is None:
+            raise RequestError(400, "profiler not running", payload={
+                "success": False, "error": "profiler not running"})
+        (prof, logdir), self._profile = self._profile, None
+        try:
+            self.engine._call(prof.stop)
+            Path(logdir).mkdir(parents=True, exist_ok=True)
+            trace = Path(logdir) / f"trace-{int(time.time() * 1000)}.json"
+            prof.export_chrome_trace(str(trace))
+        except Exception as e:          # noqa: BLE001 - the reply names it
+            raise RequestError(400, str(e), payload={"success": False, "error": str(e)}) from e
+        return {"success": True, "dir": logdir, "trace": str(trace)}
 
-    def webui(self) -> dict:
-        """GET /: the built-in web UI, a later slice."""
-        raise self._later("the web UI", "server extras (item 7)")
+    def webui(self) -> str:
+        """GET /: the built-in web UI (the port's copy of the JAX server's
+        ``webui.html``)."""
+        return (Path(__file__).parent / "webui.html").read_text()
 
     def _dec(self, t) -> str:
         return self.rt.tokenizer.decode([int(t)])
@@ -461,7 +571,11 @@ class Server:
                 "min_p": 0.05, "n_predict": 128,
             },
             "total_slots": self.engine.n_slots,
+            "modalities": self._modalities(),
         }
+
+    def _modalities(self) -> dict:
+        return {"vision": self.clip is not None, "audio": self.audio is not None}
 
     def metrics(self) -> str:
         return self.engine.metrics_text()
@@ -744,7 +858,15 @@ class Server:
         return body, self.rt.tokenizer.encode(prompt)
 
     def oai_chat(self, body: dict) -> dict:
-        body, ids = self._chat_ids(body)
+        messages, media = self._media(body)
+        if media:
+            n_prompt, out, text = self._chat_multimodal(body, messages, media)
+            return _chunk(f"chatcmpl-{uuid.uuid4().hex[:12]}", "chat.completion",
+                          self.model_name, [{"index": 0, "message": self._mm_message(text),
+                                             "finish_reason": "stop"}],
+                          usage={"prompt_tokens": n_prompt, "completion_tokens": len(out),
+                                 "total_tokens": n_prompt + len(out)})
+        body, ids = self._chat_ids({**body, "messages": messages})
         toks, text, req = self._run(ids, body)
         reasoning, content, calls = self._parse_chat_output(text)
         message = {"role": "assistant", "content": content or None}
@@ -770,9 +892,19 @@ class Server:
         """Streamed chat: the accumulated text is parsed again each token
         and reasoning_content / content deltas are emitted; a holdback of
         24 chars keeps half-open markers out of the content mid-stream."""
-        body, ids = self._chat_ids(body)
-        req, q = self._open(ids, body, holder)
+        messages, media = self._media(body)
         rid = f"chatcmpl-{uuid.uuid4().hex[:12]}"
+        if media:
+            # the mtmd path decodes on the loop thread in one command: the
+            # whole reply is one delta
+            _, _, text = self._chat_multimodal(body, messages, media)
+            message = self._mm_message(text)
+            del message["role"]
+            return iter([{"event": None, "data": _chunk(
+                rid, "chat.completion.chunk", self.model_name,
+                [{"index": 0, "delta": message, "finish_reason": "stop"}])}, DONE])
+        body, ids = self._chat_ids({**body, "messages": messages})
+        req, q = self._open(ids, body, holder)
         holdback = 24
 
         def emit(delta, finish=None):
@@ -812,6 +944,9 @@ class Server:
             chat_body = responses_to_chatcmpl(body)
         except ValueError as e:
             raise RequestError(400, str(e)) from e
+        if self._media(chat_body)[1]:
+            raise RequestError(400, "input_image is not supported on /v1/responses yet; "
+                               "use /v1/chat/completions")
         prompt = self._chat_prompt(chat_body.get("messages", []),
                                    tools=chat_body.get("tools"))
         return chat_body, self.rt.tokenizer.encode(prompt)
@@ -867,7 +1002,7 @@ class Server:
             if len(s.cache_tokens) > n_past:
                 n_past, slot_id = len(s.cache_tokens), i
         return {"model_name": Path(self.model_name).stem, "model_path": self.model_name,
-                "modalities": {"vision": False, "audio": False},
+                "modalities": self._modalities(),
                 "n_past": n_past, "slot_id": slot_id}
 
     def slots_list(self) -> list:
@@ -998,7 +1133,9 @@ class Server:
         content blocks flattened, the system prompt first, tools in the
         OpenAI shape, and tool_choice "any" / "tool" mapped onto the forced
         call ("required" / a named function)."""
-        self._refuse_media(body.get("messages", []))
+        # the JAX server drops image blocks without a word (_anthropic_flatten)
+        self._refuse_media(body.get("messages", []), "image blocks are not supported on "
+                           "/v1/messages; use /v1/chat/completions with --mmproj")
         messages = _anthropic_flatten(body.get("messages", []))
         if body.get("system"):
             sys_c = body["system"]
@@ -1103,7 +1240,7 @@ POST_ROUTES = {"/tokenize": "tokenize", "/detokenize": "detokenize",
                "/delete_prompt": "delete_prompt", "/rename_prompt": "rename_prompt",
                "/load": "db_load", "/save": "db_save", "/rename": "db_rename",
                "/all": "db_all", "/sessions": "db_sessions", "/delete": "db_delete",
-               "/profiler/start": "profiler", "/profiler/stop": "profiler"}
+               "/profiler/start": "profiler_start", "/profiler/stop": "profiler_stop"}
 
 
 def sse(item) -> bytes:
@@ -1158,7 +1295,8 @@ def make_app(srv: Server):
         except RequestError as e:
             return web.json_response(e.payload, status=e.status)
         if isinstance(out, str):
-            return web.Response(text=out, content_type="text/plain")
+            kind = "text/html" if request.path == "/" else "text/plain"
+            return web.Response(text=out, content_type=kind)
         bad = request.path == "/health" and out["status"] != "ok"
         return web.json_response(out, status=503 if bad else 200)
 
@@ -1241,7 +1379,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--lora", action="append", default=[],
                     help="LoRA adapter GGUF (repeatable); PATH or PATH:SCALE. "
                          "The model is then loaded with q/k/v and gate/up unfused")
-    ap.add_argument("--mmproj", help="multimodal projector GGUF: a later slice (refused)")
+    ap.add_argument("--mmproj", help="multimodal projector GGUF (CLIP and/or whisper) for "
+                                     "image and audio input")
+    ap.add_argument("--swa-compress", action="store_true",
+                    help="ring caches on the sliding-window layers (bf16 cache)")
     ap.add_argument("--slot-save-path", default=".",
                     help="directory of the slot save/restore state files")
     ap.add_argument("--sql-save-file",
@@ -1313,16 +1454,25 @@ def load_loras(rt: Runtime, specs: list[str]) -> list:
     return loras
 
 
+def load_mmproj(srv: Server, path: str) -> None:
+    """Load ``--mmproj``'s vision and/or audio tower onto the model's device,
+    as its ``clip.has_vision_encoder`` / ``clip.has_audio_encoder`` say."""
+    from ..gguf.reader import load_gguf
+    from ..models.clip import AudioEncoder, ClipEncoder
+    md = load_gguf(path).metadata
+    if md.get("clip.has_vision_encoder"):
+        srv.clip = ClipEncoder(path, srv.rt.device)
+    if md.get("clip.has_audio_encoder"):
+        srv.audio = AudioEncoder(path, srv.rt.device)
+
+
 def main(argv=None):
     args = parse_args(argv)
-    if args.mmproj:
-        llama_mod._later("image and audio input (--mmproj, models/clip.py, runtime/mtmd.py)",
-                         "multimodal (item 7)")
     web = _aiohttp_web()
     # per-projection adapters need the q/k/v and gate/up linears unfused
     rt = Runtime.from_gguf(args.gguf, args.device,
                            kv_quant=False if args.cache_type == "bf16" else args.cache_type,
-                           fuse=not args.lora)
+                           fuse=not args.lora, swa_compress=args.swa_compress)
     loras = load_loras(rt, args.lora)
     engine = BatchEngine(rt, n_slots=args.parallel, capacity=args.ctx_size,
                          spec=args.spec, spec_n=args.spec_n,
@@ -1347,6 +1497,8 @@ def main(argv=None):
                                     "layer_end": rt.cfg.n_layer, "applied": False})
     if srv.control_vectors:
         srv._reapply_cvec()
+    if args.mmproj:
+        load_mmproj(srv, args.mmproj)
     try:
         web.run_app(make_app(srv), host=args.host, port=args.port)
     finally:

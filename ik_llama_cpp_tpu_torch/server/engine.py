@@ -25,6 +25,14 @@ slot's cached tokens; otherwise, and on a context shift's re-prefill, the
 slot's recurrent rows are zeroed and the prompt is prefilled from 0. The
 RAM prompt-cache tier is refused for such a model.
 
+Ring caches (``--swa-compress``, a ``SwaKVCache``) keep position p of a
+sliding-window layer in ring slot p % ring. Every forward passes
+``n_valid``, so padded and idle rows write nothing to the rings. A slot
+reuses a cached prefix only where its rings still hold the window before
+it (``_ring_reusable``), else it prefills from 0; its context shift
+re-prefills; the RAM tier parks no ring rows and slot save / restore
+refuses them.
+
 Speculative drafting (``spec``: ngram, suffix, ngram-mod, ngram-cache,
 eagle3) gives each generating slot a host drafter; when any slot has a
 draft, the step verifies [last token | draft] of every row in one forward
@@ -282,6 +290,8 @@ def _cache_tensors(kv) -> list:
     without an indexer, is left out)."""
     if isinstance(kv, MixedKVCache):
         return [getattr(kv, f) for f in _MIXED_FIELDS]
+    if isinstance(kv, SwaKVCache):
+        return [kv.k_full, kv.v_full, kv.k_swa, kv.v_swa]
     fields = getattr(kv, "ROW_FIELDS", None)
     if fields is not None:
         return [getattr(kv, f) for f in fields]
@@ -292,6 +302,8 @@ def _like(kv, tensors: list):
     """A cache of kv's type over ``tensors`` (in _cache_tensors order)."""
     if isinstance(kv, MixedKVCache):
         return MixedKVCache(*tensors, layer_map=kv.layer_map)
+    if isinstance(kv, SwaKVCache):
+        return SwaKVCache(*tensors, layer_map=kv.layer_map)
     if getattr(kv, "ROW_FIELDS", None) is not None:
         return type(kv)(*tensors)
     it = iter(tensors)
@@ -338,9 +350,6 @@ class BatchEngine:
         self.n_slots = n_slots
         self.capacity = capacity
         self.kv = runtime.new_cache(n_slots, capacity)
-        if isinstance(self.kv, SwaKVCache):
-            llama_mod._later("ring caches (--swa-compress) in the server",
-                             "server extras (item 7)")
         if cache_ram_mib != 0 and runtime.recurrent:
             # a partial prefix match cannot restore a recurrent state
             llama_mod._later("the RAM prompt-cache tier for a recurrent model",
@@ -411,8 +420,8 @@ class BatchEngine:
     def _slot_state_to_host(self, slot) -> dict | None:
         """One slot's filled KV rows on the host (RAM-cache save)."""
         n = len(slot.cache_tokens)
-        if n == 0:
-            return None
+        if n == 0 or isinstance(self.kv, SwaKVCache):
+            return None          # a ring's rows are not positions: not parked, as in JAX
         return {str(i): t[:, slot.idx, :n].to("cpu", copy=True)
                 for i, t in enumerate(_cache_tensors(self.kv))}
 
@@ -467,6 +476,8 @@ class BatchEngine:
                 if entry is not None:
                     self._restore_slot_state(slot, entry)
                     prefix = lcp
+            if prefix and isinstance(self.kv, SwaKVCache) and not self._ring_reusable(slot, prefix):
+                prefix = 0           # the ring no longer holds the prefix's window
             if self.rt.recurrent and not 0 < prefix == len(slot.cache_tokens) < slot.n_prompt:
                 # the state has seen every cached token: reused only when the
                 # prompt strictly extends them, else the slot starts afresh
@@ -493,6 +504,18 @@ class BatchEngine:
             slot.state = SlotState.PREFILL
             slot.t_start = time.time()
             slot.t_first_token = 0.0
+
+    def _ring_reusable(self, slot: Slot, prefix: int) -> bool:
+        """Whether a slot's ring layers still hold the rows of the window
+        before ``prefix``. Position x lives in ring slot x % ring until a
+        later position overwrites it; the slot has written positions below
+        ``len(cache_tokens)`` plus a speculative verify block at most. The
+        next token at ``prefix`` attends x in [prefix - window, prefix), so
+        the prefix is reused only when the last write, minus the ring,
+        lies below all of them; else the slot prefills from 0, which
+        rewrites every position it attends."""
+        hi = len(slot.cache_tokens) + (self.spec_n + 1 if self.spec else 1)
+        return hi - self.kv.swa_cap <= max(0, prefix - self.cfg.swa_window)
 
     def _admit_options(self, slot: Slot, req: Request) -> None:
         """The request options' per-slot state: the grammar (of any kind,
@@ -1059,7 +1082,7 @@ class BatchEngine:
             # pieces' alignment with the tokens no longer hold
             slot.pos_bans = {}
             req.banned_strings, req.banned_regex, req.banned_regex_ci = [], [], []
-        if can_shift(self.cfg) and not self.rt.kv_quant:
+        if can_shift(self.cfg) and not self.rt.kv_quant and not isinstance(self.kv, SwaKVCache):
             _, new_past = k_shift(cache_rows(self.kv, slot.idx), self.cfg,
                                   n_keep, n_discard, slot.n_past)
             slot.tokens = kept
@@ -1107,7 +1130,7 @@ class BatchEngine:
         self._commands.put(run)
         while not done.wait(0.05):
             if not self.alive:
-                raise RuntimeError("the engine stopped before the slot command ran")
+                raise RuntimeError("the engine stopped before the queued command ran")
         if "err" in box:
             raise box["err"]
         return box["out"]

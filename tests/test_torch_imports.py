@@ -50,11 +50,11 @@ def _module_level_imports(path: Path):
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_optional_packages_imported_at_use(path):
     """The port never imports ``regex`` (the tokenizer's classes come from
-    unicodedata), and imports jinja2, aiohttp and triton only inside the
-    functions that need them: the card's machine may lack them."""
+    unicodedata), and imports jinja2, aiohttp, triton and PIL only inside
+    the functions that need them: the card's machine may lack them."""
     assert "regex" not in {m.split(".")[0] for m in _imported_modules(path)}
     top = {m.split(".")[0] for m in _module_level_imports(path)}
-    assert not top & {"jinja2", "aiohttp", "triton"}, f"{path} imports {top}"
+    assert not top & {"jinja2", "aiohttp", "triton", "PIL"}, f"{path} imports {top}"
 
 
 def test_port_has_kernel_sources():

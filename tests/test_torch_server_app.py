@@ -14,7 +14,7 @@ from pathlib import Path
 
 import pytest
 
-from fixtures import make_tiny_llama_gguf
+from fixtures import make_tiny_llama_gguf, make_tiny_mmproj_gguf
 from ik_llama_cpp_tpu_torch.runtime.generate import Runtime
 from ik_llama_cpp_tpu_torch.server.app import DONE, RequestError, Server, sse
 from ik_llama_cpp_tpu_torch.server.engine import BatchEngine
@@ -148,30 +148,59 @@ def test_later_request_options_refused(srv, extra):
 IMAGE = {"type": "image_url", "image_url": {"url": "data:image/png;base64,AA=="}}
 
 
+def _profile(srv):
+    """POST /profiler/start, one request, /profiler/stop: the Chrome trace
+    written, and a second stop refused as in the JAX routes."""
+    d = Path(srv.slot_save_path) / "trace"
+    assert srv.profiler_start({"dir": str(d)}) == {"success": True, "dir": str(d)}
+    with pytest.raises(RequestError) as e:
+        srv.profiler_start({})
+    assert e.value.status == 400 and e.value.payload["error"] == "profiler already running"
+    srv.completion({"prompt": "Once", "n_predict": 2, "temperature": 0})
+    out = srv.profiler_stop({})
+    assert out["success"] and json.loads(Path(out["trace"]).read_text())["traceEvents"]
+    srv.profiler_stop({})          # not running: raises below
+
+
 @pytest.mark.parametrize("call,item", [
     (lambda srv: srv.oai_chat({"messages": [{"role": "user", "content": [
-        {"type": "text", "text": "Hi"}, IMAGE]}], "max_tokens": 2}), "multimodal"),
+        {"type": "text", "text": "Hi"}, IMAGE]}], "max_tokens": 2}), "--mmproj"),
     (lambda srv: srv.anthropic_messages({"messages": [{"role": "user", "content": [
-        {"type": "image", "source": {}}]}]}), "multimodal"),
-    (lambda srv: srv.profiler({}), "server extras"),
-    (lambda srv: srv.webui(), "server extras")], ids=["image", "anthropic-image",
-                                                      "profiler", "webui"])
-def test_later_slices_refused_by_name(srv, call, item):
-    """What this port leaves for later is a 400 naming its queue item, and
-    reaches no engine."""
+        {"type": "image", "source": {}}]}]}), "/v1/messages"),
+    (_profile, "profiler not running"),
+    (lambda srv: srv.webui(), "")], ids=["image", "anthropic-image", "profiler", "webui"])
+def test_later_slices_refused_by_name(srv, call, item, tmp_path):
+    """What the port once left for later (the name is kept): an image chat
+    with no --mmproj loaded is a 400 that names it (the JAX server templates
+    the parts as text), an Anthropic image block a 400 (the JAX server drops
+    it without a word); the profiler routes run (the last stop, with none
+    running, is the JAX routes' 400) and GET / serves the web UI. No
+    refusal reaches the engine."""
+    srv.slot_save_path = str(tmp_path)
     n = srv.engine.n_requests
+    if not item:
+        html = call(srv)
+        assert html.lstrip().lower().startswith("<!doctype html") and "</html>" in html
+        return
     with pytest.raises(RequestError) as e:
         call(srv)
-    assert e.value.status == 400 and "not ported" in e.value.payload["error"]["message"]
-    assert item in e.value.payload["error"]["message"] and srv.engine.n_requests == n
+    msg = e.value.payload.get("error")
+    msg = msg["message"] if isinstance(msg, dict) else msg
+    assert e.value.status == 400 and item in msg
+    assert srv.engine.n_requests == n + (call is _profile)
 
 
-def test_later_runtime_and_flags_refused(srv):
-    from ik_llama_cpp_tpu_torch.server.app import main
-    with pytest.raises(NotImplementedError, match="reload.py"):
+def test_later_runtime_and_flags_refused(srv, model):
+    """Once refused (the name is kept): reload_changed_tensors runs on a
+    runtime loaded with track_reload and, as in JAX, raises without it;
+    --mmproj and --swa-compress parse."""
+    from ik_llama_cpp_tpu_torch.server.app import parse_args
+    with pytest.raises(RuntimeError, match="track_reload"):
         srv.rt.reload_changed_tensors()
-    with pytest.raises(NotImplementedError, match="multimodal"):
-        main(["--gguf", "never-read.gguf", "--mmproj", "never-read-either.gguf"])
+    assert Runtime.from_gguf(model, device="cpu", track_reload=True).reload_changed_tensors() \
+        is False
+    a = parse_args(["--gguf", "m.gguf", "--mmproj", "p.gguf", "--swa-compress"])
+    assert a.mmproj == "p.gguf" and a.swa_compress
 
 
 BODIES = [
@@ -263,7 +292,12 @@ def http_dir(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def http(model, http_dir):
+def mmproj(tmp_path_factory):
+    return make_tiny_mmproj_gguf(tmp_path_factory.mktemp("mmproj") / "mmproj.gguf", seed=4)
+
+
+@pytest.fixture(scope="module")
+def http(model, http_dir, mmproj):
     pytest.importorskip("aiohttp")
     port = free_port()
     env = {k: v for k, v in os.environ.items() if k in ("PATH", "HOME", "TMPDIR")}
@@ -272,7 +306,8 @@ def http(model, http_dir):
         [sys.executable, "-m", "ik_llama_cpp_tpu_torch.server", "--gguf", str(model),
          "--port", str(port), "--parallel", "2", "--ctx-size", "256",
          "--device", "cpu", "--slot-save-path", str(http_dir),
-         "--sql-save-file", str(http_dir / "sessions.db")],
+         "--sql-save-file", str(http_dir / "sessions.db"), "--mmproj", str(mmproj),
+         "--swa-compress"],
         cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
     try:
         for _ in range(120):
@@ -393,3 +428,31 @@ def test_allowlist_and_bias_flags():
     assert (args.allowlist_keyword_delay, args.expiring_logit_bias_file, args.slot_save_path,
             args.sql_save_file) == (3, "b.txt", "slots", "s.db")
     assert allowlist_defaults(parse_args(["--gguf", "m.gguf"]).allow_seq) == ([], [])
+
+
+def test_http_multimodal_profiler_webui(http, http_dir):
+    """--mmproj over HTTP: /props' modalities and a PNG chat (the tiny CLIP
+    tower); GET / serves the web UI as HTML; the profiler routes write a
+    Chrome trace into the request's dir, and a stop with none running is a
+    400."""
+    import base64
+    import numpy as np
+    from ik_llama_cpp_tpu_torch.runtime.media import encode_png
+    assert req(http, "/props")["modalities"] == {"vision": True, "audio": False}
+    png = encode_png(np.random.default_rng(0).integers(0, 255, (30, 40, 3), dtype=np.uint8))
+    r = req(http, "/v1/chat/completions", {"messages": [{"role": "user", "content": [
+        {"type": "text", "text": "what is it?"},
+        {"type": "image_url", "image_url": {
+            "url": "data:image/png;base64," + base64.b64encode(png).decode()}}]}],
+        "max_tokens": 4, "temperature": 0})
+    assert r["object"] == "chat.completion" and r["usage"]["prompt_tokens"] > 4
+    html = urllib.request.urlopen(f"http://127.0.0.1:{http}/", timeout=30)
+    assert "text/html" in html.headers["Content-Type"] and b"</html>" in html.read()
+    d = http_dir / "trace"
+    assert req(http, "/profiler/start", {"dir": str(d)})["success"]
+    req(http, "/completion", {"prompt": "Once", "n_predict": 2, "temperature": 0})
+    out = req(http, "/profiler/stop", {})
+    assert out["success"] and Path(out["trace"]).is_file()
+    with pytest.raises(urllib.error.HTTPError) as e:
+        req(http, "/profiler/stop", {})
+    assert e.value.code == 400

@@ -107,9 +107,27 @@ def test_no_ring_where_it_would_not_help(runtimes):
 
 
 def test_server_refuses_ring_caches(runtimes):
-    """The batched server's cache-row views do not take a ring cache yet:
-    BatchEngine refuses one and names the queue item."""
-    from ik_llama_cpp_tpu_torch.server.engine import BatchEngine
+    """The batched server once refused ring caches; it serves them now (the
+    name is kept): a BatchEngine over a SwaKVCache (its cache-row views
+    take one) answers a 700-token greedy request with the runtime's ring
+    tokens. tests/test_torch_ring_engine.py holds its prefix-reuse rule."""
+    import queue
+    from ik_llama_cpp_tpu_torch.runtime.sampling import SamplerParams
+    from ik_llama_cpp_tpu_torch.server.engine import BatchEngine, Request
     _, tr = runtimes
-    with pytest.raises(NotImplementedError, match="item 7"):
-        BatchEngine(tr, n_slots=2, capacity=CAPACITY)
+    eng = BatchEngine(tr, n_slots=2, capacity=CAPACITY)
+    assert isinstance(eng.kv, TLM.SwaKVCache)
+    ids = _ids(tr.cfg.n_vocab)[:N_PROMPT]
+    r = Request(prompt_ids=ids, n_predict=STEPS, sampler=SamplerParams(temp=0.0))
+    r.stream_queue = queue.Queue()
+    eng.submit(r)
+    while eng.step():
+        pass
+    toks = []
+    while True:
+        tok, _, done = r.stream_queue.get(timeout=0)
+        if tok >= 0:
+            toks.append(tok)
+        if done:
+            break
+    assert toks == tr.generate_greedy_on_device(ids, STEPS, capacity=CAPACITY)[1]
